@@ -1,0 +1,75 @@
+"""``Renderer``: camera + rendering state over the functional pipeline
+(counterpart of ``neural_renderer_v2_pytorch_tpu/models/renderer.py``)."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..ops.camera import look_at, perspective
+from ..ops.rasterize import RasterizeHyperparam, RasterizeParam, rasterize_silhouettes
+
+
+class Renderer(nn.Module):
+    """Holds the reference renderer's attributes and renders on ``device``.
+
+    Inputs must already lie on ``device``; ``faces`` may be any integer
+    array-like and is moved there.  ``viewpoints`` may be a tensor (e.g. one
+    that requires grad, to optimise the camera)."""
+
+    def __init__(self, device):
+        super().__init__()
+        self.device = torch.device(device)
+        # rendering
+        self.image_size = 256
+        self.anti_aliasing = True
+        self.draw_backside = True
+        self.background_color = None
+        # camera
+        self.perspective = True
+        self.viewing_angle = 30
+        self.viewpoints = [0, 0, -(1.0 / math.tan(math.radians(self.viewing_angle)) + 1)]
+        self.camera_mode = "look_at"
+        self.camera_direction = [0, 0, 1]
+        self.near = 0.1
+        self.far = 100
+
+    def _check_device(self, t):
+        # "cuda" names whichever card is current, so it accepts any index
+        if t.device.type != self.device.type or (
+            self.device.index is not None and t.device.index != self.device.index
+        ):
+            raise ValueError(f"input on {t.device}, renderer on {self.device}")
+
+    def transform_vertices(self, vertices):
+        """Viewpoint + perspective transform (reference renderer.py:24-35)."""
+        self._check_device(vertices)
+        if self.camera_mode == "look_at":
+            vertices = look_at(vertices, self.viewpoints)
+        elif self.camera_mode == "look":
+            raise NotImplementedError("camera_mode='look' is not ported yet")
+        else:
+            raise ValueError(f"unknown camera_mode {self.camera_mode!r}")
+        if self.perspective:
+            vertices = perspective(vertices, angle=self.viewing_angle)
+        return vertices
+
+    def _hyperparams(self):
+        return RasterizeHyperparam(
+            image_size=self.image_size,
+            near=self.near,
+            far=self.far,
+            anti_aliasing=self.anti_aliasing,
+            draw_backside=self.draw_backside,
+        )
+
+    def render_silhouettes(self, vertices, faces, backgrounds=None):
+        """Silhouettes [bs, H, W] of world-space ``vertices`` [bs, nv, 3]."""
+        vertices = self.transform_vertices(vertices)
+        faces = torch.as_tensor(faces, dtype=torch.int32, device=self.device)
+        params = RasterizeParam(
+            background_color=self.background_color, backgrounds=backgrounds
+        )
+        return rasterize_silhouettes(vertices, faces, params, self._hyperparams())

@@ -1,0 +1,165 @@
+"""Face-index (z-buffer) resolve and barycentric weight planes: the plain
+PyTorch versions (counterpart of ``neural_renderer_v2_pytorch_tpu/ops/
+resolve.py``).
+
+The z-buffer rule is the reference's sequential one: faces are taken in id
+order and a face wins a pixel when ``zp <= depth - 1e-4`` against the
+running depth, so two faces within 1e-4 resolve to whichever came first.
+That is not an argmin; the fold below keeps it exact by accepting face by
+face.  Every expression is the JAX package's, in the same order, so on the
+same float32 inputs the index maps are bit-identical.  The hand-written
+kernels in ``resolve_cuda.py`` evaluate the same expressions per pixel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+DEPTH_MIN_DELTA = 1e-4
+DEGENERATE_EPS = 1e-8
+# bbox written over a face that can never win: no pixel centre lies in
+# (-1, 1) beyond these, so the strict bbox test rejects it everywhere
+KILLED_BBOX = (4.0, -4.0, 4.0, -4.0)
+
+
+def _pixel_grid(image_size, device):
+    """Pixel-centre NDC coordinates ``(2*i + 1 - S) / S``: xp [1, W], yp [H, 1].
+
+    Computed on the CPU and moved: on CUDA, PyTorch divides by a Python
+    scalar as a multiply by its reciprocal, which is not the correctly
+    rounded quotient when S is not a power of two."""
+    i = torch.arange(image_size, dtype=torch.float32)
+    p = ((2.0 * i + 1.0 - image_size) / image_size).to(device)
+    return p[None, :], p[:, None]
+
+
+def face_constants_planar(fvp):
+    """Per-face constants [bs, 17, nf] from planar face vertices
+    ``fvp`` [bs, 3 (coord x/y/z), 3 (vertex), nf]:
+    (A0,B0,C0, A1,B1,C1, A2,B2,C2, 1/z0,1/z1,1/z2, det, xmin,xmax,ymin,ymax).
+    Each pixel's scaled barycentric is ``w_i = yp*A_i + xp*B_i + C_i``."""
+    x0, y0, z0 = fvp[:, 0, 0], fvp[:, 1, 0], fvp[:, 2, 0]
+    x1, y1, z1 = fvp[:, 0, 1], fvp[:, 1, 1], fvp[:, 2, 1]
+    x2, y2, z2 = fvp[:, 0, 2], fvp[:, 1, 2], fvp[:, 2, 2]
+    C0 = x1 * y2 - x2 * y1
+    C1 = x2 * y0 - x0 * y2
+    C2 = x0 * y1 - x1 * y0
+    return torch.stack(
+        (
+            x2 - x1, y1 - y2, C0,
+            x0 - x2, y2 - y0, C1,
+            x1 - x0, y0 - y1, C2,
+            1.0 / z0, 1.0 / z1, 1.0 / z2,
+            C0 + C1 + C2,
+            torch.minimum(torch.minimum(x0, x1), x2),
+            torch.maximum(torch.maximum(x0, x1), x2),
+            torch.minimum(torch.minimum(y0, y1), y2),
+            torch.maximum(torch.maximum(y0, y1), y2),
+        ),
+        dim=1,
+    )
+
+
+def face_backside(coef):
+    """Backface predicate ``B1*A2 < B2*A1``, i.e.
+    ``(y2-y0)*(x1-x0) < (y1-y0)*(x2-x0)``.  The sign follows the reference's
+    golden images, not its kernel source (see the JAX package's note)."""
+    A1, B1 = coef[3], coef[4]
+    A2, B2 = coef[6], coef[7]
+    return B1 * A2 < B2 * A1
+
+
+def face_candidate(xp, yp, coef, iz, det, bbox, near, far):
+    """Per-pixel accept math for one face: ``(out, zp)`` where ``out`` marks
+    pixels the face does not cover (strict bbox reject, inside test on the
+    signs of the scaled barycentrics, strict near/far clip that a NaN ``zp``
+    fails) and ``zp`` is the perspective-correct candidate depth."""
+    A0, B0, C0, A1, B1, C1, A2, B2, C2 = coef
+    xmin, xmax, ymin, ymax = bbox
+    out = (xp < xmin) | (xmax < xp) | (yp < ymin) | (ymax < yp)
+    w0 = yp * A0 + xp * B0 + C0
+    w1 = yp * A1 + xp * B1 + C1
+    w2 = yp * A2 + xp * B2 + C2
+    out = out | (w2 * w0 < 0)
+    out = out | (w0 * w1 < 0)
+    zp = det / (w0 * iz[0] + w1 * iz[1] + w2 * iz[2])
+    out = out | ~((near < zp) & (zp < far))
+    return out, zp
+
+
+def kill_invalid(consts, draw_backside):
+    """Write :data:`KILLED_BBOX` over degenerate (``|det| < 1e-8`` or NaN)
+    faces, and over backfacing ones unless ``draw_backside``, so that the
+    per-pixel bbox test rejects them with no per-face predicate."""
+    coef = tuple(consts[:, j] for j in range(9))
+    valid = torch.abs(consts[:, 12]) >= DEGENERATE_EPS
+    if not draw_backside:
+        valid = valid & ~face_backside(coef)
+    bbox = [
+        torch.where(valid, consts[:, 13 + j], v) for j, v in enumerate(KILLED_BBOX)
+    ]
+    return torch.cat([consts[:, :13], torch.stack(bbox, dim=1)], dim=1)
+
+
+def resolve_constants(consts, image_size, near, far, face_chunk=16):
+    """Sequential z-buffer fold over killed per-face constants [bs, 17, nf]
+    (see :func:`kill_invalid`).  Returns (index [bs, S, S] int32 with -1 on
+    background, depth [bs, S, S] float32 with ``far`` on background).
+
+    Candidate depths are computed ``face_chunk`` faces at a time; the accept
+    rule then runs face by face, in id order."""
+    bs, _, nf = consts.shape
+    xp, yp = _pixel_grid(image_size, consts.device)
+    depth = torch.full((bs, image_size, image_size), far, dtype=torch.float32,
+                       device=consts.device)
+    index = torch.full((bs, image_size, image_size), -1, dtype=torch.int32,
+                       device=consts.device)
+    for start in range(0, nf, face_chunk):
+        cs = consts[:, :, start:start + face_chunk].permute(2, 0, 1)[..., None, None]
+        c = tuple(cs[:, :, j] for j in range(17))         # each [K, bs, 1, 1]
+        out, zp = face_candidate(xp, yp, c[:9], c[9:12], c[12], c[13:17], near, far)
+        zcand = torch.where(out, torch.inf, zp)
+        for k in range(zcand.shape[0]):
+            accept = zcand[k] <= depth - DEPTH_MIN_DELTA
+            depth = torch.where(accept, zcand[k], depth)
+            index = torch.where(accept, start + k, index)
+    return index, depth
+
+
+def compute_face_index_map(faces, image_size, near=0.1, far=100.0,
+                           draw_backside=True, face_chunk=16, return_depth=False):
+    """Per-pixel z-buffered visible-face id for [bs, nf, 3, 3] NDC faces:
+    int32 [bs, S, S], -1 on background; ``(index, depth)`` when
+    ``return_depth``.  Non-differentiable (integer output)."""
+    consts = kill_invalid(
+        face_constants_planar(faces.permute(0, 3, 2, 1)), draw_backside
+    )
+    index, depth = resolve_constants(consts, image_size, near, far, face_chunk)
+    return (index, depth) if return_depth else index
+
+
+def weight_planes_from_gathered(fvm_planar, face_index_map, image_size=None):
+    """Clamped, renormalized barycentric weights [bs, 3, H, W] from planar
+    latched winner coordinates [bs, 9, H, W]; 0 on background and
+    gradient-stopped (the reference computes them in a grad-less kernel)."""
+    H, W = fvm_planar.shape[2:]
+    if image_size is None:
+        image_size = W
+    xp, yp = _pixel_grid(image_size, fvm_planar.device)
+    yp = yp[:H]
+
+    g = fvm_planar.detach()
+    x0, y0 = g[:, 0], g[:, 1]
+    x1, y1 = g[:, 3], g[:, 4]
+    x2, y2 = g[:, 6], g[:, 7]
+
+    w0 = yp * (x2 - x1) + xp * (y1 - y2) + (x1 * y2 - x2 * y1)
+    w1 = yp * (x0 - x2) + xp * (y2 - y0) + (x2 * y0 - x0 * y2)
+    w2 = yp * (x1 - x0) + xp * (y0 - y1) + (x0 * y1 - x1 * y0)
+    w = torch.stack((w0, w1, w2), dim=1)                 # [bs, 3, H, W]
+    w_sum = w[:, 0:1] + w[:, 1:2] + w[:, 2:3]
+    w = torch.where(w_sum < 0, -w, w)
+    w = torch.clamp(w, min=0.0)
+    w_sum = w[:, 0:1] + w[:, 1:2] + w[:, 2:3]
+    w = torch.clamp(w / w_sum, 0.0, 1.0)
+    return torch.where((face_index_map >= 0)[:, None], w, 0.0)
