@@ -9,7 +9,14 @@ import torch
 from torch import nn
 
 from ..ops.camera import look_at, perspective
-from ..ops.rasterize import RasterizeHyperparam, RasterizeParam, rasterize_silhouettes
+from ..ops.rasterize import (
+    RasterizeHyperparam,
+    RasterizeParam,
+    rasterize_depth,
+    rasterize_rgb,
+    rasterize_rgba,
+    rasterize_silhouettes,
+)
 
 
 class Renderer(nn.Module):
@@ -35,6 +42,9 @@ class Renderer(nn.Module):
         self.camera_direction = [0, 0, 1]
         self.near = 0.1
         self.far = 100
+        # the create_textures texel size, for its per-face patch sampling;
+        # None for any other (loaded) atlas
+        self.texture_size = None
 
     def _check_device(self, t):
         # "cuda" names whichever card is current, so it accepts any index
@@ -73,3 +83,41 @@ class Renderer(nn.Module):
             background_color=self.background_color, backgrounds=backgrounds
         )
         return rasterize_silhouettes(vertices, faces, params, self._hyperparams())
+
+    def _textured_params(self, vertices_t, faces_t, textures, backgrounds, lights):
+        return RasterizeParam(
+            vertices_textures=vertices_t,
+            faces_textures=torch.as_tensor(faces_t, dtype=torch.int32, device=self.device),
+            textures=textures,
+            background_color=self.background_color,
+            texture_size=self.texture_size,
+            backgrounds=backgrounds,
+            lights=tuple(lights) if lights is not None else None,
+        )
+
+    def render(self, vertices, faces, vertices_t, faces_t, textures, backgrounds=None,
+               lights=None):
+        """RGBA [bs, 4, H, W] of world-space ``vertices`` [bs, nv, 3], with
+        texel coordinates ``vertices_t`` [bs, nvt, 2], ``faces_t`` [nf, 3],
+        atlas ``textures`` [bs, 3, th, tw] and optional ``lights``."""
+        vertices = self.transform_vertices(vertices)
+        faces = torch.as_tensor(faces, dtype=torch.int32, device=self.device)
+        params = self._textured_params(vertices_t, faces_t, textures, backgrounds, lights)
+        return rasterize_rgba(vertices, faces, params, self._hyperparams())
+
+    def render_rgb(self, vertices, faces, vertices_t, faces_t, textures, backgrounds=None,
+                   lights=None):
+        """RGB [bs, 3, H, W]; arguments as :meth:`render`."""
+        vertices = self.transform_vertices(vertices)
+        faces = torch.as_tensor(faces, dtype=torch.int32, device=self.device)
+        params = self._textured_params(vertices_t, faces_t, textures, backgrounds, lights)
+        return rasterize_rgb(vertices, faces, params, self._hyperparams())
+
+    def render_depth(self, vertices, faces, backgrounds=None):
+        """Depth [bs, H, W] of world-space ``vertices``, 0 on background."""
+        vertices = self.transform_vertices(vertices)
+        faces = torch.as_tensor(faces, dtype=torch.int32, device=self.device)
+        params = RasterizeParam(
+            background_color=self.background_color, backgrounds=backgrounds
+        )
+        return rasterize_depth(vertices, faces, params, self._hyperparams())

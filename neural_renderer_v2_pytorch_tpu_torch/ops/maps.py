@@ -1,5 +1,5 @@
-"""Per-pixel gather of per-face data (counterpart of
-``neural_renderer_v2_pytorch_tpu/ops/maps.py:24``)."""
+"""Per-pixel gather of per-face data, the foreground mask and the cross
+product (counterpart of ``neural_renderer_v2_pytorch_tpu/ops/maps.py``)."""
 
 from __future__ import annotations
 
@@ -17,3 +17,19 @@ def to_map(data_in, indices):
     gathered = gathered.reshape(indices.shape + data_in.shape[2:])
     mask = (indices >= 0).reshape(indices.shape + (1,) * (data_in.ndim - 2))
     return torch.where(mask, gathered, 0.0)
+
+
+def mask_foreground(data, face_index_map):
+    """Zero ``data`` [bs, H, W, ...] on background pixels (face index < 0);
+    the gradient passes on the foreground and is 0 on the background."""
+    mask = face_index_map >= 0
+    mask = mask.reshape(mask.shape + (1,) * (data.ndim - mask.ndim))
+    return torch.where(mask, data, 0.0)
+
+
+def cross(a, b, dim=-1):
+    """Cross product of 3-vectors along ``dim``, with ``jnp.cross``'s
+    expressions (so the rounding is the JAX package's)."""
+    a0, a1, a2 = a.unbind(dim)
+    b0, b1, b2 = b.unbind(dim)
+    return torch.stack((a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0), dim)

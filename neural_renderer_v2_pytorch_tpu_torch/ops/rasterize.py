@@ -1,29 +1,30 @@
-"""Rasterization pipeline, silhouette path (counterpart of
+"""Rasterization pipeline (counterpart of
 ``neural_renderer_v2_pytorch_tpu/ops/rasterize.py``).
 
   1. supersample 2x when anti-aliasing
-  2. planar face vertices = vertices[:, faces]      (gather; K4 backward)
-  3. z-buffer resolve with XY latch                 (K1 + K2; K3 backward)
+  2. planar face vertices = vertices[:, faces]      (K5; K4 backward)
+  3. z-buffer resolve with winner latch             (K1 + K2 for silhouettes,
+                                                     K1 + K2L for RGB/depth;
+                                                     K3 backward)
   4. stopped barycentric weights, coordinate map
-  5. silhouette = foreground mask
-  6. NMR differentiation hook
+  5. silhouette / RGB (textures, lights) / depth    (atlas gradient: K6)
+  6. background blend, NMR differentiation hook
   7. flip H and W, then the 2x2 anti-aliasing pool
 
-All maps are channel-planar (NCHW).  RGB and depth rendering are not ported
-yet and raise.
+All maps are channel-planar (NCHW).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
+from . import shading
 from .differentiation import differentiation
 from .gather_resolve import gather_face_vertices, resolve_and_gather
 from .resolve import weight_planes_from_gathered
-from .shading import coordinate_planes
 
 DEFAULT_NEAR = 0.1
 DEFAULT_FAR = 100.0
@@ -53,29 +54,84 @@ class RasterizeHyperparam:
 
 @dataclasses.dataclass
 class RasterizeParam:
-    """Tensor inputs of the rasterizer (reference rasterize_param.py:36-50);
-    the silhouette path reads only the background fields."""
+    """Tensor inputs of the rasterizer (reference rasterize_param.py:36-50).
 
+    ``texture_size``: set it when ``textures`` is a ``create_textures``
+    atlas of that texel size; sampling then reads each face's latched texel
+    patch.  Leave it None for any other (loaded) atlas."""
+
+    vertices_textures: Optional[torch.Tensor] = None    # [bs, nvt, 2] texel coords
+    faces_textures: Optional[torch.Tensor] = None       # [nf, 3] int32
+    textures: Optional[torch.Tensor] = None             # [bs, 3, th, tw]
     background_color: Optional[Any] = None
+    texture_size: Optional[int] = None
     backgrounds: Optional[torch.Tensor] = None          # [bs, 3, H, W]
+    lights: Optional[Tuple[Any, ...]] = None            # models.lights
+
+
+def face_attributes(vertices, faces, face_vertices, params):
+    """The per-face attributes the RGB path latches, [bs, nf, A]: the
+    texel-coordinate triangle u0,v0,u1,v1,u2,v2 (6), then with lights the
+    smoothed vertex normals (9), then with ``texture_size`` the texel patch
+    (ts*ts*3)."""
+    bs, nf = vertices.shape[0], faces.shape[0]
+    faces_textures = params.vertices_textures[:, params.faces_textures.long()]
+    attrs = [faces_textures.reshape(bs, nf, 6)]
+    if params.lights is not None:
+        normals = shading.face_vertex_normals(vertices, faces, face_vertices)
+        attrs.append(normals.reshape(bs, nf, 9))
+    if params.texture_size is not None:
+        attrs.append(shading.face_texel_attrs(params.textures, nf, params.texture_size))
+    return torch.cat(attrs, -1)
 
 
 def compute_channel_maps(vertices, faces, params, hp, render_size):
     """Resolve and build the maps at ``render_size``.  Returns (images
-    [bs, 1, S, S] silhouette before the hook and flip, coordinate_map
-    [bs, 2, S, S], foreground [bs, 1, S, S])."""
-    if hp.draw_rgb or hp.draw_depth:
-        raise NotImplementedError("only silhouette rendering is ported")
-    if not hp.draw_silhouettes:
-        raise ValueError("nothing to draw")
+    [bs, C, S, S]: RGB, silhouette and depth as requested, before the
+    background blend, the hook and the flip; coordinate_map [bs, 2, S, S];
+    foreground [bs, 1, S, S])."""
     face_vertices = gather_face_vertices(vertices, faces)       # [bs, 3, 3, nf]
-    face_index_map, fvm_planar = resolve_and_gather(
-        face_vertices, render_size, hp.near, hp.far, hp.draw_backside
+    attrs = (face_attributes(vertices, faces, face_vertices, params)
+             if hp.draw_rgb else None)
+    # silhouette-only renders never read the winner's z: latch XY only
+    latch_z = hp.draw_rgb or hp.draw_depth
+    face_index_map, fvm_planar, attr_planes = resolve_and_gather(
+        face_vertices, render_size, hp.near, hp.far, hp.draw_backside, attrs, latch_z,
     )
     weight_planes = weight_planes_from_gathered(fvm_planar, face_index_map, render_size)
-    coordinate_map = coordinate_planes(fvm_planar, weight_planes)
+    coordinate_map = shading.coordinate_planes(fvm_planar, weight_planes)
     foreground = (face_index_map >= 0).to(torch.float32)[:, None]
-    return foreground, coordinate_map, foreground
+
+    channels = []
+    if hp.draw_rgb:
+        # attribute planes: UV 6, then normals 9, then texels ts*ts*3
+        uv_planes = attr_planes[:, :6]
+        normal_vertex_planes = attr_planes[:, 6:15] if params.lights is not None else None
+        if params.texture_size is not None:
+            ts = params.texture_size
+            texel_planes = attr_planes[:, 6 if normal_vertex_planes is None else 15:]
+            rgb = shading.sample_textures_texel_planes(
+                fvm_planar, uv_planes, texel_planes, face_index_map, weight_planes,
+                hp.eps, ts, params.textures.shape[3] // ts,
+            )
+        else:
+            rgb = shading.sample_textures_atlas_planes(
+                fvm_planar, uv_planes, params.textures, face_index_map, weight_planes,
+                hp.eps,
+            )
+        # an empty lights tuple still multiplies by the (zero) colour weight
+        if normal_vertex_planes is not None:
+            normal_map = shading.normal_planes(normal_vertex_planes, weight_planes)
+            rgb = shading.apply_lights_planar(rgb, normal_map, params.lights)
+        channels.append(rgb)
+    if hp.draw_silhouettes:
+        channels.append(foreground)
+    if hp.draw_depth:
+        channels.append(shading.depth_plane(fvm_planar, face_index_map, weight_planes))
+    if not channels:
+        raise ValueError("nothing to draw")
+    images = channels[0] if len(channels) == 1 else torch.cat(channels, dim=1)
+    return images, coordinate_map, foreground
 
 
 class _FlipPool(torch.autograd.Function):
@@ -140,6 +196,13 @@ def rasterize_core(vertices, faces, params, hyperparams):
     if faces.ndim != 2 or faces.shape[1] != 3:
         raise ValueError(f"faces must be [nf, 3], got {tuple(faces.shape)}")
     hp = hyperparams
+    if hp.draw_rgb:
+        for name, ndim, last in (("vertices_textures", 3, 2), ("faces_textures", 2, 3)):
+            t = getattr(params, name)
+            if t is None or t.ndim != ndim or t.shape[-1] != last:
+                raise ValueError(f"RGB rendering needs {name} of {ndim} dims, last {last}")
+        if params.textures is None or params.textures.ndim != 4 or params.textures.shape[1] != 3:
+            raise ValueError("RGB rendering needs textures [bs, 3, th, tw]")
     render_size = hp.image_size * 2 if hp.anti_aliasing else hp.image_size
     backgrounds = make_backgrounds(params, vertices.shape[0], render_size, vertices.device)
     images, coordinate_map, foreground = compute_channel_maps(
@@ -148,11 +211,42 @@ def rasterize_core(vertices, faces, params, hyperparams):
     return finalize_images(images, coordinate_map, foreground, backgrounds, hp)
 
 
+def _run(vertices, faces, params, hp):
+    params = RasterizeParam() if params is None else params
+    return rasterize_core(vertices, faces.to(torch.int32).contiguous(), params, hp)
+
+
 def rasterize_silhouettes(vertices, faces, params=None, hyperparams=RasterizeHyperparam()):
     """Silhouettes [bs, H, W] of NDC ``vertices`` [bs, nv, 3] and int32
     ``faces`` [nf, 3]; differentiable with respect to ``vertices`` through
     the NMR gradient."""
     hp = hyperparams.replace(draw_rgb=False, draw_silhouettes=True, draw_depth=False)
-    if params is None:
-        params = RasterizeParam()
-    return rasterize_core(vertices, faces.to(torch.int32).contiguous(), params, hp)[:, 0]
+    return _run(vertices, faces, params, hp)[:, 0]
+
+
+def rasterize_rgba(vertices, faces, params=None, hyperparams=RasterizeHyperparam()):
+    """RGB + silhouette [bs, 4, H, W]; differentiable with respect to the
+    vertices, ``textures``, ``vertices_textures`` and the lights."""
+    hp = hyperparams.replace(draw_rgb=True, draw_silhouettes=True, draw_depth=False)
+    return _run(vertices, faces, params, hp)
+
+
+def rasterize_rgb(vertices, faces, params=None, hyperparams=RasterizeHyperparam()):
+    """RGB [bs, 3, H, W]."""
+    hp = hyperparams.replace(draw_rgb=True, draw_silhouettes=False, draw_depth=False)
+    return _run(vertices, faces, params, hp)
+
+
+def rasterize_depth(vertices, faces, params=None, hyperparams=RasterizeHyperparam()):
+    """Depth [bs, H, W], 0 on background."""
+    hp = hyperparams.replace(draw_rgb=False, draw_silhouettes=False, draw_depth=True)
+    return _run(vertices, faces, params, hp)[:, 0]
+
+
+def rasterize_all(vertices, faces, params=None, hyperparams=RasterizeHyperparam()):
+    """RGB + silhouette + depth [bs, 5, H, W] in one pass."""
+    hp = hyperparams.replace(draw_rgb=True, draw_silhouettes=True, draw_depth=True)
+    return _run(vertices, faces, params, hp)
+
+
+rasterize = rasterize_rgba

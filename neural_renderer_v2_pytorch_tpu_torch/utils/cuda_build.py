@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library with a
-plain C interface, loaded through ``ctypes``; no PyTorch headers are
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` process, all started
+together, into an object file; the objects link into one shared library
+with a plain C interface, loaded through ``ctypes``.  No PyTorch headers are
 involved, so a build takes seconds.  The library lands in
 ``build/nr_torch_kernels/`` at the repository root, under a file name keyed
 by a hash of the sources and flags, so an edited source rebuilds and an
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 import threading
@@ -27,7 +29,7 @@ NVCC_FLAGS = (
     # and sum as the plain version does (and no --use_fast_math, which
     # would also make division approximate)
     "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -37,8 +39,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "nr_face_setup": (_P, _P, _I, _I, _I, _P),
     "nr_resolve_xy": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
+    "nr_resolve_latch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
+    "nr_resolve_latch_limits": (_P, _P, _P),
     "nr_scatter_pixels_to_faces": (_P, _P, _P, _I, _I, _I, _I, _P),
     "nr_scatter_faces_to_vertices": (_P, _P, _P, _I, _I, _I, _P),
+    "nr_gather_faces3": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "nr_scatter_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -65,6 +71,22 @@ def _nvcc():
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; raise on the first that fails.
+    Returns their stderr, joined."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    logs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(logs)
+
+
 def build():
     """Compile the kernels unless the keyed library exists.  Returns
     ``(path, seconds, compiler_log)``; ``seconds`` is 0 for a cached build."""
@@ -72,19 +94,20 @@ def build():
     if path.exists():
         return path, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
-    return path, seconds, proc.stderr
+    nvcc = _nvcc()
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        objs = [os.path.join(work, src.stem + ".o") for src in sources()]
+        t0 = time.perf_counter()
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                        for obj, src in zip(objs, sources())])
+        lib = os.path.join(work, "lib.so")
+        log += _run_all([[nvcc, "-shared", "-o", lib, *objs]])
+        seconds = time.perf_counter() - t0
+        os.replace(lib, path)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return path, seconds, log
 
 
 def load():

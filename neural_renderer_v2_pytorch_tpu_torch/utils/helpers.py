@@ -1,10 +1,41 @@
-"""Spherical camera placement (counterpart of
-``neural_renderer_v2_pytorch_tpu/utils/helpers.py:102-133``)."""
+"""Texture atlases and spherical camera placement (counterpart of
+``neural_renderer_v2_pytorch_tpu/utils/helpers.py:72-133``)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def create_textures(num_faces, texture_size=16, flatten=False, device="cpu"):
+    """A white tiled atlas with one ``texture_size`` square patch per face,
+    and each face's texel-coordinate triangle in its patch (reference
+    utils.py:30-52).  Returns tensors on ``device``: (vertices_t f32
+    [nf*3, 2], faces_t i32 [nf, 3], textures f32 [3, H, W])."""
+    if not flatten:
+        tile_width = int((num_faces - 1.0) ** 0.5) + 1
+        tile_height = int((num_faces - 1.0) / tile_width) + 1
+    else:
+        tile_width = 1
+        tile_height = num_faces
+    textures = np.ones((3, tile_height * texture_size, tile_width * texture_size), np.float32)
+
+    vertices = np.zeros((num_faces, 3, 2), np.float32)  # [:, :, XY]
+    face_nums = np.arange(num_faces)
+    column = face_nums % tile_width
+    row = face_nums // tile_width
+    vertices[:, 0, 0] = column * texture_size
+    vertices[:, 0, 1] = row * texture_size
+    vertices[:, 1, 0] = column * texture_size
+    vertices[:, 1, 1] = (row + 1) * texture_size - 1
+    vertices[:, 2, 0] = (column + 1) * texture_size - 1
+    vertices[:, 2, 1] = (row + 1) * texture_size - 1
+    faces = np.arange(num_faces * 3).reshape((num_faces, 3))
+    return (
+        torch.tensor(vertices.reshape(num_faces * 3, 2), device=device),
+        torch.tensor(faces, dtype=torch.int32, device=device),
+        torch.tensor(textures, device=device),
+    )
 
 
 def get_points_from_angles(distance, elevation, azimuth, degrees=True):

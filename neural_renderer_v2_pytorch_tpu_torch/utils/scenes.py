@@ -5,11 +5,21 @@
 reference teapot (1,292 / 2,464); it occludes itself, so the z-buffer does
 real work.  ``icosphere(level)`` has 20 * 4**level faces: 1,280 at level 3,
 81,920 at level 6.
+
+The textured scenes: ``atlas_scene`` unwraps a torus over a seeded random
+atlas (by default at the size of the loaded atlas of the JAX package's
+perf matrix, ``ATLAS_HW``), ``texel_scene`` gives it a ``create_textures``
+atlas of seeded random texels, and ``lit_light_arrays`` are that perf
+matrix's three lights.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+# the loaded texture atlas of the JAX package's perf matrix
+# (benchmarks/scaling.py:179-217), which the repository does not ship
+ATLAS_HW = (1190, 1920)
 
 
 def torus(n_major, n_minor, major_radius=0.6, minor_radius=0.25):
@@ -30,6 +40,65 @@ def torus(n_major, n_minor, major_radius=0.6, minor_radius=0.25):
         (np.stack((a, c, b), -1).reshape(-1, 3), np.stack((a, d, c), -1).reshape(-1, 3))
     )
     return vertices.astype(np.float32), faces.astype(np.int32)
+
+
+def torus_uv(n_major, n_minor, height, width):
+    """Per-face texel-coordinate triangles that unwrap ``torus(n_major,
+    n_minor)``'s (major, minor) grid over a ``height`` x ``width`` atlas:
+    (vertices_t f32 [nf*3, 2], faces_t i32 [nf, 3]).  Each face has its own
+    three corners, so faces across the seam are unwrapped too, and every
+    coordinate lies in [0, width-1] x [0, height-1], as the atlas sampler
+    requires."""
+    i, j = np.meshgrid(np.arange(n_major), np.arange(n_minor), indexing="ij")
+    corner = {"a": (i, j), "b": (i + 1, j), "c": (i + 1, j + 1), "d": (i, j + 1)}
+
+    def uv(name):
+        ci, cj = corner[name]
+        return np.stack((ci / n_major * (width - 1), cj / n_minor * (height - 1)), -1)
+
+    # torus()'s faces: all (a, c, b), then all (a, d, c)
+    tris = [np.stack([uv(k) for k in order], -2).reshape(-1, 3, 2) for order in ("acb", "adc")]
+    vertices_t = np.concatenate(tris).reshape(-1, 2)
+    faces_t = np.arange(len(vertices_t)).reshape(-1, 3)
+    return vertices_t.astype(np.float32), faces_t.astype(np.int32)
+
+
+def random_atlas(seed, height=ATLAS_HW[0], width=ATLAS_HW[1]):
+    """A uniform random RGB atlas f32 [3, height, width] from ``seed``."""
+    return np.random.RandomState(seed).rand(3, height, width).astype(np.float32)
+
+
+def atlas_scene(n_major, n_minor, height=ATLAS_HW[0], width=ATLAS_HW[1], seed=1):
+    """``torus(n_major, n_minor)`` unwrapped over a random atlas: (vertices,
+    faces, vertices_t [1, nf*3, 2], faces_t [nf, 3], textures
+    [1, 3, height, width])."""
+    v, f = torus(n_major, n_minor)
+    vt, ft = torus_uv(n_major, n_minor, height, width)
+    return v, f, vt[None], ft, random_atlas(seed, height, width)[None]
+
+
+def texel_scene(n_major, n_minor, texture_size, seed=2):
+    """``torus(n_major, n_minor)`` with ``create_textures`` texel
+    coordinates and an atlas of random texels: (vertices, faces,
+    vertices_t [1, nf*3, 2], faces_t [nf, 3], textures [1, 3, th, tw])."""
+    from .helpers import create_textures
+
+    v, f = torus(n_major, n_minor)
+    vt, ft, tex = (t.numpy() for t in create_textures(len(f), texture_size))
+    tex = np.random.RandomState(seed).rand(*tex.shape).astype(np.float32)
+    return v, f, vt[None], ft, tex[None]
+
+
+def lit_light_arrays():
+    """The three lights of the JAX package's perf matrix (benchmarks/
+    scaling.py:161-166) as (kind, {field: f32 [1, ...]}): directional
+    (1, 1, 1) at 0.6, ambient 0.3, specular 0.2 (exponent 1)."""
+    ones = np.ones((1, 3), np.float32)
+    return (
+        ("directional", {"color": 0.6 * ones, "direction": ones.copy()}),
+        ("ambient", {"color": 0.3 * ones}),
+        ("specular", {"color": 0.2 * ones}),
+    )
 
 
 def icosphere(level, radius=0.5):

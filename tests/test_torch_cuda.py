@@ -11,7 +11,13 @@ import torch
 
 import neural_renderer_v2_pytorch_tpu_torch as nr
 from neural_renderer_v2_pytorch_tpu_torch.ops import resolve_cuda as rc
-from neural_renderer_v2_pytorch_tpu_torch.utils.scenes import icosphere, torus
+from neural_renderer_v2_pytorch_tpu_torch.utils.scenes import (
+    atlas_scene,
+    icosphere,
+    lit_light_arrays,
+    texel_scene,
+    torus,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -77,7 +83,9 @@ def test_slice_on_card_matches_cpu(cuda):
                                       nr.RasterizeHyperparam(image_size=64))
         torch.sum(im * im).backward()
         out.append((im.detach().cpu(), x.grad.cpu()))
-    assert all(n == 1 for n in rc.LAUNCHES.values()), rc.LAUNCHES
+    silhouette = ("face_setup", "resolve_xy", "scatter_pixels_to_faces",
+                  "scatter_faces_to_vertices", "gather_faces3")
+    assert all(rc.LAUNCHES[n] == (1 if n in silhouette else 0) for n in rc.KERNELS), rc.LAUNCHES
     renderer = nr.Renderer("cuda")                  # no index: the current card
     renderer.render_silhouettes(torch.tensor(v[None], device=cuda), f)
     assert torch.equal(out[0][0], out[1][0])
@@ -94,3 +102,74 @@ def test_wrappers_reject_bad_inputs(cuda):
     consts = rc.face_setup(fvp, True)
     with pytest.raises(ValueError):
         rc.resolve_xy(consts, fvp.cpu(), 16, 0.1, 100.0)
+
+
+@pytest.mark.parametrize("num_attrs", [0, 6, 27])
+@pytest.mark.parametrize("bs,nf,size", [(2, 37, 64), (1, 300, 100)])
+def test_resolve_latch_is_bit_exact(cuda, bs, nf, size, num_attrs):
+    fvp = _soup_planar(nf + 1, bs, nf, cuda)
+    consts = rc.face_setup(fvp, True)
+    attrs = torch.randn((bs, nf, num_attrs), device=cuda)
+    got = rc.resolve_latch(consts, fvp, attrs, size, 0.1, 100.0)
+    want = rc.resolve_latch_plain(consts, fvp, attrs, size, 0.1, 100.0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # its index and depth are K2's
+    xy = rc.resolve_xy(consts, fvp, size, 0.1, 100.0)
+    assert torch.equal(got[0], xy[0]) and torch.equal(got[1], xy[1])
+    assert torch.equal(got[2][:, [0, 1, 3, 4, 6, 7]], xy[2])
+
+
+def test_gather_and_row_scatter_match_plain_versions(cuda):
+    v, faces = icosphere(3)
+    f = torch.tensor(faces, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for D in (3, 12):
+        table = torch.randn((2, len(v), D), generator=gen, device=cuda)
+        assert torch.equal(rc.gather_faces3(table, f), rc.gather_faces3_plain(table, f))
+    T = 5000
+    g = torch.randn((2, 12, 4096), generator=gen, device=cuda)
+    ids = torch.randint(-1, T, (2, 4096), generator=gen, device=cuda, dtype=torch.int32)
+    got, want = rc.scatter_rows(g, ids, T), rc.scatter_rows_plain(g, ids, T)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("scene", ["atlas", "lit"])
+def test_textured_slice_on_card_matches_cpu(cuda, scene):
+    """The same NDC inputs on the card and the CPU: images within 1e-5
+    (CUDA's pow and division), gradients within the atomics' bound, and the
+    textured path's kernels launched."""
+    if scene == "atlas":
+        v, f, vt, ft, tex = atlas_scene(16, 12, 40, 64)
+        lights, ts = None, None
+    else:
+        v, f, vt, ft, tex = texel_scene(16, 12, 2)
+        lights, ts = lit_light_arrays(), 2
+    r = nr.Renderer("cpu")
+    r.viewpoints = nr.get_points_from_angles(2.732, 30, 20)
+    ndc = r.transform_vertices(torch.tensor(v[None])).detach()
+    out = []
+    rc.reset_launches()
+    for dev in ("cpu", cuda):
+        x = ndc.detach().to(dev).requires_grad_(True)
+        t = torch.tensor(tex, device=dev, requires_grad=True)
+        cls = {"ambient": nr.AmbientLight, "directional": nr.DirectionalLight,
+               "specular": nr.SpecularLight}
+        ls = None if lights is None else tuple(
+            cls[k](**{n: torch.tensor(a, device=dev) for n, a in arrays.items()})
+            for k, arrays in lights)
+        p = nr.RasterizeParam(vertices_textures=torch.tensor(vt, device=dev),
+                              faces_textures=torch.tensor(ft, device=dev), textures=t,
+                              texture_size=ts, lights=ls)
+        im = nr.rasterize_rgba(x, torch.tensor(f, device=dev), p,
+                               nr.RasterizeHyperparam(image_size=64))
+        torch.sum(im * im).backward()
+        out.append((im.detach().cpu(), x.grad.cpu(), t.grad.cpu()))
+    textured = ("face_setup", "resolve_latch", "scatter_pixels_to_faces",
+                "scatter_faces_to_vertices", "gather_faces3")
+    assert all(rc.LAUNCHES[n] == 1 for n in textured), rc.LAUNCHES
+    assert rc.LAUNCHES["scatter_rows"] == (1 if scene == "atlas" else 0)
+    torch.testing.assert_close(out[1][0], out[0][0], rtol=0, atol=1e-5)
+    for i in (1, 2):
+        torch.testing.assert_close(out[1][i], out[0][i], rtol=0,
+                                   atol=1e-4 * float(out[0][i].abs().max()))

@@ -33,7 +33,7 @@ def _soup_planar(seed, bs, nf):
     return np.ascontiguousarray(fv.transpose(0, 3, 2, 1)), fv
 
 
-@pytest.mark.parametrize("D", [6, 9])
+@pytest.mark.parametrize("D", [6, 9, 15, 27, 36])
 def test_scatter_pixels_to_faces_matches_jax_kernel(D):
     fvp, fv = _soup_planar(0, 2, 57)
     fim = np.asarray(compute_face_index_map(jnp.asarray(fv), 48))
@@ -87,7 +87,8 @@ def test_resolve_and_gather_matches_jax_vjp(draw_backside):
     fvm, vjp, fim = jax.vjp(jf, jnp.asarray(fvp), has_aux=True)
     (want_g,) = vjp(jnp.asarray(ct))
     x = torch.tensor(fvp, requires_grad=True)
-    got_fim, got_fvm = tgr.resolve_and_gather(x, size, 0.1, 100.0, draw_backside)
+    got_fim, got_fvm, got_attrs = tgr.resolve_and_gather(x, size, 0.1, 100.0, draw_backside)
+    assert got_attrs is None
     np.testing.assert_array_equal(got_fim.numpy(), np.asarray(fim))
     np.testing.assert_array_equal(got_fvm.detach().numpy(), np.asarray(fvm))
     assert not got_fim.requires_grad

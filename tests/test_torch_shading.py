@@ -1,0 +1,201 @@
+"""The port's shading functions against the JAX package's, on the same
+seeded inputs: values and gradients.
+
+The JAX side runs eagerly (``jax.disable_jit``), so that each op rounds on
+its own as the port's do.  Tolerance 1e-5 of the largest magnitude (as the
+JAX package's tests/test_lighting.py:114-129), and rtol 1e-5: autodiff
+rounds some VJPs in another association (``(-g * x) / y**2`` against
+``(-g * x) * y**-2``), which a sum of cancelling terms, as in the gradient
+of the perspective-correct texel coordinates with respect to z, magnifies;
+and ``pow`` is computed by two libraries."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from neural_renderer_v2_pytorch_tpu.models import lights as jl
+from neural_renderer_v2_pytorch_tpu.ops import maps as jm
+from neural_renderer_v2_pytorch_tpu.ops import shading as js
+from neural_renderer_v2_pytorch_tpu_torch.models import lights as tl
+from neural_renderer_v2_pytorch_tpu_torch.ops import gather_resolve as tgr
+from neural_renderer_v2_pytorch_tpu_torch.ops import maps as tm
+from neural_renderer_v2_pytorch_tpu_torch.ops import shading as ts
+from neural_renderer_v2_pytorch_tpu_torch.utils.helpers import create_textures
+from neural_renderer_v2_pytorch_tpu_torch.utils.scenes import icosphere
+
+BS, H, W = 2, 12, 16
+
+
+def _close(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    finite = np.isfinite(want)
+    np.testing.assert_array_equal(np.isfinite(got), finite)
+    scale = np.abs(want[finite]).max() if finite.any() else 1.0
+    np.testing.assert_allclose(got[finite], want[finite], rtol=1e-5, atol=1e-5 * scale)
+
+
+def _both(jax_fn, torch_fn, inputs, seed):
+    """Run both on ``inputs`` (numpy; float arrays are differentiated, the
+    rest passed as they are) with a seeded cotangent; compare values and
+    every gradient."""
+    diff = [i for i, x in enumerate(inputs) if np.asarray(x).dtype == np.float32]
+
+    def jf(*xs):
+        full = list(inputs)
+        for i, x in zip(diff, xs):
+            full[i] = x
+        return jax_fn(*full)
+
+    with jax.disable_jit():
+        out, vjp = jax.vjp(jf, *(jnp.asarray(inputs[i]) for i in diff))
+        ct = np.random.RandomState(seed).randn(*out.shape).astype(np.float32)
+        want_grads = vjp(jnp.asarray(ct))
+    targs = [torch.tensor(x) for x in inputs]
+    for i in diff:
+        targs[i].requires_grad_(True)
+    got = torch_fn(*targs)
+    got.backward(torch.tensor(ct))
+    _close(got.detach().numpy(), out)
+    for i, want in zip(diff, want_grads):
+        grad = targs[i].grad                 # None where the input is unused
+        _close(np.zeros_like(want) if grad is None else grad.numpy(), want)
+    return np.asarray(out)
+
+
+def _planes(seed, th=40, tw=64):
+    """fvm [bs, 9, H, W] (z > 0), texel-coordinate triangles [bs, 6, H, W]
+    inside a th x tw atlas, weights [bs, 3, H, W] summing to 1, and a face
+    index map with background."""
+    rng = np.random.RandomState(seed)
+    fvm = rng.uniform(-1, 1, (BS, 9, H, W)).astype(np.float32)
+    fvm[:, 2::3] = rng.uniform(0.5, 3.0, (BS, 3, H, W))
+    uv = np.empty((BS, 6, H, W), np.float32)
+    uv[:, 0::2] = rng.uniform(0, tw - 1, (BS, 3, H, W))
+    uv[:, 1::2] = rng.uniform(0, th - 1, (BS, 3, H, W))
+    w = rng.uniform(0, 1, (BS, 3, H, W)).astype(np.float32)
+    w = (w / w.sum(1, keepdims=True)).astype(np.float32)
+    fim = rng.randint(-1, 30, (BS, H, W)).astype(np.int32)
+    return fvm, uv, w, fim
+
+
+def test_uv_coords():
+    fvm, uv, w, fim = _planes(0)
+
+    def run(lib, fvm, uv, w, fim):
+        x, y = lib._uv_coords(
+            (fvm[:, 2], fvm[:, 5], fvm[:, 8]), (uv[:, 0], uv[:, 2], uv[:, 4]),
+            (uv[:, 1], uv[:, 3], uv[:, 5]), (w[:, 0], w[:, 1], w[:, 2]), fim >= 0, 1e-5,
+        )
+        return (jnp if lib is js else torch).stack((x, y), 1)
+
+    out = _both(lambda *a: run(js, *a), lambda *a: run(ts, *a), [fvm, uv, w, fim], 1)
+    assert (out[:, :, fim[0] < 0][0] == 0).all()
+
+
+def test_atlas_sampler_values_and_gradients():
+    """Gradients with respect to the atlas (K6 plain + shifted adds), the
+    texel coordinates and z; the atlas is small, so taps cross its rows."""
+    fvm, uv, w, fim = _planes(2)
+    atlas = np.random.RandomState(3).rand(BS, 3, 40, 64).astype(np.float32)
+    _both(
+        lambda fvm, uv, tex, fim, w: js.sample_textures_atlas_planes(fvm, uv, tex, fim, w, 1e-5),
+        lambda fvm, uv, tex, fim, w: ts.sample_textures_atlas_planes(fvm, uv, tex, fim, w, 1e-5),
+        [fvm, uv, atlas, fim, w], 4,
+    )
+
+
+@pytest.mark.parametrize("texture_size", [2, 4])
+def test_texel_sampler_values_and_gradients(texture_size):
+    fvm, _, w, fim = _planes(5)
+    nf = 30
+    vt, ft, tex = create_textures(nf, texture_size)
+    tile_width = tex.shape[2] // texture_size
+    # each pixel's winner's own texel triangle (u0, v0, u1, v1, u2, v2)
+    tri = vt.numpy()[ft.numpy().reshape(-1)].reshape(nf, 6)
+    uv = np.ascontiguousarray(tri[np.maximum(fim, 0)].transpose(0, 3, 1, 2))
+    texels = np.random.RandomState(6).rand(BS, texture_size ** 2 * 3, H, W).astype(np.float32)
+    _both(
+        lambda fvm, uv, tx, fim, w: js.sample_textures_texel_planes(
+            fvm, uv, tx, fim, w, 1e-5, texture_size, tile_width),
+        lambda fvm, uv, tx, fim, w: ts.sample_textures_texel_planes(
+            fvm, uv, tx, fim, w, 1e-5, texture_size, tile_width),
+        [fvm, uv, texels, fim, w], 7,
+    )
+
+
+def test_mask_foreground_and_cross():
+    _, _, _, fim = _planes(19)
+    data = np.random.RandomState(20).randn(BS, H, W, 3).astype(np.float32)
+    _both(jm.mask_foreground, tm.mask_foreground, [data, fim], 21)
+    a, b = np.random.RandomState(22).randn(2, 5, 7, 3).astype(np.float32)
+    _both(jm.cross, tm.cross, [a, b], 23)
+
+
+def test_face_texel_attrs():
+    tex = np.random.RandomState(8).rand(BS, 3, 12, 8).astype(np.float32)
+    _both(lambda t: js.face_texel_attrs(t, 20, 2), lambda t: ts.face_texel_attrs(t, 20, 2),
+          [tex], 9)
+
+
+def test_face_vertex_normals_and_normal_planes():
+    v, faces = icosphere(1)
+    v = np.stack([v, 0.7 * v + 0.1]).astype(np.float32)
+    faces_t = torch.tensor(faces)
+    _both(
+        lambda x: js.face_vertex_normals(x, jnp.asarray(faces), jnp.take(x, faces, axis=1)),
+        lambda x: ts.face_vertex_normals(x, faces_t, tgr.gather_face_vertices(x, faces_t)),
+        [v], 10,
+    )
+    nvp = np.random.RandomState(11).randn(BS, 9, H, W).astype(np.float32)
+    _, _, w, _ = _planes(12)
+    _both(js.normal_planes, ts.normal_planes, [nvp, w], 13)
+
+
+def test_depth_plane():
+    fvm, _, w, fim = _planes(14)
+    fvm[:, :, fim[0] < 0] = 0.0     # background planes are 0, as latched
+    w[:, :, fim[0] < 0] = 0.0
+    _both(js.depth_plane, ts.depth_plane, [fvm, fim, w], 15)
+
+
+def _light_inputs(seed):
+    rng = np.random.RandomState(seed)
+    rgb = rng.rand(BS, 3, H, W).astype(np.float32)
+    normals = rng.uniform(-1, 1, (BS, 3, H, W)).astype(np.float32)
+    normals[:, 2, :3] = 0.0          # a zero base for the specular power
+    colors = rng.rand(3, BS, 3).astype(np.float32)
+    direction = rng.uniform(-1, 1, (BS, 3)).astype(np.float32)
+    alpha = np.array([1.0, 2.5], np.float32)
+    return rgb, normals, colors, direction, alpha
+
+
+@pytest.mark.parametrize("backside", [False, True])
+@pytest.mark.parametrize("kind", ["ambient", "directional", "specular", "specular_alpha", "all"])
+def test_lights(kind, backside):
+    """Each light type, gradients into the colours, the direction and the
+    specular exponent; the exponent's gradient is 0, not NaN, where the
+    base is 0."""
+    rgb, normals, colors, direction, alpha = _light_inputs(16)
+
+    def lights(lib, colors, direction, alpha):
+        amb = lib.AmbientLight(color=colors[0])
+        dire = lib.DirectionalLight(color=colors[1], direction=direction, backside=backside)
+        spec = lib.SpecularLight(color=colors[2], backside=backside)
+        spec_a = lib.SpecularLight(color=colors[2], alpha=alpha, backside=backside)
+        return {"ambient": (amb,), "directional": (dire,), "specular": (spec,),
+                "specular_alpha": (spec_a,), "all": (dire, amb, spec_a)}[kind]
+
+    _both(
+        lambda rgb, n, c, d, a: js.apply_lights_planar(rgb, n, lights(jl, c, d, a)),
+        lambda rgb, n, c, d, a: ts.apply_lights_planar(rgb, n, lights(tl, c, d, a)),
+        [rgb, normals, colors, direction, alpha], 17,
+    )
+
+
+def test_empty_lights_render_black():
+    rgb, normals, *_ = _light_inputs(18)
+    out = ts.apply_lights_planar(torch.tensor(rgb), torch.tensor(normals), ())
+    assert torch.equal(out, torch.zeros_like(out))
