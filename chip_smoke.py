@@ -1,12 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's optimisation steps on one CUDA GPU: silhouettes,
-and textured, lit and depth rendering.
+textured, lit and depth rendering, and both at high resolution.
 
     python3 chip_smoke.py
 
-Builds the seven hand-written kernels from ``neural_renderer_v2_pytorch_tpu_torch
-/csrc`` (one nvcc per source, in parallel) and then, for each of the two
-paths:
+Builds the hand-written kernels from ``neural_renderer_v2_pytorch_tpu_torch
+/csrc`` (one nvcc per source, in parallel) and then, for each path:
 
 - silhouettes: checks each kernel against its plain PyTorch version on the
   card, the whole forward+backward against the plain versions and against a
@@ -19,9 +18,23 @@ paths:
   ``rasterize_all`` at ``atlas``) against the plain versions, the RGB
   golden, and takes five Adam steps of an atlas + vertex fit (launch counts
   read around it);
+- high resolution (``hires``: 81,920 faces at 1024^2 AA, resolve at 2048^2;
+  ``hires-lit``: 158,720 faces, lit, 512^2 AA): checks K7's bins against
+  their plain version, every K8 form against K2/K2L/K2D and against its
+  plain version there, and against the plain resolve at ``bench`` and at
+  S = 100; checks K1 and K3 against their plain versions at both paths'
+  shapes; runs both resolve routes at all seven configurations (images,
+  index maps and gradients held against each other, each route timed, the
+  rule's choice printed) and at five tori between them that sweep the
+  route threshold; holds both steps against the plain versions; takes
+  five Adam steps of a ``hires`` vertex fit and one ``hires-lit`` step, and
+  drives ``compute_face_index_map`` and ``render_depth`` (launch counts
+  read around each);
 
-then times each kernel, its plain version and each step, with CUDA events
-and the profiler's device time.
+then times each kernel, its plain version, the one PyTorch call that
+computes the same function where there is one, and each step, with CUDA
+events and the profiler's device time, beside the least time the card
+could take for the same work.
 
 Any failure raises and the script exits non-zero without its last line.  On
 success the last line is
@@ -29,9 +42,11 @@ success the last line is
 There is no CPU path: without CUDA the script fails.
 """
 
+import collections
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -47,7 +62,10 @@ from neural_renderer_v2_pytorch_tpu_torch.ops.gather_resolve import (
     resolve_and_gather,
 )
 from neural_renderer_v2_pytorch_tpu_torch.ops.rasterize import face_attributes
-from neural_renderer_v2_pytorch_tpu_torch.ops.resolve import weight_planes_from_gathered
+from neural_renderer_v2_pytorch_tpu_torch.ops.resolve import (
+    pixel_centres,
+    weight_planes_from_gathered,
+)
 from neural_renderer_v2_pytorch_tpu_torch.utils import cuda_build
 from neural_renderer_v2_pytorch_tpu_torch.utils.scenes import (
     atlas_scene,
@@ -68,24 +86,49 @@ KERNELS = {
     "face_setup": (f"{PKG}/csrc/face_setup.cu", f"{TPU_KERNELS}:180", "bench"),
     "resolve_xy": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:348", "bench"),
     "resolve_latch": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:348", "atlas"),
+    "resolve_depth": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:348", "bench"),
     "scatter_pixels_to_faces": (f"{PKG}/csrc/scatter_pixels_to_faces.cu", f"{TPU_KERNELS}:1512", "bench"),
     "scatter_faces_to_vertices": (f"{PKG}/csrc/scatter_faces_to_vertices.cu", f"{TPU_KERNELS}:2741", "bench"),
     "gather_faces3": (f"{PKG}/csrc/gather_faces3.cu", f"{TPU_KERNELS}:2605", "atlas"),
     "scatter_rows": (f"{PKG}/csrc/scatter_rows.cu", f"{TPU_KERNELS}:2090", "atlas"),
+    "bin_faces": (f"{PKG}/csrc/bin_faces.cu", f"{TPU_KERNELS}:1020", "hires"),
+    "resolve_binned_xy": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:858", "hires"),
+    "resolve_binned_latch": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:858", "hires-lit"),
+    "resolve_binned_depth": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:858", "hires-lit"),
 }
 SILHOUETTE_KERNELS = ("face_setup", "resolve_xy", "scatter_pixels_to_faces",
                       "scatter_faces_to_vertices", "gather_faces3")
 TEXTURED_KERNELS = ("face_setup", "resolve_latch", "scatter_pixels_to_faces",
                     "scatter_faces_to_vertices", "gather_faces3", "scatter_rows")
+HIRES_KERNELS = ("face_setup", "bin_faces", "resolve_binned_xy", "scatter_pixels_to_faces",
+                 "scatter_faces_to_vertices", "gather_faces3")
+HIRES_LIT_KERNELS = ("face_setup", "bin_faces", "resolve_binned_latch",
+                     "scatter_pixels_to_faces", "scatter_faces_to_vertices", "gather_faces3")
+INDEX_MAP_KERNELS = ("face_setup", "resolve_depth", "bin_faces", "resolve_binned_depth",
+                     "resolve_binned_latch")
+# tori whose 512^2 silhouettes sweep the route threshold: 9,920 (the perf
+# matrix's 9K row), 19,888, 39,680 (its 39K row), 50,400 and 62,000 faces
+SWEEP_TORI = ((80, 62), (113, 88), (160, 124), (180, 140), (200, 155))
 SCATTER_RTOL = 1e-4   # atomics sum in run-dependent order; the JAX backward's bound
 GOLDEN_IMAGE_ATOL = 1e-5   # CUDA's pow and the card's sums against XLA:CPU
 # name -> (scene, texture_size, lit, image_size, anti_aliasing): rows of the
-# JAX package's perf matrix (README.md:119-136, benchmarks/scaling.py:154-247)
+# JAX package's perf matrix (README.md:119-136, benchmarks/scaling.py:154-247),
+# and hires-lit, the lit row's scene and lights on the 158,720-face mesh at
+# 512^2 AA, where the resolve runs at 1024^2 with A = 27
 TEXTURED = {
     "atlas": (lambda: atlas_scene(40, 32), None, False, 256, True),
     "lit": (lambda: texel_scene(40, 32, 2), 2, True, 256, True),
     "textured-scale": (lambda: texel_scene(320, 248, 2), 2, False, 512, False),
+    "hires-lit": (lambda: texel_scene(320, 248, 2), 2, True, 512, True),
 }
+# H100 SXM peaks from NVIDIA's data sheet: HBM bytes/s, float32
+# operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# float operations of one (pixel, face) test of the resolve: face_candidate's
+# bbox compares, three affine weights, two sign products, the depth
+# quotient, the near/far and accept compares
+TEST_OPS = 30
 
 
 def log(msg):
@@ -122,27 +165,159 @@ def median_ms(fn, reps, warmup=2):
     return float(np.median([a.elapsed_time(b) for a, b in events]))
 
 
+# one kernel at one configuration: its call, its plain version's (None where
+# that would take minutes), the least time the card could take for the same
+# work as (ms, "bytes" | "operations"), and the one PyTorch call that
+# computes the same function, where there is one
+Call = collections.namedtuple("Call", "kernel plain bound library", defaults=(None,))
+
+
+def bound(nbytes, ops):
+    """(ms, what bounds it): the larger of moving ``nbytes`` at the HBM rate
+    and ``ops`` float32 operations at the peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pixel_face_tests(consts, size, row_start=0, rows=None):
+    """The (pixel, face) tests this run's data needs: for each face, the
+    pixels of the window whose centre lies in its bbox (none for a killed
+    face), summed."""
+    rows = size if rows is None else rows
+    dev = consts.device
+    xc = pixel_centres(torch.arange(size), size).to(dev)
+    yc = pixel_centres(torch.arange(row_start, row_start + rows), size).to(dev)
+
+    def inside(centres, lo, hi):
+        return (torch.searchsorted(centres, hi.contiguous(), right=True)
+                - torch.searchsorted(centres, lo.contiguous())).clamp(min=0)
+
+    nx = inside(xc, consts[:, 13], consts[:, 14])
+    ny = inside(yc, consts[:, 15], consts[:, 16])
+    return int((nx * ny).sum())
+
+
+def resolve_bound(consts, size, out_planes, in_bytes_per_face, extra_bytes=0, row_start=0,
+                  rows=None):
+    """Bound of a resolve form: the 17 constants (+ the latched rows) of
+    every face read once, ``out_planes`` 4-byte planes written once, and
+    TEST_OPS per (pixel, face) test."""
+    bs, _, nf = consts.shape
+    rows = size if rows is None else rows
+    nbytes = bs * nf * (68 + in_bytes_per_face) + 4 * out_planes * bs * rows * size
+    return bound(nbytes + extra_bytes, TEST_OPS * pixel_face_tests(consts, size, row_start, rows))
+
+
+def index_add_call(out, dim, index, source):
+    """The library yardstick of a scatter: one ``index_add_`` (its inputs
+    prepared beforehand; the port never calls it)."""
+    return lambda: out.index_add_(dim, index, source)
+
+
+
+
+def port_kernel_pattern():
+    """A regex that matches the profiler names of the port's kernels: the
+    ``__global__`` functions of ``csrc/*.cu``, each in an anonymous
+    namespace."""
+    csrc = os.path.join(ROOT, PKG, "csrc")
+    names = set()
+    for source in sorted(os.listdir(csrc)):
+        if source.endswith(".cu"):
+            with open(os.path.join(csrc, source)) as fh:
+                names.update(re.findall(r"__global__\s+void\s+__launch_bounds__\([^)]*\)\s*(\w+)",
+                                        fh.read()))
+    if not names:
+        raise AssertionError(f"no __global__ kernels found under {csrc}")
+    return re.compile(r"^(void )?\(anonymous namespace\)::(" + "|".join(sorted(names)) + r")\b")
+
+
+PORT_KERNEL = port_kernel_pattern()
+
+
+Profile = collections.namedtuple(
+    "Profile", "wall busy complete dropped port_records port_launches per_launch top launched")
+
+
 def profile_device(step, n=10):
-    """Profile ``n`` calls: (wall ms/call under the profiler, device busy
-    ms/call, device ops/call, [(name, device ms/call)] of the top 6)."""
+    """Profile ``n`` calls of ``step`` once under torch.profiler.
+
+    The profiler sometimes drops device records (once half of a long
+    kernel's in a run of this script, while CUDA events and the host clock
+    agreed), so what it returns says what was measured:
+
+    - ``busy``: the kept records' device ms per call, a lower bound of the
+      device's busy time, and equal to it when ``complete``: every kernel
+      name holds a multiple of ``n`` records (every call launches the same
+      ops) and the port's kernels hold as many as ``resolve_cuda.LAUNCHES``
+      counted (``port_launches``, K7's count pass included);
+    - ``per_launch``: each port kernel name's mean record, in ms;
+    - ``launched``: the wrappers' launches per call, counted by LAUNCHES;
+    - ``top``: the six longest kernel names' kept ms per call;
+    - ``dropped``: (name, count, kept ms per call) of each name whose count
+      is not a multiple of n."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     step()
     torch.cuda.synchronize()
+    before = dict(rc.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n * 1e3
+    launched = {k: (rc.LAUNCHES[k] - before[k]) / n for k in before if rc.LAUNCHES[k] > before[k]}
     # device-side events only (kernels, copies, fills): a CPU op's entry
     # also carries the device time of what it launched
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in events) / n / 1e3
-    launches = sum(e.count for e in events) / n
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    return wall, busy, launches, [(e.key[:60], e.self_device_time_total / n / 1e3) for e in top]
+    kept = {e.key: e.self_device_time_total / n / 1e3 for e in events}
+    per_launch, port_records = {}, 0
+    for e in events:
+        m = PORT_KERNEL.match(e.key)
+        if m:
+            per_launch[e.key] = e.self_device_time_total / e.count / 1e3
+            port_records += e.count
+    port_launches = sum(launched.values()) + launched.get("bin_faces", 0.0)
+    dropped = [(e.key[:50], e.count, round(kept[e.key], 6)) for e in events if e.count % n]
+    complete = bool(events) and not dropped and port_records == round(port_launches * n)
+    top = sorted(kept.items(), key=lambda kv: -kv[1])[:6]
+    return Profile(wall, sum(kept.values()), complete, dropped, port_records / n,
+                   port_launches, per_launch, [(k[:60], t) for k, t in top], launched)
+
+
+def kernel_device_ms(prof, name):
+    """The device ms per call of wrapper ``name``'s own kernel(s) in a
+    profile of calls to it: each of its kernel names' mean record times
+    its launches per call as LAUNCHES counted them (K7 has two names, a
+    count and a fill pass, and one count); None when a name has no record
+    at all."""
+    expected = 2 if name == "bin_faces" else 1
+    if len(prof.per_launch) != expected or name not in prof.launched:
+        return None
+    return sum(prof.per_launch.values()) * prof.launched[name]
+
+
+def scatter_check(label, index, nf, D, gen):
+    """K3 against its plain version on random gradients over ``D`` planes of
+    ``index``'s shape.  Returns (max_abs_err, Call)."""
+    S = index.shape[1:]
+    g = torch.randn((1, D, *S), generator=gen, device=index.device)
+    err = check_close(f"{label} scatter_pixels_to_faces D={D}",
+                      rc.scatter_pixels_to_faces(g, index, nf),
+                      rc.scatter_pixels_to_faces_plain(g, index, nf))
+    # the kernel reads the index map, and the D planes of covered pixels only
+    P, covered = index.numel(), int((index >= 0).sum())
+    return err, Call(
+        lambda: rc.scatter_pixels_to_faces(g, index, nf),
+        lambda: rc.scatter_pixels_to_faces_plain(g, index, nf),
+        bound(4 * P + 4 * D * covered + 4 * D * nf, D * covered),
+        # background pixels add into a spare column
+        index_add_call(torch.zeros((D, nf + 1), device=index.device), 1,
+                       torch.where(index >= 0, index, nf).reshape(-1).long(),
+                       g.reshape(D, -1)),
+    )
 
 
 def ndc_scene(vertices, faces, dev, azimuth=0.0):
@@ -155,22 +330,27 @@ def ndc_scene(vertices, faces, dev, azimuth=0.0):
 
 def kernels_vs_plain(label, ndc, faces, size, gen):
     """Each silhouette kernel against its plain version at one scene's
-    shapes.  Returns ({name: max_abs_err}, {name: (kernel_call, plain_call)})."""
+    shapes.  Returns ({name: max_abs_err}, {name: Call})."""
     dev = ndc.device
     nv, nf = ndc.shape[1], faces.shape[0]
     table = ndc.detach().contiguous()
     fvp = rc.gather_faces3(table, faces)
     errs, calls = {}, {}
+    faces_long = faces.long()
     errs["gather_faces3"] = check_equal(f"{label} gather_faces3", fvp,
                                         rc.gather_faces3_plain(table, faces))
-    calls["gather_faces3"] = (lambda: rc.gather_faces3(table, faces),
-                              lambda: rc.gather_faces3_plain(table, faces))
+    calls["gather_faces3"] = Call(lambda: rc.gather_faces3(table, faces),
+                                  lambda: rc.gather_faces3_plain(table, faces),
+                                  bound(12 * nv + 12 * nf + 36 * nf, 0),
+                                  lambda: table[:, faces_long])
 
     for backside in (True, False):
         ck, cp = rc.face_setup(fvp, backside), rc.face_setup_plain(fvp, backside)
         errs["face_setup"] = check_equal(f"{label} face_setup draw_backside={backside}", ck, cp)
     consts = rc.face_setup(fvp, True)
-    calls["face_setup"] = (lambda: rc.face_setup(fvp, True), lambda: rc.face_setup_plain(fvp, True))
+    calls["face_setup"] = Call(lambda: rc.face_setup(fvp, True),
+                               lambda: rc.face_setup_plain(fvp, True),
+                               bound(104 * nf, 30 * nf))
 
     ik, dk, xk = rc.resolve_xy(consts, fvp, size, 0.1, 100.0)
     ip, dp, xp = rc.resolve_xy_plain(consts, fvp, size, 0.1, 100.0)
@@ -184,34 +364,205 @@ def kernels_vs_plain(label, ndc, faces, size, gen):
     check_equal(f"{label} resolve_xy coords", xk, xp)
     errs["resolve_xy"] = 0.0
     coverage = float((ik >= 0).float().mean())
-    calls["resolve_xy"] = (
+    calls["resolve_xy"] = Call(
         lambda: rc.resolve_xy(consts, fvp, size, 0.1, 100.0),
         lambda: rc.resolve_xy_plain(consts, fvp, size, 0.1, 100.0),
+        resolve_bound(consts, size, 8, 24),
     )
 
-    g6 = torch.randn((1, 6, size, size), generator=gen, device=dev)
-    errs["scatter_pixels_to_faces"] = check_close(
-        f"{label} scatter_pixels_to_faces",
-        rc.scatter_pixels_to_faces(g6, ik, nf), rc.scatter_pixels_to_faces_plain(g6, ik, nf),
-    )
-    calls["scatter_pixels_to_faces"] = (
-        lambda: rc.scatter_pixels_to_faces(g6, ik, nf),
-        lambda: rc.scatter_pixels_to_faces_plain(g6, ik, nf),
-    )
+    errs["scatter_pixels_to_faces"], calls["scatter_pixels_to_faces"] = scatter_check(
+        label, ik, nf, 6, gen)
 
     g9 = torch.randn((1, 3, 3, nf), generator=gen, device=dev)
     errs["scatter_faces_to_vertices"] = check_close(
         f"{label} scatter_faces_to_vertices",
         rc.scatter_faces_to_vertices(g9, faces, nv), rc.scatter_faces_to_vertices_plain(g9, faces, nv),
     )
-    calls["scatter_faces_to_vertices"] = (
+    calls["scatter_faces_to_vertices"] = Call(
         lambda: rc.scatter_faces_to_vertices(g9, faces, nv),
         lambda: rc.scatter_faces_to_vertices_plain(g9, faces, nv),
+        bound(36 * nf + 12 * nf + 12 * nv, 9 * nf),
+        index_add_call(torch.zeros((1, nv, 3), device=dev), 1, faces_long.reshape(-1),
+                       g9.permute(0, 3, 2, 1).reshape(1, nf * 3, 3).contiguous()),
     )
     torch.cuda.synchronize()
     log(f"[{label}] kernels vs plain: nf={nf} canvas={size}^2 coverage={coverage:.4f} "
         f"max_abs_err={json.dumps(errs)}")
     return errs, calls
+
+
+def host_ms(fn):
+    """One call's time on the host clock, synchronised (for plain versions
+    that take seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def check_parts(label, got, want, parts=("index", "depth", "coords", "attrs")):
+    for part, g, w in zip(parts, got, want):
+        check_equal(f"{label} {part}", g, w)
+
+
+def binned_kernels(label, fvp, consts, attrs, size, gen):
+    """K1 against its plain version on the path's faces; K7 against its
+    plain version on the whole canvas and on the row window S/2 .. S/2 +
+    S/4; each K8 form against the tiled form (K2, K2L, K2D) there, and
+    against its own plain version (the bin-by-bin fold, one call) on the
+    whole canvas; all at the tile the route picks; and K3 against its plain
+    version over the path's planes (D = 6 without attributes, else 9 + A)
+    of the resolved index map.  Returns ({name: max_abs_err}, {name: Call})
+    for K3, K7, the K8 forms and the tiled forms at these shapes."""
+    S, nf, A = size, consts.shape[-1], attrs.shape[-1]
+    for backside in (True, False):
+        check_equal(f"{label} face_setup draw_backside={backside}",
+                    rc.face_setup(fvp, backside), rc.face_setup_plain(fvp, backside))
+    if not torch.equal(consts, rc.face_setup(fvp, True)):
+        raise AssertionError(f"{label}: the constants are not K1's of these faces")
+    window = (S // 2, S // 4)
+    tile = rc.bin_tile(1, S, S, nf)
+    bins = rc.bin_faces(consts, S, tile=tile)
+    check_parts(f"{label} bin_faces", bins, rc.bin_faces_plain(consts, S, tile=tile),
+                ("cnt", "offsets", "ids"))
+    win_bins = rc.bin_faces(consts, S, *window, tile=tile)
+    check_parts(f"{label} bin_faces window {window}", win_bins,
+                rc.bin_faces_plain(consts, S, *window, tile=tile), ("cnt", "offsets", "ids"))
+    forms = {   # name -> (binned form on bins b, tiled form, plain binned form)
+        "resolve_binned_xy": (
+            lambda b, *w: rc.resolve_binned_xy(consts, fvp, b, S, 0.1, 100.0, *w, tile=tile),
+            lambda *w: rc.resolve_xy(consts, fvp, S, 0.1, 100.0, *w),
+            lambda: rc.resolve_binned_xy_plain(consts, fvp, bins, S, 0.1, 100.0, tile=tile)),
+        "resolve_binned_latch": (
+            lambda b, *w: rc.resolve_binned_latch(consts, fvp, attrs, b, S, 0.1, 100.0, *w,
+                                                  tile=tile),
+            lambda *w: rc.resolve_latch(consts, fvp, attrs, S, 0.1, 100.0, *w),
+            lambda: rc.resolve_binned_latch_plain(consts, fvp, attrs, bins, S, 0.1, 100.0,
+                                                  tile=tile)),
+        "resolve_binned_depth": (
+            lambda b, *w: rc.resolve_binned_depth(consts, b, S, 0.1, 100.0, *w, tile=tile),
+            lambda *w: rc.resolve_depth(consts, S, 0.1, 100.0, *w),
+            lambda: rc.resolve_binned_depth_plain(consts, bins, S, 0.1, 100.0, tile=tile)),
+    }
+    plain_ms = {}
+    for name, (binned, tiled, plain) in forms.items():
+        check_parts(f"{label} {name} vs tiled", binned(bins), tiled())
+        check_parts(f"{label} {name} vs tiled, window {window}", binned(win_bins, *window),
+                    tiled(*window))
+        want, plain_ms[name] = host_ms(plain)
+        check_parts(f"{label} {name} vs plain", binned(bins), want)
+    cnt = bins[0]
+    pairs = int(cnt.sum())
+    index = forms["resolve_binned_depth"][0](bins)[0]
+    bin_bytes = 8 * cnt.numel() + 4 * pairs
+    log(f"[{label}] K7 bins equal to plain (canvas and window), every K8 form bit-equal to "
+        f"the tiled form and to its plain version: nf={nf} A={A} canvas={S}^2 "
+        f"coverage={float((index >= 0).float().mean()):.4f} tile={tile} pairs={pairs} "
+        f"({pairs / nf:.3f} per face) max bin {int(cnt.max())}; one plain call (host ms) "
+        f"{json.dumps(plain_ms)}")
+    tiled_forms = {"resolve_binned_xy": "resolve_xy", "resolve_binned_latch": "resolve_latch",
+                   "resolve_binned_depth": "resolve_depth"}
+    shape = {"resolve_binned_xy": (8, 24), "resolve_binned_latch": (11 + A, 36 + 4 * A),
+             "resolve_binned_depth": (2, 0)}
+    errs = {}
+    errs["scatter_pixels_to_faces"], k3 = scatter_check(label, index, nf, 9 + A if A else 6, gen)
+    calls = {"scatter_pixels_to_faces": k3,
+             "bin_faces": Call(lambda: rc.bin_faces(consts, S, tile=tile),
+                               lambda: rc.bin_faces_plain(consts, S, tile=tile),
+                               bound(16 * nf + bin_bytes, 0))}
+    for name, (binned, tiled, _) in forms.items():
+        calls[name] = Call(lambda binned=binned: binned(bins), plain_ms[name],
+                           resolve_bound(consts, S, *shape[name], bin_bytes))
+        calls[tiled_forms[name]] = Call(tiled, None, resolve_bound(consts, S, *shape[name]))
+    log(f"[{label}] K1 bit-equal to plain, K3 over D={9 + A if A else 6} max abs err "
+        f"{errs['scatter_pixels_to_faces']}")
+    return errs, calls
+
+
+def binned_vs_plain_resolve(label, ndc, faces, size, gen):
+    """Each K8 form, and K2D, against the plain resolve (the sequential fold
+    over all faces) on the whole canvas and on the row window S/2 .. S/2 +
+    S/4.  Returns {"resolve_depth": Call} at these shapes."""
+    fvp = rc.gather_faces3(ndc, faces)
+    consts = rc.face_setup(fvp, True)
+    attrs = torch.randn((1, faces.shape[0], 6), generator=gen, device=ndc.device)
+    for window in ((), (size // 2, size // 4)):
+        args = (size, 0.1, 100.0, *window)
+        want_xy = rc.resolve_xy_plain(consts, fvp, *args)
+        want_latch = rc.resolve_latch_plain(consts, fvp, attrs, *args)
+        want = rc.resolve_depth_plain(consts, *args)
+        for tile in rc.BIN_TILES:
+            bins = rc.bin_faces(consts, size, *window, tile=tile)
+            check_parts(f"{label} resolve_binned_xy vs plain {window} {tile}",
+                        rc.resolve_binned_xy(consts, fvp, bins, *args, tile=tile), want_xy)
+            check_parts(f"{label} resolve_binned_latch vs plain {window} {tile}",
+                        rc.resolve_binned_latch(consts, fvp, attrs, bins, *args, tile=tile),
+                        want_latch)
+            check_parts(f"{label} resolve_binned_depth vs plain {window} {tile}",
+                        rc.resolve_binned_depth(consts, bins, *args, tile=tile), want)
+        check_parts(f"{label} resolve_depth vs plain {window}",
+                    rc.resolve_depth(consts, *args), want)
+    log(f"[{label}] every K8 form (both tiles) and K2D bit-equal to the plain resolve at "
+        f"{size}^2, whole canvas and rows {size // 2}..{size // 2 + size // 4 - 1}")
+    return {"resolve_depth": Call(lambda: rc.resolve_depth(consts, size, 0.1, 100.0),
+                                  lambda: rc.resolve_depth_plain(consts, size, 0.1, 100.0),
+                                  resolve_bound(consts, size, 2, 0))}
+
+
+def tile_times(label, fvp, consts, attrs, size, smi):
+    """K7 + K8 at each tile K8 is built for (``resolve_cuda.BIN_TILES``),
+    in the form the configuration's path takes (the copy form where it has
+    attributes, else XY): bit-equal to the tiled form at every tile, and
+    the CUDA-event median of binning plus resolving.  Returns {tile: ms}."""
+    if attrs.shape[-1]:
+        tiled = rc.resolve_latch(consts, fvp, attrs, size, 0.1, 100.0)
+
+        def binned(tile):
+            bins = rc.bin_faces(consts, size, tile=tile)
+            return rc.resolve_binned_latch(consts, fvp, attrs, bins, size, 0.1, 100.0,
+                                           tile=tile)
+    else:
+        tiled = rc.resolve_xy(consts, fvp, size, 0.1, 100.0)
+
+        def binned(tile):
+            bins = rc.bin_faces(consts, size, tile=tile)
+            return rc.resolve_binned_xy(consts, fvp, bins, size, 0.1, 100.0, tile=tile)
+    ms = {}
+    for tile in rc.BIN_TILES:
+        check_parts(f"{label} K8 at tile {tile}", binned(tile), tiled)
+        ms[tile] = median_ms(lambda tile=tile: binned(tile), 20)
+    rule = rc.bin_tile(1, size, size, consts.shape[-1])
+    log(f"[tiles] {label}: K7 + K8 ms by tile " + ", ".join(
+        f"{t[0]}x{t[1]} {v:.4f}" for t, v in ms.items()) + f", bit-equal to the tiled "
+        f"form at each; the rule picks {rule}, measured faster {min(ms, key=ms.get)}  ({smi})")
+    return ms
+
+
+def routes_agree(label, step, fim, resolve, shape, smi):
+    """One step (``step()`` -> (images, {name: gradient})) and the index
+    map (``fim()``) through each route: images and index maps equal,
+    gradients within SCATTER_RTOL of their largest magnitude.  Times the
+    resolve (``resolve(route)``: K1 and the route's kernels) on each route.
+    Returns ({route: ms}, the rule's route)."""
+    out = {}
+    for route in rc.ROUTES:
+        with rc.forced_route(route):
+            images, grads = step()
+            out[route] = (images, grads, fim())
+    (it, gt, ft), (ib, gb, fb) = out["tiled"], out["binned"]
+    check_equal(f"{label} images, binned vs tiled", ib, it)
+    check_equal(f"{label} index map, binned vs tiled", fb, ft)
+    errs = {name: check_close(f"{label} {name} grads, binned vs tiled", gb[name], gt[name])
+            for name in gt}
+    with torch.no_grad():
+        ms = {route: median_ms(lambda: resolve(route), 10) for route in rc.ROUTES}
+    rule = rc.resolve_route(*shape)
+    log(f"[routes] {label} (bs, rows, S, nf)={shape}: images and index maps equal, grad max "
+        f"abs err {json.dumps(errs)}; resolve ms tiled {ms['tiled']:.4f} binned "
+        f"{ms['binned']:.4f}; the rule picks {rule}, measured faster "
+        f"{min(ms, key=ms.get)}  ({smi})")
+    return ms, rule
 
 
 def bench_loss(images):
@@ -349,15 +700,18 @@ class Textured:
 def textured_kernels_vs_plain(cfg, gen):
     """K5, K2L, K3 (D = 9 + A) and, for ``atlas``, K6 against their plain
     versions at a configuration's shapes.  Returns ({name: max_abs_err},
-    {name: (kernel_call, plain_call)}, ms of the one plain resolve call)."""
+    {name: Call}, ms of the one plain resolve call)."""
     dev = cfg.vertices.device
     ndc, fvp, consts, attrs = cfg.latch_inputs()
     S, nf, A = cfg.size, fvp.shape[-1], attrs.shape[-1]
     errs, calls = {}, {}
     errs["gather_faces3"] = check_equal(f"{cfg.name} gather_faces3", fvp,
                                         rc.gather_faces3_plain(ndc, cfg.faces))
-    calls["gather_faces3"] = (lambda: rc.gather_faces3(ndc, cfg.faces),
-                              lambda: rc.gather_faces3_plain(ndc, cfg.faces))
+    nv, faces_long = ndc.shape[1], cfg.faces.long()
+    calls["gather_faces3"] = Call(lambda: rc.gather_faces3(ndc, cfg.faces),
+                                  lambda: rc.gather_faces3_plain(ndc, cfg.faces),
+                                  bound(12 * nv + 12 * nf + 36 * nf, 0),
+                                  lambda: ndc[:, faces_long])
 
     got = rc.resolve_latch(consts, fvp, attrs, S, 0.1, 100.0)
     torch.cuda.synchronize()
@@ -369,16 +723,14 @@ def textured_kernels_vs_plain(cfg, gen):
         check_equal(f"{cfg.name} resolve_latch {part}", g, w)
     errs["resolve_latch"] = 0.0
     index, _, coords, attr_planes = got
-    calls["resolve_latch"] = (lambda: rc.resolve_latch(consts, fvp, attrs, S, 0.1, 100.0),
-                              lambda: rc.resolve_latch_plain(consts, fvp, attrs, S, 0.1, 100.0))
-
-    g = torch.randn((1, 9 + A, S, S), generator=gen, device=dev)
-    errs["scatter_pixels_to_faces"] = check_close(
-        f"{cfg.name} scatter_pixels_to_faces D={9 + A}",
-        rc.scatter_pixels_to_faces(g, index, nf), rc.scatter_pixels_to_faces_plain(g, index, nf),
+    calls["resolve_latch"] = Call(
+        lambda: rc.resolve_latch(consts, fvp, attrs, S, 0.1, 100.0),
+        lambda: rc.resolve_latch_plain(consts, fvp, attrs, S, 0.1, 100.0),
+        resolve_bound(consts, S, 11 + A, 36 + 4 * A),
     )
-    calls["scatter_pixels_to_faces"] = (lambda: rc.scatter_pixels_to_faces(g, index, nf),
-                                        lambda: rc.scatter_pixels_to_faces_plain(g, index, nf))
+
+    errs["scatter_pixels_to_faces"], calls["scatter_pixels_to_faces"] = scatter_check(
+        cfg.name, index, nf, 9 + A, gen)
 
     if cfg.renderer.texture_size is None:
         # the quad anchors the atlas sampler scatters its gradient to
@@ -400,8 +752,17 @@ def textured_kernels_vs_plain(cfg, gen):
             f"{cfg.name} scatter_rows",
             rc.scatter_rows(g12, anchors, T), rc.scatter_rows_plain(g12, anchors, T),
         )
-        calls["scatter_rows"] = (lambda: rc.scatter_rows(g12, anchors, T),
-                                 lambda: rc.scatter_rows_plain(g12, anchors, T))
+        calls["scatter_rows"] = Call(
+            lambda: rc.scatter_rows(g12, anchors, T),
+            lambda: rc.scatter_rows_plain(g12, anchors, T),
+            # the ids, the 12 planes of covered pixels, the table written once
+            bound(4 * S * S + 48 * int((anchors >= 0).sum()) + 48 * T,
+                  12 * int((anchors >= 0).sum())),
+            # background pixels (-1) add into a spare row
+            index_add_call(torch.zeros((T + 1, 12), device=dev), 0,
+                           torch.where(anchors[0] >= 0, anchors[0], T).long(),
+                           g12[0].t().contiguous()),
+        )
     torch.cuda.synchronize()
     log(f"[{cfg.name}] kernels vs plain: nf={nf} A={A} canvas={S}^2 coverage="
         f"{float((index >= 0).float().mean()):.4f} max_abs_err={json.dumps(errs)}; "
@@ -541,10 +902,13 @@ def main():
     # configurations (one plain resolve call each)
     cfgs = {name: Textured(name, dev) for name in TEXTURED}
     tex_calls, plain_resolve_ms = {}, {}
-    for name, cfg in cfgs.items():
-        errs, tex_calls[name], plain_resolve_ms[name] = textured_kernels_vs_plain(cfg, gen)
+    for name in ("atlas", "lit", "textured-scale"):
+        errs, tex_calls[name], plain_resolve_ms[name] = textured_kernels_vs_plain(cfgs[name], gen)
         for k, e in errs.items():
             all_errs[k] = max(all_errs.get(k, 0.0), e)
+    # its one call of seconds is the time of the plain version there
+    tex_calls["textured-scale"]["resolve_latch"] = tex_calls["textured-scale"][
+        "resolve_latch"]._replace(plain=plain_resolve_ms["textured-scale"])
 
     # 8. the textured steps, kernels vs plain versions
     steps_vs_plain("atlas", cfgs["atlas"].step, cfgs["atlas"].fim)
@@ -584,44 +948,238 @@ def main():
     if not all(tex_launches[name] > 0 for name in TEXTURED_KERNELS):
         raise AssertionError(f"a kernel of the textured path never launched: {tex_launches}")
 
-    # 11. times
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    # per call: the CUDA-event median (what a caller waits, launch gaps
-    # included) and the device time the profiler sees (the work itself)
-    times = {}
-    all_calls = [("bench", bench_calls), ("scale", scale_calls)] + list(tex_calls.items())
-    for label, calls in all_calls:
-        for name, (kernel_call, plain_call) in calls.items():
-            # plain resolves at tens of thousands of faces take seconds a call
-            slow = label in ("scale", "textured-scale") and name.startswith("resolve")
-            k_ms = median_ms(kernel_call, 50)
-            if slow and name == "resolve_latch":
-                p_ms = plain_resolve_ms[label]        # the one call of phase 7
-            else:
-                p_ms = median_ms(plain_call, 3 if slow else 10, warmup=1)
-            k_dev = profile_device(kernel_call, 20)[1]
-            # 20 calls where cheap: over 3 calls of a few-microsecond op the
-            # profiler has returned no device events
-            p_dev = None if slow else profile_device(
-                plain_call, 3 if name.startswith("resolve") else 20)[1]
-            times[label, name] = (k_ms, p_ms, k_dev, p_dev)
-            log(f"[time] {label} {name}: kernel {k_ms:.4f} ms (device {k_dev:.4f} ms), "
-                f"plain {p_ms:.4f} ms (device "
-                f"{'not measured' if p_dev is None else f'{p_dev:.4f} ms'})  ({smi})")
 
+    # 11. high resolution: K7 and K8 against K2/K2L/K2D and their plain
+    # versions at full size, and against the plain resolve at bench and S=100
+    hires = nr.Renderer(dev)
+    hires.image_size = 1024
+    hires.viewpoints = nr.get_points_from_angles(2.732, 30, 30.0)
+    hl = cfgs["hires-lit"]
+    with torch.no_grad():
+        fvp = gather_face_vertices(hires.transform_vertices(sphere_v), faces6)
+        errs, hires_calls = binned_kernels("hires", fvp, rc.face_setup(fvp, True),
+                                           fvp.new_empty((1, faces6.shape[0], 0)), 2048, gen)
+        _, fvp, consts, attrs = hl.latch_inputs()
+        hl_errs, hl_calls = binned_kernels("hires-lit", fvp, consts, attrs, hl.size, gen)
+    for e in (errs, hl_errs):
+        all_errs["scatter_pixels_to_faces"] = max(all_errs["scatter_pixels_to_faces"],
+                                                  e["scatter_pixels_to_faces"])
+    bench_calls.update(binned_vs_plain_resolve("bench", ndc, faces, 512, gen))
+    binned_vs_plain_resolve("S=100", ndc, faces, 100, gen)
+    for name in ("resolve_depth", "bin_faces", "resolve_binned_xy", "resolve_binned_latch",
+                 "resolve_binned_depth"):
+        all_errs[name] = 0.0      # bit-equal, or the checks above raised
+    # K8's tile, at the four configurations the rule sends to the binned route
+    with torch.no_grad():
+        tile_ms = {}
+        for label, (r, v, f) in (("scale", (scale_renderer, sphere_v, faces6)),
+                                 ("hires", (hires, sphere_v, faces6))):
+            fvp = gather_face_vertices(r.transform_vertices(v), f)
+            size = r.image_size * (2 if r.anti_aliasing else 1)
+            tile_ms[label] = tile_times(label, fvp, rc.face_setup(fvp, True),
+                                        fvp.new_empty((1, f.shape[0], 0)), size, smi)
+        for label in ("textured-scale", "hires-lit"):
+            _, fvp, consts, attrs = cfgs[label].latch_inputs()
+            tile_ms[label] = tile_times(label, fvp, consts, attrs, cfgs[label].size, smi)
+
+    # 12. both routes at all seven configurations, through the entry points
     def sil_step(r, v, f, loss_fn):
         def step():
             xx = v.clone().requires_grad_(True)
-            loss_fn(r.render_silhouettes(xx, f)).backward()
+            images = r.render_silhouettes(xx, f)
+            loss_fn(images).backward()
+            return images.detach(), {"vertices": xx.grad}
         return step
+
+    def sil_resolve(r, v, f):
+        with torch.no_grad():
+            fvp = gather_face_vertices(r.transform_vertices(v), f)
+        size = r.image_size * (2 if r.anti_aliasing else 1)
+        return (lambda route: resolve_and_gather(fvp, size, r.near, r.far, True, None, False,
+                                                 mode=route),
+                (1, size, size, f.shape[0]))
+
+    def tex_resolve(cfg):
+        _, fvp, _, attrs = cfg.latch_inputs()
+        r = cfg.renderer
+        return (lambda route: resolve_and_gather(fvp, cfg.size, r.near, r.far, True, attrs,
+                                                 True, mode=route),
+                (1, cfg.size, cfg.size, fvp.shape[-1]))
+
+    sil = {"bench": (renderer, torus_v, faces, bench_loss),
+           "scale": (scale_renderer, sphere_v, faces6, pattern_loss),
+           "hires": (hires, sphere_v, faces6, bench_loss)}
+    route_ms, route_rule = {}, {}
+    for label in ("bench", "scale", "atlas", "lit", "textured-scale", "hires", "hires-lit"):
+        if label in sil:
+            r, v, f, loss_fn = sil[label]
+            step, fim = sil_step(r, v, f, loss_fn), (lambda r=r, v=v, f=f: index_map(r, v, f, False))
+            resolve, shape = sil_resolve(r, v, f)
+        else:
+            step, fim = cfgs[label].step, cfgs[label].fim
+            resolve, shape = tex_resolve(cfgs[label])
+        route_ms[label], route_rule[label] = routes_agree(label, step, fim, resolve, shape, smi)
+
+    # the two high-resolution steps, kernels vs plain versions (on the
+    # binned route those are K7's pair sort and the bin-by-bin fold)
+    steps_vs_plain("hires", sil_step(hires, sphere_v, faces6, bench_loss),
+                   lambda: index_map(hires, sphere_v, faces6, False))
+    steps_vs_plain("hires-lit", hl.step, hl.fim)
+
+    # the route threshold: both routes' resolve at 512^2 silhouettes of tori
+    # between bench's 2.6M and scale's 84M (image, 16x16 tile, face)
+    # products, among them the perf matrix's 9K- and 39K-face rows
+    # (README.md:119-136; the teapot is not in the repo)
+    sweep = {}
+    for n_major, n_minor in SWEEP_TORI:
+        sv_, sf_ = torus(n_major, n_minor)
+        ndc_s, faces_s = ndc_scene(sv_, sf_, dev)
+        with torch.no_grad():
+            fvp_s = gather_face_vertices(ndc_s, faces_s)
+        nf_s = faces_s.shape[0]
+        maps_s = {route: resolve_and_gather(fvp_s, 512, 0.1, 100.0, True, mode=route)[0]
+                  for route in rc.ROUTES}
+        check_equal(f"sweep nf={nf_s} index map, binned vs tiled", maps_s["binned"],
+                    maps_s["tiled"])
+        with torch.no_grad():
+            ms = {route: median_ms(lambda route=route: resolve_and_gather(
+                fvp_s, 512, 0.1, 100.0, True, mode=route), 50) for route in rc.ROUTES}
+        shape = (1, 512, 512, nf_s)
+        sweep[nf_s] = (ms["tiled"], ms["binned"], rc.resolve_route(*shape))
+        log(f"[routes] sweep torus({n_major}, {n_minor}) nf={nf_s} at 512^2 "
+            f"({nf_s * 1024 / 1e6:.1f}M products): index maps equal; resolve ms tiled "
+            f"{ms['tiled']:.4f} binned {ms['binned']:.4f}; the rule picks {sweep[nf_s][2]}, "
+            f"measured faster {min(ms, key=ms.get)}  ({smi})")
+
+    # 13. the hires main path: five Adam steps of a vertex fit, icosphere(6)
+    # to the torus's silhouette at 1024^2 AA (resolve at 2048^2)
+    target = hires.render_silhouettes(torus_v, faces).detach()
+    x = sphere_v.clone().requires_grad_(True)
+    opt = torch.optim.Adam([x], lr=0.01)
+    losses = []
+    torch.cuda.synchronize()
+    rc.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        opt.zero_grad()
+        loss = torch.sum((hires.render_silhouettes(x, faces6) - target) ** 2)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    hires_launches = dict(rc.LAUNCHES)
+    log(f"[fit] icosphere(6) -> torus silhouette, 1024^2 AA, the rule's route "
+        f"{route_rule['hires']}, losses {losses}, {fit_s:.3f} s, launches "
+        f"{json.dumps(hires_launches)}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"hires fit loss did not fall: {losses}")
+    if route_rule["hires"] != "binned" or not all(
+            hires_launches[name] > 0 for name in HIRES_KERNELS):
+        raise AssertionError(f"the hires fit missed a kernel of its path: {hires_launches}")
+    if hires_launches["bin_faces"] != 5 or hires_launches["resolve_binned_xy"] != 5 or \
+            hires_launches["resolve_xy"] != 0:
+        raise AssertionError(f"the hires fit took the tiled route: {hires_launches}")
+
+    # 14. the hires-lit main path: one step into the vertices and the light
+    # colours through Renderer.render
+    torch.cuda.synchronize()
+    rc.reset_launches()
+    images, grads = hl.step()
+    torch.cuda.synchronize()
+    hl_launches = dict(rc.LAUNCHES)
+    log(f"[step] hires-lit, the rule's route {route_rule['hires-lit']}: image mean "
+        f"{float(images.mean()):.6f}, max |g| "
+        f"{json.dumps({k: float(g.abs().max()) for k, g in grads.items()})}, launches "
+        f"{json.dumps(hl_launches)}")
+    if not torch.isfinite(images).all() or not all(
+            torch.isfinite(g).all() and float(g.abs().max()) > 0 for g in grads.values()):
+        raise AssertionError("hires-lit: images or gradients not finite, or all zero")
+    if not all(hl_launches[name] > 0 for name in HIRES_LIT_KERNELS) or \
+            hl_launches["resolve_latch"] != 0:
+        raise AssertionError(f"the hires-lit step missed a kernel of its path: {hl_launches}")
+
+    # 15. the id/depth entry: compute_face_index_map at lit (the rule's tiled
+    # route) and hires-lit (binned), whole and windowed, and render_depth at
+    # hires-lit; the index maps against resolve_and_gather's, made first
+    entry = []
+    for cfg in (cfgs["lit"], hl):
+        with torch.no_grad():
+            ndc_c = cfg.renderer.transform_vertices(cfg.vertices)
+            entry.append((cfg, ndc_c[:, cfg.faces.long()], cfg.fim()))
+    lit_consts = cfgs["lit"].latch_inputs()[2]
+    want_lit_depth = rc.resolve_depth_plain(lit_consts, cfgs["lit"].size, 0.1, 100.0)[1]
+    torch.cuda.synchronize()
+    rc.reset_launches()
+    maps = []
+    for cfg, fv, _ in entry:
+        S = cfg.size
+        maps.append((nr.compute_face_index_map(fv, S, return_depth=True),
+                     nr.compute_face_index_map(fv, S, row_start=S // 2, num_rows=S // 4,
+                                               return_depth=True)))
+    depth_image = hl.renderer.render_depth(hl.vertices, hl.faces)
+    torch.cuda.synchronize()
+    index_launches = dict(rc.LAUNCHES)
+    for (cfg, _, want), ((index, depth), (w_index, w_depth)) in zip(entry, maps):
+        S = cfg.size
+        check_equal(f"{cfg.name} compute_face_index_map", index, want)
+        check_equal(f"{cfg.name} compute_face_index_map window index", w_index,
+                    index[:, S // 2:S // 2 + S // 4])
+        check_equal(f"{cfg.name} compute_face_index_map window depth", w_depth,
+                    depth[:, S // 2:S // 2 + S // 4])
+    check_equal("lit compute_face_index_map depth vs plain", maps[0][0][1], want_lit_depth)
+    if depth_image.shape != (1, 512, 512) or not torch.isfinite(depth_image).all() or \
+            not float(depth_image.max()) > 0:
+        raise AssertionError(f"hires-lit render_depth: bad image {tuple(depth_image.shape)}")
+    log(f"[index map] compute_face_index_map at lit and hires-lit equal to the resolve's "
+        f"index maps (windows too), hires-lit render_depth max {float(depth_image.max()):.4f}; "
+        f"launches {json.dumps(index_launches)}")
+    if not all(index_launches[name] > 0 for name in INDEX_MAP_KERNELS):
+        raise AssertionError(f"the id/depth entry missed a kernel: {index_launches}")
+
+    # 16. times
+    # per call: the CUDA-event median (what a caller waits, launch gaps
+    # included), the kernel's own device time (its mean profiler record
+    # times its launches per call), the plain version's and the library
+    # call's time
+    times = {}
+    all_calls = [("bench", bench_calls), ("scale", scale_calls)] + list(tex_calls.items()) + [
+        ("hires", hires_calls), ("hires-lit", hl_calls)]
+    for label, calls in all_calls:
+        for name, call in calls.items():
+            k_ms = median_ms(call.kernel, 50)
+            k_dev = kernel_device_ms(profile_device(call.kernel, 20), name)
+            p_ms = None
+            if (label, name) == ("scale", "resolve_xy"):
+                p_ms = host_ms(call.plain)[1]      # one call of seconds
+            elif callable(call.plain):
+                p_ms = median_ms(call.plain, 10, warmup=1)
+            elif call.plain is not None:
+                p_ms = call.plain                    # measured once above
+            lib_ms = None if call.library is None else median_ms(call.library, 20)
+            times[label, name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=call.bound[0],
+                                      bound_by=call.bound[1], library_ms=lib_ms,
+                                      device_ms=k_dev)
+
+            def fmt(v):
+                return "not measured" if v is None else f"{v:.4f} ms"
+
+            log(f"[time] {label} {name}: kernel {k_ms:.4f} ms (device {fmt(k_dev)}), "
+                f"plain {fmt(p_ms)}, library {fmt(lib_ms)}, bound {call.bound[0]:.4f} ms by "
+                f"{call.bound[1]}  ({smi})")
 
     steps = [
         ("bench", renderer, sil_step(renderer, torus_v, faces, bench_loss), True),
         ("scale", scale_renderer, sil_step(scale_renderer, sphere_v, faces6, pattern_loss), False),
-    ] + [(name, cfg.renderer, cfg.step, name != "textured-scale") for name, cfg in cfgs.items()]
+    ] + [(name, cfg.renderer, cfg.step, name in ("atlas", "lit"))
+         for name, cfg in cfgs.items() if name != "hires-lit"] + [
+        ("hires", hires, sil_step(hires, sphere_v, faces6, bench_loss), False),
+        ("hires-lit", hl.renderer, hl.step, False),
+    ]
     for label, r, step, with_plain in steps:
         ms = median_ms(step, 20, warmup=3)
         plain = float("nan")
@@ -631,21 +1189,37 @@ def main():
         mpx = r.image_size ** 2 / ms / 1e3
         log(f"[time] {label} fwd+bwd step ({r.image_size}^2, AA {r.anti_aliasing}): "
             f"{ms:.4f} ms = {mpx:.3f} Mpx/s; plain versions {plain:.4f} ms  ({smi})")
-        wall, busy, n_launch, top = profile_device(step)
-        if busy == 0.0:
+        prof = profile_device(step)
+        if not prof.busy:
             log(f"[profile] {label}: the profiler saw no device time (not measured)")
         else:
-            log(f"[profile] {label} step under torch.profiler: wall {wall:.4f} ms, device "
-                f"busy {busy:.4f} ms ({100 * busy / wall:.1f}%), {n_launch:.0f} device "
-                f"ops/step; top " + ", ".join(f"{k} {t:.4f} ms" for k, t in top))
+            # with records dropped the kept ones bound the busy time from below
+            rel = "=" if prof.complete else ">="
+            log(f"[profile] {label} step under torch.profiler: wall {prof.wall:.4f} ms, "
+                f"device busy {rel} {prof.busy:.4f} ms ({rel} {100 * prof.busy / ms:.1f}% of "
+                f"the unprofiled step), "
+                + ("every record kept" if prof.complete else
+                   f"records dropped: names off a multiple of the calls "
+                   f"{prof.dropped}, port kernels {prof.port_records:.1f} records per step "
+                   f"against {prof.port_launches:.1f} launches")
+                + "; top (per kernel name, kept records summed over the step) "
+                + ", ".join(f"{k} {t:.4f} ms" for k, t in prof.top))
+    log("[routes] resolve ms (tiled, binned) and the rule's route: " + json.dumps(
+        {label: [route_ms[label]["tiled"], route_ms[label]["binned"], route_rule[label]]
+         for label in route_ms}))
+    log("[routes] sweep at 512^2, nf: (tiled ms, binned ms, the rule's route): "
+        + json.dumps(sweep))
+    log("[tiles] K7 + K8 ms by tile: " + json.dumps(
+        {label: {f"{t[0]}x{t[1]}": v for t, v in ms.items()} for label, ms in tile_ms.items()}))
 
+    launches = collections.Counter()
+    for path in (sil_launches, tex_launches, hires_launches, hl_launches, index_launches):
+        launches.update(path)
     log(smi)
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": sil_launches[name] + tex_launches[name],
-         "max_abs_err": all_errs[name], "config": at,
-         "ms": times[at, name][0], "plain_ms": times[at, name][1],
-         "device_ms": times[at, name][2], "plain_device_ms": times[at, name][3]}
+         "launches": launches[name], "max_abs_err": all_errs[name], "config": at,
+         **times[at, name]}
         for name, (src, replaces, at) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,7 @@ from .models.lights import AmbientLight, DirectionalLight, Light, SpecularLight
 from .models.renderer import Renderer
 from .ops.camera import look_at, perspective
 from .ops.differentiation import differentiation
+from .ops.gather_resolve import compute_face_index_map
 from .ops.maps import cross, mask_foreground, to_map
 from .ops.rasterize import (
     RasterizeHyperparam,
@@ -19,7 +20,6 @@ from .ops.rasterize import (
     rasterize_rgba,
     rasterize_silhouettes,
 )
-from .ops.resolve import compute_face_index_map
 from .utils.helpers import create_textures, get_points_from_angles
 
 __version__ = "2.0.2"

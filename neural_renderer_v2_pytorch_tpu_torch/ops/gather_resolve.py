@@ -1,6 +1,8 @@
 """The face-vertex gather and the resolve with winner latch, as autograd
 Functions (counterpart of ``neural_renderer_v2_pytorch_tpu/ops/
-gather_resolve.py``, on its planar path).
+gather_resolve.py``, on its planar path), and the id/depth entry
+``compute_face_index_map``.  Both resolves take the route
+``resolve_cuda.resolve_route`` picks.
 
 Both keep the JAX package's planar layouts: face vertices are
 [bs, 3 (coord), 3 (vertex), nf] and maps are channel-planar [bs, C, H, W].
@@ -11,9 +13,16 @@ from __future__ import annotations
 import torch
 
 from .resolve_cuda import (
+    bin_faces,
+    bin_tile,
     face_setup,
     gather_faces3,
+    resolve_binned_depth,
+    resolve_binned_latch,
+    resolve_binned_xy,
+    resolve_depth,
     resolve_latch,
+    resolve_route,
     resolve_xy,
     scatter_faces_to_vertices,
     scatter_pixels_to_faces,
@@ -44,23 +53,43 @@ def gather_face_vertices(vertices, faces):
     return _GatherFaceVertices.apply(vertices, faces)
 
 
+def _route_bins(consts, image_size, row_start, num_rows, mode):
+    """(tile, K7's bins) where the route of this resolve is binned, else
+    None."""
+    bs, nf = consts.shape[0], consts.shape[-1]
+    rows = image_size if num_rows is None else num_rows
+    if resolve_route(bs, rows, image_size, nf, mode) != "binned":
+        return None
+    tile = bin_tile(bs, rows, image_size, nf)
+    return tile, bin_faces(consts, image_size, row_start, num_rows, tile=tile)
+
+
 class _ResolveAndGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, face_vertices, face_attrs, image_size, near, far,
-                draw_backside, latch_z):
+                draw_backside, latch_z, row_start, num_rows, mode):
+        if face_attrs is not None and not latch_z:
+            raise ValueError("attribute planes need latch_z=True")
         fvp = face_vertices.detach().contiguous()
         bs, nf = fvp.shape[0], fvp.shape[-1]
         consts = face_setup(fvp, draw_backside)
+        args = (image_size, near, far, row_start, num_rows)
+        binned = _route_bins(consts, image_size, row_start, num_rows, mode)
         if latch_z:
             attrs = (fvp.new_empty((bs, nf, 0)) if face_attrs is None
                      else face_attrs.detach().contiguous())
-            index, _, fvm, attr_planes = resolve_latch(
-                consts, fvp, attrs, image_size, near, far
-            )
+            if binned:
+                tile, bins = binned
+                index, _, fvm, attr_planes = resolve_binned_latch(
+                    consts, fvp, attrs, bins, *args, tile=tile)
+            else:
+                index, _, fvm, attr_planes = resolve_latch(consts, fvp, attrs, *args)
         else:
-            if face_attrs is not None:
-                raise ValueError("attribute planes need latch_z=True")
-            index, _, coords = resolve_xy(consts, fvp, image_size, near, far)
+            if binned:
+                tile, bins = binned
+                index, _, coords = resolve_binned_xy(consts, fvp, bins, *args, tile=tile)
+            else:
+                index, _, coords = resolve_xy(consts, fvp, *args)
             # 9-plane layout with zero z planes: silhouettes never read z
             z = torch.zeros_like(coords[:, :1])
             fvm = torch.cat(
@@ -87,33 +116,65 @@ class _ResolveAndGather(torch.autograd.Function):
             gk = torch.nn.functional.pad(
                 per_face.reshape(bs, 3, 2, nf), (0, 0, 0, 1)
             )                                                     # [bs, k, coord, nf]
-            return gk.permute(0, 2, 1, 3), None, None, None, None, None, None
+            return (gk.permute(0, 2, 1, 3),) + (None,) * 9
         # one scatter over coordinates and attributes: D = 9 + A
         g_all = torch.cat([grad_fvm, grad_attrs], 1) if ctx.has_attrs else grad_fvm
         per_face = scatter_pixels_to_faces(g_all.contiguous(), index, nf)
         g_faces = per_face[:, :9].reshape(bs, 3, 3, nf).permute(0, 2, 1, 3)
         g_attrs = per_face[:, 9:].permute(0, 2, 1) if ctx.has_attrs else None
-        return g_faces, g_attrs, None, None, None, None, None
+        return (g_faces, g_attrs) + (None,) * 8
 
 
 def resolve_and_gather(face_vertices, image_size, near, far, draw_backside,
-                       face_attrs=None, latch_z=False):
+                       face_attrs=None, latch_z=False, row_start=0, num_rows=None,
+                       mode="auto"):
     """Z-buffer resolve of planar NDC face vertices [bs, 3, 3, nf] with the
-    winner's data latched.
+    winner's data latched, over the image rows ``row_start .. row_start +
+    num_rows`` (all S by default).
 
-    ``latch_z=False`` latches the winner's XY coordinates only (kernels
-    K1 + K2; the silhouette path); ``latch_z=True`` its nine coordinates
-    and the per-face attributes ``face_attrs`` [bs, nf, A] (kernels
-    K1 + K2L; the RGB and depth paths).
+    ``latch_z=False`` latches the winner's XY coordinates only (the
+    silhouette path); ``latch_z=True`` its nine coordinates and the
+    per-face attributes ``face_attrs`` [bs, nf, A] (the RGB and depth
+    paths).  Kernel K1, then the route ``resolve_cuda.resolve_route`` picks
+    (``mode`` "auto", or forced "tiled" / "binned"; both give the same
+    bits): K2 or K2L, or K7 and K8's ``resolve_binned_xy`` or
+    ``resolve_binned_latch`` at the tile ``resolve_cuda.bin_tile`` picks.
 
-    Returns (face_index_map i32 [bs, S, S], -1 on background and not
-    differentiable; fvm_planar f32 [bs, 9, S, S], the winner's vertex
+    Returns (face_index_map i32 [bs, rows, S], -1 on background and not
+    differentiable; fvm_planar f32 [bs, 9, rows, S], the winner's vertex
     coordinates, plane 3 * vertex + coord, with zero z planes unless
-    ``latch_z``; attr_planes f32 [bs, A, S, S] or None), 0 on background.
-    The gradients of ``fvm_planar`` and ``attr_planes`` flow back into the
-    face vertices and ``face_attrs`` through one kernel K3 call.
+    ``latch_z``; attr_planes f32 [bs, A, rows, S] or None), 0 on
+    background.  The gradients of ``fvm_planar`` and ``attr_planes`` flow
+    back into the face vertices and ``face_attrs`` through one kernel K3
+    call.
     """
     index, fvm, attr_planes = _ResolveAndGather.apply(
-        face_vertices, face_attrs, image_size, near, far, draw_backside, latch_z
+        face_vertices, face_attrs, image_size, near, far, draw_backside, latch_z,
+        row_start, num_rows, mode,
     )
     return index, fvm, (attr_planes if face_attrs is not None else None)
+
+
+def compute_face_index_map(faces, image_size, near=0.1, far=100.0, draw_backside=True, *,
+                           row_start=0, num_rows=None, return_depth=False, mode="auto"):
+    """Per-pixel z-buffered visible-face id for [bs, nf, 3, 3] NDC faces over
+    the image rows ``row_start .. row_start + num_rows`` (the whole image by
+    default): int32 [bs, num_rows, S], -1 on background; ``(index, depth)``
+    when ``return_depth``, depth ``far`` on background.  Non-differentiable
+    (integer output).
+
+    Kernel K1, then the id/depth form of the route ``resolve_route`` picks
+    (``mode`` as in :func:`resolve_and_gather`): K2D, or K7 and K8's
+    ``resolve_binned_depth``.  The JAX signature's ``face_chunk`` tuning
+    knob has no counterpart, so the arguments after ``draw_backside`` are
+    keyword-only."""
+    fvp = faces.detach().permute(0, 3, 2, 1).contiguous()
+    consts = face_setup(fvp, draw_backside)
+    args = (image_size, near, far, row_start, num_rows)
+    binned = _route_bins(consts, image_size, row_start, num_rows, mode)
+    if binned:
+        tile, bins = binned
+        index, depth = resolve_binned_depth(consts, bins, *args, tile=tile)
+    else:
+        index, depth = resolve_depth(consts, *args)
+    return (index, depth) if return_depth else index

@@ -22,15 +22,24 @@ DEGENERATE_EPS = 1e-8
 KILLED_BBOX = (4.0, -4.0, 4.0, -4.0)
 
 
-def _pixel_grid(image_size, device):
-    """Pixel-centre NDC coordinates ``(2*i + 1 - S) / S``: xp [1, W], yp [H, 1].
+def pixel_centres(indices, image_size):
+    """Pixel-centre NDC coordinates ``(2*i + 1 - S) / S`` of integer pixel
+    indices, float32 on the CPU.
 
-    Computed on the CPU and moved: on CUDA, PyTorch divides by a Python
-    scalar as a multiply by its reciprocal, which is not the correctly
-    rounded quotient when S is not a power of two."""
-    i = torch.arange(image_size, dtype=torch.float32)
-    p = ((2.0 * i + 1.0 - image_size) / image_size).to(device)
-    return p[None, :], p[:, None]
+    Computed on the CPU and moved by the callers: on CUDA, PyTorch divides by
+    a Python scalar as a multiply by its reciprocal, which is not the
+    correctly rounded quotient when S is not a power of two."""
+    return (2.0 * indices.to(torch.float32) + 1.0 - image_size) / image_size
+
+
+def _pixel_grid(image_size, device, row_start=0, num_rows=None):
+    """Pixel centres: xp [1, S] over the columns, yp [num_rows, 1] over the
+    rows ``row_start ..`` of a row window (the whole image by default)."""
+    if num_rows is None:
+        num_rows = image_size
+    xp = pixel_centres(torch.arange(image_size), image_size).to(device)
+    yp = pixel_centres(torch.arange(row_start, row_start + num_rows), image_size).to(device)
+    return xp[None, :], yp[:, None]
 
 
 def face_constants_planar(fvp):
@@ -101,18 +110,23 @@ def kill_invalid(consts, draw_backside):
     return torch.cat([consts[:, :13], torch.stack(bbox, dim=1)], dim=1)
 
 
-def resolve_constants(consts, image_size, near, far, face_chunk=16):
+def resolve_constants(consts, image_size, near, far, face_chunk=16, row_start=0,
+                      num_rows=None):
     """Sequential z-buffer fold over killed per-face constants [bs, 17, nf]
-    (see :func:`kill_invalid`).  Returns (index [bs, S, S] int32 with -1 on
-    background, depth [bs, S, S] float32 with ``far`` on background).
+    (see :func:`kill_invalid`), over the image rows ``row_start ..
+    row_start + num_rows`` (the whole image by default).  Returns (index
+    [bs, num_rows, S] int32 with -1 on background, depth [bs, num_rows, S]
+    float32 with ``far`` on background).
 
     Candidate depths are computed ``face_chunk`` faces at a time; the accept
     rule then runs face by face, in id order."""
     bs, _, nf = consts.shape
-    xp, yp = _pixel_grid(image_size, consts.device)
-    depth = torch.full((bs, image_size, image_size), far, dtype=torch.float32,
+    if num_rows is None:
+        num_rows = image_size
+    xp, yp = _pixel_grid(image_size, consts.device, row_start, num_rows)
+    depth = torch.full((bs, num_rows, image_size), far, dtype=torch.float32,
                        device=consts.device)
-    index = torch.full((bs, image_size, image_size), -1, dtype=torch.int32,
+    index = torch.full((bs, num_rows, image_size), -1, dtype=torch.int32,
                        device=consts.device)
     for start in range(0, nf, face_chunk):
         cs = consts[:, :, start:start + face_chunk].permute(2, 0, 1)[..., None, None]
@@ -126,40 +140,59 @@ def resolve_constants(consts, image_size, near, far, face_chunk=16):
     return index, depth
 
 
-def compute_face_index_map(faces, image_size, near=0.1, far=100.0,
-                           draw_backside=True, face_chunk=16, return_depth=False):
-    """Per-pixel z-buffered visible-face id for [bs, nf, 3, 3] NDC faces:
-    int32 [bs, S, S], -1 on background; ``(index, depth)`` when
-    ``return_depth``.  Non-differentiable (integer output)."""
-    consts = kill_invalid(
-        face_constants_planar(faces.permute(0, 3, 2, 1)), draw_backside
-    )
-    index, depth = resolve_constants(consts, image_size, near, far, face_chunk)
-    return (index, depth) if return_depth else index
-
-
-def weight_planes_from_gathered(fvm_planar, face_index_map, image_size=None):
-    """Clamped, renormalized barycentric weights [bs, 3, H, W] from planar
-    latched winner coordinates [bs, 9, H, W]; 0 on background and
-    gradient-stopped (the reference computes them in a grad-less kernel)."""
-    H, W = fvm_planar.shape[2:]
-    if image_size is None:
-        image_size = W
-    xp, yp = _pixel_grid(image_size, fvm_planar.device)
-    yp = yp[:H]
-
-    g = fvm_planar.detach()
-    x0, y0 = g[:, 0], g[:, 1]
-    x1, y1 = g[:, 3], g[:, 4]
-    x2, y2 = g[:, 6], g[:, 7]
-
+def _clamped_weights(xy, xp, yp, dim):
+    """The reference weight kernel's math (rasterize_cuda_kernel.cu:286-306)
+    on the winner's screen coordinates ``xy`` = (x0, y0, x1, y1, x2, y2):
+    flip the sign when the weights sum below 0, clamp each to >= 0,
+    renormalize, clamp to [0, 1]; the three weights stacked along ``dim``."""
+    x0, y0, x1, y1, x2, y2 = xy
     w0 = yp * (x2 - x1) + xp * (y1 - y2) + (x1 * y2 - x2 * y1)
     w1 = yp * (x0 - x2) + xp * (y2 - y0) + (x2 * y0 - x0 * y2)
     w2 = yp * (x1 - x0) + xp * (y0 - y1) + (x0 * y1 - x1 * y0)
-    w = torch.stack((w0, w1, w2), dim=1)                 # [bs, 3, H, W]
-    w_sum = w[:, 0:1] + w[:, 1:2] + w[:, 2:3]
-    w = torch.where(w_sum < 0, -w, w)
+    w = torch.stack((w0, w1, w2), dim=dim)
+
+    def total(w):
+        return w.narrow(dim, 0, 1) + w.narrow(dim, 1, 1) + w.narrow(dim, 2, 1)
+
+    w = torch.where(total(w) < 0, -w, w)
     w = torch.clamp(w, min=0.0)
-    w_sum = w[:, 0:1] + w[:, 1:2] + w[:, 2:3]
-    w = torch.clamp(w / w_sum, 0.0, 1.0)
+    return torch.clamp(w / total(w), 0.0, 1.0)
+
+
+def weight_planes_from_gathered(fvm_planar, face_index_map, image_size=None, row_start=0):
+    """Clamped, renormalized barycentric weights [bs, 3, H, W] from planar
+    latched winner coordinates [bs, 9, H, W] of the image rows ``row_start
+    .. row_start + H``; 0 on background and gradient-stopped (the reference
+    computes them in a grad-less kernel)."""
+    H, W = fvm_planar.shape[2:]
+    if image_size is None:
+        image_size = W
+    xp, yp = _pixel_grid(image_size, fvm_planar.device, row_start, H)
+    g = fvm_planar.detach()
+    w = _clamped_weights((g[:, 0], g[:, 1], g[:, 3], g[:, 4], g[:, 6], g[:, 7]), xp, yp, 1)
     return torch.where((face_index_map >= 0)[:, None], w, 0.0)
+
+
+def weight_map_from_gathered(face_vertex_map, face_index_map, image_size=None, row_start=0):
+    """The weights [bs, H, W, 3] of :func:`weight_planes_from_gathered` from
+    the winner's vertices in the JAX package's NHWC layout [bs, H, W, 3, 3]
+    (vertex, coordinate); 0 on background, gradient-stopped."""
+    H, W = face_index_map.shape[1:]
+    if image_size is None:
+        image_size = W
+    xp, yp = _pixel_grid(image_size, face_vertex_map.device, row_start, H)
+    g = face_vertex_map.detach()
+    xy = (g[..., 0, 0], g[..., 0, 1], g[..., 1, 0], g[..., 1, 1], g[..., 2, 0], g[..., 2, 1])
+    w = _clamped_weights(xy, xp, yp, -1)
+    return torch.where((face_index_map >= 0)[..., None], w, 0.0)
+
+
+def compute_weight_map(faces, face_index_map, image_size=None, row_start=0):
+    """The winning face's weights [bs, H, W, 3] from [bs, nf, 3, 3] faces and
+    an index map [bs, H, W] of the image rows ``row_start .. row_start +
+    H``; 0 on background, gradient-stopped."""
+    bs, H, W = face_index_map.shape
+    safe = torch.clamp(face_index_map, min=0).long().reshape(bs, -1, 1)
+    flat = faces.detach().reshape(bs, -1, 9)
+    g = torch.gather(flat, 1, safe.expand(-1, -1, 9)).reshape(bs, H, W, 3, 3)
+    return weight_map_from_gathered(g, face_index_map, image_size, row_start)

@@ -5,19 +5,27 @@ resolve_pallas.py``).
   K1 ``face_setup``                 per-face constants + kill rule
   K2 ``resolve_xy``                 z-buffer resolve with XY latch
   K2L ``resolve_latch``             z-buffer resolve with XYZ + attribute latch
+  K2D ``resolve_depth``             z-buffer resolve, id and depth only
   K3 ``scatter_pixels_to_faces``    pixel -> face gradient scatter
   K4 ``scatter_faces_to_vertices``  face slot -> vertex gradient scatter
   K5 ``gather_faces3``              vertex -> planar face-vertex gather
   K6 ``scatter_rows``               row scatter-add (texture-atlas gradient)
+  K7 ``bin_faces``                  per-tile face bins
+  K8 ``resolve_binned_xy``, ``resolve_binned_latch``, ``resolve_binned_depth``
+                                    the three resolve forms over K7's bins
+
+The resolve has two routes that give the same bits: "tiled" (K2, K2L,
+K2D: every tile streams every face) and "binned" (K7 then K8: every tile
+streams its own bin).  :func:`resolve_route` picks one from the shapes.
 
 A wrapper runs the plain version for CPU tensors.  For CUDA tensors it
 launches the kernel on the current stream or raises; there is no fallback.
 Only :func:`plain_versions`, which ``chip_smoke.py`` and the tests use to
 hold a kernel against its plain version, routes CUDA tensors to the plain
 versions.  Every launch adds one to ``LAUNCHES[name]``, so a run can show
-which kernels its path went through.  K1, K2, K2L and K5 are bit-identical
-to their plain versions; K3, K4 and K6 sum with atomics, in a different
-order on every run.
+which kernels its path went through.  K1, K2, K2L, K2D, K5, K7 and K8 are
+bit-identical to their plain versions; K3, K4 and K6 sum with atomics, in a
+different order on every run.
 """
 
 from __future__ import annotations
@@ -30,21 +38,54 @@ import torch
 
 from ..utils import cuda_build
 from .maps import to_map
-from .resolve import face_constants_planar, kill_invalid, resolve_constants
+from .resolve import (
+    DEPTH_MIN_DELTA,
+    face_candidate,
+    face_constants_planar,
+    kill_invalid,
+    pixel_centres,
+    resolve_constants,
+)
 
 KERNELS = (
     "face_setup",
     "resolve_xy",
     "resolve_latch",
+    "resolve_depth",
     "scatter_pixels_to_faces",
     "scatter_faces_to_vertices",
     "gather_faces3",
     "scatter_rows",
+    "bin_faces",
+    "resolve_binned_xy",
+    "resolve_binned_latch",
+    "resolve_binned_depth",
 )
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # a module flag and not a ContextVar: autograd runs the backward of CUDA
 # tensors on threads of its own, which do not see the caller's context
-_route = {"plain": False}
+_route = {"plain": False, "mode": None}
+
+ROUTES = ("tiled", "binned")
+# the pixel tiles K8 is built for (kEdge in csrc/resolve.cu); the binned
+# route picks one with bin_tile
+BIN_TILES = ((8, 8), (16, 16))
+# faces per chunk of K7's count and fill passes
+BIN_CHUNK = 256
+# the binned route bins for 8x8 tiles while K7's count array at 8x8
+# (images x tiles x face chunks) stays within this many entries, else for
+# 16x16.  chip_smoke.py times K7 + K8 at both tiles where the route is
+# binned: on an H100 8x8 won at 1.3M-10.2M entries and lost at 21M, where
+# zeroing and scanning the count array cost more than the smaller tiles
+# save in K8 (PERF.md)
+SMALL_TILE_UP_TO = 16_000_000
+# the binned route from this many (batch image, 16x16 tile, face) products
+# on.  chip_smoke.py times both routes at its seven configurations and at
+# five tori between them: on an H100 the tiled one won up to 20.4M products
+# and the binned one, in most runs, from 40.6M on; the tiled time grows
+# ~0.0093 ms per million products past 20M and meets the binned route's
+# run-to-run 0.33-0.47 ms between 33M and 47M (PERF.md)
+BINNED_FROM = 34_000_000
 
 
 def reset_launches():
@@ -76,6 +117,52 @@ def _on_cuda(*tensors):
     return device.type == "cuda"
 
 
+@contextlib.contextmanager
+def forced_route(mode):
+    """Send every resolve whose caller asks for ``mode="auto"`` down the
+    ``"tiled"`` or ``"binned"`` route (``chip_smoke.py`` and the tests only,
+    to hold one route against the other through the public entry points).
+    ``resolve_and_gather`` and ``compute_face_index_map`` also take
+    ``mode``, as their JAX counterparts do; ``Renderer`` and the
+    ``rasterize_*`` functions take none, and this reaches them."""
+    if mode not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {mode!r}")
+    saved = _route["mode"]
+    _route["mode"] = mode
+    try:
+        yield
+    finally:
+        _route["mode"] = saved
+
+
+def resolve_route(bs, rows, image_size, nf, mode="auto"):
+    """The resolve route for ``bs`` images of ``rows`` x ``image_size``
+    pixels over ``nf`` faces: ``mode`` itself when it is "tiled" or
+    "binned", else the route :func:`forced_route` set, else the rule.  The
+    tiled route streams every face through every 16x16 tile; the binned
+    one pays K7 and a host sync to stream each tile's own bin.  The rule
+    reads the shapes only: binned from :data:`BINNED_FROM` products of
+    images, tiles and faces on.  (The counterpart of the TPU package's
+    windowed/binned pick, ``resolve_pallas.py:1366``, which followed its
+    VMEM budget instead.)"""
+    if mode in ROUTES:
+        return mode
+    if mode != "auto":
+        raise ValueError(f"mode must be 'auto' or one of {ROUTES}, got {mode!r}")
+    if _route["mode"] is not None:
+        return _route["mode"]
+    tiles = -(-rows // 16) * -(-image_size // 16)
+    return "binned" if bs * tiles * nf >= BINNED_FROM else "tiled"
+
+
+def bin_tile(bs, rows, image_size, nf):
+    """The tile K7 bins for and K8 resolves in on the binned route: (8, 8)
+    while K7's count array at 8x8 stays within :data:`SMALL_TILE_UP_TO`
+    entries, else (16, 16).  Both give the same bits."""
+    entries = bs * -(-rows // 8) * -(-image_size // 8) * max(1, -(-nf // BIN_CHUNK))
+    return (8, 8) if entries <= SMALL_TILE_UP_TO else (16, 16)
+
+
 def _use_kernel(*tensors):
     """Launch the kernel (CUDA tensors) or take the plain version (CPU
     tensors, or inside :func:`plain_versions`)."""
@@ -90,14 +177,27 @@ def _check(t, name, dtype, shape):
         )
 
 
-def _launch(name, device, *args):
+def _call(entry, device, *args):
+    """Call the C entry ``nr_<entry>`` on the current stream; raise on its
+    error code."""
     lib = cuda_build.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, "nr_" + name)(*args, stream)
+        err = getattr(lib, "nr_" + entry)(*args, stream)
     if err:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"{entry}: kernel launch failed with CUDA error {err}")
+
+
+def _launch(name, device, *args):
+    """Launch kernel ``name`` and count it."""
+    _call(name, device, *args)
     LAUNCHES[name] += 1
+
+
+def _window(image_size, row_start, num_rows):
+    """(S, row_start, num_rows) as ints, num_rows defaulting to the image."""
+    S = int(image_size)
+    return S, int(row_start), S if num_rows is None else int(num_rows)
 
 
 # --- K1 -------------------------------------------------------------------
@@ -120,42 +220,13 @@ def face_setup(fvp, draw_backside):
     return consts
 
 
-# --- K2 -------------------------------------------------------------------
+# --- K2, K2L, K2D: the tiled route ---------------------------------------
 
 
 def _xy_rows(fvp):
     """[bs, 3, 3, nf] -> per-face latch rows [bs, nf, 6] = x0,y0,x1,y1,x2,y2."""
     bs, nf = fvp.shape[0], fvp.shape[-1]
     return fvp[:, :2].permute(0, 3, 2, 1).reshape(bs, nf, 6)
-
-
-def resolve_xy_plain(consts, fvp, image_size, near, far):
-    index, depth = resolve_constants(consts, image_size, near, far)
-    coords = to_map(_xy_rows(fvp), index).permute(0, 3, 1, 2).contiguous()
-    return index, depth, coords
-
-
-def resolve_xy(consts, fvp, image_size, near, far):
-    """Z-buffer resolve of killed constants [bs, 17, nf] at S = image_size.
-    Returns (index i32 [bs, S, S] with -1 on background, depth f32
-    [bs, S, S] with ``far`` on background, latched coordinates f32
-    [bs, 6, S, S] = x0,y0,x1,y1,x2,y2 of the winner, 0 on background)."""
-    if not _use_kernel(consts, fvp):
-        return resolve_xy_plain(consts, fvp, image_size, near, far)
-    bs, nf = consts.shape[0], consts.shape[-1]
-    _check(consts, "consts", torch.float32, (bs, 17, nf))
-    _check(fvp, "fvp", torch.float32, (bs, 3, 3, nf))
-    S = int(image_size)
-    dev = consts.device
-    index = torch.empty((bs, S, S), dtype=torch.int32, device=dev)
-    depth = torch.empty((bs, S, S), dtype=torch.float32, device=dev)
-    coords = torch.empty((bs, 6, S, S), dtype=torch.float32, device=dev)
-    _launch("resolve_xy", dev, consts.data_ptr(), fvp.data_ptr(), index.data_ptr(),
-            depth.data_ptr(), coords.data_ptr(), bs, nf, S, float(near), float(far))
-    return index, depth, coords
-
-
-# --- K2L ------------------------------------------------------------------
 
 
 def _coord_rows(fvp):
@@ -165,23 +236,63 @@ def _coord_rows(fvp):
     return fvp.permute(0, 3, 2, 1).reshape(bs, nf, 9)
 
 
-def resolve_latch_plain(consts, fvp, face_attrs, image_size, near, far):
-    index, depth = resolve_constants(consts, image_size, near, far)
+def _latch_xy(index, depth, fvp):
+    return index, depth, to_map(_xy_rows(fvp), index).permute(0, 3, 1, 2).contiguous()
+
+
+def _latch_copy(index, depth, fvp, face_attrs):
     coords = to_map(_coord_rows(fvp), index).permute(0, 3, 1, 2).contiguous()
     attrs = to_map(face_attrs, index).permute(0, 3, 1, 2).contiguous()
     return index, depth, coords, attrs
 
 
-def latch_limit_error(num_attrs, threads, max_threads, shared_bytes, shared_limit):
-    """Why a K2L block cannot launch on a card, or None.  The counterpart
-    of the TPU's VMEM probe (``resolve_pallas.py:1318``), which sized the
-    resident planes by A; K2L's block does not grow with A, but a card or a
-    build whose limits it exceeds must fail here, naming the call, and not
-    as a refused launch."""
+def resolve_xy_plain(consts, fvp, image_size, near, far, row_start=0, num_rows=None):
+    index, depth = resolve_constants(consts, image_size, near, far, row_start=row_start,
+                                     num_rows=num_rows)
+    return _latch_xy(index, depth, fvp)
+
+
+def resolve_xy(consts, fvp, image_size, near, far, row_start=0, num_rows=None):
+    """Z-buffer resolve of killed constants [bs, 17, nf] at S = image_size,
+    over the image rows ``row_start .. row_start + num_rows`` (all S by
+    default).  Returns (index i32 [bs, rows, S] with -1 on background, depth
+    f32 [bs, rows, S] with ``far`` on background, latched coordinates f32
+    [bs, 6, rows, S] = x0,y0,x1,y1,x2,y2 of the winner, 0 on background)."""
+    if not _use_kernel(consts, fvp):
+        return resolve_xy_plain(consts, fvp, image_size, near, far, row_start, num_rows)
+    bs, nf = consts.shape[0], consts.shape[-1]
+    _check(consts, "consts", torch.float32, (bs, 17, nf))
+    _check(fvp, "fvp", torch.float32, (bs, 3, 3, nf))
+    S, r0, rows = _window(image_size, row_start, num_rows)
+    dev = consts.device
+    index = torch.empty((bs, rows, S), dtype=torch.int32, device=dev)
+    depth = torch.empty((bs, rows, S), dtype=torch.float32, device=dev)
+    coords = torch.empty((bs, 6, rows, S), dtype=torch.float32, device=dev)
+    _launch("resolve_xy", dev, consts.data_ptr(), fvp.data_ptr(), index.data_ptr(),
+            depth.data_ptr(), coords.data_ptr(), bs, nf, S, r0, rows, float(near),
+            float(far))
+    return index, depth, coords
+
+
+def resolve_latch_plain(consts, fvp, face_attrs, image_size, near, far, row_start=0,
+                        num_rows=None):
+    index, depth = resolve_constants(consts, image_size, near, far, row_start=row_start,
+                                     num_rows=num_rows)
+    return _latch_copy(index, depth, fvp, face_attrs)
+
+
+def latch_limit_error(num_attrs, threads, max_threads, shared_bytes, shared_limit,
+                      kernel="resolve_latch"):
+    """Why a block of a copy-form resolve (K2L, or K8's ``resolve_binned_latch``)
+    cannot launch on a card, or None.  The counterpart of the TPU's VMEM
+    probe (``resolve_pallas.py:1318``), which sized the resident planes by
+    A; these blocks do not grow with A, but a card or a build whose limits
+    they exceed must fail here, naming the call, and not as a refused
+    launch."""
     if threads <= max_threads and shared_bytes <= shared_limit:
         return None
     return (
-        f"resolve_latch with A={num_attrs} attribute planes cannot launch: a block "
+        f"{kernel} with A={num_attrs} attribute planes cannot launch: a block "
         f"needs {threads} threads and {shared_bytes} bytes of shared memory; this "
         f"card allows {max_threads} threads (at the kernel's register use) and "
         f"{shared_limit} bytes"
@@ -189,48 +300,82 @@ def latch_limit_error(num_attrs, threads, max_threads, shared_bytes, shared_limi
 
 
 @functools.lru_cache(maxsize=None)
-def _latch_limits(device):
-    """(threads, max threads, shared bytes) of K2L, and the card's shared
+def _latch_limits(device, tile=0):
+    """(threads, max threads, shared bytes) of the copy-form resolve (K8's
+    at ``tile`` x ``tile`` pixels, or K2L's for 0), and the card's shared
     memory per block."""
     vals = [ctypes.c_int() for _ in range(3)]
     with torch.cuda.device(device):
         err = cuda_build.load().nr_resolve_latch_limits(
-            *(ctypes.addressof(v) for v in vals)
+            int(tile), *(ctypes.addressof(v) for v in vals)
         )
     if err:
-        raise RuntimeError(f"resolve_latch: cudaFuncGetAttributes failed with {err}")
+        raise RuntimeError(f"resolve latch limits: cudaFuncGetAttributes failed with {err}")
     shared_limit = torch.cuda.get_device_properties(device).shared_memory_per_block
     return (*(v.value for v in vals), shared_limit)
 
 
-def resolve_latch(consts, fvp, face_attrs, image_size, near, far):
-    """Z-buffer resolve of killed constants [bs, 17, nf] at S = image_size
-    with the winner's coordinates and attributes latched.  ``face_attrs``
-    f32 [bs, nf, A] (A may be 0).  Returns (index i32 [bs, S, S], -1 on
-    background; depth f32 [bs, S, S], ``far`` on background; coordinates
-    f32 [bs, 9, S, S], plane 3 * vertex + coord; attributes f32
-    [bs, A, S, S]; both 0 on background)."""
-    if not _use_kernel(consts, fvp, face_attrs):
-        return resolve_latch_plain(consts, fvp, face_attrs, image_size, near, far)
+def _check_latch(consts, fvp, face_attrs, kernel, tile=0):
+    """Check the copy-form inputs and the launch limits of K2L (``tile`` 0)
+    or K8 at ``tile``; returns (bs, nf, A)."""
     bs, nf = consts.shape[0], consts.shape[-1]
     A = face_attrs.shape[-1]
     _check(consts, "consts", torch.float32, (bs, 17, nf))
     _check(fvp, "fvp", torch.float32, (bs, 3, 3, nf))
     _check(face_attrs, "face_attrs", torch.float32, (bs, nf, A))
-    dev = consts.device
-    error = latch_limit_error(A, *_latch_limits(dev))
+    error = latch_limit_error(A, *_latch_limits(consts.device, tile), kernel=kernel)
     if error:
         raise ValueError(error)
-    S = int(image_size)
-    index = torch.empty((bs, S, S), dtype=torch.int32, device=dev)
-    depth = torch.empty((bs, S, S), dtype=torch.float32, device=dev)
-    coords = torch.empty((bs, 9, S, S), dtype=torch.float32, device=dev)
-    attrs = torch.empty((bs, A, S, S), dtype=torch.float32, device=dev)
-    _launch("resolve_latch", dev, consts.data_ptr(), fvp.data_ptr(),
-            face_attrs.data_ptr(), index.data_ptr(), depth.data_ptr(),
-            coords.data_ptr(), attrs.data_ptr(), bs, nf, A, S, float(near),
-            float(far))
-    return index, depth, coords, attrs
+    return bs, nf, A
+
+
+def _latch_outputs(bs, A, rows, S, device):
+    return (torch.empty((bs, rows, S), dtype=torch.int32, device=device),
+            torch.empty((bs, rows, S), dtype=torch.float32, device=device),
+            torch.empty((bs, 9, rows, S), dtype=torch.float32, device=device),
+            torch.empty((bs, A, rows, S), dtype=torch.float32, device=device))
+
+
+def resolve_latch(consts, fvp, face_attrs, image_size, near, far, row_start=0,
+                  num_rows=None):
+    """Z-buffer resolve of killed constants [bs, 17, nf] at S = image_size,
+    over the image rows ``row_start .. row_start + num_rows`` (all S by
+    default), with the winner's coordinates and attributes latched.
+    ``face_attrs`` f32 [bs, nf, A] (A may be 0).  Returns (index i32
+    [bs, rows, S], -1 on background; depth f32 [bs, rows, S], ``far`` on
+    background; coordinates f32 [bs, 9, rows, S], plane 3 * vertex + coord;
+    attributes f32 [bs, A, rows, S]; both 0 on background)."""
+    if not _use_kernel(consts, fvp, face_attrs):
+        return resolve_latch_plain(consts, fvp, face_attrs, image_size, near, far,
+                                   row_start, num_rows)
+    bs, nf, A = _check_latch(consts, fvp, face_attrs, "resolve_latch")
+    S, r0, rows = _window(image_size, row_start, num_rows)
+    out = _latch_outputs(bs, A, rows, S, consts.device)
+    _launch("resolve_latch", consts.device, consts.data_ptr(), fvp.data_ptr(),
+            face_attrs.data_ptr(), *(t.data_ptr() for t in out), bs, nf, A, S, r0, rows,
+            float(near), float(far))
+    return out
+
+
+def resolve_depth_plain(consts, image_size, near, far, row_start=0, num_rows=None):
+    return resolve_constants(consts, image_size, near, far, row_start=row_start,
+                             num_rows=num_rows)
+
+
+def resolve_depth(consts, image_size, near, far, row_start=0, num_rows=None):
+    """The id/depth form of :func:`resolve_xy`: (index i32 [bs, rows, S],
+    -1 on background; depth f32 [bs, rows, S], ``far`` on background)."""
+    if not _use_kernel(consts):
+        return resolve_depth_plain(consts, image_size, near, far, row_start, num_rows)
+    bs, nf = consts.shape[0], consts.shape[-1]
+    _check(consts, "consts", torch.float32, (bs, 17, nf))
+    S, r0, rows = _window(image_size, row_start, num_rows)
+    dev = consts.device
+    index = torch.empty((bs, rows, S), dtype=torch.int32, device=dev)
+    depth = torch.empty((bs, rows, S), dtype=torch.float32, device=dev)
+    _launch("resolve_depth", dev, consts.data_ptr(), index.data_ptr(), depth.data_ptr(),
+            bs, nf, S, r0, rows, float(near), float(far))
+    return index, depth
 
 
 # --- K3 -------------------------------------------------------------------
@@ -336,3 +481,212 @@ def scatter_rows(grad, ids, num_rows):
     _launch("scatter_rows", grad.device, grad.data_ptr(), ids.data_ptr(),
             out.data_ptr(), bs, D, P, num_rows)
     return out
+
+
+# --- K7 -------------------------------------------------------------------
+
+
+def _tile_centre_ranges(image_size, start, extent, tile):
+    """Pixel-centre ranges (lo, hi) f32 [n], on the CPU, of the n tiles of
+    ``tile`` pixels over pixels start .. start + extent - 1, the last one
+    clipped at the end."""
+    first = torch.arange(0, extent, tile)
+    last = torch.clamp(first + tile, max=extent) - 1
+    return pixel_centres(start + first, image_size), pixel_centres(start + last, image_size)
+
+
+def bin_faces_plain(consts, image_size, row_start=0, num_rows=None, *, tile):
+    bs, _, nf = consts.shape
+    S, r0, rows = _window(image_size, row_start, num_rows)
+    th, tw = tile
+    dev = consts.device
+    x_lo, x_hi = (t.to(dev) for t in _tile_centre_ranges(S, 0, S, tw))
+    y_lo, y_hi = (t.to(dev) for t in _tile_centre_ranges(S, r0, rows, th))
+    tiles_x, n_tiles = len(x_lo), len(x_lo) * len(y_lo)
+    # each face's tile rectangle: the tiles whose centre range meets its
+    # bbox by K2's strict test (a tile whose hi < min misses, lo <= max hits)
+    xmin, xmax, ymin, ymax = (consts[:, 13 + j].contiguous() for j in range(4))
+    tx0 = torch.searchsorted(x_hi, xmin)
+    ty0 = torch.searchsorted(y_hi, ymin)
+    wx = (torch.searchsorted(x_lo, xmax, right=True) - tx0).clamp(min=0).reshape(-1)
+    wy = (torch.searchsorted(y_lo, ymax, right=True) - ty0).clamp(min=0).reshape(-1)
+    # one (tile, face) pair per tile of each rectangle, in (image, face) order
+    n = wx * wy
+    src = torch.repeat_interleave(torch.arange(bs * nf, device=dev), n)
+    k = torch.arange(len(src), device=dev) - (torch.cumsum(n, 0) - n)[src]
+    ty = ty0.reshape(-1)[src] + k // wx[src]
+    tx = tx0.reshape(-1)[src] + k % wx[src]
+    key = (src // nf) * n_tiles + ty * tiles_x + tx
+    # a stable sort by tile keeps every bin in ascending face order
+    ids = (src % nf)[torch.sort(key, stable=True).indices].to(torch.int32)
+    cnt = torch.bincount(key, minlength=bs * n_tiles)
+    offsets = torch.cumsum(cnt, 0) - cnt
+    return (cnt.reshape(bs, n_tiles).to(torch.int32),
+            offsets.reshape(bs, n_tiles).to(torch.int32), ids)
+
+
+def bin_faces(consts, image_size, row_start=0, num_rows=None, *, tile):
+    """Per-tile face bins of killed constants [bs, 17, nf] over the image
+    rows ``row_start .. row_start + num_rows`` (all S by default), in
+    tiles of ``tile`` = (height, width) pixels, row-major: (cnt i32
+    [bs, tiles], offsets i32 [bs, tiles], ids i32 [pairs]).  Tile t of image
+    b holds ``ids[offsets[b, t] : offsets[b, t] + cnt[b, t]]``, the faces
+    whose bbox meets its pixel-centre range, in ascending order.
+
+    On the card this reads the pair count back to size ``ids``: one host
+    sync per call."""
+    if not _use_kernel(consts):
+        return bin_faces_plain(consts, image_size, row_start, num_rows, tile=tile)
+    bs, nf = consts.shape[0], consts.shape[-1]
+    _check(consts, "consts", torch.float32, (bs, 17, nf))
+    S, r0, rows = _window(image_size, row_start, num_rows)
+    th, tw = tile
+    tiles_x = -(-S // tw)
+    n_tiles = tiles_x * -(-rows // th)
+    n_chunks = max(1, -(-nf // BIN_CHUNK))
+    dev = consts.device
+    rects = torch.empty((bs, nf, 4), dtype=torch.int32, device=dev)
+    counts = torch.zeros((bs, n_tiles, n_chunks), dtype=torch.int32, device=dev)
+    # K7 is two passes of one wrapper call; LAUNCHES counts the call once,
+    # at its fill pass, so that one binning reads as one launch
+    _call("bin_faces_count", dev, consts.data_ptr(), rects.data_ptr(), counts.data_ptr(),
+          bs, nf, S, r0, rows, th, tw, BIN_CHUNK)
+    ends = torch.cumsum(counts.reshape(-1), 0, dtype=torch.int32)
+    cursors = (ends - counts.reshape(-1)).reshape(counts.shape)
+    cnt = counts.sum(-1, dtype=torch.int32)
+    offsets = cursors[..., 0].clone()
+    ids = torch.empty(int(ends[-1]), dtype=torch.int32, device=dev)   # the host sync
+    _launch("bin_faces", dev, rects.data_ptr(), cursors.data_ptr(), ids.data_ptr(), bs, nf,
+            tiles_x, n_tiles, BIN_CHUNK)
+    return cnt, offsets, ids
+
+
+# --- K8: the binned route -------------------------------------------------
+
+
+def _binned_fold(consts, bins, image_size, near, far, row_start, num_rows, tile):
+    """The z-buffer fold over the bins of the ``tile`` pixel tiles,
+    vectorised over tiles: step k folds the k-th face of every tile's bin,
+    so every pixel still takes its tile's faces in ascending order.
+    Returns (index, depth) [bs, rows, S]."""
+    cnt, offsets, ids = (t.long() for t in bins)
+    bs = consts.shape[0]
+    S, r0, rows = _window(image_size, row_start, num_rows)
+    th, tw = tile
+    ny, nx = -(-rows // th), -(-S // tw)
+    dev = consts.device
+    # pixel centres of every tile's th x tw pixels, those past the canvas
+    # and window edges too (cropped below)
+    xp = pixel_centres(torch.arange(nx * tw), S).to(dev).reshape(1, nx, 1, tw)
+    yp = pixel_centres(torch.arange(r0, r0 + ny * th), S).to(dev).reshape(ny, 1, th, 1)
+    xp = xp.expand(ny, nx, 1, tw).reshape(ny * nx, 1, tw)
+    yp = yp.expand(ny, nx, th, 1).reshape(ny * nx, th, 1)
+    depth = torch.full((bs, ny * nx, th, tw), far, dtype=torch.float32, device=dev)
+    index = torch.full((bs, ny * nx, th, tw), -1, dtype=torch.int32, device=dev)
+    for k in range(int(cnt.max()) if cnt.numel() else 0):
+        live = cnt > k                                        # [bs, tiles]
+        f = torch.where(live, ids[torch.where(live, offsets + k, 0)], 0)
+        c = torch.gather(consts, 2, f[:, None, :].expand(-1, 17, -1))[..., None, None]
+        c = tuple(c[:, j] for j in range(17))                 # each [bs, tiles, 1, 1]
+        out, zp = face_candidate(xp, yp, c[:9], c[9:12], c[12], c[13:17], near, far)
+        zcand = torch.where(out | ~live[..., None, None], torch.inf, zp)
+        accept = zcand <= depth - DEPTH_MIN_DELTA
+        depth = torch.where(accept, zcand, depth)
+        index = torch.where(accept, f[..., None, None].to(torch.int32), index)
+
+    def crop(t):
+        t = t.reshape(bs, ny, nx, th, tw).permute(0, 1, 3, 2, 4)
+        return t.reshape(bs, ny * th, nx * tw)[:, :rows, :S].contiguous()
+
+    return crop(index), crop(depth)
+
+
+def _check_bins(bins, bs, rows, S, tile):
+    """Check K8's bins and tile; returns the bins' pointers."""
+    if tile not in BIN_TILES:
+        raise ValueError(f"K8 is built for the tiles {BIN_TILES}, not {tile}")
+    cnt, offsets, ids = bins
+    th, tw = tile
+    n_tiles = -(-rows // th) * -(-S // tw)
+    _check(cnt, "cnt", torch.int32, (bs, n_tiles))
+    _check(offsets, "offsets", torch.int32, (bs, n_tiles))
+    _check(ids, "ids", torch.int32, (ids.shape[0],))
+    return tuple(t.data_ptr() for t in bins)
+
+
+def resolve_binned_xy_plain(consts, fvp, bins, image_size, near, far, row_start=0,
+                            num_rows=None, *, tile):
+    index, depth = _binned_fold(consts, bins, image_size, near, far, row_start, num_rows,
+                                tile)
+    return _latch_xy(index, depth, fvp)
+
+
+def resolve_binned_xy(consts, fvp, bins, image_size, near, far, row_start=0,
+                      num_rows=None, *, tile):
+    """:func:`resolve_xy` over the per-tile bins of :func:`bin_faces` (made
+    for the same window and ``tile``, one of :data:`BIN_TILES`); the same
+    outputs, bit for bit."""
+    if not _use_kernel(consts, fvp, *bins):
+        return resolve_binned_xy_plain(consts, fvp, bins, image_size, near, far,
+                                       row_start, num_rows, tile=tile)
+    bs, nf = consts.shape[0], consts.shape[-1]
+    _check(consts, "consts", torch.float32, (bs, 17, nf))
+    _check(fvp, "fvp", torch.float32, (bs, 3, 3, nf))
+    S, r0, rows = _window(image_size, row_start, num_rows)
+    bin_ptrs = _check_bins(bins, bs, rows, S, tile)
+    dev = consts.device
+    index = torch.empty((bs, rows, S), dtype=torch.int32, device=dev)
+    depth = torch.empty((bs, rows, S), dtype=torch.float32, device=dev)
+    coords = torch.empty((bs, 6, rows, S), dtype=torch.float32, device=dev)
+    _launch("resolve_binned_xy", dev, consts.data_ptr(), fvp.data_ptr(), *bin_ptrs,
+            index.data_ptr(), depth.data_ptr(), coords.data_ptr(), bs, nf, S, r0, rows,
+            tile[0], float(near), float(far))
+    return index, depth, coords
+
+
+def resolve_binned_latch_plain(consts, fvp, face_attrs, bins, image_size, near, far,
+                               row_start=0, num_rows=None, *, tile):
+    index, depth = _binned_fold(consts, bins, image_size, near, far, row_start, num_rows,
+                                tile)
+    return _latch_copy(index, depth, fvp, face_attrs)
+
+
+def resolve_binned_latch(consts, fvp, face_attrs, bins, image_size, near, far, row_start=0,
+                         num_rows=None, *, tile):
+    """:func:`resolve_latch` over the per-tile bins of :func:`bin_faces`;
+    the same outputs, bit for bit."""
+    if not _use_kernel(consts, fvp, face_attrs, *bins):
+        return resolve_binned_latch_plain(consts, fvp, face_attrs, bins, image_size, near,
+                                          far, row_start, num_rows, tile=tile)
+    S, r0, rows = _window(image_size, row_start, num_rows)
+    bin_ptrs = _check_bins(bins, consts.shape[0], rows, S, tile)
+    bs, nf, A = _check_latch(consts, fvp, face_attrs, "resolve_binned_latch", tile[0])
+    out = _latch_outputs(bs, A, rows, S, consts.device)
+    _launch("resolve_binned_latch", consts.device, consts.data_ptr(), fvp.data_ptr(),
+            face_attrs.data_ptr(), *bin_ptrs, *(t.data_ptr() for t in out), bs, nf, A, S,
+            r0, rows, tile[0], float(near), float(far))
+    return out
+
+
+def resolve_binned_depth_plain(consts, bins, image_size, near, far, row_start=0,
+                               num_rows=None, *, tile):
+    return _binned_fold(consts, bins, image_size, near, far, row_start, num_rows, tile)
+
+
+def resolve_binned_depth(consts, bins, image_size, near, far, row_start=0, num_rows=None,
+                         *, tile):
+    """:func:`resolve_depth` over the per-tile bins of :func:`bin_faces`;
+    the same outputs, bit for bit."""
+    if not _use_kernel(consts, *bins):
+        return resolve_binned_depth_plain(consts, bins, image_size, near, far, row_start,
+                                          num_rows, tile=tile)
+    bs, nf = consts.shape[0], consts.shape[-1]
+    _check(consts, "consts", torch.float32, (bs, 17, nf))
+    S, r0, rows = _window(image_size, row_start, num_rows)
+    bin_ptrs = _check_bins(bins, bs, rows, S, tile)
+    dev = consts.device
+    index = torch.empty((bs, rows, S), dtype=torch.int32, device=dev)
+    depth = torch.empty((bs, rows, S), dtype=torch.float32, device=dev)
+    _launch("resolve_binned_depth", dev, consts.data_ptr(), *bin_ptrs, index.data_ptr(),
+            depth.data_ptr(), bs, nf, S, r0, rows, tile[0], float(near), float(far))
+    return index, depth

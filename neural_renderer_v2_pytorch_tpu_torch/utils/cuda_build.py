@@ -38,9 +38,17 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nr_torch_kernels"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "nr_face_setup": (_P, _P, _I, _I, _I, _P),
-    "nr_resolve_xy": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
-    "nr_resolve_latch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
-    "nr_resolve_latch_limits": (_P, _P, _P),
+    "nr_resolve_xy": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    "nr_resolve_latch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    "nr_resolve_depth": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    "nr_resolve_binned_xy": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                             _P),
+    "nr_resolve_binned_latch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _F, _F, _P),
+    "nr_resolve_binned_depth": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    "nr_resolve_latch_limits": (_I, _P, _P, _P),
+    "nr_bin_faces_count": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "nr_bin_faces": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "nr_scatter_pixels_to_faces": (_P, _P, _P, _I, _I, _I, _I, _P),
     "nr_scatter_faces_to_vertices": (_P, _P, _P, _I, _I, _I, _P),
     "nr_gather_faces3": (_P, _P, _P, _I, _I, _I, _I, _P),

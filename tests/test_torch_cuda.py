@@ -173,3 +173,54 @@ def test_textured_slice_on_card_matches_cpu(cuda, scene):
     for i in (1, 2):
         torch.testing.assert_close(out[1][i], out[0][i], rtol=0,
                                    atol=1e-4 * float(out[0][i].abs().max()))
+
+
+@pytest.mark.parametrize("tile", rc.BIN_TILES)
+@pytest.mark.parametrize("window", [(0, None), (40, 27)])
+@pytest.mark.parametrize("bs,nf,size", [(2, 37, 64), (1, 300, 100), (3, 5, 17)])
+def test_bin_faces_and_binned_resolve_are_bit_exact(cuda, bs, nf, size, window, tile):
+    """K7's bins against their plain version, and each K8 form against its
+    plain version and the tiled form, on ragged canvases and windows, at
+    each tile K8 is built for."""
+    row_start, num_rows = window
+    if num_rows is not None and row_start + num_rows > size:
+        row_start, num_rows = size // 3, size // 2
+    fvp = _soup_planar(nf + 2, bs, nf, cuda)
+    consts = rc.face_setup(fvp, True)
+    attrs = torch.randn((bs, nf, 6), device=cuda)
+    w = (row_start, num_rows)
+    bins = rc.bin_faces(consts, size, *w, tile=tile)
+    for g, p in zip(bins, rc.bin_faces_plain(consts, size, *w, tile=tile)):
+        assert torch.equal(g, p)
+    args = (size, 0.1, 100.0, *w)
+    forms = [
+        (rc.resolve_binned_xy(consts, fvp, bins, *args, tile=tile),
+         rc.resolve_binned_xy_plain(consts, fvp, bins, *args, tile=tile),
+         rc.resolve_xy(consts, fvp, *args)),
+        (rc.resolve_binned_latch(consts, fvp, attrs, bins, *args, tile=tile),
+         rc.resolve_binned_latch_plain(consts, fvp, attrs, bins, *args, tile=tile),
+         rc.resolve_latch(consts, fvp, attrs, *args)),
+        (rc.resolve_binned_depth(consts, bins, *args, tile=tile),
+         rc.resolve_binned_depth_plain(consts, bins, *args, tile=tile),
+         rc.resolve_depth(consts, *args)),
+    ]
+    for got, plain, tiled in forms:
+        for g, p, t in zip(got, plain, tiled):
+            assert torch.equal(g, p) and torch.equal(g, t)
+    assert (forms[0][0][0] >= 0).any()
+
+
+def test_compute_face_index_map_on_card_launches_kernels(cuda):
+    """The id/depth entry runs K1 and a resolve kernel on the card (the
+    route's), never the plain fold, and gives the CPU's result."""
+    rng = np.random.RandomState(5)
+    fv = rng.uniform(-1, 1, (2, 40, 3, 3)).astype(np.float32)
+    fv[..., 2] = np.abs(fv[..., 2]) + 0.1
+    want = nr.compute_face_index_map(torch.tensor(fv), 64, return_depth=True)
+    for mode, kernel in (("auto", "resolve_depth"), ("binned", "resolve_binned_depth")):
+        rc.reset_launches()
+        got = nr.compute_face_index_map(torch.tensor(fv, device=cuda), 64, return_depth=True,
+                                        mode=mode)
+        assert rc.LAUNCHES["face_setup"] == 1 and rc.LAUNCHES[kernel] == 1, rc.LAUNCHES
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)

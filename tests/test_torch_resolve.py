@@ -15,6 +15,7 @@ import torch
 
 from neural_renderer_v2_pytorch_tpu.ops import resolve as jres
 from neural_renderer_v2_pytorch_tpu.ops.resolve_pallas import resolve_gather_pallas
+from neural_renderer_v2_pytorch_tpu_torch.ops import gather_resolve as tgr
 from neural_renderer_v2_pytorch_tpu_torch.ops import resolve as tres
 from neural_renderer_v2_pytorch_tpu_torch.ops import resolve_cuda
 
@@ -58,7 +59,7 @@ def test_index_map_matches_jax(seed, bs, nf, size, draw_backside):
         eager, want_depth = jres.compute_face_index_map(
             jnp.asarray(fv), size, draw_backside=draw_backside, return_depth=True
         )
-    got, depth = tres.compute_face_index_map(
+    got, depth = tgr.compute_face_index_map(
         torch.tensor(fv), size, draw_backside=draw_backside, return_depth=True
     )
     assert got.dtype == torch.int32

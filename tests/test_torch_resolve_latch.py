@@ -131,20 +131,27 @@ def test_resolve_and_gather_latch_without_attrs():
 
 
 def _kernel_args():
-    """Small CPU inputs for every wrapper in rc.KERNELS."""
+    """Small CPU inputs for every wrapper in rc.KERNELS: (args, kwargs)."""
     fvp = torch.tensor(_planar(_soup(14, 1, 9)))
     consts = rc.face_setup_plain(fvp, True)
     _, faces = icosphere(0)
     faces = torch.tensor(faces)
     fim = torch.randint(-1, 9, (1, 8, 8), dtype=torch.int32)
+    tile = {"tile": (8, 8)}
+    bins = rc.bin_faces_plain(consts, 40, **tile)
     return {
-        "face_setup": (fvp, True),
-        "resolve_xy": (consts, fvp, 16, 0.1, 100.0),
-        "resolve_latch": (consts, fvp, torch.ones(1, 9, 4), 16, 0.1, 100.0),
-        "scatter_pixels_to_faces": (torch.ones(1, 6, 8, 8), fim, 9),
-        "scatter_faces_to_vertices": (torch.ones(1, 3, 3, 20), faces, 12),
-        "gather_faces3": (torch.ones(1, 12, 3), faces),
-        "scatter_rows": (torch.ones(1, 12, 64), fim.reshape(1, 64), 9),
+        "face_setup": ((fvp, True), {}),
+        "resolve_xy": ((consts, fvp, 16, 0.1, 100.0), {}),
+        "resolve_latch": ((consts, fvp, torch.ones(1, 9, 4), 16, 0.1, 100.0), {}),
+        "resolve_depth": ((consts, 16, 0.1, 100.0, 4, 9), {}),
+        "scatter_pixels_to_faces": ((torch.ones(1, 6, 8, 8), fim, 9), {}),
+        "scatter_faces_to_vertices": ((torch.ones(1, 3, 3, 20), faces, 12), {}),
+        "gather_faces3": ((torch.ones(1, 12, 3), faces), {}),
+        "scatter_rows": ((torch.ones(1, 12, 64), fim.reshape(1, 64), 9), {}),
+        "bin_faces": ((consts, 40), tile),
+        "resolve_binned_xy": ((consts, fvp, bins, 40, 0.1, 100.0), tile),
+        "resolve_binned_latch": ((consts, fvp, torch.ones(1, 9, 4), bins, 40, 0.1, 100.0), tile),
+        "resolve_binned_depth": ((consts, bins, 40, 0.1, 100.0), tile),
     }
 
 
@@ -155,26 +162,28 @@ def test_plain_versions_switch_covers_every_wrapper(monkeypatch):
     assert sorted(args) == sorted(rc.KERNELS)
     launched = []
     monkeypatch.setattr(rc, "_on_cuda", lambda *tensors: True)
-    monkeypatch.setattr(rc, "_latch_limits", lambda device: (256, 1024, 18000, 49152))
+    monkeypatch.setattr(rc, "_latch_limits",
+                        lambda device, tile=0: (256, 1024, 18000, 49152))
+    monkeypatch.setattr(rc, "_call", lambda entry, device, *a: None)   # K7's count pass
     monkeypatch.setattr(rc, "_launch", lambda name, device, *a: launched.append(name))
-    for name, a in args.items():
-        getattr(rc, name)(*a)
+    for name, (a, kw) in args.items():
+        getattr(rc, name)(*a, **kw)
     assert launched == list(args)
     launched.clear()
     with rc.plain_versions():
-        for name, a in args.items():
-            got, want = getattr(rc, name)(*a), getattr(rc, name + "_plain")(*a)
+        for name, (a, kw) in args.items():
+            got, want = getattr(rc, name)(*a, **kw), getattr(rc, name + "_plain")(*a, **kw)
             for g, w in zip(got if isinstance(got, tuple) else (got,),
                             want if isinstance(want, tuple) else (want,)):
                 assert torch.equal(g, w), name
     assert launched == []
-    assert rc._route["plain"] is False
+    assert rc._route == {"plain": False, "mode": None}
 
 
 def test_wrappers_take_plain_versions_on_cpu_without_launching():
     rc.reset_launches()
-    for name, a in _kernel_args().items():
-        getattr(rc, name)(*a)
+    for name, (a, kw) in _kernel_args().items():
+        getattr(rc, name)(*a, **kw)
     assert all(n == 0 for n in rc.LAUNCHES.values()), rc.LAUNCHES
 
 
@@ -183,3 +192,6 @@ def test_latch_limit_check_names_the_attribute_count():
     msg = rc.latch_limit_error(36, 256, 128, 18000, 49152)
     assert "A=36" in msg and "256 threads" in msg
     assert "A=6" in rc.latch_limit_error(6, 256, 1024, 60000, 49152)
+    assert rc.latch_limit_error(27, 256, 128, 18000, 49152,
+                                kernel="resolve_binned_latch").startswith(
+        "resolve_binned_latch with A=27")
