@@ -30,6 +30,19 @@ Builds the hand-written kernels from ``neural_renderer_v2_pytorch_tpu_torch
   five Adam steps of a ``hires`` vertex fit and one ``hires-lit`` step, and
   drives ``compute_face_index_map`` and ``render_depth`` (launch counts
   read around each);
+- sharded rendering (``parallel``): holds K9 ``gather_rows`` bit-equal to
+  its plain version at the face-sharded path's shapes (``scale``, D = 9;
+  ``textured-scale``, D = 27) in both layouts, then runs four meshes on
+  ranks that share the one card through gloo (NCCL takes one rank per
+  card): ``scale-face2`` and ``textured-scale-face2`` (faces over 2 ranks),
+  ``bench-tile2`` (rows over 2) and ``all-axes`` (the lit scene, two views,
+  over (2, 2, 2): 8 ranks).  Each rank holds its step to the single-device
+  step on the card (images and its index band equal, cross-shard near-tie
+  pixels counted, gradients within 1e-4 of their largest magnitude), takes
+  the collective census and the launch counts around it, and times its
+  steps and their collectives; every rank's gradients must be the same
+  bits as every other rank's.  These times show what a step costs when
+  ranks share a card, not how the path scales;
 
 then times each kernel, its plain version, the one PyTorch call that
 computes the same function where there is one, and each step, with CUDA
@@ -44,6 +57,7 @@ There is no CPU path: without CUDA the script fails.
 
 import collections
 import contextlib
+import hashlib
 import json
 import os
 import re
@@ -55,6 +69,7 @@ import numpy as np
 import torch
 
 import neural_renderer_v2_pytorch_tpu_torch as nr
+from neural_renderer_v2_pytorch_tpu_torch import parallel
 from neural_renderer_v2_pytorch_tpu_torch.ops import resolve_cuda as rc
 from neural_renderer_v2_pytorch_tpu_torch.ops import shading
 from neural_renderer_v2_pytorch_tpu_torch.ops.gather_resolve import (
@@ -63,6 +78,7 @@ from neural_renderer_v2_pytorch_tpu_torch.ops.gather_resolve import (
 )
 from neural_renderer_v2_pytorch_tpu_torch.ops.rasterize import face_attributes
 from neural_renderer_v2_pytorch_tpu_torch.ops.resolve import (
+    DEPTH_MIN_DELTA,
     pixel_centres,
     weight_planes_from_gathered,
 )
@@ -89,12 +105,13 @@ KERNELS = {
     "resolve_depth": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:348", "bench"),
     "scatter_pixels_to_faces": (f"{PKG}/csrc/scatter_pixels_to_faces.cu", f"{TPU_KERNELS}:1512", "bench"),
     "scatter_faces_to_vertices": (f"{PKG}/csrc/scatter_faces_to_vertices.cu", f"{TPU_KERNELS}:2741", "bench"),
-    "gather_faces3": (f"{PKG}/csrc/gather_faces3.cu", f"{TPU_KERNELS}:2605", "atlas"),
+    "gather_faces3": (f"{PKG}/csrc/gather_rows.cu", f"{TPU_KERNELS}:2605", "atlas"),
     "scatter_rows": (f"{PKG}/csrc/scatter_rows.cu", f"{TPU_KERNELS}:2090", "atlas"),
     "bin_faces": (f"{PKG}/csrc/bin_faces.cu", f"{TPU_KERNELS}:1020", "hires"),
     "resolve_binned_xy": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:858", "hires"),
     "resolve_binned_latch": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:858", "hires-lit"),
     "resolve_binned_depth": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:858", "hires-lit"),
+    "gather_rows": (f"{PKG}/csrc/gather_rows.cu", f"{TPU_KERNELS}:2277", "textured-scale"),
 }
 SILHOUETTE_KERNELS = ("face_setup", "resolve_xy", "scatter_pixels_to_faces",
                       "scatter_faces_to_vertices", "gather_faces3")
@@ -121,6 +138,22 @@ TEXTURED = {
     "textured-scale": (lambda: texel_scene(320, 248, 2), 2, False, 512, False),
     "hires-lit": (lambda: texel_scene(320, 248, 2), 2, True, 512, True),
 }
+# the sharded runs (``parallel``), on ranks that share the one card through
+# gloo (NCCL takes one rank per card): name -> (data, tile, face) mesh.
+# scale-face2 and textured-scale-face2 are scale and textured-scale with
+# their faces over two ranks (the JAX package's auto_mesh gives two devices
+# a face axis from 20K faces on); bench-tile2 is bench over two row bands
+# (auto_mesh's choice for a small mesh); all-axes is the lit scene, two
+# views, at the JAX package's multichip shape (2, 2, 2)
+SHARDED = {
+    "scale-face2": (1, 1, 2),
+    "textured-scale-face2": (1, 1, 2),
+    "bench-tile2": (1, 2, 1),
+    "all-axes": (2, 2, 2),
+}
+SHARDED_TIMEOUT = 300.0   # seconds for one spawn of ranks, every collective included
+SHARDED_STEPS = 5         # timed steps of each sharded run on each rank
+LATCH_FORMS = ("resolve_xy", "resolve_latch", "resolve_binned_xy", "resolve_binned_latch")
 # H100 SXM peaks from NVIDIA's data sheet: HBM bytes/s, float32
 # operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -814,6 +847,254 @@ def rgb_golden(dev):
     log(f"[golden rgb] index map equal to JAX, max abs errs {json.dumps(errs)}")
 
 
+def gather_rows_check(label, table, index):
+    """K9 against its plain version in both layouts at a face path's shapes:
+    the per-face rows [1, nf, D] the winner gather reads and the index map
+    it gathers over (-1 on background).  Returns the planar form's Call."""
+    bs, n, D = table.shape
+    ids = index.reshape(bs, -1).contiguous()
+    P = ids.shape[1]
+    for planar in (True, False):
+        check_equal(f"{label} gather_rows D={D} planar={planar}",
+                    rc.gather_rows(table, ids, planar), rc.gather_rows_plain(table, ids, planar))
+    named = int(torch.unique(ids[ids >= 0]).numel())
+    row_ms = median_ms(lambda: rc.gather_rows(table, ids, False), 50)
+    log(f"[{label}] K9 gather_rows bit-equal to plain, planar and row layouts: n={n} D={D} "
+        f"P={P} coverage={float((ids >= 0).float().mean()):.4f} rows named {named}; "
+        f"row layout {row_ms:.4f} ms")
+    gather_index = ids.clamp(min=0).long()[..., None].expand(bs, P, D)
+    return Call(lambda: rc.gather_rows(table, ids, True),
+                lambda: rc.gather_rows_plain(table, ids, True),
+                # the ids, the output and the rows they name, each once
+                bound(4 * P + 4 * P * D + 4 * D * named, 0),
+                lambda: torch.gather(table, 1, gather_index))
+
+
+class ShardedCase:
+    """One sharded run's global inputs (see SHARDED), made alike on every
+    rank: the NDC vertices and, textured, the texels and the lights'
+    tensors as leaves that take gradients; the entry it renders through
+    and its loss (scale's, bench's, or the perf matrix's sum(rgba^2))."""
+
+    def __init__(self, name, dev):
+        self.name, self.shape = name, SHARDED[name]
+        tex, lights = None, ()
+        if name == "scale-face2":
+            v, f = icosphere(6)
+            azimuths, self.image_size, self.anti_aliasing = (30.0,), 512, False
+            self.loss = pattern_loss
+        elif name == "bench-tile2":
+            v, f = torus(40, 32)
+            azimuths, self.image_size, self.anti_aliasing = (0.0,), 256, True
+            self.loss = bench_loss
+        elif name == "textured-scale-face2":
+            v, f, vt, ft, tex = texel_scene(320, 248, 2)
+            azimuths, self.image_size, self.anti_aliasing = (0.0,), 512, False
+        else:
+            v, f, vt, ft, tex = texel_scene(40, 32, 2)
+            lights = lit_light_arrays()
+            azimuths, self.image_size, self.anti_aliasing = (0.0, 45.0), 128, True
+        self.size = self.image_size * (2 if self.anti_aliasing else 1)
+        ndc = []
+        for azimuth in azimuths:
+            r = nr.Renderer(dev)
+            r.viewpoints = nr.get_points_from_angles(2.732, 30, azimuth)
+            with torch.no_grad():
+                ndc.append(r.transform_vertices(torch.tensor(v[None], device=dev)))
+        bs = len(azimuths)
+        self.faces = torch.tensor(f, device=dev)
+        self.leaves = {"vertices": torch.cat(ndc)}
+        self.entry = "silhouettes" if tex is None else "rgba"
+        if tex is not None:
+            self.loss = lambda images: torch.sum(images * images)
+            self.vt = torch.tensor(np.repeat(vt, bs, 0), device=dev)
+            self.ft = torch.tensor(ft, device=dev)
+            self.leaves["textures"] = torch.tensor(np.repeat(tex, bs, 0), device=dev)
+        self.lights = [(kind, list(arrays)) for kind, arrays in lights]
+        for i, (_, arrays) in enumerate(lights):
+            for field, a in arrays.items():
+                self.leaves[f"light{i}_{field}"] = torch.tensor(a, device=dev)
+
+    def step(self, mesh=None):
+        """Forward + backward, sharded over ``mesh`` or on this device alone:
+        (images, {leaf: gradient}, the collectives the forward counted)."""
+        t = {k: v.clone().requires_grad_(True) for k, v in self.leaves.items()}
+        params = None
+        if self.entry == "rgba":
+            cls = {"ambient": nr.AmbientLight, "directional": nr.DirectionalLight,
+                   "specular": nr.SpecularLight}
+            lights = tuple(cls[kind](**{field: t[f"light{i}_{field}"] for field in fields})
+                           for i, (kind, fields) in enumerate(self.lights)) or None
+            params = nr.RasterizeParam(vertices_textures=self.vt, faces_textures=self.ft,
+                                       textures=t["textures"], texture_size=2, lights=lights)
+        hp = nr.RasterizeHyperparam(image_size=self.image_size, anti_aliasing=self.anti_aliasing)
+        if mesh is None:
+            images = getattr(nr, f"rasterize_{self.entry}")(t["vertices"], self.faces, params, hp)
+        else:
+            images = getattr(parallel, f"rasterize_{self.entry}_sharded")(
+                t["vertices"], self.faces, params, hp, mesh=mesh)
+        forward = dict(parallel.COLLECTIVES)
+        self.loss(images).backward()
+        return images.detach(), {k: v.grad for k, v in t.items()}, forward
+
+    def band(self, mesh):
+        """(this rank's batch slice of the face vertices [bl, nf, 3, 3], its
+        row window (row_start, rows), the per-rank face count)."""
+        data, tile, face = self.shape
+        bl = self.leaves["vertices"].shape[0] // data
+        d = mesh.coords["data"]
+        fv = self.leaves["vertices"][d * bl:(d + 1) * bl][:, self.faces.long()]
+        rows = -(-self.size // tile)
+        return fv, (mesh.coords["tile"] * rows, rows), -(-self.faces.shape[0] // face)
+
+
+def check_index_band(label, case, mesh):
+    """This rank's band of the sharded index map (the face-sharded resolve
+    with face > 1, else the windowed resolve) against the single-device map
+    of the whole canvas: equal, rows past the image bottom background.
+    Returns the cross-shard near-tie pixels: both shards' winners within
+    DEPTH_MIN_DELTA of each other, where the fold may part from the
+    sequential z-buffer (none differed, or this raised)."""
+    fv, (r0, rows), per = case.band(mesh)
+    S, face = case.size, case.shape[2]
+    with torch.no_grad():
+        want = nr.compute_face_index_map(fv, S)[:, r0:r0 + rows]
+        window = dict(row_start=r0, num_rows=rows)
+        if face > 1:
+            got = parallel.compute_face_index_map_face_sharded(fv, S, group=mesh.groups["face"],
+                                                               **window)
+        else:
+            got = nr.compute_face_index_map(fv, S, **window)
+        check_equal(f"{label} index band", got[:, :want.shape[1]], want)
+        if not bool((got[:, want.shape[1]:] < 0).all()):
+            raise AssertionError(f"{label}: rows past the image bottom not background")
+        if face == 1:
+            return 0
+        shards = [nr.compute_face_index_map(fv[:, k * per:(k + 1) * per], S, return_depth=True,
+                                            **window) for k in range(face)]
+    ties = torch.zeros_like(got, dtype=torch.bool)
+    for a in range(face):
+        for b in range(a + 1, face):
+            (ia, da), (ib, db) = shards[a], shards[b]
+            ties |= (ia >= 0) & (ib >= 0) & ((da - db).abs() < DEPTH_MIN_DELTA)
+    return int(ties.sum())
+
+
+def sharded_rank(names):
+    """One rank's share of a spawn: each run in ``names`` on its mesh, once
+    with its census and launch counts read around the step and held to the
+    single-device step on the same card (which this rank also runs), then
+    SHARDED_STEPS timed steps.  Raises on any disagreement; returns
+    {name: what the parent prints}."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank()
+    out = {}
+    for name in names:
+        case = ShardedCase(name, dev)
+        mesh = parallel.make_mesh(*case.shape)
+        data, tile, face = case.shape
+        label = f"{name} {case.shape} rank {rank}"
+        want_images, want_grads, _ = case.step()
+        dist.barrier()
+        torch.cuda.synchronize()
+        parallel.reset_collectives()
+        rc.reset_launches()
+        images, grads, forward = case.step(mesh)
+        torch.cuda.synchronize()
+        launches, step_census = dict(rc.LAUNCHES), dict(parallel.COLLECTIVES)
+        check_equal(f"{label} images", images, want_images)
+        errs = {}
+        for k, g in want_grads.items():
+            if not torch.isfinite(grads[k]).all() or float(grads[k].abs().max()) == 0.0:
+                raise AssertionError(f"{label}: {k} gradients not finite or all zero")
+            errs[k] = check_close(f"{label} {k} grads", grads[k], g)
+        near_ties = check_index_band(label, case, mesh)
+        cells = int(data * tile > 1)
+        want_forward = {"face_all_gather": 2 * (face > 1), "canvas_all_gather": cells,
+                        "grad_all_reduce": 0}
+        if forward != want_forward or step_census != dict(want_forward, grad_all_reduce=1):
+            raise AssertionError(f"{label}: census forward {forward} step {step_census}")
+        fv, (_, rows), per = case.band(mesh)
+        if face > 1:
+            route = rc.resolve_route(fv.shape[0], rows, case.size, per)
+            depth_form = "resolve_binned_depth" if route == "binned" else "resolve_depth"
+            path = ("face_setup", depth_form, "gather_rows", "gather_faces3",
+                    "scatter_pixels_to_faces", "scatter_faces_to_vertices")
+            ok = launches["gather_rows"] == 1 and launches[depth_form] == 1 and not any(
+                launches[k] for k in LATCH_FORMS)
+        else:
+            route = rc.resolve_route(fv.shape[0], rows, case.size, fv.shape[1])
+            latch = "resolve_xy" if case.entry == "silhouettes" else "resolve_latch"
+            path = ("face_setup", latch if route == "tiled" else "resolve_binned_" + latch[8:],
+                    "gather_faces3", "scatter_pixels_to_faces", "scatter_faces_to_vertices")
+            ok = launches["gather_rows"] == 0
+        if not ok or not all(launches[k] > 0 for k in path):
+            raise AssertionError(f"{label}: the step missed a kernel of its path: {launches}")
+        ms, coll_ms = [], []
+        for _ in range(SHARDED_STEPS):
+            dist.barrier()
+            torch.cuda.synchronize()
+            parallel.reset_collectives()
+            t0 = time.perf_counter()
+            case.step(mesh)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            coll_ms.append(sum(parallel.COLLECTIVE_SECONDS.values()) * 1e3)
+        out[name] = dict(
+            coords=mesh.coords, route=route, errs=errs, near_ties=near_ties,
+            digests={k: hashlib.sha256(g.cpu().numpy().tobytes()).hexdigest()
+                     for k, g in grads.items()},
+            max_g={k: float(g.abs().max()) for k, g in want_grads.items()},
+            census=step_census, launches={k: v for k, v in launches.items() if v},
+            ms=ms, coll_ms=coll_ms)
+    return out
+
+
+def sharded_runs(dev, smi):
+    """Every SHARDED run: the single-device step alone on the card (median
+    of 5), then one spawn of ranks per world size, each rank held to the
+    single-device step inside ``sharded_rank`` and here to each other: every
+    rank's gradients the same bits.  Returns ({name: [each
+    rank's results]}, the ranks' launch counts summed)."""
+    single_ms = {}
+    for name in SHARDED:
+        case = ShardedCase(name, dev)
+        single_ms[name] = median_ms(case.step, 5, warmup=1)
+    spawns = collections.defaultdict(list)
+    for name, shape in SHARDED.items():
+        spawns[int(np.prod(shape))].append(name)
+    runs, launches = {}, collections.Counter()
+    for world, names in spawns.items():
+        t0 = time.perf_counter()
+        ranks = parallel.run_ranks(sharded_rank, world, (names,), device="cuda",
+                                   backend="gloo", timeout=SHARDED_TIMEOUT)
+        log(f"[sharded] {world} ranks on one card (gloo): {names} in "
+            f"{time.perf_counter() - t0:.1f} s, rank start-up included")
+        for name in names:
+            runs[name] = [r[name] for r in ranks]
+            for rank, r in enumerate(runs[name]):
+                launches.update(r["launches"])
+                if r["digests"] != runs[name][0]["digests"]:
+                    raise AssertionError(f"{name}: rank {rank}'s gradients are not rank 0's bits")
+            log(f"[sharded] {name}: every rank's gradients the same bits "
+                f"({len(ranks)} ranks, {len(runs[name][0]['digests'])} leaves)")
+    for name, ranks in runs.items():
+        for rank, r in enumerate(ranks):
+            log(f"[sharded] {name} mesh {SHARDED[name]} rank {rank} {r['coords']}: images equal "
+                f"to the single-device step's, index band equal (cross-shard near-tie pixels "
+                f"{r['near_ties']}), route {r['route']}, grad max abs err {json.dumps(r['errs'])} "
+                f"(max |g| {json.dumps(r['max_g'])}), census {json.dumps(r['census'])}, "
+                f"launches {json.dumps(r['launches'])}")
+        log(f"[time] {name} sharded step {SHARDED[name]}, {len(ranks)} ranks sharing one card: "
+            + "; ".join(f"rank {i} {float(np.median(r['ms'])):.4f} ms (collectives "
+                        f"{float(np.median(r['coll_ms'])):.4f} ms)" for i, r in enumerate(ranks))
+            + f" (medians of {SHARDED_STEPS}); the single-device step alone "
+            f"{single_ms[name]:.4f} ms  ({smi})")
+    return runs, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -909,6 +1190,21 @@ def main():
     # its one call of seconds is the time of the plain version there
     tex_calls["textured-scale"]["resolve_latch"] = tex_calls["textured-scale"][
         "resolve_latch"]._replace(plain=plain_resolve_ms["textured-scale"])
+
+    # K9 at the face-sharded path's shapes: the winner rows of scale (D = 9,
+    # the coordinates) and of textured-scale (D = 27: coordinates, UV,
+    # texels) over their index maps, as the winner gather reads them
+    with torch.no_grad():
+        fvp6 = gather_face_vertices(ndc6, faces6)
+        scale_calls["gather_rows"] = gather_rows_check(
+            "scale", fvp6.permute(0, 3, 2, 1).reshape(1, -1, 9).contiguous(),
+            index_map(scale_renderer, sphere_v, faces6, False))
+        ts = cfgs["textured-scale"]
+        _, fvp, _, attrs = ts.latch_inputs()
+        table = torch.cat([fvp.permute(0, 3, 2, 1).reshape(1, -1, 9), attrs], -1).contiguous()
+        tex_calls["textured-scale"]["gather_rows"] = gather_rows_check("textured-scale", table,
+                                                                       ts.fim())
+    all_errs["gather_rows"] = 0.0     # bit-equal, or the checks raised
 
     # 8. the textured steps, kernels vs plain versions
     steps_vs_plain("atlas", cfgs["atlas"].step, cfgs["atlas"].fim)
@@ -1141,7 +1437,10 @@ def main():
     if not all(index_launches[name] > 0 for name in INDEX_MAP_KERNELS):
         raise AssertionError(f"the id/depth entry missed a kernel: {index_launches}")
 
-    # 16. times
+    # 16. sharded rendering (parallel/) on ranks that share this card
+    _, sharded_launches = sharded_runs(dev, smi)
+
+    # 17. times
     # per call: the CUDA-event median (what a caller waits, launch gaps
     # included), the kernel's own device time (its mean profiler record
     # times its launches per call), the plain version's and the library
@@ -1213,7 +1512,8 @@ def main():
         {label: {f"{t[0]}x{t[1]}": v for t, v in ms.items()} for label, ms in tile_ms.items()}))
 
     launches = collections.Counter()
-    for path in (sil_launches, tex_launches, hires_launches, hl_launches, index_launches):
+    for path in (sil_launches, tex_launches, hires_launches, hl_launches, index_launches,
+                 sharded_launches):
         launches.update(path)
     log(smi)
     log(json.dumps({"kernels": [

@@ -1,6 +1,6 @@
-"""The face-vertex gather and the resolve with winner latch, as autograd
-Functions (counterpart of ``neural_renderer_v2_pytorch_tpu/ops/
-gather_resolve.py``, on its planar path), and the id/depth entry
+"""The face-vertex gather, the resolve with winner latch and the winner-plane
+gather, as autograd Functions (counterpart of ``neural_renderer_v2_pytorch_
+tpu/ops/gather_resolve.py``, on its planar path), and the id/depth entry
 ``compute_face_index_map``.  Both resolves take the route
 ``resolve_cuda.resolve_route`` picks.
 
@@ -17,6 +17,7 @@ from .resolve_cuda import (
     bin_tile,
     face_setup,
     gather_faces3,
+    gather_rows,
     resolve_binned_depth,
     resolve_binned_latch,
     resolve_binned_xy,
@@ -51,6 +52,42 @@ def gather_face_vertices(vertices, faces):
     [nf, 3] int32 -> [bs, 3, 3, nf].  The forward is kernel K5 (the JAX
     package's ``gather_faces3_pallas``), the backward kernel K4."""
     return _GatherFaceVertices.apply(vertices, faces)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids, planar):
+        ctx.save_for_backward(ids)
+        ctx.num_rows, ctx.planar = table.shape[1], planar
+        return gather_rows(table.detach().contiguous(), ids, planar)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        # the gather's transpose is K3's pixel -> face scatter, over the
+        # planar cotangent as planes of one row of P pixels
+        g = grad if ctx.planar else grad.permute(0, 2, 1)
+        per_row = scatter_pixels_to_faces(g.contiguous()[:, :, None], ids[:, None], ctx.num_rows)
+        return per_row.permute(0, 2, 1), None, None
+
+
+def gather_table_rows(table, ids, planar=False):
+    """``table[b, ids[b, p], :]``, 0 where ``ids[b, p] < 0``, differentiable
+    with respect to ``table`` f32 [bs, n, D]; ids i32 [bs, P], contiguous.
+    Returns [bs, D, P] when ``planar``, else [bs, P, D].  Kernel K9
+    (``resolve_cuda.gather_rows``) forward, K3 backward."""
+    return _GatherRows.apply(table, ids, planar)
+
+
+def gather_winner_planes(per_face, index):
+    """Each pixel's winner's row of ``per_face`` f32 [bs, nf, D] as planes
+    [bs, D, rows, S] over an index map i32 [bs, rows, S] (contiguous), 0 on
+    background (id < 0): the face-sharded path's attribute gather after
+    the face combine (the JAX package's ``to_map`` + transpose,
+    ``rasterize.py:265-267``), in one K9 launch (planar form)."""
+    bs, _, D = per_face.shape
+    planes = gather_table_rows(per_face, index.reshape(bs, -1), planar=True)
+    return planes.reshape(bs, D, *index.shape[1:])
 
 
 def _route_bins(consts, image_size, row_start, num_rows, mode):

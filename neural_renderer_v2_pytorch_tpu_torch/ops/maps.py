@@ -5,18 +5,19 @@ from __future__ import annotations
 
 import torch
 
+from .gather_resolve import gather_table_rows
+
 
 def to_map(data_in, indices):
     """Gather per-face data [bs, n, ...] onto an index map [bs, H, W]
     (negative = background).  Returns [bs, H, W, ...], 0 on background;
-    differentiable with respect to ``data_in``."""
+    differentiable with respect to ``data_in``.  Kernel K9
+    (``resolve_cuda.gather_rows``, row layout) forward and K3 backward on
+    CUDA tensors (float32 only); their plain versions on CPU ones."""
     bs, n = data_in.shape[:2]
-    flat = data_in.reshape(bs, n, -1)
-    safe = torch.clamp(indices, min=0).long().reshape(bs, -1, 1)
-    gathered = torch.gather(flat, 1, safe.expand(-1, -1, flat.shape[2]))
-    gathered = gathered.reshape(indices.shape + data_in.shape[2:])
-    mask = (indices >= 0).reshape(indices.shape + (1,) * (data_in.ndim - 2))
-    return torch.where(mask, gathered, 0.0)
+    ids = indices.reshape(bs, -1).to(torch.int32).contiguous()
+    out = gather_table_rows(data_in.reshape(bs, n, -1), ids)
+    return out.reshape(indices.shape + data_in.shape[2:])
 
 
 def mask_foreground(data, face_index_map):

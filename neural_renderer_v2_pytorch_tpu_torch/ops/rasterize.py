@@ -5,7 +5,9 @@
   2. planar face vertices = vertices[:, faces]      (K5; K4 backward)
   3. z-buffer resolve with winner latch             (K1 + K2 for silhouettes,
                                                      K1 + K2L for RGB/depth;
-                                                     K3 backward)
+                                                     K3 backward; or K7 + K8)
+     or, faces sharded across ranks, the id/depth
+     resolve, the ordered fold, the winner gather    (K9; K3 backward)
   4. stopped barycentric weights, coordinate map
   5. silhouette / RGB (textures, lights) / depth    (atlas gradient: K6)
   6. background blend, NMR differentiation hook
@@ -23,7 +25,7 @@ import torch
 
 from . import shading
 from .differentiation import differentiation
-from .gather_resolve import gather_face_vertices, resolve_and_gather
+from .gather_resolve import gather_face_vertices, gather_winner_planes, resolve_and_gather
 from .resolve import weight_planes_from_gathered
 
 DEFAULT_NEAR = 0.1
@@ -85,20 +87,47 @@ def face_attributes(vertices, faces, face_vertices, params):
     return torch.cat(attrs, -1)
 
 
-def compute_channel_maps(vertices, faces, params, hp, render_size):
-    """Resolve and build the maps at ``render_size``.  Returns (images
-    [bs, C, S, S]: RGB, silhouette and depth as requested, before the
-    background blend, the hook and the flip; coordinate_map [bs, 2, S, S];
-    foreground [bs, 1, S, S])."""
+def compute_channel_maps(vertices, faces, params, hp, render_size, row_start=0,
+                         num_rows=None, face_group=None):
+    """Resolve and build the maps at ``render_size`` over the image rows
+    ``row_start .. row_start + num_rows`` (the whole image by default; rows
+    past the image bottom resolve to whatever continues there, for the
+    caller to crop).  Returns (images [bs, C, rows, S]: RGB, silhouette and
+    depth as requested, before the background blend, the hook and the flip;
+    coordinate_map [bs, 2, rows, S]; foreground [bs, 1, rows, S]).
+
+    ``face_group``: a process group over which the faces are sharded
+    (``parallel.faces``).  Each of its ranks resolves its range of the
+    faces, the winners fold across the group in face order, and the
+    winners' coordinates and attributes are then gathered from the whole
+    face set in one kernel K9 launch (K3 backward); every rank of the
+    group returns the same maps."""
     face_vertices = gather_face_vertices(vertices, faces)       # [bs, 3, 3, nf]
     attrs = (face_attributes(vertices, faces, face_vertices, params)
              if hp.draw_rgb else None)
-    # silhouette-only renders never read the winner's z: latch XY only
-    latch_z = hp.draw_rgb or hp.draw_depth
-    face_index_map, fvm_planar, attr_planes = resolve_and_gather(
-        face_vertices, render_size, hp.near, hp.far, hp.draw_backside, attrs, latch_z,
-    )
-    weight_planes = weight_planes_from_gathered(fvm_planar, face_index_map, render_size)
+    if face_group is None:
+        # silhouette-only renders never read the winner's z: latch XY only
+        latch_z = hp.draw_rgb or hp.draw_depth
+        face_index_map, fvm_planar, attr_planes = resolve_and_gather(
+            face_vertices, render_size, hp.near, hp.far, hp.draw_backside, attrs, latch_z,
+            row_start, num_rows,
+        )
+    else:
+        from ..parallel.faces import compute_face_index_map_face_sharded
+
+        # [bs, nf, 3 (vertex), 3 (coord)]: column 3 * vertex + coord below
+        fv = face_vertices.permute(0, 3, 2, 1)
+        face_index_map = compute_face_index_map_face_sharded(
+            fv.detach(), render_size, hp.near, hp.far, hp.draw_backside,
+            row_start=row_start, num_rows=num_rows, group=face_group,
+        )
+        per_face = fv.reshape(fv.shape[0], fv.shape[1], 9)
+        if attrs is not None:
+            per_face = torch.cat([per_face, attrs], -1)
+        planes = gather_winner_planes(per_face, face_index_map)
+        fvm_planar, attr_planes = planes[:, :9], planes[:, 9:]
+    weight_planes = weight_planes_from_gathered(fvm_planar, face_index_map, render_size,
+                                                row_start=row_start)
     coordinate_map = shading.coordinate_planes(fvm_planar, weight_planes)
     foreground = (face_index_map >= 0).to(torch.float32)[:, None]
 
@@ -187,15 +216,12 @@ def make_backgrounds(params, batch_size, render_size, device):
     return None
 
 
-def rasterize_core(vertices, faces, params, hyperparams):
-    """Render the requested channels: [bs, C, H, W], flipped in H and W like
-    the reference.  ``vertices`` [bs, nv, 3] float32 NDC; ``faces`` [nf, 3]
-    int32, on the same device."""
+def check_inputs(vertices, faces, params, hp):
+    """Raise ValueError on inputs :func:`rasterize_core` cannot render."""
     if vertices.ndim != 3 or vertices.shape[2] != 3:
         raise ValueError(f"vertices must be [bs, nv, 3], got {tuple(vertices.shape)}")
     if faces.ndim != 2 or faces.shape[1] != 3:
         raise ValueError(f"faces must be [nf, 3], got {tuple(faces.shape)}")
-    hp = hyperparams
     if hp.draw_rgb:
         for name, ndim, last in (("vertices_textures", 3, 2), ("faces_textures", 2, 3)):
             t = getattr(params, name)
@@ -203,6 +229,14 @@ def rasterize_core(vertices, faces, params, hyperparams):
                 raise ValueError(f"RGB rendering needs {name} of {ndim} dims, last {last}")
         if params.textures is None or params.textures.ndim != 4 or params.textures.shape[1] != 3:
             raise ValueError("RGB rendering needs textures [bs, 3, th, tw]")
+
+
+def rasterize_core(vertices, faces, params, hyperparams):
+    """Render the requested channels: [bs, C, H, W], flipped in H and W like
+    the reference.  ``vertices`` [bs, nv, 3] float32 NDC; ``faces`` [nf, 3]
+    int32, on the same device."""
+    hp = hyperparams
+    check_inputs(vertices, faces, params, hp)
     render_size = hp.image_size * 2 if hp.anti_aliasing else hp.image_size
     backgrounds = make_backgrounds(params, vertices.shape[0], render_size, vertices.device)
     images, coordinate_map, foreground = compute_channel_maps(

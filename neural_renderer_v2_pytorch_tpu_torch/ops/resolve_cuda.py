@@ -9,10 +9,13 @@ resolve_pallas.py``).
   K3 ``scatter_pixels_to_faces``    pixel -> face gradient scatter
   K4 ``scatter_faces_to_vertices``  face slot -> vertex gradient scatter
   K5 ``gather_faces3``              vertex -> planar face-vertex gather
+                                    (K9's planar form over the face slots)
   K6 ``scatter_rows``               row scatter-add (texture-atlas gradient)
   K7 ``bin_faces``                  per-tile face bins
   K8 ``resolve_binned_xy``, ``resolve_binned_latch``, ``resolve_binned_depth``
                                     the three resolve forms over K7's bins
+  K9 ``gather_rows``                row gather, planar or row layout (the
+                                    face-sharded path's winner planes, to_map)
 
 The resolve has two routes that give the same bits: "tiled" (K2, K2L,
 K2D: every tile streams every face) and "binned" (K7 then K8: every tile
@@ -23,7 +26,7 @@ launches the kernel on the current stream or raises; there is no fallback.
 Only :func:`plain_versions`, which ``chip_smoke.py`` and the tests use to
 hold a kernel against its plain version, routes CUDA tensors to the plain
 versions.  Every launch adds one to ``LAUNCHES[name]``, so a run can show
-which kernels its path went through.  K1, K2, K2L, K2D, K5, K7 and K8 are
+which kernels its path went through.  K1, K2, K2L, K2D, K5, K7, K8 and K9 are
 bit-identical to their plain versions; K3, K4 and K6 sum with atomics, in a
 different order on every run.
 """
@@ -37,7 +40,6 @@ import functools
 import torch
 
 from ..utils import cuda_build
-from .maps import to_map
 from .resolve import (
     DEPTH_MIN_DELTA,
     face_candidate,
@@ -60,6 +62,7 @@ KERNELS = (
     "resolve_binned_xy",
     "resolve_binned_latch",
     "resolve_binned_depth",
+    "gather_rows",
 )
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 # a module flag and not a ContextVar: autograd runs the backward of CUDA
@@ -236,14 +239,20 @@ def _coord_rows(fvp):
     return fvp.permute(0, 3, 2, 1).reshape(bs, nf, 9)
 
 
+def _winner_planes(rows, index):
+    """The winner's rows [bs, nf, D] as planes [bs, D, *index.shape[1:]], 0
+    on background: the plain latch."""
+    bs = index.shape[0]
+    planes = gather_rows_plain(rows, index.reshape(bs, -1), planar=True)
+    return planes.reshape(bs, rows.shape[-1], *index.shape[1:])
+
+
 def _latch_xy(index, depth, fvp):
-    return index, depth, to_map(_xy_rows(fvp), index).permute(0, 3, 1, 2).contiguous()
+    return index, depth, _winner_planes(_xy_rows(fvp), index)
 
 
 def _latch_copy(index, depth, fvp, face_attrs):
-    coords = to_map(_coord_rows(fvp), index).permute(0, 3, 1, 2).contiguous()
-    attrs = to_map(face_attrs, index).permute(0, 3, 1, 2).contiguous()
-    return index, depth, coords, attrs
+    return index, depth, _winner_planes(_coord_rows(fvp), index), _winner_planes(face_attrs, index)
 
 
 def resolve_xy_plain(consts, fvp, image_size, near, far, row_start=0, num_rows=None):
@@ -434,7 +443,7 @@ def scatter_faces_to_vertices(grad, faces, num_vertices):
     return out
 
 
-# --- K5 -------------------------------------------------------------------
+# --- K5 and K9: the gathers -----------------------------------------------
 
 
 def gather_faces3_plain(table, faces):
@@ -444,7 +453,8 @@ def gather_faces3_plain(table, faces):
 def gather_faces3(table, faces):
     """``out[b, d, k, f] = table[b, faces[f, k], d]``: table f32
     [bs, n, D], faces i32 [nf, 3] -> f32 [bs, D, 3, nf] (for vertices, the
-    planar face vertices [bs, coord, vertex, nf])."""
+    planar face vertices [bs, coord, vertex, nf]).  K9's planar form over
+    the slots k * nf + f, with the ids shared by the batch."""
     if not _use_kernel(table, faces):
         return gather_faces3_plain(table, faces)
     bs, n, D = table.shape
@@ -454,6 +464,39 @@ def gather_faces3(table, faces):
     out = torch.empty((bs, D, 3, nf), dtype=torch.float32, device=table.device)
     _launch("gather_faces3", table.device, table.data_ptr(), faces.data_ptr(),
             out.data_ptr(), bs, n, D, nf)
+    return out
+
+
+def gather_rows_plain(table, ids, planar=False):
+    bs, n, D = table.shape
+    safe = torch.clamp(ids, min=0).long()
+    rows = torch.gather(table, 1, safe[..., None].expand(bs, -1, D))
+    out = torch.where((ids >= 0)[..., None], rows, 0.0)
+    return out.permute(0, 2, 1).contiguous() if planar else out
+
+
+def gather_rows(table, ids, planar=False):
+    """``table[b, ids[b, p], :]``, 0 where ``ids[b, p] < 0``: table f32
+    [bs, n, D], ids i32 [bs, P] (contiguous rows; a batch stride of 0
+    shares them across the batch) -> f32 [bs, D, P] when ``planar``, else
+    [bs, P, D].  The counterpart of the TPU package's ``gather_rows_pallas``
+    (which takes ids >= 0 and masks nothing; its callers mask).  Ids past
+    the table are the caller's error: the plain version raises on them and
+    the kernel writes 0."""
+    if not _use_kernel(table, ids):
+        return gather_rows_plain(table, ids, planar)
+    bs, n, D = table.shape
+    P = ids.shape[-1]
+    _check(table, "table", torch.float32, (bs, n, D))
+    batch_stride = ids.stride(0) if bs > 1 else P
+    if (ids.dtype != torch.int32 or tuple(ids.shape) != (bs, P)
+            or (P > 1 and ids.stride(1) != 1) or batch_stride not in (0, P)):
+        raise ValueError(f"ids: want int32 {(bs, P)} with contiguous rows, got {ids.dtype} "
+                         f"{tuple(ids.shape)} strides {ids.stride()}")
+    shape = (bs, D, P) if planar else (bs, P, D)
+    out = torch.empty(shape, dtype=torch.float32, device=table.device)
+    _launch("gather_rows", table.device, table.data_ptr(), ids.data_ptr(), out.data_ptr(),
+            bs, n, D, P, batch_stride, int(planar))
     return out
 
 

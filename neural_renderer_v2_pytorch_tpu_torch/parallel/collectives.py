@@ -1,0 +1,76 @@
+"""The collectives of the sharded path, counted by kind.
+
+``COLLECTIVES[kind]`` counts the calls that reached other ranks (a group of
+one rank makes none) and ``COLLECTIVE_SECONDS[kind]`` sums the host time in
+them.  They are module dicts, like ``resolve_cuda.LAUNCHES``: autograd runs
+the backward of CUDA tensors, and so the gradient all-reduce, on threads of
+its own.
+
+gloo takes CUDA tensors for some collectives only, and stages those through
+host memory itself.  Here every collective of a CUDA tensor on a gloo group
+is staged explicitly: the device's queued work is waited for (so the time
+counted is the collective's), the tensor is copied to the host, the
+collective runs there, and the result is copied back.  That is the only way
+to run several ranks on one card (NCCL refuses two ranks on one device).
+NCCL groups take CUDA tensors as they are; their time counted is the host's
+enqueue time only.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+import torch.distributed as dist
+
+KINDS = ("face_all_gather", "canvas_all_gather", "grad_all_reduce")
+COLLECTIVES = dict.fromkeys(KINDS, 0)
+COLLECTIVE_SECONDS = dict.fromkeys(KINDS, 0.0)
+
+
+def reset_collectives():
+    for kind in KINDS:
+        COLLECTIVES[kind] = 0
+        COLLECTIVE_SECONDS[kind] = 0.0
+
+
+def _host_staged(t, group):
+    """Whether a collective of ``t`` on ``group`` goes through host memory;
+    waits for the device's queued work if so."""
+    staged = t.is_cuda and dist.get_backend(group) == "gloo"
+    if staged:
+        torch.cuda.current_stream(t.device).synchronize()
+    return staged
+
+
+def all_gather(t, group, kind):
+    """``t`` of every rank of ``group``, stacked in group rank order:
+    [n, *t.shape].  Every rank passes a tensor of the same shape."""
+    if dist.get_world_size(group) == 1:
+        return t[None]
+    staged = _host_staged(t, group)
+    t0 = time.perf_counter()
+    src = t.cpu() if staged else t.contiguous()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    out = torch.stack(parts)
+    if staged:
+        out = out.to(t.device)
+    COLLECTIVE_SECONDS[kind] += time.perf_counter() - t0
+    COLLECTIVES[kind] += 1
+    return out
+
+
+def all_reduce_sum(t, group, kind):
+    """The sum of ``t`` over the ranks of ``group`` (a new tensor)."""
+    if dist.get_world_size(group) == 1:
+        return t
+    staged = _host_staged(t, group)
+    t0 = time.perf_counter()
+    buf = t.cpu() if staged else t.clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    if staged:
+        buf = buf.to(t.device)
+    COLLECTIVE_SECONDS[kind] += time.perf_counter() - t0
+    COLLECTIVES[kind] += 1
+    return buf

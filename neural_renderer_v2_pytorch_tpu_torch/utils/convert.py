@@ -81,3 +81,10 @@ def params_from_jax(fields, device):
             dtype = np.int32 if name == "faces_textures" else np.float32
             out[name] = torch.as_tensor(np.asarray(v, dtype), device=device)
     return RasterizeParam(**out)
+
+
+def mesh_shape_from_jax(mesh):
+    """The {"data", "tile", "face"} sizes of the JAX package's ``Mesh`` (face 1
+    where it has no face axis), for ``parallel.make_mesh(**sizes)``."""
+    shape = dict(mesh.shape)
+    return {"data": shape["data"], "tile": shape["tile"], "face": shape.get("face", 1)}

@@ -35,7 +35,7 @@ NVCC_FLAGS = (
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nr_torch_kernels"
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "nr_face_setup": (_P, _P, _I, _I, _I, _P),
     "nr_resolve_xy": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
@@ -52,6 +52,7 @@ SIGNATURES = {
     "nr_scatter_pixels_to_faces": (_P, _P, _P, _I, _I, _I, _I, _P),
     "nr_scatter_faces_to_vertices": (_P, _P, _P, _I, _I, _I, _P),
     "nr_gather_faces3": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "nr_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _L, _I, _P),
     "nr_scatter_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 

@@ -224,3 +224,114 @@ def test_compute_face_index_map_on_card_launches_kernels(cuda):
         assert rc.LAUNCHES["face_setup"] == 1 and rc.LAUNCHES[kernel] == 1, rc.LAUNCHES
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("D,n,P", [(3, 97, 301), (9, 517, 1000), (27, 130, 777)])
+def test_gather_rows_is_bit_exact(cuda, D, n, P, planar):
+    """K9 against its plain version in both layouts, with -1 ids (0 out),
+    per-image ids and ids shared by the batch (a batch stride of 0)."""
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    table = torch.randn((2, n, D), generator=gen, device=cuda)
+    ids = torch.randint(-1, n, (2, P), generator=gen, device=cuda, dtype=torch.int32)
+    rc.reset_launches()
+    for i in (ids, ids[:1].expand(2, -1)):
+        got = rc.gather_rows(table, i, planar)
+        assert got.shape == ((2, D, P) if planar else (2, P, D))
+        assert torch.equal(got, rc.gather_rows_plain(table, i, planar))
+    assert rc.LAUNCHES["gather_rows"] == 2
+    with pytest.raises(ValueError):
+        rc.gather_rows(table, ids.long(), planar)
+
+
+def test_gather_faces3_is_gather_rows_planar_form(cuda):
+    """K5 is K9's planar form over the face slots k * nf + f, with the
+    vertex ids shared by the batch: the same bits from either wrapper."""
+    v, faces = icosphere(3)
+    f = torch.tensor(faces, device=cuda)
+    table = torch.randn((2, len(v), 3), generator=torch.Generator(device=cuda).manual_seed(3),
+                        device=cuda)
+    slots = f.t().reshape(1, -1).expand(2, -1)
+    want = rc.gather_rows(table, slots, planar=True).reshape(2, 3, 3, len(faces))
+    assert torch.equal(rc.gather_faces3(table, f), want)
+
+
+def test_to_map_and_winner_planes_launch_k9_and_k3(cuda):
+    """The public to_map (row layout) and the face-sharded path's winner
+    planes (planar) launch K9 forward and K3 backward on the card: values
+    equal to the CPU's, gradients within the atomics' bound."""
+    from neural_renderer_v2_pytorch_tpu_torch.ops.gather_resolve import gather_winner_planes
+
+    rng = np.random.RandomState(11)
+    data = rng.randn(2, 45, 27).astype(np.float32)
+    index = rng.randint(-1, 45, (2, 12, 20)).astype(np.int32)
+    ct = rng.randn(2, 12, 20, 27).astype(np.float32)
+    for fn, cot in ((nr.to_map, ct), (gather_winner_planes, ct.transpose(0, 3, 1, 2))):
+        out = []
+        for dev in ("cpu", cuda):
+            rc.reset_launches()
+            x = torch.tensor(data, device=dev, requires_grad=True)
+            y = fn(x, torch.tensor(index, device=dev))
+            y.backward(torch.tensor(np.ascontiguousarray(cot), device=dev))
+            out.append((y.detach().cpu(), x.grad.cpu()))
+        assert rc.LAUNCHES["gather_rows"] == 1 and rc.LAUNCHES["scatter_pixels_to_faces"] == 1
+        assert torch.equal(out[1][0], out[0][0])
+        torch.testing.assert_close(out[1][1], out[0][1], rtol=0,
+                                   atol=1e-4 * float(out[0][1].abs().max()))
+
+
+@pytest.mark.parametrize("mode", ["tiled", "binned"])
+def test_index_map_window_past_the_image_bottom(cuda, mode):
+    """An uneven tile split's last band runs past the image bottom: those
+    rows resolve to background on both routes, as on the CPU."""
+    rng = np.random.RandomState(6)
+    fv = rng.uniform(-1, 1, (1, 60, 3, 3)).astype(np.float32)
+    fv[..., 2] = np.abs(fv[..., 2]) + 0.1
+    window = dict(row_start=51, num_rows=17, return_depth=True)      # 66 rows of 64
+    want = nr.compute_face_index_map(torch.tensor(fv), 64, **window)
+    got = nr.compute_face_index_map(torch.tensor(fv, device=cuda), 64, mode=mode, **window)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert (want[0][:, 13:] == -1).all() and (want[0][:, :13] >= 0).any()
+
+
+def _sharded_silhouettes(ndc, faces):
+    """One rank of a (1, 1, 2) mesh on the card: the sharded silhouettes,
+    the vertex gradient and the launch counts of the step."""
+    from neural_renderer_v2_pytorch_tpu_torch import parallel
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    x = torch.tensor(ndc, device=dev, requires_grad=True)
+    rc.reset_launches()
+    im = parallel.rasterize_silhouettes_sharded(
+        x, torch.tensor(faces, device=dev), None, nr.RasterizeHyperparam(image_size=64),
+        mesh=parallel.make_mesh(1, 1, 2))
+    torch.sum(im * im).backward()
+    torch.cuda.synchronize()
+    return im.detach().cpu().numpy(), x.grad.cpu().numpy(), dict(rc.LAUNCHES)
+
+
+def test_face_sharded_ranks_on_one_card_match_one_device(cuda):
+    """Two gloo ranks share the card over a face axis of 2: each returns
+    the single-device images, the single-device gradient within the
+    atomics' bound and the other rank's gradient to the bit, and its step
+    ran the id/depth resolve and K9."""
+    from neural_renderer_v2_pytorch_tpu_torch import parallel
+
+    v, f = torus(16, 12)
+    r = nr.Renderer("cpu")
+    r.viewpoints = nr.get_points_from_angles(2.732, 30, 20)
+    ndc = r.transform_vertices(torch.tensor(v[None])).detach().numpy()
+    x = torch.tensor(ndc, device=cuda, requires_grad=True)
+    im = nr.rasterize_silhouettes(x, torch.tensor(f, device=cuda), None,
+                                  nr.RasterizeHyperparam(image_size=64))
+    torch.sum(im * im).backward()
+    ranks = parallel.run_ranks(_sharded_silhouettes, 2, (ndc, f), device="cuda",
+                               backend="gloo", timeout=120.0)
+    for image, grad, launches in ranks:
+        assert np.array_equal(image, im.detach().cpu().numpy())
+        want = x.grad.cpu().numpy()
+        np.testing.assert_allclose(grad, want, rtol=0, atol=1e-4 * np.abs(want).max())
+        assert launches["gather_rows"] == 1 and launches["resolve_depth"] == 1, launches
+        assert launches["resolve_xy"] == 0 and launches["resolve_latch"] == 0, launches
+        assert np.array_equal(grad, ranks[0][1])

@@ -152,6 +152,7 @@ def _kernel_args():
         "resolve_binned_xy": ((consts, fvp, bins, 40, 0.1, 100.0), tile),
         "resolve_binned_latch": ((consts, fvp, torch.ones(1, 9, 4), bins, 40, 0.1, 100.0), tile),
         "resolve_binned_depth": ((consts, bins, 40, 0.1, 100.0), tile),
+        "gather_rows": ((torch.ones(1, 9, 5), fim.reshape(1, 64)), {"planar": True}),
     }
 
 
