@@ -44,10 +44,19 @@ Builds the hand-written kernels from ``neural_renderer_v2_pytorch_tpu_torch
   bits as every other rank's.  These times show what a step costs when
   ranks share a card, not how the path scales;
 
+- the face-vertex gather and its transpose (K5, K4) at the meshes of
+  ``bench`` (and ``atlas``), ``scale`` and ``textured-scale``, batch 1 and
+  8: K5 bit-equal to its plain version, K4 to the plain version on CPU
+  copies (batch 2 too) and to itself on a second call, each in one device
+  operation; each timed in turns with its library yardstick, beside its
+  device time and bound; and the host-time split of one K4 and one K5
+  wrapper call into the parts of its launch path;
+
 then times each kernel, its plain version, the one PyTorch call that
 computes the same function where there is one, and each step, with CUDA
 events and the profiler's device time, beside the least time the card
-could take for the same work.
+could take for the same work.  Each five-step fit builds one vertex -> slot
+table for K4 (``resolve_cuda.SLOT_TABLE_BUILDS``).
 
 Any failure raises and the script exits non-zero without its last line.  On
 success the last line is
@@ -126,7 +135,7 @@ INDEX_MAP_KERNELS = ("face_setup", "resolve_depth", "bin_faces", "resolve_binned
 # tori whose 512^2 silhouettes sweep the route threshold: 9,920 (the perf
 # matrix's 9K row), 19,888, 39,680 (its 39K row), 50,400 and 62,000 faces
 SWEEP_TORI = ((80, 62), (113, 88), (160, 124), (180, 140), (200, 155))
-SCATTER_RTOL = 1e-4   # atomics sum in run-dependent order; the JAX backward's bound
+SCATTER_RTOL = 1e-4   # K3/K6's atomics sum in run-dependent order; the JAX backward's bound
 GOLDEN_IMAGE_ATOL = 1e-5   # CUDA's pow and the card's sums against XLA:CPU
 # name -> (scene, texture_size, lit, image_size, anti_aliasing): rows of the
 # JAX package's perf matrix (README.md:119-136, benchmarks/scaling.py:154-247),
@@ -253,7 +262,7 @@ def port_kernel_pattern():
     """A regex that matches the profiler names of the port's kernels: the
     ``__global__`` functions of ``csrc/*.cu``, each in an anonymous
     namespace."""
-    csrc = os.path.join(ROOT, PKG, "csrc")
+    csrc = cuda_build.CSRC_DIR
     names = set()
     for source in sorted(os.listdir(csrc)):
         if source.endswith(".cu"):
@@ -269,7 +278,8 @@ PORT_KERNEL = port_kernel_pattern()
 
 
 Profile = collections.namedtuple(
-    "Profile", "wall busy complete dropped port_records port_launches per_launch top launched")
+    "Profile",
+    "wall busy complete dropped port_records port_launches per_launch top launched ops")
 
 
 def profile_device(step, n=10):
@@ -287,6 +297,7 @@ def profile_device(step, n=10):
     - ``per_launch``: each port kernel name's mean record, in ms;
     - ``launched``: the wrappers' launches per call, counted by LAUNCHES;
     - ``top``: the six longest kernel names' kept ms per call;
+    - ``ops``: the kept device records (kernels, fills, copies) per call;
     - ``dropped``: (name, count, kept ms per call) of each name whose count
       is not a multiple of n."""
     from torch.autograd import DeviceType
@@ -317,7 +328,8 @@ def profile_device(step, n=10):
     complete = bool(events) and not dropped and port_records == round(port_launches * n)
     top = sorted(kept.items(), key=lambda kv: -kv[1])[:6]
     return Profile(wall, sum(kept.values()), complete, dropped, port_records / n,
-                   port_launches, per_launch, [(k[:60], t) for k, t in top], launched)
+                   port_launches, per_launch, [(k[:60], t) for k, t in top], launched,
+                   sum(e.count for e in events) / n)
 
 
 def kernel_device_ms(prof, name):
@@ -407,9 +419,12 @@ def kernels_vs_plain(label, ndc, faces, size, gen):
         label, ik, nf, 6, gen)
 
     g9 = torch.randn((1, 3, 3, nf), generator=gen, device=dev)
-    errs["scatter_faces_to_vertices"] = check_close(
-        f"{label} scatter_faces_to_vertices",
-        rc.scatter_faces_to_vertices(g9, faces, nv), rc.scatter_faces_to_vertices_plain(g9, faces, nv),
+    # on the card the plain version's index_add_ sums with atomics: compare
+    # with it on CPU copies, where it sums in K4's order
+    errs["scatter_faces_to_vertices"] = check_equal(
+        f"{label} scatter_faces_to_vertices vs plain on CPU copies",
+        rc.scatter_faces_to_vertices(g9, faces, nv).cpu(),
+        rc.scatter_faces_to_vertices_plain(g9.cpu(), faces.cpu(), nv),
     )
     calls["scatter_faces_to_vertices"] = Call(
         lambda: rc.scatter_faces_to_vertices(g9, faces, nv),
@@ -422,6 +437,14 @@ def kernels_vs_plain(label, ndc, faces, size, gen):
     log(f"[{label}] kernels vs plain: nf={nf} canvas={size}^2 coverage={coverage:.4f} "
         f"max_abs_err={json.dumps(errs)}")
     return errs, calls
+
+
+def check_one_slot_table(label):
+    """A fit that passes one faces tensor every step builds K4's vertex ->
+    slot table once (read right after the fit's steps)."""
+    if rc.SLOT_TABLE_BUILDS != 1:
+        raise AssertionError(f"{label}: {rc.SLOT_TABLE_BUILDS} vertex -> slot table "
+                             f"builds, want 1")
 
 
 def host_ms(fn):
@@ -611,6 +634,18 @@ def pattern_loss(images):
     i = torch.arange(images.shape[-1], device=images.device)
     target = ((i[:, None] + i[None, :]) % 7).float() / 6.0
     return torch.sum((images - target) ** 2)
+
+
+def sil_step(r, v, f, loss_fn):
+    """A silhouette step through ``r.render_silhouettes``: fresh vertices
+    from ``v``, ``loss_fn`` of the images, backward; returns the images and
+    the vertex gradient."""
+    def step():
+        xx = v.clone().requires_grad_(True)
+        images = r.render_silhouettes(xx, f)
+        loss_fn(images).backward()
+        return images.detach(), {"vertices": xx.grad}
+    return step
 
 
 def index_map(renderer, vertices, faces, latch_z):
@@ -1095,6 +1130,168 @@ def sharded_runs(dev, smi):
     return runs, launches
 
 
+def face_vertex_meshes():
+    """label -> (faces i32 [nf, 3], nv) of the meshes K5 and K4 are timed at
+    beside their yardsticks: ``bench``'s (``atlas``'s too: torus(40, 32)),
+    ``scale``'s (icosphere(6)) and ``textured-scale``'s (torus(320, 248))."""
+    return {label: (f, len(v)) for label, (v, f) in (
+        ("bench", torus(40, 32)), ("scale", icosphere(6)), ("textured-scale", torus(320, 248)))}
+
+
+def in_turns(kernel, library, reps=50):
+    """CUDA-event medians taken kernel, library, library, kernel: (the
+    kernel's two, the library's two)."""
+    k1, l1 = median_ms(kernel, reps), median_ms(library, reps)
+    l2, k2 = median_ms(library, reps), median_ms(kernel, reps)
+    return [k1, k2], [l1, l2]
+
+
+def profile_kept(fn, n=20, tries=5):
+    """:func:`profile_device` of ``n`` calls of ``fn``, taken again while
+    the profiler kept no device record at all (it has dropped a whole
+    profile of a short kernel)."""
+    for _ in range(tries):
+        prof = profile_device(fn, n)
+        if prof.ops:
+            break
+    return prof
+
+
+def face_vertex_rows(faces, nv, bs, gen):
+    """K5 and K4 at one mesh and batch size, each beside its yardstick
+    (K5: ``table[:, faces_long]``; K4: ``index_add_`` into a buffer zeroed
+    once): the event medians in turns, the device time (every record the
+    wrapper's call leaves) and device operations per call under the
+    profiler, the bound, and whether two calls give the same bits and the
+    bits they must equal: K5's plain version's, and K4's plain version's on
+    CPU copies (where its ``index_add_`` sums each vertex in slot order).
+    A list of two dicts."""
+    dev, nf = faces.device, faces.shape[0]
+    faces_long = faces.long()
+    table = torch.randn((bs, nv, 3), generator=gen, device=dev)
+    g9 = torch.randn((bs, 3, 3, nf), generator=gen, device=dev)
+    source = g9.permute(0, 3, 2, 1).reshape(bs, nf * 3, 3).contiguous()
+    buffer = torch.zeros((bs, nv, 3), device=dev)
+    cases = (
+        ("gather_faces3", lambda: rc.gather_faces3(table, faces),
+         lambda: table[:, faces_long], lambda got: torch.equal(
+             got, rc.gather_faces3_plain(table, faces)),
+         4 * bs * nv * 3 + 12 * nf + 36 * bs * nf),
+        ("scatter_faces_to_vertices", lambda: rc.scatter_faces_to_vertices(g9, faces, nv),
+         index_add_call(buffer, 1, faces_long.reshape(-1), source), lambda got: torch.equal(
+             got.cpu(), rc.scatter_faces_to_vertices_plain(g9.cpu(), faces.cpu(), nv)),
+         36 * bs * nf + 12 * nf + 12 * bs * nv),
+    )
+    rows = []
+    for name, kernel, library, exact, nbytes in cases:
+        got = kernel()
+        ms_turns, library_turns = in_turns(kernel, library)
+        prof, lib_prof = profile_kept(kernel), profile_kept(library)
+        rows.append(dict(
+            kernel=name, bs=bs, nf=nf, nv=nv, ms=float(np.mean(ms_turns)), ms_turns=ms_turns,
+            library_ms=float(np.mean(library_turns)), library_turns=library_turns,
+            device_ms=prof.busy, device_ops=prof.ops, port_kernels=sorted(prof.per_launch),
+            launched=prof.launched, library_device_ms=lib_prof.busy,
+            bound_ms=bound(nbytes, 0)[0], bit_equal=bool(exact(got)),
+            repeat_equal=bool(torch.equal(got, kernel()))))
+    return rows
+
+
+def per_call_us(fn, calls=1000, repeats=3):
+    """Host µs per call of ``fn``: the median over ``repeats`` blocks of
+    ``calls`` calls, each block ended by a synchronise."""
+    blocks = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        blocks.append((time.perf_counter() - t0) / calls * 1e6)
+    return float(np.median(blocks))
+
+
+def host_split(wrapper, tensors, alloc, entry, args, extra=None):
+    """Host µs per call (:func:`per_call_us`) of one wrapper call and of each
+    part of its launch path alone: the checks (``_use_kernel`` and one
+    ``_check`` per input), the output's allocation, the C entry's lookup,
+    the device compare, the raw stream read and the ctypes call that
+    launches the kernel with ``args``; ``extra``: more parts by name."""
+    index = tensors[0].get_device()
+    fn = cuda_build.ENTRIES[entry]
+    stream = torch._C._cuda_getCurrentRawStream(index)
+
+    def checks():
+        rc._use_kernel(*tensors)
+        for t in tensors:
+            rc._check(t, "t", t.dtype, t.shape)
+
+    parts = dict(checks=checks, alloc=alloc, lookup=lambda: cuda_build.ENTRIES.get(entry),
+                 device_compare=lambda: torch._C._cuda_getDevice() == index,
+                 stream_raw=lambda: torch._C._cuda_getCurrentRawStream(index),
+                 ctypes_call=lambda: fn(*args, stream), **(extra or {}), wrapper=wrapper)
+    return {name: per_call_us(part) for name, part in parts.items()}
+
+
+def face_vertex_kernels(dev, gen, smi):
+    """K5 and K4 at :func:`face_vertex_meshes`, batch 1 and 8
+    (:func:`face_vertex_rows`): K5 bit-equal to its plain version, K4 to
+    the plain version on CPU copies (at batch 2 too), each the same bits on
+    a second call and its own kernel the wrapper's one device operation;
+    each printed beside its yardstick, device time and bound.  Then the
+    host-time split of one K4 and one K5 call at ``bench``, batch 1
+    (:func:`host_split`)."""
+    profiled = collections.Counter()
+    for label, (f, nv) in face_vertex_meshes().items():
+        faces = torch.tensor(f, device=dev)
+        g2 = torch.randn((2, 3, 3, len(f)), generator=gen, device=dev)
+        check_equal(f"{label} scatter_faces_to_vertices bs=2 vs plain on CPU copies",
+                    rc.scatter_faces_to_vertices(g2, faces, nv).cpu(),
+                    rc.scatter_faces_to_vertices_plain(g2.cpu(), faces.cpu(), nv))
+        for bs in (1, 8):
+            for row in face_vertex_rows(faces, nv, bs, gen):
+                name = row["kernel"]
+                # the profiler may drop records, never add one; a profile
+                # that kept none (after profile_kept's tries) shows nothing
+                seen = row["device_ops"] > 0
+                alone = row["device_ops"] <= 1 and row["launched"] == {name: 1.0} and \
+                    len(row["port_kernels"]) == seen
+                if not (row["bit_equal"] and row["repeat_equal"] and alone):
+                    raise AssertionError(f"{label} bs={bs} {name}: {row}")
+                profiled[name] += seen
+                log(f"[face-vertex] {label} bs={bs} {name} (nf={row['nf']}, nv={nv}): kernel "
+                    f"{row['ms']:.4f} ms (turns {row['ms_turns'][0]:.4f}, "
+                    f"{row['ms_turns'][1]:.4f}), library {row['library_ms']:.4f} ms (turns "
+                    f"{row['library_turns'][0]:.4f}, {row['library_turns'][1]:.4f}); device "
+                    f"{row['device_ms']:.5f} ms in {row['device_ops']:.2f} operations (library "
+                    f"{row['library_device_ms']:.5f} ms), bound {row['bound_ms']:.5f} ms "
+                    f"({row['device_ms'] / row['bound_ms']:.2f}x); bit-equal"
+                    f"{' on CPU copies' if name != 'gather_faces3' else ''}, repeats its bits"
+                    f"  ({smi})")
+    if not all(profiled[name] for name in ("gather_faces3", "scatter_faces_to_vertices")):
+        raise AssertionError(f"the profiler kept no record of K4 or K5 at any shape: {profiled}")
+    f, nv = face_vertex_meshes()["bench"]
+    faces, nf = torch.tensor(f, device=dev), len(f)
+    g9 = torch.randn((1, 3, 3, nf), generator=gen, device=dev)
+    table = torch.randn((1, nv, 3), generator=gen, device=dev)
+    offsets, slots = rc.vertex_slots(faces, nv)
+    vertex_grad, fvp = torch.empty((1, nv, 3), device=dev), torch.empty((1, 3, 3, nf), device=dev)
+    split = {
+        "scatter_faces_to_vertices": host_split(
+            lambda: rc.scatter_faces_to_vertices(g9, faces, nv), (g9, faces),
+            lambda: torch.empty((1, nv, 3), device=dev), "scatter_faces_to_vertices",
+            (g9.data_ptr(), offsets.data_ptr(), slots.data_ptr(), vertex_grad.data_ptr(), 1, nf,
+             nv), extra={"slot_table_lookup": lambda: rc.vertex_slots(faces, nv)}),
+        "gather_faces3": host_split(
+            lambda: rc.gather_faces3(table, faces), (table, faces),
+            lambda: torch.empty((1, 3, 3, nf), device=dev), "gather_faces3",
+            (table.data_ptr(), faces.data_ptr(), fvp.data_ptr(), 1, nv, 3, nf)),
+    }
+    log(f"[host split] one wrapper call at bench, batch 1, host us per call (median of 3 "
+        f"blocks of 1000 calls): {json.dumps(split)}; the event median of a call that "
+        f"does nothing {median_ms(lambda: None, 50):.4f} ms  ({smi})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -1161,6 +1358,7 @@ def main():
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     sil_launches = dict(rc.LAUNCHES)
+    check_one_slot_table("silhouette fit")
     log(f"[fit] icosphere(3) -> torus silhouette, 256^2 AA, losses {losses}, "
         f"{fit_s:.3f} s, launches {json.dumps(sil_launches)}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -1223,13 +1421,14 @@ def main():
     x = (1.05 * atlas.vertices).requires_grad_(True)
     tex = torch.full_like(atlas.textures, 0.5).requires_grad_(True)
     opt = torch.optim.Adam([{"params": [x], "lr": 0.005}, {"params": [tex], "lr": 0.05}])
+    fit_faces = atlas.faces.clone()        # a fit's own faces: its one slot table
     losses = []
     torch.cuda.synchronize()
     rc.reset_launches()
     t0 = time.perf_counter()
     for _ in range(5):
         opt.zero_grad()
-        images = atlas.renderer.render(x, atlas.faces, atlas.vt, atlas.ft, tex)
+        images = atlas.renderer.render(x, fit_faces, atlas.vt, atlas.ft, tex)
         loss = torch.sum((images - target) ** 2)
         loss.backward()
         opt.step()
@@ -1237,6 +1436,7 @@ def main():
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     tex_launches = dict(rc.LAUNCHES)
+    check_one_slot_table("textured fit")
     log(f"[fit] atlas + vertices of torus(40, 32), 1190x1920 atlas, 256^2 AA, losses "
         f"{losses}, {fit_s:.3f} s, launches {json.dumps(tex_launches)}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -1283,14 +1483,6 @@ def main():
             tile_ms[label] = tile_times(label, fvp, consts, attrs, cfgs[label].size, smi)
 
     # 12. both routes at all seven configurations, through the entry points
-    def sil_step(r, v, f, loss_fn):
-        def step():
-            xx = v.clone().requires_grad_(True)
-            images = r.render_silhouettes(xx, f)
-            loss_fn(images).backward()
-            return images.detach(), {"vertices": xx.grad}
-        return step
-
     def sil_resolve(r, v, f):
         with torch.no_grad():
             fvp = gather_face_vertices(r.transform_vertices(v), f)
@@ -1356,19 +1548,21 @@ def main():
     target = hires.render_silhouettes(torus_v, faces).detach()
     x = sphere_v.clone().requires_grad_(True)
     opt = torch.optim.Adam([x], lr=0.01)
+    fit_faces = faces6.clone()
     losses = []
     torch.cuda.synchronize()
     rc.reset_launches()
     t0 = time.perf_counter()
     for _ in range(5):
         opt.zero_grad()
-        loss = torch.sum((hires.render_silhouettes(x, faces6) - target) ** 2)
+        loss = torch.sum((hires.render_silhouettes(x, fit_faces) - target) ** 2)
         loss.backward()
         opt.step()
         losses.append(loss.item())
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     hires_launches = dict(rc.LAUNCHES)
+    check_one_slot_table("hires fit")
     log(f"[fit] icosphere(6) -> torus silhouette, 1024^2 AA, the rule's route "
         f"{route_rule['hires']}, losses {losses}, {fit_s:.3f} s, launches "
         f"{json.dumps(hires_launches)}")
@@ -1440,7 +1634,11 @@ def main():
     # 16. sharded rendering (parallel/) on ranks that share this card
     _, sharded_launches = sharded_runs(dev, smi)
 
-    # 17. times
+    # 17. K5 and K4 at four meshes and two batch sizes, in turns with their
+    # yardsticks, and the host-time split of a wrapper call
+    face_vertex_kernels(dev, gen, smi)
+
+    # 18. times
     # per call: the CUDA-event median (what a caller waits, launch gaps
     # included), the kernel's own device time (its mean profiler record
     # times its launches per call), the plain version's and the library
@@ -1496,7 +1694,7 @@ def main():
             rel = "=" if prof.complete else ">="
             log(f"[profile] {label} step under torch.profiler: wall {prof.wall:.4f} ms, "
                 f"device busy {rel} {prof.busy:.4f} ms ({rel} {100 * prof.busy / ms:.1f}% of "
-                f"the unprofiled step), "
+                f"the unprofiled step) in {rel} {prof.ops:.1f} device operations, "
                 + ("every record kept" if prof.complete else
                    f"records dropped: names off a multiple of the calls "
                    f"{prof.dropped}, port kernels {prof.port_records:.1f} records per step "

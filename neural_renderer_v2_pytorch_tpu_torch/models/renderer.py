@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -20,13 +21,16 @@ from ..ops.rasterize import (
 
 
 class Renderer(nn.Module):
-    """Holds the reference renderer's attributes and renders on ``device``.
+    """Holds the reference renderer's attributes and renders on ``device``:
+    the current card by default, as ``Renderer()`` is called in the JAX
+    package; pass ``"cpu"`` for the plain versions of the kernels.
 
     Inputs must already lie on ``device``; ``faces`` may be any integer
-    array-like and is moved there.  ``viewpoints`` may be a tensor (e.g. one
-    that requires grad, to optimise the camera)."""
+    array-like and is moved there (:meth:`faces_on_device`).
+    ``viewpoints`` may be a tensor (e.g. one that requires grad, to
+    optimise the camera)."""
 
-    def __init__(self, device):
+    def __init__(self, device="cuda"):
         super().__init__()
         self.device = torch.device(device)
         # rendering
@@ -45,6 +49,26 @@ class Renderer(nn.Module):
         # the create_textures texel size, for its per-face patch sampling;
         # None for any other (loaded) atlas
         self.texture_size = None
+        # (the ids of the last array-like faces, their tensor on device)
+        self._kept_faces = None
+
+    def faces_on_device(self, faces):
+        """``faces`` [nf, 3] as an int32 tensor on ``device``.
+
+        The gradient's vertex sum (kernel K4) keeps one vertex -> slot table
+        per faces tensor, so a fit should hand it the same tensor every
+        step.  An int32 tensor on ``device`` is that tensor.  An array-like
+        (a numpy array, as the JAX package's ``Renderer`` is called, or
+        lists) is copied to ``device`` once, and the copy is kept while the
+        same ids come back (compared on the host: an in-place edit of the
+        array makes a new copy).  A tensor of another dtype or device is
+        converted at every call, and each conversion builds its table."""
+        if isinstance(faces, torch.Tensor):
+            return faces.to(self.device, torch.int32)
+        ids = np.asarray(faces, dtype=np.int32)
+        if self._kept_faces is None or not np.array_equal(self._kept_faces[0], ids):
+            self._kept_faces = (ids.copy(), torch.tensor(ids, device=self.device))
+        return self._kept_faces[1]
 
     def _check_device(self, t):
         # "cuda" names whichever card is current, so it accepts any index
@@ -78,7 +102,7 @@ class Renderer(nn.Module):
     def render_silhouettes(self, vertices, faces, backgrounds=None):
         """Silhouettes [bs, H, W] of world-space ``vertices`` [bs, nv, 3]."""
         vertices = self.transform_vertices(vertices)
-        faces = torch.as_tensor(faces, dtype=torch.int32, device=self.device)
+        faces = self.faces_on_device(faces)
         params = RasterizeParam(
             background_color=self.background_color, backgrounds=backgrounds
         )
@@ -101,7 +125,7 @@ class Renderer(nn.Module):
         texel coordinates ``vertices_t`` [bs, nvt, 2], ``faces_t`` [nf, 3],
         atlas ``textures`` [bs, 3, th, tw] and optional ``lights``."""
         vertices = self.transform_vertices(vertices)
-        faces = torch.as_tensor(faces, dtype=torch.int32, device=self.device)
+        faces = self.faces_on_device(faces)
         params = self._textured_params(vertices_t, faces_t, textures, backgrounds, lights)
         return rasterize_rgba(vertices, faces, params, self._hyperparams())
 
@@ -109,14 +133,14 @@ class Renderer(nn.Module):
                    lights=None):
         """RGB [bs, 3, H, W]; arguments as :meth:`render`."""
         vertices = self.transform_vertices(vertices)
-        faces = torch.as_tensor(faces, dtype=torch.int32, device=self.device)
+        faces = self.faces_on_device(faces)
         params = self._textured_params(vertices_t, faces_t, textures, backgrounds, lights)
         return rasterize_rgb(vertices, faces, params, self._hyperparams())
 
     def render_depth(self, vertices, faces, backgrounds=None):
         """Depth [bs, H, W] of world-space ``vertices``, 0 on background."""
         vertices = self.transform_vertices(vertices)
-        faces = torch.as_tensor(faces, dtype=torch.int32, device=self.device)
+        faces = self.faces_on_device(faces)
         params = RasterizeParam(
             background_color=self.background_color, backgrounds=backgrounds
         )

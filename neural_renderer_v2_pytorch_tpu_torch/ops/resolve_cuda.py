@@ -7,9 +7,10 @@ resolve_pallas.py``).
   K2L ``resolve_latch``             z-buffer resolve with XYZ + attribute latch
   K2D ``resolve_depth``             z-buffer resolve, id and depth only
   K3 ``scatter_pixels_to_faces``    pixel -> face gradient scatter
-  K4 ``scatter_faces_to_vertices``  face slot -> vertex gradient scatter
+  K4 ``scatter_faces_to_vertices``  face slot -> vertex gradient sum, each
+                                    vertex over its own slots
+                                    (:func:`vertex_slots`)
   K5 ``gather_faces3``              vertex -> planar face-vertex gather
-                                    (K9's planar form over the face slots)
   K6 ``scatter_rows``               row scatter-add (texture-atlas gradient)
   K7 ``bin_faces``                  per-tile face bins
   K8 ``resolve_binned_xy``, ``resolve_binned_latch``, ``resolve_binned_depth``
@@ -26,9 +27,12 @@ launches the kernel on the current stream or raises; there is no fallback.
 Only :func:`plain_versions`, which ``chip_smoke.py`` and the tests use to
 hold a kernel against its plain version, routes CUDA tensors to the plain
 versions.  Every launch adds one to ``LAUNCHES[name]``, so a run can show
-which kernels its path went through.  K1, K2, K2L, K2D, K5, K7, K8 and K9 are
-bit-identical to their plain versions; K3, K4 and K6 sum with atomics, in a
-different order on every run.
+which kernels its path went through; ``SLOT_TABLE_BUILDS`` counts the
+builds of K4's vertex -> slot tables, which launch no kernel of the port.
+K1, K2, K2L, K2D, K5, K7, K8 and
+K9 are bit-identical to their plain versions, and K4 to its plain version
+on the CPU (whose ``index_add_`` sums each vertex in slot order), on every
+run; K3 and K6 sum with atomics, in a different order on every run.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import weakref
 
 import torch
 
@@ -65,6 +70,9 @@ KERNELS = (
     "gather_rows",
 )
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+# builds of K4's vertex -> slot tables (:func:`vertex_slots`); reset with
+# LAUNCHES
+SLOT_TABLE_BUILDS = 0
 # a module flag and not a ContextVar: autograd runs the backward of CUDA
 # tensors on threads of its own, which do not see the caller's context
 _route = {"plain": False, "mode": None}
@@ -92,8 +100,10 @@ BINNED_FROM = 34_000_000
 
 
 def reset_launches():
+    global SLOT_TABLE_BUILDS
     for name in KERNELS:
         LAUNCHES[name] = 0
+    SLOT_TABLE_BUILDS = 0
 
 
 @contextlib.contextmanager
@@ -110,14 +120,14 @@ def plain_versions():
 
 
 def _on_cuda(*tensors):
-    """True for CUDA tensors, False for CPU ones; raises on anything else."""
-    device = tensors[0].device
+    """True for tensors on one card, False for CPU ones; raises on anything
+    else.  (Device indices, not device objects: this runs at every launch.)"""
+    index = tensors[0].get_device()
     for t in tensors:
-        if t.device != device:
-            raise ValueError(f"tensors on {t.device} and {device}")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    return device.type == "cuda"
+        if t.get_device() != index or not (t.is_cuda or t.is_cpu):
+            raise ValueError("want tensors on one card or on the CPU, got "
+                             + ", ".join(str(t.device) for t in tensors))
+    return index >= 0
 
 
 @contextlib.contextmanager
@@ -173,27 +183,40 @@ def _use_kernel(*tensors):
 
 
 def _check(t, name, dtype, shape):
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+    """``shape`` a tuple (``torch.Size`` compares with it as it is)."""
+    if t.dtype != dtype or t.shape != shape or not t.is_contiguous():
         raise ValueError(
             f"{name}: want contiguous {dtype} {tuple(shape)}, "
             f"got {t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
         )
 
 
-def _call(entry, device, *args):
-    """Call the C entry ``nr_<entry>`` on the current stream; raise on its
-    error code."""
-    lib = cuda_build.load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, "nr_" + entry)(*args, stream)
+def _call(entry, index, *args):
+    """Call the C entry ``nr_<entry>`` on the current stream of card
+    ``index``; raise on its error code.  The launch path of every wrapper,
+    kept lean: the entry is resolved once the library has loaded (no lock
+    per call), the stream is read as a raw pointer (no ``Stream`` object),
+    and the device guard is entered only when ``index`` is not the current
+    card."""
+    fn = cuda_build.ENTRIES.get(entry)
+    if fn is None:
+        cuda_build.load()
+        fn = cuda_build.ENTRIES[entry]
+    # what PyTorch's own generated code calls; CUDA builds only, so it is
+    # reached here, on the card's path, and never at import
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if torch._C._cuda_getDevice() == index:
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
     if err:
         raise RuntimeError(f"{entry}: kernel launch failed with CUDA error {err}")
 
 
-def _launch(name, device, *args):
-    """Launch kernel ``name`` and count it."""
-    _call(name, device, *args)
+def _launch(name, index, *args):
+    """Launch kernel ``name`` on card ``index`` and count it."""
+    _call(name, index, *args)
     LAUNCHES[name] += 1
 
 
@@ -218,7 +241,7 @@ def face_setup(fvp, draw_backside):
     bs, nf = fvp.shape[0], fvp.shape[-1]
     _check(fvp, "fvp", torch.float32, (bs, 3, 3, nf))
     consts = torch.empty((bs, 17, nf), dtype=torch.float32, device=fvp.device)
-    _launch("face_setup", fvp.device, fvp.data_ptr(), consts.data_ptr(), bs, nf,
+    _launch("face_setup", fvp.get_device(), fvp.data_ptr(), consts.data_ptr(), bs, nf,
             int(draw_backside))
     return consts
 
@@ -277,7 +300,7 @@ def resolve_xy(consts, fvp, image_size, near, far, row_start=0, num_rows=None):
     index = torch.empty((bs, rows, S), dtype=torch.int32, device=dev)
     depth = torch.empty((bs, rows, S), dtype=torch.float32, device=dev)
     coords = torch.empty((bs, 6, rows, S), dtype=torch.float32, device=dev)
-    _launch("resolve_xy", dev, consts.data_ptr(), fvp.data_ptr(), index.data_ptr(),
+    _launch("resolve_xy", dev.index, consts.data_ptr(), fvp.data_ptr(), index.data_ptr(),
             depth.data_ptr(), coords.data_ptr(), bs, nf, S, r0, rows, float(near),
             float(far))
     return index, depth, coords
@@ -360,7 +383,7 @@ def resolve_latch(consts, fvp, face_attrs, image_size, near, far, row_start=0,
     bs, nf, A = _check_latch(consts, fvp, face_attrs, "resolve_latch")
     S, r0, rows = _window(image_size, row_start, num_rows)
     out = _latch_outputs(bs, A, rows, S, consts.device)
-    _launch("resolve_latch", consts.device, consts.data_ptr(), fvp.data_ptr(),
+    _launch("resolve_latch", consts.get_device(), consts.data_ptr(), fvp.data_ptr(),
             face_attrs.data_ptr(), *(t.data_ptr() for t in out), bs, nf, A, S, r0, rows,
             float(near), float(far))
     return out
@@ -382,7 +405,7 @@ def resolve_depth(consts, image_size, near, far, row_start=0, num_rows=None):
     dev = consts.device
     index = torch.empty((bs, rows, S), dtype=torch.int32, device=dev)
     depth = torch.empty((bs, rows, S), dtype=torch.float32, device=dev)
-    _launch("resolve_depth", dev, consts.data_ptr(), index.data_ptr(), depth.data_ptr(),
+    _launch("resolve_depth", dev.index, consts.data_ptr(), index.data_ptr(), depth.data_ptr(),
             bs, nf, S, r0, rows, float(near), float(far))
     return index, depth
 
@@ -411,7 +434,7 @@ def scatter_pixels_to_faces(grad, face_index_map, num_faces):
     _check(grad, "grad", torch.float32, (bs, D, H, W))
     _check(face_index_map, "face_index_map", torch.int32, (bs, H, W))
     out = torch.zeros((bs, D, num_faces), dtype=torch.float32, device=grad.device)
-    _launch("scatter_pixels_to_faces", grad.device, grad.data_ptr(),
+    _launch("scatter_pixels_to_faces", grad.get_device(), grad.data_ptr(),
             face_index_map.data_ptr(), out.data_ptr(), bs, D, H * W, num_faces)
     return out
 
@@ -429,17 +452,59 @@ def scatter_faces_to_vertices_plain(grad, faces, num_vertices):
     return out.index_add_(1, ids, g)
 
 
+def build_vertex_slots(faces, num_vertices):
+    """K4's vertex -> slot table of ``faces`` [nf, 3], on its device:
+    (offsets i32 [nv + 1], slots i32 [3 nf]).  Vertex v owns the face-major
+    slots s = 3 f + k with ``faces[f, k] == v``, at ``slots[offsets[v] :
+    offsets[v + 1]]`` in ascending order; ids outside [0, nv) own none
+    (their slots sort past ``offsets[nv]``).  A stable sort by vertex id,
+    then each vertex's first position: no host sync."""
+    ids = faces.reshape(-1)
+    key = torch.where((ids >= 0) & (ids < num_vertices), ids, num_vertices)
+    sorted_key, slots = torch.sort(key, stable=True)
+    first = torch.arange(num_vertices + 1, dtype=key.dtype, device=key.device)
+    return torch.searchsorted(sorted_key, first, out_int32=True), slots.to(torch.int32)
+
+
+# id(faces) -> (a weak reference to faces, what the table was built from,
+# the table); an entry leaves with its tensor
+_slot_tables = {}
+
+
+def vertex_slots(faces, num_vertices):
+    """:func:`build_vertex_slots`, kept for each faces tensor: built anew
+    only for another tensor, after an in-place edit (``faces._version``),
+    for other storage or another ``num_vertices``.  A fit that passes the
+    same faces tensor every step builds one table.  Each build adds one to
+    ``SLOT_TABLE_BUILDS``."""
+    global SLOT_TABLE_BUILDS
+    key = id(faces)
+    stamp = (faces._version, faces.data_ptr(), faces.get_device(), num_vertices)
+    entry = _slot_tables.get(key)
+    if entry is not None and entry[0]() is faces and entry[1] == stamp:
+        return entry[2]
+    table = build_vertex_slots(faces, num_vertices)
+    ref = weakref.ref(faces, lambda _, key=key: _slot_tables.pop(key, None))
+    _slot_tables[key] = (ref, stamp, table)
+    SLOT_TABLE_BUILDS += 1
+    return table
+
+
 def scatter_faces_to_vertices(grad, faces, num_vertices):
     """``out[b, faces[f, k], c] += grad[b, c, k, f]``: planar face-vertex
-    gradient f32 [bs, 3, 3, nf], faces i32 [nf, 3] -> f32 [bs, nv, 3]."""
+    gradient f32 [bs, 3, 3, nf], faces i32 [nf, 3] -> f32 [bs, nv, 3].  On
+    the card each vertex sums its own slots (:func:`vertex_slots`) in
+    ascending order from 0, the order of the plain version on the CPU: its
+    bits, on every run.  Ids outside [0, nv) add nothing."""
     if not _use_kernel(grad, faces):
         return scatter_faces_to_vertices_plain(grad, faces, num_vertices)
     bs, nf = grad.shape[0], grad.shape[-1]
     _check(grad, "grad", torch.float32, (bs, 3, 3, nf))
     _check(faces, "faces", torch.int32, (nf, 3))
-    out = torch.zeros((bs, num_vertices, 3), dtype=torch.float32, device=grad.device)
-    _launch("scatter_faces_to_vertices", grad.device, grad.data_ptr(),
-            faces.data_ptr(), out.data_ptr(), bs, nf, num_vertices)
+    offsets, slots = vertex_slots(faces, num_vertices)
+    out = torch.empty((bs, num_vertices, 3), dtype=torch.float32, device=grad.device)
+    _launch("scatter_faces_to_vertices", grad.get_device(), grad.data_ptr(),
+            offsets.data_ptr(), slots.data_ptr(), out.data_ptr(), bs, nf, num_vertices)
     return out
 
 
@@ -453,8 +518,8 @@ def gather_faces3_plain(table, faces):
 def gather_faces3(table, faces):
     """``out[b, d, k, f] = table[b, faces[f, k], d]``: table f32
     [bs, n, D], faces i32 [nf, 3] -> f32 [bs, D, 3, nf] (for vertices, the
-    planar face vertices [bs, coord, vertex, nf]).  K9's planar form over
-    the slots k * nf + f, with the ids shared by the batch."""
+    planar face vertices [bs, coord, vertex, nf]).  Ids outside [0, n)
+    are the caller's error: the kernel writes 0 for them."""
     if not _use_kernel(table, faces):
         return gather_faces3_plain(table, faces)
     bs, n, D = table.shape
@@ -462,7 +527,7 @@ def gather_faces3(table, faces):
     _check(table, "table", torch.float32, (bs, n, D))
     _check(faces, "faces", torch.int32, (nf, 3))
     out = torch.empty((bs, D, 3, nf), dtype=torch.float32, device=table.device)
-    _launch("gather_faces3", table.device, table.data_ptr(), faces.data_ptr(),
+    _launch("gather_faces3", table.get_device(), table.data_ptr(), faces.data_ptr(),
             out.data_ptr(), bs, n, D, nf)
     return out
 
@@ -495,7 +560,7 @@ def gather_rows(table, ids, planar=False):
                          f"{tuple(ids.shape)} strides {ids.stride()}")
     shape = (bs, D, P) if planar else (bs, P, D)
     out = torch.empty(shape, dtype=torch.float32, device=table.device)
-    _launch("gather_rows", table.device, table.data_ptr(), ids.data_ptr(), out.data_ptr(),
+    _launch("gather_rows", table.get_device(), table.data_ptr(), ids.data_ptr(), out.data_ptr(),
             bs, n, D, P, batch_stride, int(planar))
     return out
 
@@ -521,7 +586,7 @@ def scatter_rows(grad, ids, num_rows):
     _check(grad, "grad", torch.float32, (bs, D, P))
     _check(ids, "ids", torch.int32, (bs, P))
     out = torch.zeros((bs, num_rows, D), dtype=torch.float32, device=grad.device)
-    _launch("scatter_rows", grad.device, grad.data_ptr(), ids.data_ptr(),
+    _launch("scatter_rows", grad.get_device(), grad.data_ptr(), ids.data_ptr(),
             out.data_ptr(), bs, D, P, num_rows)
     return out
 
@@ -592,14 +657,14 @@ def bin_faces(consts, image_size, row_start=0, num_rows=None, *, tile):
     counts = torch.zeros((bs, n_tiles, n_chunks), dtype=torch.int32, device=dev)
     # K7 is two passes of one wrapper call; LAUNCHES counts the call once,
     # at its fill pass, so that one binning reads as one launch
-    _call("bin_faces_count", dev, consts.data_ptr(), rects.data_ptr(), counts.data_ptr(),
+    _call("bin_faces_count", dev.index, consts.data_ptr(), rects.data_ptr(), counts.data_ptr(),
           bs, nf, S, r0, rows, th, tw, BIN_CHUNK)
     ends = torch.cumsum(counts.reshape(-1), 0, dtype=torch.int32)
     cursors = (ends - counts.reshape(-1)).reshape(counts.shape)
     cnt = counts.sum(-1, dtype=torch.int32)
     offsets = cursors[..., 0].clone()
     ids = torch.empty(int(ends[-1]), dtype=torch.int32, device=dev)   # the host sync
-    _launch("bin_faces", dev, rects.data_ptr(), cursors.data_ptr(), ids.data_ptr(), bs, nf,
+    _launch("bin_faces", dev.index, rects.data_ptr(), cursors.data_ptr(), ids.data_ptr(), bs, nf,
             tiles_x, n_tiles, BIN_CHUNK)
     return cnt, offsets, ids
 
@@ -681,7 +746,7 @@ def resolve_binned_xy(consts, fvp, bins, image_size, near, far, row_start=0,
     index = torch.empty((bs, rows, S), dtype=torch.int32, device=dev)
     depth = torch.empty((bs, rows, S), dtype=torch.float32, device=dev)
     coords = torch.empty((bs, 6, rows, S), dtype=torch.float32, device=dev)
-    _launch("resolve_binned_xy", dev, consts.data_ptr(), fvp.data_ptr(), *bin_ptrs,
+    _launch("resolve_binned_xy", dev.index, consts.data_ptr(), fvp.data_ptr(), *bin_ptrs,
             index.data_ptr(), depth.data_ptr(), coords.data_ptr(), bs, nf, S, r0, rows,
             tile[0], float(near), float(far))
     return index, depth, coords
@@ -705,7 +770,7 @@ def resolve_binned_latch(consts, fvp, face_attrs, bins, image_size, near, far, r
     bin_ptrs = _check_bins(bins, consts.shape[0], rows, S, tile)
     bs, nf, A = _check_latch(consts, fvp, face_attrs, "resolve_binned_latch", tile[0])
     out = _latch_outputs(bs, A, rows, S, consts.device)
-    _launch("resolve_binned_latch", consts.device, consts.data_ptr(), fvp.data_ptr(),
+    _launch("resolve_binned_latch", consts.get_device(), consts.data_ptr(), fvp.data_ptr(),
             face_attrs.data_ptr(), *bin_ptrs, *(t.data_ptr() for t in out), bs, nf, A, S,
             r0, rows, tile[0], float(near), float(far))
     return out
@@ -730,6 +795,6 @@ def resolve_binned_depth(consts, bins, image_size, near, far, row_start=0, num_r
     dev = consts.device
     index = torch.empty((bs, rows, S), dtype=torch.int32, device=dev)
     depth = torch.empty((bs, rows, S), dtype=torch.float32, device=dev)
-    _launch("resolve_binned_depth", dev, consts.data_ptr(), *bin_ptrs, index.data_ptr(),
+    _launch("resolve_binned_depth", dev.index, consts.data_ptr(), *bin_ptrs, index.data_ptr(),
             depth.data_ptr(), bs, nf, S, r0, rows, tile[0], float(near), float(far))
     return index, depth

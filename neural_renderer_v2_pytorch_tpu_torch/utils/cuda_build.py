@@ -50,7 +50,7 @@ SIGNATURES = {
     "nr_bin_faces_count": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "nr_bin_faces": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "nr_scatter_pixels_to_faces": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "nr_scatter_faces_to_vertices": (_P, _P, _P, _I, _I, _I, _P),
+    "nr_scatter_faces_to_vertices": (_P, _P, _P, _P, _I, _I, _I, _P),
     "nr_gather_faces3": (_P, _P, _P, _I, _I, _I, _I, _P),
     "nr_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _L, _I, _P),
     "nr_scatter_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -58,6 +58,9 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+# "face_setup" -> the loaded ``nr_face_setup``, and so on for every entry of
+# SIGNATURES: filled once by load(), read by the wrappers without the lock
+ENTRIES = {}
 
 
 def sources():
@@ -130,5 +133,6 @@ def load():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                ENTRIES[name[len("nr_"):]] = fn
             _lib = lib
         return _lib

@@ -244,6 +244,68 @@ def test_gather_rows_is_bit_exact(cuda, D, n, P, planar):
         rc.gather_rows(table, ids.long(), planar)
 
 
+@pytest.mark.parametrize("level", [3, 6])
+@pytest.mark.parametrize("bs", [1, 2])
+def test_vertex_sum_is_the_cpu_plain_versions_bits(cuda, bs, level):
+    """K4 over its vertex -> slot table: the plain version's bits on CPU
+    copies (its index_add_ there sums each vertex in slot order), at
+    icosphere(3) and at 81,920 faces."""
+    _, faces = icosphere(level)
+    nv, nf = int(faces.max()) + 1, len(faces)
+    f = torch.tensor(faces, device=cuda)
+    g = torch.randn((bs, 3, 3, nf), generator=torch.Generator(device=cuda).manual_seed(level),
+                    device=cuda)
+    got = rc.scatter_faces_to_vertices(g, f, nv)
+    assert torch.equal(got.cpu(), rc.scatter_faces_to_vertices_plain(g.cpu(), f.cpu(), nv))
+
+
+def test_vertex_sum_repeats_its_bits_in_one_device_operation(cuda):
+    """Two K4 calls give the same bits, and each is one device operation:
+    the kernel, with no fill of its output."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, faces = icosphere(4)
+    nv, nf = int(faces.max()) + 1, len(faces)
+    f = torch.tensor(faces, device=cuda)
+    g = torch.randn((2, 3, 3, nf), generator=torch.Generator(device=cuda).manual_seed(4),
+                    device=cuda)
+    first = rc.scatter_faces_to_vertices(g, f, nv)          # builds the table
+    torch.cuda.synchronize()
+    rc.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            again = rc.scatter_faces_to_vertices(g, f, nv)
+        torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert rc.LAUNCHES["scatter_faces_to_vertices"] == 4 and rc.SLOT_TABLE_BUILDS == 0
+    # the profiler may drop a record, never add one: the kernel's name only
+    device_ops = [(e.key, e.count) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+    assert len(device_ops) == 1 and "scatter_faces_to_vertices_kernel" in device_ops[0][0]
+    assert 1 <= device_ops[0][1] <= 4, device_ops
+
+
+@pytest.mark.parametrize("D", [2, 3, 9])
+@pytest.mark.parametrize("bs", [1, 8])
+def test_face_vertex_gather_is_bit_exact(cuda, bs, D):
+    """K5 (one thread per face and image; D = 3 unrolled, other D in a
+    loop) against its plain version, and an id past the table (0 out)."""
+    v, faces = icosphere(3)
+    faces = faces.copy()
+    f = torch.tensor(faces, device=cuda)
+    table = torch.randn((bs, len(v), D), generator=torch.Generator(device=cuda).manual_seed(D),
+                        device=cuda)
+    rc.reset_launches()
+    got = rc.gather_faces3(table, f)
+    assert rc.LAUNCHES["gather_faces3"] == 1 and got.shape == (bs, D, 3, len(faces))
+    assert torch.equal(got, rc.gather_faces3_plain(table, f))
+    faces[-1, 2] = len(v)
+    got = rc.gather_faces3(table, torch.tensor(faces, device=cuda))
+    assert (got[:, :, 2, -1] == 0).all()
+    assert torch.equal(got[..., :-1], rc.gather_faces3_plain(table, f)[..., :-1])
+
+
 def test_gather_faces3_is_gather_rows_planar_form(cuda):
     """K5 is K9's planar form over the face slots k * nf + f, with the
     vertex ids shared by the batch: the same bits from either wrapper."""
