@@ -49,8 +49,17 @@ Builds the hand-written kernels from ``neural_renderer_v2_pytorch_tpu_torch
   8: K5 bit-equal to its plain version, K4 to the plain version on CPU
   copies (batch 2 too) and to itself on a second call, each in one device
   operation; each timed in turns with its library yardstick, beside its
-  device time and bound; and the host-time split of one K4 and one K5
-  wrapper call into the parts of its launch path;
+  device time and bound; and the host-time split of one K4, one K5 and one
+  K9 wrapper call into the parts of the packed launch path (K9's beside
+  the alternatives its parts were chosen from, and K9 launched through a
+  typed entry, ``tools/launch_abi.cu``, in turns with the packed one);
+- the redesigned kernels: K7 at the four binned configurations and on a
+  crowded tile (one bin whose ids span two of the order pass's bitmap
+  windows) in turns with its parent design (``tools/bin_faces_designs.cu``),
+  both bit-equal to the plain bins, K7 in at most four device operations
+  and a readback;
+  K9 in turns with ``torch.gather`` at ``scale`` (D = 9) and
+  ``textured-scale`` (D = 27);
 
 then times each kernel, its plain version, the one PyTorch call that
 computes the same function where there is one, and each step, with CUDA
@@ -66,6 +75,7 @@ There is no CPU path: without CUDA the script fails.
 
 import collections
 import contextlib
+import ctypes
 import hashlib
 import json
 import os
@@ -293,7 +303,7 @@ def profile_device(step, n=10):
       device's busy time, and equal to it when ``complete``: every kernel
       name holds a multiple of ``n`` records (every call launches the same
       ops) and the port's kernels hold as many as ``resolve_cuda.LAUNCHES``
-      counted (``port_launches``, K7's count pass included);
+      counted (``port_launches``, all three of K7's kernels);
     - ``per_launch``: each port kernel name's mean record, in ms;
     - ``launched``: the wrappers' launches per call, counted by LAUNCHES;
     - ``top``: the six longest kernel names' kept ms per call;
@@ -323,7 +333,8 @@ def profile_device(step, n=10):
         if m:
             per_launch[e.key] = e.self_device_time_total / e.count / 1e3
             port_records += e.count
-    port_launches = sum(launched.values()) + launched.get("bin_faces", 0.0)
+    # K7's one counted launch runs three kernels (count + scan, fill, order)
+    port_launches = sum(launched.values()) + 2 * launched.get("bin_faces", 0.0)
     dropped = [(e.key[:50], e.count, round(kept[e.key], 6)) for e in events if e.count % n]
     complete = bool(events) and not dropped and port_records == round(port_launches * n)
     top = sorted(kept.items(), key=lambda kv: -kv[1])[:6]
@@ -335,10 +346,10 @@ def profile_device(step, n=10):
 def kernel_device_ms(prof, name):
     """The device ms per call of wrapper ``name``'s own kernel(s) in a
     profile of calls to it: each of its kernel names' mean record times
-    its launches per call as LAUNCHES counted them (K7 has two names, a
-    count and a fill pass, and one count); None when a name has no record
-    at all."""
-    expected = 2 if name == "bin_faces" else 1
+    its launches per call as LAUNCHES counted them (K7 has three names, its
+    count, fill and order passes, and one count); None when a name has no
+    record at all."""
+    expected = 3 if name == "bin_faces" else 1
     if len(prof.per_launch) != expected or name not in prof.launched:
         return None
     return sum(prof.per_launch.values()) * prof.launched[name]
@@ -467,7 +478,7 @@ def binned_kernels(label, fvp, consts, attrs, size, gen):
     plain version on the whole canvas and on the row window S/2 .. S/2 +
     S/4; each K8 form against the tiled form (K2, K2L, K2D) there, and
     against its own plain version (the bin-by-bin fold, one call) on the
-    whole canvas; all at the tile the route picks; and K3 against its plain
+    whole canvas; and K3 against its plain
     version over the path's planes (D = 6 without attributes, else 9 + A)
     of the resolved index map.  Returns ({name: max_abs_err}, {name: Call})
     for K3, K7, the K8 forms and the tiled forms at these shapes."""
@@ -478,28 +489,25 @@ def binned_kernels(label, fvp, consts, attrs, size, gen):
     if not torch.equal(consts, rc.face_setup(fvp, True)):
         raise AssertionError(f"{label}: the constants are not K1's of these faces")
     window = (S // 2, S // 4)
-    tile = rc.bin_tile(1, S, S, nf)
-    bins = rc.bin_faces(consts, S, tile=tile)
-    check_parts(f"{label} bin_faces", bins, rc.bin_faces_plain(consts, S, tile=tile),
+    bins = rc.bin_faces(consts, S)
+    check_parts(f"{label} bin_faces", bins, rc.bin_faces_plain(consts, S),
                 ("cnt", "offsets", "ids"))
-    win_bins = rc.bin_faces(consts, S, *window, tile=tile)
+    win_bins = rc.bin_faces(consts, S, *window)
     check_parts(f"{label} bin_faces window {window}", win_bins,
-                rc.bin_faces_plain(consts, S, *window, tile=tile), ("cnt", "offsets", "ids"))
+                rc.bin_faces_plain(consts, S, *window), ("cnt", "offsets", "ids"))
     forms = {   # name -> (binned form on bins b, tiled form, plain binned form)
         "resolve_binned_xy": (
-            lambda b, *w: rc.resolve_binned_xy(consts, fvp, b, S, 0.1, 100.0, *w, tile=tile),
+            lambda b, *w: rc.resolve_binned_xy(consts, fvp, b, S, 0.1, 100.0, *w),
             lambda *w: rc.resolve_xy(consts, fvp, S, 0.1, 100.0, *w),
-            lambda: rc.resolve_binned_xy_plain(consts, fvp, bins, S, 0.1, 100.0, tile=tile)),
+            lambda: rc.resolve_binned_xy_plain(consts, fvp, bins, S, 0.1, 100.0)),
         "resolve_binned_latch": (
-            lambda b, *w: rc.resolve_binned_latch(consts, fvp, attrs, b, S, 0.1, 100.0, *w,
-                                                  tile=tile),
+            lambda b, *w: rc.resolve_binned_latch(consts, fvp, attrs, b, S, 0.1, 100.0, *w),
             lambda *w: rc.resolve_latch(consts, fvp, attrs, S, 0.1, 100.0, *w),
-            lambda: rc.resolve_binned_latch_plain(consts, fvp, attrs, bins, S, 0.1, 100.0,
-                                                  tile=tile)),
+            lambda: rc.resolve_binned_latch_plain(consts, fvp, attrs, bins, S, 0.1, 100.0)),
         "resolve_binned_depth": (
-            lambda b, *w: rc.resolve_binned_depth(consts, b, S, 0.1, 100.0, *w, tile=tile),
+            lambda b, *w: rc.resolve_binned_depth(consts, b, S, 0.1, 100.0, *w),
             lambda *w: rc.resolve_depth(consts, S, 0.1, 100.0, *w),
-            lambda: rc.resolve_binned_depth_plain(consts, bins, S, 0.1, 100.0, tile=tile)),
+            lambda: rc.resolve_binned_depth_plain(consts, bins, S, 0.1, 100.0)),
     }
     plain_ms = {}
     for name, (binned, tiled, plain) in forms.items():
@@ -514,7 +522,7 @@ def binned_kernels(label, fvp, consts, attrs, size, gen):
     bin_bytes = 8 * cnt.numel() + 4 * pairs
     log(f"[{label}] K7 bins equal to plain (canvas and window), every K8 form bit-equal to "
         f"the tiled form and to its plain version: nf={nf} A={A} canvas={S}^2 "
-        f"coverage={float((index >= 0).float().mean()):.4f} tile={tile} pairs={pairs} "
+        f"coverage={float((index >= 0).float().mean()):.4f} pairs={pairs} "
         f"({pairs / nf:.3f} per face) max bin {int(cnt.max())}; one plain call (host ms) "
         f"{json.dumps(plain_ms)}")
     tiled_forms = {"resolve_binned_xy": "resolve_xy", "resolve_binned_latch": "resolve_latch",
@@ -524,8 +532,8 @@ def binned_kernels(label, fvp, consts, attrs, size, gen):
     errs = {}
     errs["scatter_pixels_to_faces"], k3 = scatter_check(label, index, nf, 9 + A if A else 6, gen)
     calls = {"scatter_pixels_to_faces": k3,
-             "bin_faces": Call(lambda: rc.bin_faces(consts, S, tile=tile),
-                               lambda: rc.bin_faces_plain(consts, S, tile=tile),
+             "bin_faces": Call(lambda: rc.bin_faces(consts, S),
+                               lambda: rc.bin_faces_plain(consts, S),
                                bound(16 * nf + bin_bytes, 0))}
     for name, (binned, tiled, _) in forms.items():
         calls[name] = Call(lambda binned=binned: binned(bins), plain_ms[name],
@@ -548,51 +556,20 @@ def binned_vs_plain_resolve(label, ndc, faces, size, gen):
         want_xy = rc.resolve_xy_plain(consts, fvp, *args)
         want_latch = rc.resolve_latch_plain(consts, fvp, attrs, *args)
         want = rc.resolve_depth_plain(consts, *args)
-        for tile in rc.BIN_TILES:
-            bins = rc.bin_faces(consts, size, *window, tile=tile)
-            check_parts(f"{label} resolve_binned_xy vs plain {window} {tile}",
-                        rc.resolve_binned_xy(consts, fvp, bins, *args, tile=tile), want_xy)
-            check_parts(f"{label} resolve_binned_latch vs plain {window} {tile}",
-                        rc.resolve_binned_latch(consts, fvp, attrs, bins, *args, tile=tile),
-                        want_latch)
-            check_parts(f"{label} resolve_binned_depth vs plain {window} {tile}",
-                        rc.resolve_binned_depth(consts, bins, *args, tile=tile), want)
+        bins = rc.bin_faces(consts, size, *window)
+        check_parts(f"{label} resolve_binned_xy vs plain {window}",
+                    rc.resolve_binned_xy(consts, fvp, bins, *args), want_xy)
+        check_parts(f"{label} resolve_binned_latch vs plain {window}",
+                    rc.resolve_binned_latch(consts, fvp, attrs, bins, *args), want_latch)
+        check_parts(f"{label} resolve_binned_depth vs plain {window}",
+                    rc.resolve_binned_depth(consts, bins, *args), want)
         check_parts(f"{label} resolve_depth vs plain {window}",
                     rc.resolve_depth(consts, *args), want)
-    log(f"[{label}] every K8 form (both tiles) and K2D bit-equal to the plain resolve at "
+    log(f"[{label}] every K8 form and K2D bit-equal to the plain resolve at "
         f"{size}^2, whole canvas and rows {size // 2}..{size // 2 + size // 4 - 1}")
     return {"resolve_depth": Call(lambda: rc.resolve_depth(consts, size, 0.1, 100.0),
                                   lambda: rc.resolve_depth_plain(consts, size, 0.1, 100.0),
                                   resolve_bound(consts, size, 2, 0))}
-
-
-def tile_times(label, fvp, consts, attrs, size, smi):
-    """K7 + K8 at each tile K8 is built for (``resolve_cuda.BIN_TILES``),
-    in the form the configuration's path takes (the copy form where it has
-    attributes, else XY): bit-equal to the tiled form at every tile, and
-    the CUDA-event median of binning plus resolving.  Returns {tile: ms}."""
-    if attrs.shape[-1]:
-        tiled = rc.resolve_latch(consts, fvp, attrs, size, 0.1, 100.0)
-
-        def binned(tile):
-            bins = rc.bin_faces(consts, size, tile=tile)
-            return rc.resolve_binned_latch(consts, fvp, attrs, bins, size, 0.1, 100.0,
-                                           tile=tile)
-    else:
-        tiled = rc.resolve_xy(consts, fvp, size, 0.1, 100.0)
-
-        def binned(tile):
-            bins = rc.bin_faces(consts, size, tile=tile)
-            return rc.resolve_binned_xy(consts, fvp, bins, size, 0.1, 100.0, tile=tile)
-    ms = {}
-    for tile in rc.BIN_TILES:
-        check_parts(f"{label} K8 at tile {tile}", binned(tile), tiled)
-        ms[tile] = median_ms(lambda tile=tile: binned(tile), 20)
-    rule = rc.bin_tile(1, size, size, consts.shape[-1])
-    log(f"[tiles] {label}: K7 + K8 ms by tile " + ", ".join(
-        f"{t[0]}x{t[1]} {v:.4f}" for t, v in ms.items()) + f", bit-equal to the tiled "
-        f"form at each; the rule picks {rule}, measured faster {min(ms, key=ms.get)}  ({smi})")
-    return ms
 
 
 def routes_agree(label, step, fim, resolve, shape, smi):
@@ -1215,11 +1192,13 @@ def host_split(wrapper, tensors, alloc, entry, args, extra=None):
     """Host µs per call (:func:`per_call_us`) of one wrapper call and of each
     part of its launch path alone: the checks (``_use_kernel`` and one
     ``_check`` per input), the output's allocation, the C entry's lookup,
-    the device compare, the raw stream read and the ctypes call that
-    launches the kernel with ``args``; ``extra``: more parts by name."""
+    packing the card and ``args`` into the argument block, the raw stream
+    read and the ctypes call that launches the kernel; ``extra``: more
+    parts by name."""
     index = tensors[0].get_device()
-    fn = cuda_build.ENTRIES[entry]
+    fn, pack = cuda_build.ENTRIES[entry], cuda_build.PACKERS[entry].pack
     stream = torch._C._cuda_getCurrentRawStream(index)
+    block = pack(index, *args)
 
     def checks():
         rc._use_kernel(*tensors)
@@ -1227,10 +1206,261 @@ def host_split(wrapper, tensors, alloc, entry, args, extra=None):
             rc._check(t, "t", t.dtype, t.shape)
 
     parts = dict(checks=checks, alloc=alloc, lookup=lambda: cuda_build.ENTRIES.get(entry),
-                 device_compare=lambda: torch._C._cuda_getDevice() == index,
+                 pack=lambda: pack(index, *args),
                  stream_raw=lambda: torch._C._cuda_getCurrentRawStream(index),
-                 ctypes_call=lambda: fn(*args, stream), **(extra or {}), wrapper=wrapper)
+                 ctypes_call=lambda: fn(block, stream), **(extra or {}), wrapper=wrapper)
     return {name: per_call_us(part) for name, part in parts.items()}
+
+
+def gather_rows_host_split(dev, gen):
+    """K9's wrapper at scale's shapes (D = 9 over a 512^2 index map) and
+    the parts of its launch path (:func:`host_split`), with the
+    alternatives each part was chosen from: the checks as the parent's
+    (``_check`` and the id checks) and as the wrapper's one comparison per
+    input; the allocation as ``torch.empty`` with the tensor's device, with
+    a kept ``torch.device``, and as ``new_empty`` (the wrapper's); the
+    ctypes call with ``argtypes`` (the wrapper's), without them (the block
+    and a ``c_void_p`` stream as objects), through a ``CFUNCTYPE``
+    prototype and through ``ctypes.PyDLL`` (the GIL kept), each launching
+    K9 at a tiny shape, where the card keeps up with the host; beside them
+    a ctypes call of libc's ``labs`` (the floor of a foreign call) and the
+    yardstick ``torch.gather``'s host time at both shapes.  Last, the A/B
+    of the launch ABI at the tiny shape, in turns (typed, packed, packed,
+    typed, three times): K9 through a typed entry (``tools/launch_abi.cu``:
+    one ctypes argument per kernel argument through ``argtypes``, the
+    device checked in Python, as the port's entries were before they were
+    packed) and through the packed entry, the block packed per call
+    (``abi_typed_turns``, ``abi_packed_turns``)."""
+    n, D, P = 81920, 9, 512 * 512
+    table = torch.randn((1, n, D), generator=gen, device=dev)
+    ids = torch.randint(-1, n, (1, P), generator=gen, device=dev, dtype=torch.int32)
+    out = torch.empty((1, D, P), device=dev)
+    args = (table.data_ptr(), ids.data_ptr(), out.data_ptr(), 1, n, D, P, P, 1)
+    pack = cuda_build.PACKERS["gather_rows"].pack
+    lib = cuda_build.load()
+    bare = lib["nr_gather_rows"]           # a new handle: no argtypes, restype int
+    proto = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_char_p, ctypes.c_void_p)(
+        ("nr_gather_rows", lib))
+    pydll = ctypes.PyDLL(lib._name)["nr_gather_rows"]
+    pydll.argtypes, pydll.restype = (ctypes.c_char_p, ctypes.c_void_p), ctypes.c_int
+    labs = ctypes.CDLL(None).labs
+    labs.argtypes, labs.restype = (ctypes.c_long,), ctypes.c_long
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    gather_index = ids.clamp(min=0).long()[..., None].expand(1, P, D)
+
+    def parent_checks():
+        rc._use_kernel(table, ids)
+        rc._check(table, "table", torch.float32, (1, n, D))
+        batch_stride = P                   # bs = 1
+        if (ids.dtype != torch.int32 or tuple(ids.shape) != (1, P) or ids.stride(1) != 1
+                or batch_stride not in (0, P)):
+            raise AssertionError("ids")
+
+    def folded_checks():
+        rc._use_kernel(table, ids)
+        if (table.dtype, table.stride()) != (torch.float32, (n * D, D, 1)) or \
+                (ids.dtype, ids.shape, ids.stride()) != (torch.int32, (1, P), (P, 1)):
+            raise AssertionError("layout")
+
+    # at a tiny shape the card keeps up with the host, so these time the
+    # host's launch and not the card's throughput
+    t_table = torch.randn((1, 8, D), generator=gen, device=dev)
+    t_ids = torch.randint(-1, 8, (1, 64), generator=gen, device=dev, dtype=torch.int32)
+    t_out = torch.empty((1, D, 64), device=dev)
+    t_block = pack(dev.index, t_table.data_ptr(), t_ids.data_ptr(), t_out.data_ptr(), 1, 8, D,
+                   64, 64, 1)
+    t_index = t_ids.long()[..., None].clamp(min=0).expand(1, 64, D)
+    fn = cuda_build.ENTRIES["gather_rows"]
+    extra = dict(
+        tiny_ctypes_call=lambda: fn(t_block, stream),
+        tiny_ctypes_no_argtypes=lambda: bare(t_block, ctypes.c_void_p(stream)),
+        tiny_ctypes_cfunctype=lambda: proto(t_block, stream),
+        tiny_ctypes_pydll=lambda: pydll(t_block, stream),
+        tiny_wrapper=lambda: rc.gather_rows(t_table, t_ids, True),
+        tiny_library=lambda: torch.gather(t_table, 1, t_index),
+        parent_checks=parent_checks, folded_checks=folded_checks,
+        alloc_empty_tensor_device=lambda: torch.empty((1, D, P), dtype=torch.float32,
+                                                      device=table.device),
+        alloc_empty_kept_device=lambda: torch.empty((1, D, P), dtype=torch.float32, device=dev),
+        ffi_floor=lambda: labs(-5), library=lambda: torch.gather(table, 1, gather_index))
+    split = host_split(lambda: rc.gather_rows(table, ids, True), (table, ids),
+                       lambda: table.new_empty((1, D, P)), "gather_rows", args, extra)
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    typed = tool_library("launch_abi").nr_typed_gather_rows
+    typed.argtypes = (P_, P_, P_, I_, I_, I_, I_, ctypes.c_longlong, I_, P_)
+    typed.restype = ctypes.c_int
+    t_args = (t_table.data_ptr(), t_ids.data_ptr(), t_out.data_ptr(), 1, 8, D, 64, 64, 1)
+    index = dev.index
+
+    def typed_launch():
+        if torch._C._cuda_getDevice() != index or typed(*t_args, stream):
+            raise AssertionError("typed launch")
+
+    def packed_launch():
+        if fn(pack(index, *t_args), stream):
+            raise AssertionError("packed launch")
+
+    typed_launch(), packed_launch()
+    torch.cuda.synchronize()
+    want = rc.gather_rows_plain(t_table, t_ids, True)
+    if not torch.equal(t_out, want):
+        raise AssertionError("K9 through the typed and packed entries differs from plain")
+    turns = {"typed": [], "packed": []}
+    for _ in range(3):
+        for name in ("typed", "packed", "packed", "typed"):
+            turns[name].append(per_call_us(typed_launch if name == "typed" else packed_launch))
+    split["abi_typed_turns"], split["abi_packed_turns"] = turns["typed"], turns["packed"]
+    return split
+
+
+def tool_library(name):
+    """``tools/<name>.cu`` built into ``build/tools/`` (as the port's kernels
+    are: their flags, a file name keyed by a hash of the source, the port's
+    sources it may include and the flags, so an unchanged source is loaded
+    as it is) and loaded through ctypes."""
+    src = os.path.join(ROOT, "tools", name + ".cu")
+    h = hashlib.sha256(" ".join(cuda_build.NVCC_FLAGS).encode())
+    for path in (src, *sorted(str(p) for p in cuda_build.CSRC_DIR.glob("*.cu*"))):
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    lib = os.path.join(ROOT, "build", "tools", f"lib{name}_{h.hexdigest()[:16]}.so")
+    if not os.path.exists(lib):
+        os.makedirs(os.path.dirname(lib), exist_ok=True)
+        part = f"{lib}.{os.getpid()}"
+        cuda_build._run_all([[cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+                              str(cuda_build.CSRC_DIR), "-shared", "-o", part, src]])
+        os.replace(part, lib)
+    return ctypes.CDLL(lib)
+
+
+def typed_entry(lib, name, argtypes):
+    """``lib.nr_<name>`` with ``argtypes`` and the stream, as a function of
+    the arguments that launches on the current stream and raises on its
+    error code."""
+    fn = getattr(lib, "nr_" + name)
+    fn.argtypes, fn.restype = (*argtypes, ctypes.c_void_p), ctypes.c_int
+
+    def call(*args):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+    return call
+
+
+def parent_bin_design():
+    """K7 as the port's parent had it (``tools/bin_faces_designs.cu``): a
+    function (consts, S, row_start, rows) -> (cnt, offsets, ids) of K7's
+    contract at :data:`resolve_cuda.BIN_TILE`, with its [bs, tiles, chunks]
+    count array, scanned by torch, and its host sync."""
+    lib = tool_library("bin_faces_designs")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    count = typed_entry(lib, "parent_bin_count", (P, P, P, I, I, I, I, I, I, I, I))
+    fill = typed_entry(lib, "parent_bin_fill", (P, P, P, I, I, I, I, I))
+
+    def parent(consts, S, r0, rows):
+        bs, _, nf = consts.shape
+        th, tw = rc.BIN_TILE
+        tiles_x = -(-S // tw)
+        n_tiles = tiles_x * -(-rows // th)
+        dev = consts.device
+        rects = torch.empty((bs, nf, 4), dtype=torch.int32, device=dev)
+        counts = torch.zeros((bs, n_tiles, max(1, -(-nf // 256))), dtype=torch.int32, device=dev)
+        count(consts.data_ptr(), rects.data_ptr(), counts.data_ptr(), bs, nf, S, r0, rows, th, tw,
+              256)
+        ends = torch.cumsum(counts.reshape(-1), 0, dtype=torch.int32)
+        cursors = (ends - counts.reshape(-1)).reshape(counts.shape)
+        cnt, offsets = counts.sum(-1, dtype=torch.int32), cursors[..., 0].clone()
+        ids = torch.empty(int(ends[-1]), dtype=torch.int32, device=dev)      # the host sync
+        fill(rects.data_ptr(), cursors.data_ptr(), ids.data_ptr(), bs, nf, tiles_x, n_tiles, 256)
+        return cnt, offsets, ids
+
+    return parent
+
+
+def crowded_consts(dev):
+    """K1's constants of ``textured-scale``'s mesh (torus(320, 248), 158,720
+    faces) seen from above in a 3-pixel disc inside one 8x8 tile of a 512^2
+    canvas: one bin holds every face K1 keeps (~74K; it kills those whose
+    projected area is below its threshold at this size), with ids spanning
+    more than K7's bitmap window of 131,072, so its order pass takes the
+    block's bitmap in two windows."""
+    v, f = torus(320, 248)
+    v = v / np.abs(v).max()
+    c, r = (2.0 * 59.5 + 1.0 - 512) / 512, 2.0 * 3.0 / 512
+    ndc = np.stack([c + r * v[:, 0], c + r * v[:, 2], 2.0 + v[:, 1]], -1).astype(np.float32)
+    fvp = torch.tensor(np.ascontiguousarray(ndc[f][None].transpose(0, 3, 2, 1)), device=dev)
+    return rc.face_setup(fvp, True)
+
+
+def turns_row(kernel, yardstick, nbytes):
+    """A kernel and its yardstick (a library call or a parent design) in
+    turns: the event medians (kernel, yardstick, yardstick, kernel), the
+    device busy time and operations per call of each under the profiler
+    (:func:`profile_kept`), the port kernels' own device time, and the
+    bound of moving ``nbytes``."""
+    ms_turns, yard_turns = in_turns(kernel, yardstick)
+    prof, yard = profile_kept(kernel), profile_kept(yardstick)
+    return dict(ms=float(np.mean(ms_turns)), ms_turns=ms_turns,
+                yardstick_ms=float(np.mean(yard_turns)), yardstick_turns=yard_turns,
+                device_ms=prof.busy, device_ops=prof.ops, yardstick_device_ms=yard.busy,
+                yardstick_ops=yard.ops, kernel_device_ms=sum(prof.per_launch.values()),
+                per_kernel={k.split("::")[-1][:40]: v for k, v in prof.per_launch.items()},
+                bound_ms=bound(nbytes, 0)[0])
+
+
+def redesigned_kernels(binned, gathers, smi):
+    """K7 at the four binned configurations and on a crowded tile
+    (``binned``: label -> (consts, S)), in turns with its parent design
+    (:func:`parent_bin_design`), both held to the plain version's bins and
+    K7 to at most four device operations and one readback per call; and K9
+    in turns with ``torch.gather`` (``gathers``: label -> its Call).
+    Returns {"bin_faces": {label: row}, "gather_rows": {label: row}}."""
+    parent = parent_bin_design()
+    rows = {"bin_faces": {}, "gather_rows": {}}
+    for label, (consts, S) in binned.items():
+        want = rc.bin_faces_plain(consts, S)
+
+        def shipped(consts=consts, S=S):
+            return rc.bin_faces(consts, S)
+
+        def design(consts=consts, S=S):
+            return parent(consts, S, 0, S)
+
+        check_parts(f"{label} bin_faces", shipped(), want, ("cnt", "offsets", "ids"))
+        check_parts(f"{label} bin_faces parent design", design(), want, ("cnt", "offsets", "ids"))
+        check_parts(f"{label} bin_faces second call", shipped(), want, ("cnt", "offsets", "ids"))
+        nf, pairs = consts.shape[-1], len(want[2])
+        row = turns_row(shipped, design, 16 * nf + 8 * want[0].numel() + 4 * pairs)
+        # memset, three kernels and the readback; the profiler may drop a
+        # record, never add one
+        if row["device_ops"] > 5:
+            raise AssertionError(f"{label} bin_faces: {row['device_ops']} device operations")
+        largest = int(want[0].argmax())
+        top = want[2][int(want[1].reshape(-1)[largest]):][:int(want[0].reshape(-1)[largest])]
+        row.update(nf=nf, pairs=pairs, largest_bin=len(top),
+                   largest_bin_id_span=int(top.max() - top.min()) + 1 if len(top) else 0)
+        rows["bin_faces"][label] = row
+        log(f"[redesign] {label} K7 bin_faces nf={nf} pairs={pairs} largest bin "
+            f"{row['largest_bin']} (ids spanning {row['largest_bin_id_span']}): "
+            f"{row['ms']:.4f} ms (turns {row['ms_turns'][0]:.4f}, {row['ms_turns'][1]:.4f}), "
+            f"device {row['device_ms']:.5f} ms in {row['device_ops']:.2f} operations (its "
+            f"kernels {row['kernel_device_ms']:.5f}); parent design {row['yardstick_ms']:.4f} "
+            f"ms (turns {row['yardstick_turns'][0]:.4f}, {row['yardstick_turns'][1]:.4f}), "
+            f"device {row['yardstick_device_ms']:.5f} ms in {row['yardstick_ops']:.2f}; bound "
+            f"{row['bound_ms']:.6f} ms; both bit-equal to plain  ({smi})")
+    # the crowded bin's ids span more than one bitmap window (32 * 4096 ids)
+    if rows["bin_faces"]["crowded"]["largest_bin_id_span"] <= 32 * 4096:
+        raise AssertionError(f"the crowded bin takes one bitmap window: {rows['bin_faces']}")
+    for label, call in gathers.items():
+        row = turns_row(call.kernel, call.library, call.bound[0] * HBM_BYTES_PER_S / 1e3)
+        rows["gather_rows"][label] = row
+        log(f"[redesign] {label} K9 gather_rows: {row['ms']:.4f} ms (turns "
+            f"{row['ms_turns'][0]:.4f}, {row['ms_turns'][1]:.4f}), torch.gather "
+            f"{row['yardstick_ms']:.4f} ms (turns {row['yardstick_turns'][0]:.4f}, "
+            f"{row['yardstick_turns'][1]:.4f}); device {row['device_ms']:.5f} ms in "
+            f"{row['device_ops']:.2f} operations (torch.gather {row['yardstick_device_ms']:.5f}), "
+            f"bound {row['bound_ms']:.6f} ms  ({smi})")
+    return rows
 
 
 def face_vertex_kernels(dev, gen, smi):
@@ -1277,6 +1507,7 @@ def face_vertex_kernels(dev, gen, smi):
     offsets, slots = rc.vertex_slots(faces, nv)
     vertex_grad, fvp = torch.empty((1, nv, 3), device=dev), torch.empty((1, 3, 3, nf), device=dev)
     split = {
+        "gather_rows": gather_rows_host_split(dev, gen),
         "scatter_faces_to_vertices": host_split(
             lambda: rc.scatter_faces_to_vertices(g9, faces, nv), (g9, faces),
             lambda: torch.empty((1, nv, 3), device=dev), "scatter_faces_to_vertices",
@@ -1287,9 +1518,10 @@ def face_vertex_kernels(dev, gen, smi):
             lambda: torch.empty((1, 3, 3, nf), device=dev), "gather_faces3",
             (table.data_ptr(), faces.data_ptr(), fvp.data_ptr(), 1, nv, 3, nf)),
     }
-    log(f"[host split] one wrapper call at bench, batch 1, host us per call (median of 3 "
-        f"blocks of 1000 calls): {json.dumps(split)}; the event median of a call that "
-        f"does nothing {median_ms(lambda: None, 50):.4f} ms  ({smi})")
+    log(f"[host split] one wrapper call (K4 and K5 at bench, batch 1; K9 at scale, D = 9), "
+        f"host us per call (median of 3 blocks of 1000 calls): {json.dumps(split)}; the event "
+        f"median of a call that does nothing {median_ms(lambda: None, 50):.4f} ms  ({smi})")
+    return split
 
 
 def main():
@@ -1469,18 +1701,6 @@ def main():
     for name in ("resolve_depth", "bin_faces", "resolve_binned_xy", "resolve_binned_latch",
                  "resolve_binned_depth"):
         all_errs[name] = 0.0      # bit-equal, or the checks above raised
-    # K8's tile, at the four configurations the rule sends to the binned route
-    with torch.no_grad():
-        tile_ms = {}
-        for label, (r, v, f) in (("scale", (scale_renderer, sphere_v, faces6)),
-                                 ("hires", (hires, sphere_v, faces6))):
-            fvp = gather_face_vertices(r.transform_vertices(v), f)
-            size = r.image_size * (2 if r.anti_aliasing else 1)
-            tile_ms[label] = tile_times(label, fvp, rc.face_setup(fvp, True),
-                                        fvp.new_empty((1, f.shape[0], 0)), size, smi)
-        for label in ("textured-scale", "hires-lit"):
-            _, fvp, consts, attrs = cfgs[label].latch_inputs()
-            tile_ms[label] = tile_times(label, fvp, consts, attrs, cfgs[label].size, smi)
 
     # 12. both routes at all seven configurations, through the entry points
     def sil_resolve(r, v, f):
@@ -1701,13 +1921,29 @@ def main():
                    f"against {prof.port_launches:.1f} launches")
                 + "; top (per kernel name, kept records summed over the step) "
                 + ", ".join(f"{k} {t:.4f} ms" for k, t in prof.top))
+    # 19. the kernels this slice redesigned: K7 in turns with its parent
+    # design at the four binned configurations and a crowded tile (the
+    # order pass's bitmap in two windows), K9 in turns with
+    # torch.gather at the face-sharded path's two shapes
+    with torch.no_grad():
+        binned = {}
+        for label, (r, v, f) in (("scale", (scale_renderer, sphere_v, faces6)),
+                                 ("hires", (hires, sphere_v, faces6))):
+            fvp = gather_face_vertices(r.transform_vertices(v), f)
+            binned[label] = (rc.face_setup(fvp, True), r.image_size * (2 if r.anti_aliasing else 1))
+        for label in ("textured-scale", "hires-lit"):
+            binned[label] = (cfgs[label].latch_inputs()[2], cfgs[label].size)
+        binned["crowded"] = (crowded_consts(dev), 512)
+        redesigned = redesigned_kernels(
+            binned, {"scale": scale_calls["gather_rows"],
+                     "textured-scale": tex_calls["textured-scale"]["gather_rows"]}, smi)
+    log("[redesign] " + json.dumps(redesigned))
+
     log("[routes] resolve ms (tiled, binned) and the rule's route: " + json.dumps(
         {label: [route_ms[label]["tiled"], route_ms[label]["binned"], route_rule[label]]
          for label in route_ms}))
     log("[routes] sweep at 512^2, nf: (tiled ms, binned ms, the rule's route): "
         + json.dumps(sweep))
-    log("[tiles] K7 + K8 ms by tile: " + json.dumps(
-        {label: {f"{t[0]}x{t[1]}": v for t, v in ms.items()} for label, ms in tile_ms.items()}))
 
     launches = collections.Counter()
     for path in (sil_launches, tex_launches, hires_launches, hl_launches, index_launches,

@@ -7,159 +7,483 @@
 //   memory grows with the pairs and not with tiles x nf.
 //
 // Computes, for the tiles of a row window (rows row_start .. row_start +
-// num_rows - 1, tiles of tile_h x tile_w pixels, row-major), each tile's
+// num_rows - 1, tiles of kTile x kTile pixels, row-major), each tile's
 // bin: the ids of the faces whose bbox meets the tile's pixel-centre range
 // by K2's strict test, !(xmax < x_lo || x_hi < xmin || ymax < y_lo ||
 // y_hi < ymin) with the range clipped at the canvas and window edges, in
 // ascending id order.  Killed faces (bbox 4,-4,4,-4 from K1) meet no tile.
 // Outputs: cnt [bs, tiles], offsets [bs, tiles] into ids, ids [pairs],
-// batch-major and tile-major.  The order must be stable: the resolve's
+// batch-major and tile-major.  The order must be ascending: the resolve's
 // accept rule, zp <= depth - 1e-4 applied in id order, is not commutative.
 //
-// Three passes (the wrapper in ops/resolve_cuda.py runs them):
-//   1. count (here): one thread per face finds its tile rectangle, by binary
-//      search over the tiles' pixel centres (non-decreasing in the tile
-//      index, so the tiles a bbox meets are one interval per axis), stores
-//      it and adds it, by atomics, into per-(tile, face chunk) counts laid
-//      out [bs, tiles, chunks].
-//   2. scan (torch.cumsum in the wrapper): the exclusive scan of the counts
-//      in that order gives each (tile, chunk) its slot range, and so each
-//      tile its offset; its total, read on the host, sizes ids.
-//   3. fill (here): one warp owns one face chunk and walks its faces in id
-//      order, its lanes spread over each face's tiles.  Each (tile, chunk)
-//      cursor has exactly one writer, and the writes of one face are
-//      ordered before the next face's by __syncwarp, so every bin comes out
-//      ascending: bit-equal to the plain version's stable sort.
+// Four device operations and one host readback (the wrapper in
+// ops/resolve_cuda.py calls the two entries):
+//   nr_bin_faces_count
+//     1. memset: the per-tile counters [bs * tiles] and the control words.
+//     2. count: one thread per face finds its tile rectangle, by binary
+//        search over the tiles' pixel-centre bounds (non-decreasing in the
+//        tile index, so the tiles a bbox meets are one interval per axis;
+//        each block computes the bounds once into shared memory), and adds
+//        1 to each covered tile's counter (one atomic per warp and tile,
+//        lanes on one tile aggregated); the blocks sum the pair total.
+//   (host: reads the pair total back, to size ids)
+//   nr_bin_faces
+//     3. scan + fill: the first blocks to start take the counters' chunks
+//        in ticket order and scan them with a decoupled look-back (a block
+//        waits only on chunks whose blocks started before it): cnt,
+//        offsets and each tile's fill cursor in place of its counter.  Once
+//        every chunk is scanned, one thread per face recomputes its
+//        rectangle and takes one slot per covered tile from the tile's
+//        cursor (one atomic per warp and tile): each bin's ids in the order
+//        the atomics ran.
+//     4. order: one warp per bin, the warps of a block on bins far apart
+//        on the canvas, so that crowded bins spread over blocks.  A bin of
+//        at most kWarpCap ids is ranked by its warp (ids in a bin are
+//        distinct, so each id's rank is the count of smaller ones), through
+//        shuffles up to 32 ids and shared memory above; a larger one by
+//        the block, through a bitmap of its id range [min, max] in shared
+//        memory, in windows of 32 * kBitmapWords ids, so no bin is ever too
+//        large.
+//   Either way the sorted bin is the plain version's (a stable sort of
+//   face-major pairs by tile), bit for bit, whatever order the atomics took.
 //
 // Bound: memory.  It reads each face's 4 bbox constants once (16 bytes) and
-// writes 4 bytes per (tile, face) pair plus 8 per tile: at 81,920 faces
-// and ~3 pairs per face about 3 MB, about a microsecond of HBM time.  What
-// it costs beyond that is the per-(tile, chunk) count array (zeroed,
-// scanned and read once: tiles x nf / chunk entries) and the fill's
-// dependent cursor updates, one per face along each warp's chunk.
+// writes 4 bytes per (tile, face) pair plus 8 per tile: at 81,920 faces and
+// ~3 pairs per face about 3 MB, about a microsecond of HBM time.  Its
+// scratch is the counters (4 bytes per tile, padded to a scan chunk), 8
+// bytes per chunk and the unsorted pairs (4 bytes each): it grows with
+// tiles + pairs, never with tiles x faces.  What it costs beyond the bound
+// is four dependent device operations, the readback, the scan's wait, and
+// the order pass's one warp (or block) per bin.
 
 #include <cuda_runtime.h>
 
+#include <climits>
+
+#include "nr_entry.cuh"
+
 namespace {
+
+// the tile edge in pixels: K8's (kBinEdge in resolve.cu, resolve_cuda.BIN_TILE)
+constexpr int kTile = 8;
+constexpr int kCountThreads = 256;
+constexpr int kFillThreads = 256;
+constexpr int kScanPer = 16;                      // counters per thread of a scan chunk
+constexpr int kScanChunk = kScanPer * kFillThreads;  // counters are padded to this many
+constexpr int kOrderWarps = 4;                    // bins per order block
+constexpr int kWarpCap = 256;                     // the most ids a warp ranks
+constexpr int kItems = kWarpCap / 32;
+// a larger bin's bitmap window: 4096 words (16 KB of shared memory), 131,072 ids
+constexpr int kBitmapWords = 4096;
+constexpr int kLoads = 8;                         // ids a large bin's thread loads at once
+// the tiles' bounds in shared memory: 2 floats per tile of each axis
+constexpr int kMaxTableTiles = 48 * 1024 / (2 * sizeof(float));
+// the control words after the padded counters: the scan's ticket, the pair
+// total, the chunks scanned; then one 64-bit state per chunk
+constexpr int kTicket = 0, kTotal = 1, kScanned = 2, kStates = 4;
+
+struct Geometry {
+  int size, row_start, num_rows, tiles_x, tiles_y, n_tiles;
+};
+
+struct Rect {
+  int tx0, ty0, wx, wy;
+};
 
 __device__ __forceinline__ float pixel_centre(int i, float s) {
   return (2.0f * static_cast<float>(i) + 1.0f - s) / s;
 }
 
-// Pixel-centre range of tile t along one axis: pixels start + t * tile ..
-// start + min((t + 1) * tile, extent) - 1.
-__device__ __forceinline__ float tile_lo(int t, int tile, int start, float s) {
-  return pixel_centre(start + t * tile, s);
-}
-
-__device__ __forceinline__ float tile_hi(int t, int tile, int start, int extent, float s) {
-  return pixel_centre(start + min((t + 1) * tile, extent) - 1, s);
+// The pixel-centre range of every tile along both axes, into shared memory
+// (tiles_x then tiles_y (lo, hi) pairs): tile t spans pixels start + t *
+// kTile .. start + min((t + 1) * kTile, extent) - 1.
+__device__ void tile_bounds(float2* bounds, const Geometry& g) {
+  const float s = static_cast<float>(g.size);
+  for (int i = threadIdx.x; i < g.tiles_x + g.tiles_y; i += blockDim.x) {
+    const bool x = i < g.tiles_x;
+    const int t = x ? i : i - g.tiles_x;
+    const int start = x ? 0 : g.row_start, extent = x ? g.size : g.num_rows;
+    bounds[i] = make_float2(pixel_centre(start + t * kTile, s),
+                            pixel_centre(start + min((t + 1) * kTile, extent) - 1, s));
+  }
+  __syncthreads();
 }
 
 // The interval [first, end) of the n tiles along one axis whose pixel-centre
 // range meets [vmin, vmax]: first = #tiles with hi < vmin, end = #tiles with
-// lo <= vmax (both ranges' ends are non-decreasing in t).
-__device__ __forceinline__ int2 tile_interval(float vmin, float vmax, int n, int tile,
-                                              int start, int extent, float s) {
+// lo <= vmax (both ends are non-decreasing in the tile).
+__device__ __forceinline__ int2 tile_interval(float vmin, float vmax, const float2* b, int n) {
   int a = 0, z = n;
   while (a < z) {
     const int m = (a + z) >> 1;
-    if (tile_hi(m, tile, start, extent, s) < vmin) a = m + 1; else z = m;
+    if (b[m].y < vmin) a = m + 1; else z = m;
   }
   int c = 0, y = n;
   while (c < y) {
     const int m = (c + y) >> 1;
-    if (tile_lo(m, tile, start, s) <= vmax) c = m + 1; else y = m;
+    if (b[m].x <= vmax) c = m + 1; else y = m;
   }
   return make_int2(a, c);
 }
 
-__global__ void __launch_bounds__(256)
-bin_count_kernel(const float* __restrict__ consts, int4* __restrict__ rects,
-                 int* __restrict__ counts, int nf, int size, int row_start,
-                 int num_rows, int tile_h, int tile_w, int tiles_x, int tiles_y,
-                 int chunk, int n_chunks) {
-  const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= nf) return;
-  const size_t b = blockIdx.y;
-  const float s = static_cast<float>(size);
+// Face f of image b: the rectangle of tiles its bbox meets (empty: 0 x 0).
+__device__ __forceinline__ Rect face_rect(const float* __restrict__ consts, size_t b, int f,
+                                          int nf, const float2* bounds, const Geometry& g) {
   // c[13..16] = xmin, xmax, ymin, ymax
   const float* c = consts + b * 17 * (size_t)nf + f;
-  const int2 x = tile_interval(c[13 * (size_t)nf], c[14 * (size_t)nf], tiles_x, tile_w, 0,
-                               size, s);
-  const int2 y = tile_interval(c[15 * (size_t)nf], c[16 * (size_t)nf], tiles_y, tile_h,
-                               row_start, num_rows, s);
+  const int2 x = tile_interval(c[13 * (size_t)nf], c[14 * (size_t)nf], bounds, g.tiles_x);
+  const int2 y = tile_interval(c[15 * (size_t)nf], c[16 * (size_t)nf], bounds + g.tiles_x,
+                               g.tiles_y);
   int wx = x.y - x.x, wy = y.y - y.x;
   if (wx <= 0 || wy <= 0) wx = wy = 0;
-  rects[b * nf + f] = make_int4(x.x, y.x, wx, wy);
-  int* cb = counts + b * (size_t)tiles_x * tiles_y * n_chunks + f / chunk;
-  for (int ty = y.x; ty < y.x + wy; ++ty) {
-    for (int tx = x.x; tx < x.x + wx; ++tx) {
-      atomicAdd(cb + (size_t)(ty * tiles_x + tx) * n_chunks, 1);
+  return Rect{x.x, y.x, wx, wy};
+}
+
+// atomicAdd(p + i, 1) for every active lane, one atomic per distinct i in
+// the warp; returns the lane's own old value (lanes on one i in lane order).
+__device__ __forceinline__ int warp_add_one(int* p, int i) {
+  const unsigned peers = __match_any_sync(__activemask(), i);
+  const int lane = threadIdx.x & 31, leader = __ffs(peers) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(p + i, __popc(peers));
+  return __shfl_sync(peers, base, leader) + __popc(peers & ((1u << lane) - 1u));
+}
+
+// Exclusive scan of one int per thread over the block; `total` gets the
+// block's sum.  `sums`: 32 ints of shared memory.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* sums, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int s = lane < warps ? sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += y;
+    }
+    sums[lane] = s;
+  }
+  __syncthreads();
+  total = sums[warps - 1];
+  const int excl = x - v + (warp > 0 ? sums[warp - 1] : 0);
+  __syncthreads();  // sums is written again by the next call
+  return excl;
+}
+
+__global__ void __launch_bounds__(kCountThreads)
+bin_count_kernel(const float* __restrict__ consts, int* scratch, Geometry g, int nf,
+                 int padded) {
+  extern __shared__ float2 bounds[];
+  __shared__ int block_pairs;
+  if (threadIdx.x == 0) block_pairs = 0;
+  tile_bounds(bounds, g);
+  const int f = blockIdx.x * kCountThreads + threadIdx.x;
+  int pairs = 0;
+  if (f < nf) {
+    const Rect r = face_rect(consts, blockIdx.y, f, nf, bounds, g);
+    int* counters = scratch + (size_t)blockIdx.y * g.n_tiles;
+    for (int ty = r.ty0; ty < r.ty0 + r.wy; ++ty) {
+      for (int tx = r.tx0; tx < r.tx0 + r.wx; ++tx) warp_add_one(counters, ty * g.tiles_x + tx);
+    }
+    pairs = r.wx * r.wy;
+  }
+  pairs = __reduce_add_sync(0xffffffffu, pairs);
+  if ((threadIdx.x & 31) == 0 && pairs) atomicAdd(&block_pairs, pairs);
+  __syncthreads();
+  if (threadIdx.x == 0 && block_pairs) atomicAdd(scratch + padded + kTotal, block_pairs);
+}
+
+// Scan chunk t of the counters (kScanChunk of them from t * kScanChunk):
+// its block's local scan, then its prefix from the chunks before it by a
+// decoupled look-back over their 64-bit states (status << 32 | value:
+// 1 = the chunk's own sum, 2 = its inclusive prefix); writes cnt, offsets
+// and the fill cursors in place of the counters.
+__device__ void scan_chunk(int t, int* scratch, int* __restrict__ cnt_out,
+                           int* __restrict__ off_out, int n_bins, int padded) {
+  __shared__ int sums[32];
+  __shared__ int chunk_prefix;
+  constexpr int kVecs = kScanPer / 4;
+  unsigned long long* states = reinterpret_cast<unsigned long long*>(scratch + padded + kStates);
+  const int i = t * kScanChunk + kScanPer * threadIdx.x;
+  int4 v[kVecs];
+  int sum = 0;
+#pragma unroll
+  for (int k = 0; k < kVecs; ++k) {
+    v[k] = __ldcg(reinterpret_cast<const int4*>(scratch + i) + k);
+    sum += v[k].x + v[k].y + v[k].z + v[k].w;
+  }
+  int total;
+  int run = block_exclusive_scan(sum, sums, total);
+  if (threadIdx.x == 0) {
+    int prefix = 0;
+    if (t > 0) {
+      atomicExch(states + t, (1ull << 32) | static_cast<unsigned>(total));
+      for (int q = t - 1; q >= 0;) {
+        const unsigned long long s = atomicAdd(states + q, 0ull);
+        if ((s >> 32) == 0) {                            // not yet published
+          __nanosleep(32);
+          continue;
+        }
+        prefix += static_cast<int>(s & 0xffffffffu);
+        if ((s >> 32) == 2) break;
+        --q;
+      }
+    }
+    atomicExch(states + t, (2ull << 32) | static_cast<unsigned>(prefix + total));
+    chunk_prefix = prefix;
+  }
+  __syncthreads();
+  run += chunk_prefix;
+#pragma unroll
+  for (int k = 0; k < kVecs; ++k) {
+    const int j = i + 4 * k;
+    const int4 o = make_int4(run, run + v[k].x, run + v[k].x + v[k].y,
+                             run + v[k].x + v[k].y + v[k].z);
+    run = o.w + v[k].w;
+    reinterpret_cast<int4*>(scratch + j)[0] = o;
+    if (j + 3 < n_bins) {       // the outputs are 16-byte aligned, exactly n_bins long
+      reinterpret_cast<int4*>(cnt_out + j)[0] = v[k];
+      reinterpret_cast<int4*>(off_out + j)[0] = o;
+    } else {
+      const int c[4] = {v[k].x, v[k].y, v[k].z, v[k].w}, s[4] = {o.x, o.y, o.z, o.w};
+      for (int q = 0; q < 4 && j + q < n_bins; ++q) {
+        cnt_out[j + q] = c[q];
+        off_out[j + q] = s[q];
+      }
     }
   }
 }
 
-__global__ void __launch_bounds__(128)
-bin_fill_kernel(const int4* __restrict__ rects, int* cursors, int* __restrict__ ids,
-                int bs, int nf, int tiles_x, int n_tiles, int chunk, int n_chunks) {
-  const int warp = static_cast<int>((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (warp >= bs * n_chunks) return;  // whole warps only
-  const int b = warp / n_chunks, ch = warp % n_chunks;
-  const int begin = ch * chunk, end = min(begin + chunk, nf);
-  volatile int* cur = cursors + (size_t)b * n_tiles * n_chunks + ch;
-  for (int base = begin; base < end; base += 32) {
-    const int f = base + lane;
-    const int4 r = f < end ? rects[(size_t)b * nf + f] : make_int4(0, 0, 0, 0);
-    const int m = min(32, end - base);
-    for (int j = 0; j < m; ++j) {
-      const int tx0 = __shfl_sync(0xffffffffu, r.x, j);
-      const int ty0 = __shfl_sync(0xffffffffu, r.y, j);
-      const int wx = __shfl_sync(0xffffffffu, r.z, j);
-      const int n = wx * __shfl_sync(0xffffffffu, r.w, j);
-      for (int k = lane; k < n; k += 32) {
-        volatile int* p = cur + (size_t)((ty0 + k / wx) * tiles_x + tx0 + k % wx) * n_chunks;
-        const int slot = *p;
-        ids[slot] = base + j;
-        *p = slot + 1;
-      }
-      __syncwarp();  // this face's cursor updates before the next face reads them
+__global__ void __launch_bounds__(kFillThreads)
+bin_fill_kernel(const float* __restrict__ consts, int* scratch, int* __restrict__ cnt_out,
+                int* __restrict__ off_out, int* __restrict__ unsorted, Geometry g, int nf,
+                int n_bins, int padded) {
+  extern __shared__ float2 bounds[];
+  __shared__ int ticket;
+  const int chunks = padded / kScanChunk;
+  int* control = scratch + padded;
+  if (threadIdx.x == 0) ticket = atomicAdd(control + kTicket, 1);
+  tile_bounds(bounds, g);
+  // the first blocks to start scan the chunks, each waiting only on blocks
+  // that started before it; then every block waits for the whole scan
+  if (ticket < chunks) {
+    scan_chunk(ticket, scratch, cnt_out, off_out, n_bins, padded);
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) atomicAdd(control + kScanned, 1);
+  }
+  if (threadIdx.x == 0) {
+    while (atomicAdd(control + kScanned, 0) < chunks) __nanosleep(64);
+  }
+  __syncthreads();
+  const int f = blockIdx.x * kFillThreads + threadIdx.x;
+  if (f >= nf) return;
+  const size_t b = blockIdx.y;
+  const Rect r = face_rect(consts, b, f, nf, bounds, g);
+  int* cur = scratch + b * g.n_tiles;
+  for (int ty = r.ty0; ty < r.ty0 + r.wy; ++ty) {
+    for (int tx = r.tx0; tx < r.tx0 + r.wx; ++tx) {
+      unsorted[warp_add_one(cur, ty * g.tiles_x + tx)] = f;
     }
   }
+}
+
+// The warp ranks the c <= kWarpCap ids of unsorted[o ..) into ids[o ..):
+// through shuffles up to 32 ids, else through s in shared memory.
+__device__ __forceinline__ void warp_rank(const int* __restrict__ unsorted,
+                                          int* __restrict__ ids, int o, int c, int* s) {
+  const int lane = threadIdx.x & 31;
+  if (c <= 32) {
+    const int v = lane < c ? unsorted[o + lane] : INT_MAX;
+    int r = 0;
+    for (int j = 0; j < c; ++j) r += __shfl_sync(0xffffffffu, v, j) < v;
+    if (lane < c) ids[o + r] = v;
+    return;
+  }
+  for (int i = lane; i < c; i += 32) s[i] = unsorted[o + i];
+  __syncwarp();
+  const int items = (c + 31) / 32;
+  int v[kItems], r[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    v[k] = lane + 32 * k < c ? s[lane + 32 * k] : INT_MAX;
+    r[k] = 0;
+  }
+  for (int j = 0; j < c; ++j) {
+    const int x = s[j];
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      if (k < items) r[k] += x < v[k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    if (lane + 32 * k < c) ids[o + r[k]] = v[k];
+  }
+}
+
+// v[k] = bin[i0 + k * blockDim.x], -1 past its c ids: a thread's kLoads
+// loads issued before any is used.  One block alone orders a large bin, so
+// its passes over the bin are bound by the loads' latency.
+__device__ __forceinline__ void load_ids(const int* __restrict__ bin, int i0, int c,
+                                         int (&v)[kLoads]) {
+#pragma unroll
+  for (int k = 0; k < kLoads; ++k) {
+    const int i = i0 + k * static_cast<int>(blockDim.x);
+    v[k] = i < c ? bin[i] : -1;
+  }
+}
+
+// The block orders the c ids of unsorted[o ..) into ids[o ..) through a
+// bitmap over their range [min, max], a window of 32 * kBitmapWords ids at a
+// time.
+__device__ void block_bitmap(const int* __restrict__ unsorted, int* __restrict__ ids, int o,
+                             int c, unsigned* bitmap, int* range, int* sums) {
+  const int lane = threadIdx.x & 31;
+  int lo = INT_MAX, hi = -1;
+  for (int i0 = threadIdx.x; i0 < c; i0 += kLoads * blockDim.x) {
+    int v[kLoads];
+    load_ids(unsorted + o, i0, c, v);
+#pragma unroll
+    for (int k = 0; k < kLoads; ++k) {
+      if (v[k] >= 0) {
+        lo = min(lo, v[k]);
+        hi = max(hi, v[k]);
+      }
+    }
+  }
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if (threadIdx.x == 0) {
+    range[0] = INT_MAX;
+    range[1] = -1;
+  }
+  __syncthreads();
+  if (lane == 0) {
+    atomicMin(range, lo);
+    atomicMax(range + 1, hi);
+  }
+  __syncthreads();
+  lo = range[0];
+  hi = range[1];
+  int run = 0;
+  for (int base = lo; base <= hi; base += 32 * kBitmapWords) {
+    const int words = min(kBitmapWords, (hi - base) / 32 + 1);
+    for (int i = threadIdx.x; i < words; i += blockDim.x) bitmap[i] = 0u;
+    __syncthreads();
+    for (int i0 = threadIdx.x; i0 < c; i0 += kLoads * blockDim.x) {
+      int v[kLoads];
+      load_ids(unsorted + o, i0, c, v);
+#pragma unroll
+      for (int k = 0; k < kLoads; ++k) {
+        const int d = v[k] - base;
+        if (v[k] >= 0 && d >= 0 && d < 32 * words) atomicOr(bitmap + (d >> 5), 1u << (d & 31));
+      }
+    }
+    __syncthreads();
+    const int per = (words + blockDim.x - 1) / blockDim.x;
+    const int w0 = min(words, static_cast<int>(threadIdx.x) * per);
+    const int w1 = min(words, w0 + per);
+    int n = 0;
+    for (int i = w0; i < w1; ++i) n += __popc(bitmap[i]);
+    int total;
+    int pos = o + run + block_exclusive_scan(n, sums, total);
+    for (int i = w0; i < w1; ++i) {
+      for (unsigned m = bitmap[i]; m; m &= m - 1) ids[pos++] = base + 32 * i + __ffs(m) - 1;
+    }
+    run += total;
+    __syncthreads();  // the bitmap and the range are written again next
+  }
+}
+
+__global__ void __launch_bounds__(kOrderWarps * 32)
+bin_order_kernel(const int* __restrict__ cnt, const int* __restrict__ off,
+                 const int* __restrict__ unsorted, int* __restrict__ ids, int n_bins) {
+  __shared__ int warp_ids[kOrderWarps][kWarpCap];
+  __shared__ int bin_cnt[kOrderWarps], bin_off[kOrderWarps], range[2], sums[32];
+  extern __shared__ unsigned bitmap[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  // warp w of block b takes bin b + w * gridDim.x
+  const int bin = blockIdx.x + warp * gridDim.x;
+  const int c = bin < n_bins ? cnt[bin] : 0;
+  const int o = bin < n_bins ? off[bin] : 0;
+  if (lane == 0) {
+    bin_cnt[warp] = c;
+    bin_off[warp] = o;
+  }
+  if (c <= kWarpCap) warp_rank(unsorted, ids, o, c, warp_ids[warp]);
+  __syncthreads();
+
+  // the larger bins, each by the whole block
+  for (int w = 0; w < kOrderWarps; ++w) {
+    if (bin_cnt[w] > kWarpCap) {
+      block_bitmap(unsorted, ids, bin_off[w], bin_cnt[w], bitmap, range, sums);
+    }
+  }
+}
+
+Geometry geometry(int size, int row_start, int num_rows) {
+  Geometry g{size, row_start, num_rows, 0, 0, 0};
+  g.tiles_x = (size + kTile - 1) / kTile;
+  g.tiles_y = (num_rows + kTile - 1) / kTile;
+  g.n_tiles = g.tiles_x * g.tiles_y;
+  return g;
+}
+
+int padded_bins(int n_bins) { return (n_bins + kScanChunk - 1) / kScanChunk * kScanChunk; }
+
+// Passes 1 and 2.  consts: f32 [bs, 17, nf] from K1; scratch: i32
+// [padded + 4 + 2 * padded / kScanChunk], padded = bs * tiles rounded up to
+// kScanChunk (4096).  Afterwards scratch[padded + 1] holds the pair total.
+// At most kMaxTableTiles tiles along both axes together.
+int bin_faces_count(void* stream, const float* consts, int* scratch, int bs, int nf, int size,
+                    int row_start, int num_rows) {
+  const Geometry g = geometry(size, row_start, num_rows);
+  const int n_bins = bs * g.n_tiles;
+  if (n_bins == 0) return 0;
+  if (g.tiles_x + g.tiles_y > kMaxTableTiles) return static_cast<int>(cudaErrorInvalidValue);
+  const int padded = padded_bins(n_bins);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t words = padded + kStates + 2 * (padded / kScanChunk);
+  const cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(int) * words, s);
+  if (err != cudaSuccess || nf == 0) return static_cast<int>(err);
+  const dim3 grid((nf + kCountThreads - 1) / kCountThreads, bs);
+  bin_count_kernel<<<grid, kCountThreads, sizeof(float2) * (g.tiles_x + g.tiles_y), s>>>(
+      consts, scratch, g, nf, padded);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Passes 3 and 4 (the launch counted as bin_faces).  scratch from passes 1
+// and 2; cnt, off: i32 [bs, tiles] out; unsorted and ids: i32 [pairs].
+int bin_faces(void* stream, const float* consts, int* scratch, int* cnt, int* off, int* unsorted,
+              int* ids, int bs, int nf, int size, int row_start, int num_rows) {
+  const Geometry g = geometry(size, row_start, num_rows);
+  const int n_bins = bs * g.n_tiles;
+  if (n_bins == 0) return 0;
+  if (g.tiles_x + g.tiles_y > kMaxTableTiles) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int padded = padded_bins(n_bins);
+  // enough blocks for every chunk of the scan, even for few faces
+  const int chunks = padded / kScanChunk;
+  const dim3 fill_grid(max((nf + kFillThreads - 1) / kFillThreads, (chunks + bs - 1) / bs), bs);
+  bin_fill_kernel<<<fill_grid, kFillThreads, sizeof(float2) * (g.tiles_x + g.tiles_y), s>>>(
+      consts, scratch, cnt, off, unsorted, g, nf, n_bins, padded);
+  // the bitmap for bins above kWarpCap: a window spans at most the nf ids
+  const size_t shared = sizeof(unsigned) * max(1, min(kBitmapWords, (nf + 31) / 32));
+  bin_order_kernel<<<(n_bins + kOrderWarps - 1) / kOrderWarps, kOrderWarps * 32, shared, s>>>(
+      cnt, off, unsorted, ids, n_bins);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Pass 1.  consts: f32 [bs, 17, nf] from K1; rects: i32 [bs, nf, 4] out
-// (first tile column, first tile row, width, height in tiles); counts: i32
-// [bs, tiles_y * tiles_x, ceil(nf / chunk)], zeroed by the caller.
-// Returns cudaGetLastError().
-extern "C" int nr_bin_faces_count(const float* consts, int* rects, int* counts, int bs,
-                                  int nf, int size, int row_start, int num_rows,
-                                  int tile_h, int tile_w, int chunk, void* stream) {
-  if (bs == 0 || nf == 0) return 0;
-  const int tiles_x = (size + tile_w - 1) / tile_w;
-  const int tiles_y = (num_rows + tile_h - 1) / tile_h;
-  const int n_chunks = (nf + chunk - 1) / chunk;
-  const dim3 grid((nf + 255) / 256, bs);
-  bin_count_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      consts, reinterpret_cast<int4*>(rects), counts, nf, size, row_start, num_rows,
-      tile_h, tile_w, tiles_x, tiles_y, chunk, n_chunks);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Pass 3 (the launch counted as bin_faces).  rects from pass 1; cursors: i32 [bs, tiles, ceil(nf / chunk)],
-// the exclusive scan of the counts, advanced in place; ids: i32 [pairs] out.
-// Returns cudaGetLastError().
-extern "C" int nr_bin_faces(const int* rects, int* cursors, int* ids, int bs, int nf,
-                                 int tiles_x, int n_tiles, int chunk, void* stream) {
-  if (bs == 0 || nf == 0) return 0;
-  const int n_chunks = (nf + chunk - 1) / chunk;
-  const long long threads = 32LL * bs * n_chunks;
-  bin_fill_kernel<<<static_cast<unsigned>((threads + 127) / 128), 128, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const int4*>(rects), cursors, ids, bs, nf, tiles_x, n_tiles, chunk,
-      n_chunks);
-  return static_cast<int>(cudaGetLastError());
-}
+NR_PACKED_ENTRY(bin_faces_count)
+NR_PACKED_ENTRY(bin_faces)

@@ -24,6 +24,8 @@
 
 #include <cuda_runtime.h>
 
+#include "nr_entry.cuh"
+
 namespace {
 
 // torch.minimum / torch.maximum (and jnp's) propagate NaN; fminf does not.
@@ -92,14 +94,15 @@ face_setup_kernel(const float* __restrict__ fvp, float* __restrict__ consts,
   o[16 * nf] = ymax;
 }
 
-}  // namespace
-
 // fvp: f32 [bs, 3, 3, nf]; consts: f32 [bs, 17, nf].  Returns cudaGetLastError().
-extern "C" int nr_face_setup(const float* fvp, float* consts, int bs, int nf,
-                             int draw_backside, void* stream) {
+int face_setup(void* stream, const float* fvp, float* consts, int bs, int nf, int draw_backside) {
   if (bs == 0 || nf == 0) return 0;
   const dim3 grid((nf + 255) / 256, bs);
   face_setup_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       fvp, consts, nf, draw_backside);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+NR_PACKED_ENTRY(face_setup)

@@ -45,6 +45,8 @@
 
 #include <cuda_runtime.h>
 
+#include "nr_entry.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -117,14 +119,11 @@ gather_faces3_kernel(const float* __restrict__ table, const int* __restrict__ fa
   }
 }
 
-}  // namespace
-
 // K9.  table: f32 [bs, n, D]; ids: i32 [bs, P] at a batch stride of
 // ids_bstride elements (P, or 0 for ids shared by the batch); out: f32
 // [bs, D, P] when planar, else [bs, P, D].  Returns cudaGetLastError().
-extern "C" int nr_gather_rows(const float* table, const int* ids, float* out, int bs,
-                              int n, int D, int P, long long ids_bstride, int planar,
-                              void* stream) {
+int gather_rows(void* stream, const float* table, const int* ids, float* out, int bs, int n,
+                int D, int P, long long ids_bstride, int planar) {
   if (bs == 0 || P == 0 || D == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (planar) {
@@ -140,8 +139,8 @@ extern "C" int nr_gather_rows(const float* table, const int* ids, float* out, in
 
 // K5.  table: f32 [bs, n, D]; faces: i32 [nf, 3]; out: f32 [bs, D, 3, nf].
 // Returns cudaGetLastError().
-extern "C" int nr_gather_faces3(const float* table, const int* faces, float* out, int bs,
-                                int n, int D, int nf, void* stream) {
+int gather_faces3(void* stream, const float* table, const int* faces, float* out, int bs, int n,
+                  int D, int nf) {
   if (bs == 0 || nf == 0 || D == 0) return 0;
   const dim3 grid((nf + kThreads - 1) / kThreads, bs);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -152,3 +151,8 @@ extern "C" int nr_gather_faces3(const float* table, const int* faces, float* out
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+NR_PACKED_ENTRY(gather_rows)
+NR_PACKED_ENTRY(gather_faces3)

@@ -38,10 +38,10 @@
 // pixel, with depth and id (and the XY latch) in registers for the whole
 // stream; faces stream through shared memory one per thread at a time, in
 // id order, so the per-pixel loop skips a face for the whole CTA at once.
-// The tiled forms use 16x16 tiles.  K8 is built for 8x8 and 16x16: a
-// smaller tile tests fewer pixels against each small face, but multiplies
-// K7's per-(tile, chunk) counts; chip_smoke.py measured 8x8 faster until
-// that array reaches ~16M entries, and resolve_cuda.bin_tile picks so.
+// The tiled forms use 16x16 tiles, K8 8x8 (kBinEdge, K7's kTile): a smaller
+// tile tests fewer pixels against each small face and gives more CTAs; with
+// K7's bins growing with tiles + pairs, K7 + K8 measured faster at 8x8 than
+// at 16x16 at every binned configuration on an H100 (PERF.md).
 //   tiled: while staging a batch each thread tests one face's bbox against
 //     the tile and the batch is compacted, order-preserving (warp ballot +
 //     prefix over warps), to the faces that touch the tile.  The face
@@ -68,9 +68,12 @@
 
 #include <cuda_runtime.h>
 
+#include "nr_entry.cuh"
+
 namespace {
 
 constexpr int kTile = 16;              // the tiled forms' tile edge in pixels
+constexpr int kBinEdge = 8;            // K8's (resolve_cuda.BIN_TILE)
 constexpr int kConsts = 17;
 constexpr int kCoordsXY = 6;
 
@@ -95,7 +98,7 @@ struct Args {
   float z_near, z_far;
 };
 
-// kEdge: the tile edge in pixels, one thread per pixel (8 or 16: a 32x32
+// kEdge: the tile edge in pixels, one thread per pixel (at most 16: a 32x32
 // block's staged constants would pass the 48 KB of static shared memory).
 template <int kLatch, bool kBinned, int kEdge>
 __global__ void __launch_bounds__(kEdge * kEdge) resolve_kernel(const Args a) {
@@ -264,14 +267,6 @@ int launch(const Args& a, int bs, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// K8 at its bins' tile edge: 8 or 16 pixels.
-template <int kLatch>
-int launch_binned(const Args& a, int bs, int tile, void* stream) {
-  if (tile == 16) return launch<kLatch, true, 16>(a, bs, stream);
-  if (tile == 8) return launch<kLatch, true, 8>(a, bs, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 Args make_args(const float* consts, const float* fvp, const float* attrs,
                const int* bin_cnt, const int* bin_off, const int* bin_ids,
                int* index_out, float* depth_out, float* coords_out,
@@ -283,30 +278,26 @@ Args make_args(const float* consts, const float* fvp, const float* attrs,
               z_near,    z_far};
 }
 
-}  // namespace
-
 // Shapes for every entry: consts f32 [bs, 17, nf] from K1; fvp f32
 // [bs, 3, 3, nf]; attrs f32 [bs, nf, A] (may be null when A = 0); bins from
-// K7: cnt and off i32 [bs, tiles] over the tile x tile tiles of the row
-// window (tile 8 or 16), ids i32 [pairs]; index_out i32 and depth_out f32 [bs, num_rows, S];
+// K7: cnt and off i32 [bs, tiles] over the 8x8 tiles of the row window, ids
+// i32 [pairs]; index_out i32 and depth_out f32 [bs, num_rows, S];
 // coords_out f32 [bs, 6 (XY) or 9 (copy), num_rows, S]; attrs_out f32
 // [bs, A, num_rows, S].  Each returns cudaGetLastError().
 
-extern "C" int nr_resolve_xy(const float* consts, const float* fvp, int* index_out,
-                             float* depth_out, float* coords_out, int bs, int nf,
-                             int size, int row_start, int num_rows, float z_near,
-                             float z_far, void* stream) {
+int resolve_xy(void* stream, const float* consts, const float* fvp, int* index_out,
+               float* depth_out, float* coords_out, int bs, int nf, int size, int row_start,
+               int num_rows, float z_near, float z_far) {
   return launch<kXY, false>(
       make_args(consts, fvp, nullptr, nullptr, nullptr, nullptr, index_out, depth_out,
                 coords_out, nullptr, nf, 0, size, row_start, num_rows, z_near, z_far),
       bs, stream);
 }
 
-extern "C" int nr_resolve_latch(const float* consts, const float* fvp, const float* attrs,
-                                int* index_out, float* depth_out, float* coords_out,
-                                float* attrs_out, int bs, int nf, int num_attrs, int size,
-                                int row_start, int num_rows, float z_near, float z_far,
-                                void* stream) {
+int resolve_latch(void* stream, const float* consts, const float* fvp, const float* attrs,
+                  int* index_out, float* depth_out, float* coords_out, float* attrs_out, int bs,
+                  int nf, int num_attrs, int size, int row_start, int num_rows, float z_near,
+                  float z_far) {
   return launch<kCopy, false>(
       make_args(consts, fvp, attrs, nullptr, nullptr, nullptr, index_out, depth_out,
                 coords_out, attrs_out, nf, num_attrs, size, row_start, num_rows, z_near,
@@ -314,63 +305,65 @@ extern "C" int nr_resolve_latch(const float* consts, const float* fvp, const flo
       bs, stream);
 }
 
-extern "C" int nr_resolve_depth(const float* consts, int* index_out, float* depth_out,
-                                int bs, int nf, int size, int row_start, int num_rows,
-                                float z_near, float z_far, void* stream) {
+int resolve_depth(void* stream, const float* consts, int* index_out, float* depth_out, int bs,
+                  int nf, int size, int row_start, int num_rows, float z_near, float z_far) {
   return launch<kNone, false>(
       make_args(consts, nullptr, nullptr, nullptr, nullptr, nullptr, index_out, depth_out,
                 nullptr, nullptr, nf, 0, size, row_start, num_rows, z_near, z_far),
       bs, stream);
 }
 
-extern "C" int nr_resolve_binned_xy(const float* consts, const float* fvp,
-                                    const int* cnt, const int* off, const int* ids,
-                                    int* index_out, float* depth_out, float* coords_out,
-                                    int bs, int nf, int size, int row_start, int num_rows,
-                                    int tile, float z_near, float z_far, void* stream) {
-  return launch_binned<kXY>(
+int resolve_binned_xy(void* stream, const float* consts, const float* fvp, const int* cnt,
+                      const int* off, const int* ids, int* index_out, float* depth_out,
+                      float* coords_out, int bs, int nf, int size, int row_start, int num_rows,
+                      float z_near, float z_far) {
+  return launch<kXY, true, kBinEdge>(
       make_args(consts, fvp, nullptr, cnt, off, ids, index_out, depth_out, coords_out,
                 nullptr, nf, 0, size, row_start, num_rows, z_near, z_far),
-      bs, tile, stream);
+      bs, stream);
 }
 
-extern "C" int nr_resolve_binned_latch(const float* consts, const float* fvp,
-                                       const float* attrs, const int* cnt, const int* off,
-                                       const int* ids, int* index_out, float* depth_out,
-                                       float* coords_out, float* attrs_out, int bs, int nf,
-                                       int num_attrs, int size, int row_start,
-                                       int num_rows, int tile, float z_near, float z_far,
-                                       void* stream) {
-  return launch_binned<kCopy>(
+int resolve_binned_latch(void* stream, const float* consts, const float* fvp,
+                         const float* attrs, const int* cnt, const int* off, const int* ids,
+                         int* index_out, float* depth_out, float* coords_out, float* attrs_out,
+                         int bs, int nf, int num_attrs, int size, int row_start, int num_rows,
+                         float z_near, float z_far) {
+  return launch<kCopy, true, kBinEdge>(
       make_args(consts, fvp, attrs, cnt, off, ids, index_out, depth_out, coords_out,
                 attrs_out, nf, num_attrs, size, row_start, num_rows, z_near, z_far),
-      bs, tile, stream);
+      bs, stream);
 }
 
-extern "C" int nr_resolve_binned_depth(const float* consts, const int* cnt, const int* off,
-                                       const int* ids, int* index_out, float* depth_out,
-                                       int bs, int nf, int size, int row_start,
-                                       int num_rows, int tile, float z_near, float z_far,
-                                       void* stream) {
-  return launch_binned<kNone>(
+int resolve_binned_depth(void* stream, const float* consts, const int* cnt, const int* off,
+                         const int* ids, int* index_out, float* depth_out, int bs, int nf,
+                         int size, int row_start, int num_rows, float z_near, float z_far) {
+  return launch<kNone, true, kBinEdge>(
       make_args(consts, nullptr, nullptr, cnt, off, ids, index_out, depth_out, nullptr,
                 nullptr, nf, 0, size, row_start, num_rows, z_near, z_far),
-      bs, tile, stream);
+      bs, stream);
 }
 
-// What one block of a copy-form kernel (tile 0: K2L's; 8 or 16: K8's at
-// that tile) needs and what the compiled kernel allows: threads per block,
-// the most threads per block its register use permits, and its static
-// shared memory in bytes.  Returns the cudaFuncGetAttributes error.
-extern "C" int nr_resolve_latch_limits(int tile, int* threads, int* max_threads,
+}  // namespace
+
+NR_PACKED_ENTRY(resolve_xy)
+NR_PACKED_ENTRY(resolve_latch)
+NR_PACKED_ENTRY(resolve_depth)
+NR_PACKED_ENTRY(resolve_binned_xy)
+NR_PACKED_ENTRY(resolve_binned_latch)
+NR_PACKED_ENTRY(resolve_binned_depth)
+
+// What one block of a copy-form kernel (binned 0: K2L's; 1: K8's) needs
+// and what the compiled kernel allows: threads per block, the most threads
+// per block its register use permits, and its static shared memory in
+// bytes.  Returns the cudaFuncGetAttributes error.
+extern "C" int nr_resolve_latch_limits(int binned, int* threads, int* max_threads,
                                        int* shared_bytes) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (tile == 0) err = cudaFuncGetAttributes(&attr, resolve_kernel<kCopy, false, kTile>);
-  if (tile == 16) err = cudaFuncGetAttributes(&attr, resolve_kernel<kCopy, true, 16>);
-  if (tile == 8) err = cudaFuncGetAttributes(&attr, resolve_kernel<kCopy, true, 8>);
+  const cudaError_t err =
+      binned ? cudaFuncGetAttributes(&attr, resolve_kernel<kCopy, true, kBinEdge>)
+             : cudaFuncGetAttributes(&attr, resolve_kernel<kCopy, false, kTile>);
   if (err != cudaSuccess) return static_cast<int>(err);
-  *threads = tile == 0 ? kTile * kTile : tile * tile;
+  *threads = binned ? kBinEdge * kBinEdge : kTile * kTile;
   *max_threads = attr.maxThreadsPerBlock;
   *shared_bytes = static_cast<int>(attr.sharedSizeBytes);
   return static_cast<int>(err);

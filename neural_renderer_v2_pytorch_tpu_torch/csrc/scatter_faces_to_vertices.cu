@@ -28,6 +28,8 @@
 
 #include <cuda_runtime.h>
 
+#include "nr_entry.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -59,14 +61,11 @@ scatter_faces_to_vertices_kernel(const float* __restrict__ g,
   o[2] = z;
 }
 
-}  // namespace
-
 // g: f32 [bs, 3, 3, nf]; offsets: i32 [nv + 1] and slots: i32 [3 nf], the
 // vertex -> slot table; out: f32 [bs, nv, 3], every element written.
 // Returns cudaGetLastError().
-extern "C" int nr_scatter_faces_to_vertices(const float* g, const int* offsets,
-                                            const int* slots, float* out, int bs, int nf,
-                                            int nv, void* stream) {
+int scatter_faces_to_vertices(void* stream, const float* g, const int* offsets, const int* slots,
+                              float* out, int bs, int nf, int nv) {
   if (bs == 0 || nv == 0) return 0;
   const dim3 grid((nv + kThreads - 1) / kThreads, bs);
   scatter_faces_to_vertices_kernel<<<grid, kThreads, 0,
@@ -74,3 +73,7 @@ extern "C" int nr_scatter_faces_to_vertices(const float* g, const int* offsets,
       g, offsets, slots, out, nf, nv);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+NR_PACKED_ENTRY(scatter_faces_to_vertices)

@@ -19,6 +19,8 @@
 
 #include <cuda_runtime.h>
 
+#include "nr_entry.cuh"
+
 namespace {
 
 __global__ void __launch_bounds__(256)
@@ -35,13 +37,10 @@ scatter_pixels_to_faces_kernel(const float* __restrict__ g,
   for (int d = 0; d < D; ++d) atomicAdd(ob + (size_t)d * nf, gb[(size_t)d * P]);
 }
 
-}  // namespace
-
 // g: f32 [bs, D, P]; fim: i32 [bs, P]; out: f32 [bs, D, nf], zeroed.
 // Returns cudaGetLastError().
-extern "C" int nr_scatter_pixels_to_faces(const float* g, const int* fim,
-                                          float* out, int bs, int D, int P,
-                                          int nf, void* stream) {
+int scatter_pixels_to_faces(void* stream, const float* g, const int* fim, float* out, int bs,
+                            int D, int P, int nf) {
   if (bs == 0 || P == 0 || D == 0) return 0;
   const dim3 grid((P + 255) / 256, bs);
   scatter_pixels_to_faces_kernel<<<grid, 256, 0,
@@ -49,3 +48,7 @@ extern "C" int nr_scatter_pixels_to_faces(const float* g, const int* fim,
       g, fim, out, D, P, nf);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+NR_PACKED_ENTRY(scatter_pixels_to_faces)

@@ -25,6 +25,8 @@
 
 #include <cuda_runtime.h>
 
+#include "nr_entry.cuh"
+
 namespace {
 
 __global__ void __launch_bounds__(256)
@@ -40,15 +42,17 @@ scatter_rows_kernel(const float* __restrict__ g, const int* __restrict__ ids,
   for (int d = 0; d < D; ++d) atomicAdd(ob + d, gb[(size_t)d * P]);
 }
 
-}  // namespace
-
 // g: f32 [bs, D, P]; ids: i32 [bs, P]; out: f32 [bs, T, D], zeroed.
 // Returns cudaGetLastError().
-extern "C" int nr_scatter_rows(const float* g, const int* ids, float* out,
-                               int bs, int D, int P, int T, void* stream) {
+int scatter_rows(void* stream, const float* g, const int* ids, float* out, int bs, int D, int P,
+                 int T) {
   if (bs == 0 || P == 0 || D == 0) return 0;
   const dim3 grid((P + 255) / 256, bs);
   scatter_rows_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       g, ids, out, D, P, T);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+NR_PACKED_ENTRY(scatter_rows)

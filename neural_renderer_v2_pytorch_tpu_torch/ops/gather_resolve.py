@@ -14,7 +14,6 @@ import torch
 
 from .resolve_cuda import (
     bin_faces,
-    bin_tile,
     face_setup,
     gather_faces3,
     gather_rows,
@@ -91,14 +90,12 @@ def gather_winner_planes(per_face, index):
 
 
 def _route_bins(consts, image_size, row_start, num_rows, mode):
-    """(tile, K7's bins) where the route of this resolve is binned, else
-    None."""
+    """K7's bins where the route of this resolve is binned, else None."""
     bs, nf = consts.shape[0], consts.shape[-1]
     rows = image_size if num_rows is None else num_rows
     if resolve_route(bs, rows, image_size, nf, mode) != "binned":
         return None
-    tile = bin_tile(bs, rows, image_size, nf)
-    return tile, bin_faces(consts, image_size, row_start, num_rows, tile=tile)
+    return bin_faces(consts, image_size, row_start, num_rows)
 
 
 class _ResolveAndGather(torch.autograd.Function):
@@ -111,20 +108,18 @@ class _ResolveAndGather(torch.autograd.Function):
         bs, nf = fvp.shape[0], fvp.shape[-1]
         consts = face_setup(fvp, draw_backside)
         args = (image_size, near, far, row_start, num_rows)
-        binned = _route_bins(consts, image_size, row_start, num_rows, mode)
+        bins = _route_bins(consts, image_size, row_start, num_rows, mode)
         if latch_z:
             attrs = (fvp.new_empty((bs, nf, 0)) if face_attrs is None
                      else face_attrs.detach().contiguous())
-            if binned:
-                tile, bins = binned
-                index, _, fvm, attr_planes = resolve_binned_latch(
-                    consts, fvp, attrs, bins, *args, tile=tile)
+            if bins:
+                index, _, fvm, attr_planes = resolve_binned_latch(consts, fvp, attrs, bins,
+                                                                  *args)
             else:
                 index, _, fvm, attr_planes = resolve_latch(consts, fvp, attrs, *args)
         else:
-            if binned:
-                tile, bins = binned
-                index, _, coords = resolve_binned_xy(consts, fvp, bins, *args, tile=tile)
+            if bins:
+                index, _, coords = resolve_binned_xy(consts, fvp, bins, *args)
             else:
                 index, _, coords = resolve_xy(consts, fvp, *args)
             # 9-plane layout with zero z planes: silhouettes never read z
@@ -175,7 +170,7 @@ def resolve_and_gather(face_vertices, image_size, near, far, draw_backside,
     paths).  Kernel K1, then the route ``resolve_cuda.resolve_route`` picks
     (``mode`` "auto", or forced "tiled" / "binned"; both give the same
     bits): K2 or K2L, or K7 and K8's ``resolve_binned_xy`` or
-    ``resolve_binned_latch`` at the tile ``resolve_cuda.bin_tile`` picks.
+    ``resolve_binned_latch`` (over 8x8 tiles, ``resolve_cuda.BIN_TILE``).
 
     Returns (face_index_map i32 [bs, rows, S], -1 on background and not
     differentiable; fvm_planar f32 [bs, 9, rows, S], the winner's vertex
@@ -208,10 +203,9 @@ def compute_face_index_map(faces, image_size, near=0.1, far=100.0, draw_backside
     fvp = faces.detach().permute(0, 3, 2, 1).contiguous()
     consts = face_setup(fvp, draw_backside)
     args = (image_size, near, far, row_start, num_rows)
-    binned = _route_bins(consts, image_size, row_start, num_rows, mode)
-    if binned:
-        tile, bins = binned
-        index, depth = resolve_binned_depth(consts, bins, *args, tile=tile)
+    bins = _route_bins(consts, image_size, row_start, num_rows, mode)
+    if bins:
+        index, depth = resolve_binned_depth(consts, bins, *args)
     else:
         index, depth = resolve_depth(consts, *args)
     return (index, depth) if return_depth else index

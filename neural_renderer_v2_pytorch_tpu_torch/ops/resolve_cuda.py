@@ -78,18 +78,16 @@ SLOT_TABLE_BUILDS = 0
 _route = {"plain": False, "mode": None}
 
 ROUTES = ("tiled", "binned")
-# the pixel tiles K8 is built for (kEdge in csrc/resolve.cu); the binned
-# route picks one with bin_tile
-BIN_TILES = ((8, 8), (16, 16))
-# faces per chunk of K7's count and fill passes
-BIN_CHUNK = 256
-# the binned route bins for 8x8 tiles while K7's count array at 8x8
-# (images x tiles x face chunks) stays within this many entries, else for
-# 16x16.  chip_smoke.py times K7 + K8 at both tiles where the route is
-# binned: on an H100 8x8 won at 1.3M-10.2M entries and lost at 21M, where
-# zeroing and scanning the count array cost more than the smaller tiles
-# save in K8 (PERF.md)
-SMALL_TILE_UP_TO = 16_000_000
+# the binned route's pixel tile (K7's kTile, K8's kBinEdge): on an H100,
+# K7 + K8 at 8x8 beat 16x16 at every binned configuration, 2048^2 included,
+# since K7's cost grows with tiles + pairs (PERF.md)
+BIN_TILE = (8, 8)
+# K7 pads its per-tile counters to a multiple of this many, the chunk one
+# block scans (kScanChunk in csrc/bin_faces.cu)
+BIN_SCAN_TILE = 4096
+# K7 keeps the tiles' pixel-centre bounds in 48 KB of shared memory: at most
+# this many tiles along both axes together (kMaxTableTiles)
+BIN_MAX_AXIS_TILES = 6144
 # the binned route from this many (batch image, 16x16 tile, face) products
 # on.  chip_smoke.py times both routes at its seven configurations and at
 # five tori between them: on an H100 the tiled one won up to 20.4M products
@@ -168,14 +166,6 @@ def resolve_route(bs, rows, image_size, nf, mode="auto"):
     return "binned" if bs * tiles * nf >= BINNED_FROM else "tiled"
 
 
-def bin_tile(bs, rows, image_size, nf):
-    """The tile K7 bins for and K8 resolves in on the binned route: (8, 8)
-    while K7's count array at 8x8 stays within :data:`SMALL_TILE_UP_TO`
-    entries, else (16, 16).  Both give the same bits."""
-    entries = bs * -(-rows // 8) * -(-image_size // 8) * max(1, -(-nf // BIN_CHUNK))
-    return (8, 8) if entries <= SMALL_TILE_UP_TO else (16, 16)
-
-
 def _use_kernel(*tensors):
     """Launch the kernel (CUDA tensors) or take the plain version (CPU
     tensors, or inside :func:`plain_versions`)."""
@@ -191,33 +181,32 @@ def _check(t, name, dtype, shape):
         )
 
 
-def _call(entry, index, *args):
-    """Call the C entry ``nr_<entry>`` on the current stream of card
-    ``index``; raise on its error code.  The launch path of every wrapper,
-    kept lean: the entry is resolved once the library has loaded (no lock
-    per call), the stream is read as a raw pointer (no ``Stream`` object),
-    and the device guard is entered only when ``index`` is not the current
-    card."""
-    fn = cuda_build.ENTRIES.get(entry)
+# entry -> its loaded C function (filled by cuda_build.load()) and the
+# packer of its argument block
+_ENTRIES = cuda_build.ENTRIES
+_PACK = {name: packer.pack for name, packer in cuda_build.PACKERS.items()}
+
+
+def _launch(entry, index, *args):
+    """Launch the C entry ``nr_<entry>`` on the current stream of card
+    ``index``, raise on its error code, and count the launch in
+    ``LAUNCHES`` (K7's count pass, ``"bin_faces_count"``, is counted with
+    its ``"bin_faces"``).  The launch path of every wrapper: the card and
+    the arguments are packed into one block of int64 slots (``bytes``,
+    ``cuda_build.PACKERS``), so ctypes converts two arguments, the block and
+    the stream, read as a raw pointer (no ``Stream`` object); the entry
+    itself switches to the card when it is not the current one."""
+    fn = _ENTRIES.get(entry)
     if fn is None:
         cuda_build.load()
-        fn = cuda_build.ENTRIES[entry]
+        fn = _ENTRIES[entry]
     # what PyTorch's own generated code calls; CUDA builds only, so it is
     # reached here, on the card's path, and never at import
-    stream = torch._C._cuda_getCurrentRawStream(index)
-    if torch._C._cuda_getDevice() == index:
-        err = fn(*args, stream)
-    else:
-        with torch.cuda.device(index):
-            err = fn(*args, stream)
+    err = fn(_PACK[entry](index, *args), torch._C._cuda_getCurrentRawStream(index))
     if err:
         raise RuntimeError(f"{entry}: kernel launch failed with CUDA error {err}")
-
-
-def _launch(name, index, *args):
-    """Launch kernel ``name`` on card ``index`` and count it."""
-    _call(name, index, *args)
-    LAUNCHES[name] += 1
+    if entry in LAUNCHES:
+        LAUNCHES[entry] += 1
 
 
 def _window(image_size, row_start, num_rows):
@@ -332,14 +321,13 @@ def latch_limit_error(num_attrs, threads, max_threads, shared_bytes, shared_limi
 
 
 @functools.lru_cache(maxsize=None)
-def _latch_limits(device, tile=0):
+def _latch_limits(device, binned=False):
     """(threads, max threads, shared bytes) of the copy-form resolve (K8's
-    at ``tile`` x ``tile`` pixels, or K2L's for 0), and the card's shared
-    memory per block."""
+    when ``binned``, else K2L's), and the card's shared memory per block."""
     vals = [ctypes.c_int() for _ in range(3)]
     with torch.cuda.device(device):
         err = cuda_build.load().nr_resolve_latch_limits(
-            int(tile), *(ctypes.addressof(v) for v in vals)
+            int(binned), *(ctypes.addressof(v) for v in vals)
         )
     if err:
         raise RuntimeError(f"resolve latch limits: cudaFuncGetAttributes failed with {err}")
@@ -347,15 +335,15 @@ def _latch_limits(device, tile=0):
     return (*(v.value for v in vals), shared_limit)
 
 
-def _check_latch(consts, fvp, face_attrs, kernel, tile=0):
-    """Check the copy-form inputs and the launch limits of K2L (``tile`` 0)
-    or K8 at ``tile``; returns (bs, nf, A)."""
+def _check_latch(consts, fvp, face_attrs, kernel, binned=False):
+    """Check the copy-form inputs and the launch limits of K2L, or K8 when
+    ``binned``; returns (bs, nf, A)."""
     bs, nf = consts.shape[0], consts.shape[-1]
     A = face_attrs.shape[-1]
     _check(consts, "consts", torch.float32, (bs, 17, nf))
     _check(fvp, "fvp", torch.float32, (bs, 3, 3, nf))
     _check(face_attrs, "face_attrs", torch.float32, (bs, nf, A))
-    error = latch_limit_error(A, *_latch_limits(consts.device, tile), kernel=kernel)
+    error = latch_limit_error(A, *_latch_limits(consts.device, binned), kernel=kernel)
     if error:
         raise ValueError(error)
     return bs, nf, A
@@ -445,11 +433,13 @@ def scatter_pixels_to_faces(grad, face_index_map, num_faces):
 def scatter_faces_to_vertices_plain(grad, faces, num_vertices):
     bs, nf = grad.shape[0], grad.shape[-1]
     # face-major slots (f * 3 + k): the summation order of the JAX
-    # package's segment-sum
+    # package's segment-sum; a slot whose id lies outside the table adds
+    # nothing (dropped, the rest kept in order)
     ids = faces.reshape(-1).long()
     g = grad.permute(0, 3, 2, 1).reshape(bs, nf * 3, 3)     # [bs, slot, coord]
+    keep = (ids >= 0) & (ids < num_vertices)
     out = torch.zeros((bs, num_vertices, 3), dtype=grad.dtype, device=grad.device)
-    return out.index_add_(1, ids, g)
+    return out.index_add_(1, ids[keep], g[:, keep])
 
 
 def build_vertex_slots(faces, num_vertices):
@@ -495,7 +485,8 @@ def scatter_faces_to_vertices(grad, faces, num_vertices):
     gradient f32 [bs, 3, 3, nf], faces i32 [nf, 3] -> f32 [bs, nv, 3].  On
     the card each vertex sums its own slots (:func:`vertex_slots`) in
     ascending order from 0, the order of the plain version on the CPU: its
-    bits, on every run.  Ids outside [0, nv) add nothing."""
+    bits, on every run.  Ids outside [0, nv) add nothing, as in the TPU
+    package's one-hot ``_scatter3_kernel``, on both tiers."""
     if not _use_kernel(grad, faces):
         return scatter_faces_to_vertices_plain(grad, faces, num_vertices)
     bs, nf = grad.shape[0], grad.shape[-1]
@@ -512,14 +503,17 @@ def scatter_faces_to_vertices(grad, faces, num_vertices):
 
 
 def gather_faces3_plain(table, faces):
-    return table[:, faces.long()].permute(0, 3, 2, 1).contiguous()
+    ok = (faces >= 0) & (faces < table.shape[1])
+    rows = table[:, torch.where(ok, faces, 0).long()]           # [bs, nf, 3, D]
+    return torch.where(ok[..., None], rows, 0.0).permute(0, 3, 2, 1).contiguous()
 
 
 def gather_faces3(table, faces):
     """``out[b, d, k, f] = table[b, faces[f, k], d]``: table f32
     [bs, n, D], faces i32 [nf, 3] -> f32 [bs, D, 3, nf] (for vertices, the
-    planar face vertices [bs, coord, vertex, nf]).  Ids outside [0, n)
-    are the caller's error: the kernel writes 0 for them."""
+    planar face vertices [bs, coord, vertex, nf]).  An id outside [0, n)
+    reads 0, as in the TPU package's one-hot ``_gather3_kernel``, on both
+    tiers."""
     if not _use_kernel(table, faces):
         return gather_faces3_plain(table, faces)
     bs, n, D = table.shape
@@ -534,35 +528,47 @@ def gather_faces3(table, faces):
 
 def gather_rows_plain(table, ids, planar=False):
     bs, n, D = table.shape
-    safe = torch.clamp(ids, min=0).long()
-    rows = torch.gather(table, 1, safe[..., None].expand(bs, -1, D))
-    out = torch.where((ids >= 0)[..., None], rows, 0.0)
+    ok = (ids >= 0) & (ids < n)
+    rows = torch.gather(table, 1, torch.where(ok, ids, 0).long()[..., None].expand(bs, -1, D))
+    out = torch.where(ok[..., None], rows, 0.0)
     return out.permute(0, 2, 1).contiguous() if planar else out
 
 
 def gather_rows(table, ids, planar=False):
-    """``table[b, ids[b, p], :]``, 0 where ``ids[b, p] < 0``: table f32
-    [bs, n, D], ids i32 [bs, P] (contiguous rows; a batch stride of 0
-    shares them across the batch) -> f32 [bs, D, P] when ``planar``, else
-    [bs, P, D].  The counterpart of the TPU package's ``gather_rows_pallas``
-    (which takes ids >= 0 and masks nothing; its callers mask).  Ids past
-    the table are the caller's error: the plain version raises on them and
-    the kernel writes 0."""
-    if not _use_kernel(table, ids):
-        return gather_rows_plain(table, ids, planar)
+    """``table[b, ids[b, p], :]``, 0 where ``ids[b, p]`` lies outside
+    [0, n): table f32 [bs, n, D], ids i32 [bs, P] (contiguous rows; a batch
+    stride of 0 shares them across the batch) -> f32 [bs, D, P] when
+    ``planar``, else [bs, P, D].  The counterpart of the TPU package's
+    ``gather_rows_pallas``, whose one-hot products also read 0 for such an
+    id.  Its checks are one comparison each for the table and for the ids
+    in the common layouts (this call is on the face-sharded path's every
+    step, and its launch path is most of its time)."""
+    index = table.get_device()
+    if not (table.is_cuda and ids.get_device() == index and not _route["plain"]):
+        if not _use_kernel(table, ids):        # raises on tensors on two devices
+            return gather_rows_plain(table, ids, planar)
     bs, n, D = table.shape
     P = ids.shape[-1]
-    _check(table, "table", torch.float32, (bs, n, D))
+    if (table.dtype, table.stride()) != (torch.float32, (n * D, D, 1)):
+        _check(table, "table", torch.float32, (bs, n, D))
+    batch_stride = P
+    if (ids.dtype, ids.shape, ids.stride()) != (torch.int32, (bs, P), (P, 1)):
+        batch_stride = _shared_ids_stride(ids, bs, P)
+    out = table.new_empty((bs, D, P) if planar else (bs, P, D))
+    _launch("gather_rows", index, table.data_ptr(), ids.data_ptr(), out.data_ptr(), bs, n, D, P,
+            batch_stride, int(planar))
+    return out
+
+
+def _shared_ids_stride(ids, bs, P):
+    """K9's batch stride of ids outside the common layout: P for
+    contiguous rows, 0 for rows shared by the batch; raises on others."""
     batch_stride = ids.stride(0) if bs > 1 else P
     if (ids.dtype != torch.int32 or tuple(ids.shape) != (bs, P)
             or (P > 1 and ids.stride(1) != 1) or batch_stride not in (0, P)):
         raise ValueError(f"ids: want int32 {(bs, P)} with contiguous rows, got {ids.dtype} "
                          f"{tuple(ids.shape)} strides {ids.stride()}")
-    shape = (bs, D, P) if planar else (bs, P, D)
-    out = torch.empty(shape, dtype=torch.float32, device=table.device)
-    _launch("gather_rows", table.get_device(), table.data_ptr(), ids.data_ptr(), out.data_ptr(),
-            bs, n, D, P, batch_stride, int(planar))
-    return out
+    return batch_stride
 
 
 # --- K6 -------------------------------------------------------------------
@@ -603,10 +609,10 @@ def _tile_centre_ranges(image_size, start, extent, tile):
     return pixel_centres(start + first, image_size), pixel_centres(start + last, image_size)
 
 
-def bin_faces_plain(consts, image_size, row_start=0, num_rows=None, *, tile):
+def bin_faces_plain(consts, image_size, row_start=0, num_rows=None):
     bs, _, nf = consts.shape
     S, r0, rows = _window(image_size, row_start, num_rows)
-    th, tw = tile
+    th, tw = BIN_TILE
     dev = consts.device
     x_lo, x_hi = (t.to(dev) for t in _tile_centre_ranges(S, 0, S, tw))
     y_lo, y_hi = (t.to(dev) for t in _tile_centre_ranges(S, r0, rows, th))
@@ -633,54 +639,63 @@ def bin_faces_plain(consts, image_size, row_start=0, num_rows=None, *, tile):
             offsets.reshape(bs, n_tiles).to(torch.int32), ids)
 
 
-def bin_faces(consts, image_size, row_start=0, num_rows=None, *, tile):
+def bin_faces(consts, image_size, row_start=0, num_rows=None):
     """Per-tile face bins of killed constants [bs, 17, nf] over the image
     rows ``row_start .. row_start + num_rows`` (all S by default), in
-    tiles of ``tile`` = (height, width) pixels, row-major: (cnt i32
-    [bs, tiles], offsets i32 [bs, tiles], ids i32 [pairs]).  Tile t of image
-    b holds ``ids[offsets[b, t] : offsets[b, t] + cnt[b, t]]``, the faces
-    whose bbox meets its pixel-centre range, in ascending order.
+    tiles of :data:`BIN_TILE` pixels, row-major: (cnt i32 [bs, tiles],
+    offsets i32 [bs, tiles], ids i32 [pairs]).  Tile t of image b holds
+    ``ids[offsets[b, t] : offsets[b, t] + cnt[b, t]]``, the faces whose
+    bbox meets its pixel-centre range, in ascending order.
 
-    On the card this reads the pair count back to size ``ids``: one host
-    sync per call."""
+    On the card: four device operations (``csrc/bin_faces.cu``) and one
+    host sync, which reads the pair total back to size ``ids``."""
     if not _use_kernel(consts):
-        return bin_faces_plain(consts, image_size, row_start, num_rows, tile=tile)
+        return bin_faces_plain(consts, image_size, row_start, num_rows)
     bs, nf = consts.shape[0], consts.shape[-1]
     _check(consts, "consts", torch.float32, (bs, 17, nf))
     S, r0, rows = _window(image_size, row_start, num_rows)
-    th, tw = tile
-    tiles_x = -(-S // tw)
-    n_tiles = tiles_x * -(-rows // th)
-    n_chunks = max(1, -(-nf // BIN_CHUNK))
-    dev = consts.device
-    rects = torch.empty((bs, nf, 4), dtype=torch.int32, device=dev)
-    counts = torch.zeros((bs, n_tiles, n_chunks), dtype=torch.int32, device=dev)
-    # K7 is two passes of one wrapper call; LAUNCHES counts the call once,
-    # at its fill pass, so that one binning reads as one launch
-    _call("bin_faces_count", dev.index, consts.data_ptr(), rects.data_ptr(), counts.data_ptr(),
-          bs, nf, S, r0, rows, th, tw, BIN_CHUNK)
-    ends = torch.cumsum(counts.reshape(-1), 0, dtype=torch.int32)
-    cursors = (ends - counts.reshape(-1)).reshape(counts.shape)
-    cnt = counts.sum(-1, dtype=torch.int32)
-    offsets = cursors[..., 0].clone()
-    ids = torch.empty(int(ends[-1]), dtype=torch.int32, device=dev)   # the host sync
-    _launch("bin_faces", dev.index, rects.data_ptr(), cursors.data_ptr(), ids.data_ptr(), bs, nf,
-            tiles_x, n_tiles, BIN_CHUNK)
+    th, tw = BIN_TILE
+    tiles_x, tiles_y = -(-S // tw), -(-rows // th)
+    if tiles_x + tiles_y > BIN_MAX_AXIS_TILES:
+        raise ValueError(f"bin_faces: {tiles_x} x {tiles_y} tiles; K7 takes at most "
+                         f"{BIN_MAX_AXIS_TILES} along both axes together")
+    n_tiles = tiles_x * tiles_y
+    n_bins = bs * n_tiles
+    cnt = consts.new_empty((bs, n_tiles), dtype=torch.int32)
+    offsets = torch.empty_like(cnt)
+    if n_bins == 0:
+        return cnt, offsets, cnt.new_empty((0,))
+    padded = -(-n_bins // BIN_SCAN_TILE) * BIN_SCAN_TILE
+    # the per-tile counters (then fill cursors), four control words and a
+    # 64-bit scan state per chunk
+    scratch = cnt.new_empty((padded + 4 + 2 * (padded // BIN_SCAN_TILE),))
+    geometry = (bs, nf, S, r0, rows)
+    index = consts.get_device()
+    _launch("bin_faces_count", index, consts.data_ptr(), scratch.data_ptr(), *geometry)
+    total = int(scratch[padded + 1])                                # the host sync
+    # ids, then the fill's unsorted pairs, which the order pass reads
+    pairs = cnt.new_empty((2 * total,))
+    ids = pairs[:total]
+    # K7 is two entries of one wrapper call; LAUNCHES counts the call once,
+    # at its scan, fill and order passes (this entry), so that one binning
+    # reads as one launch
+    _launch("bin_faces", index, consts.data_ptr(), scratch.data_ptr(), cnt.data_ptr(),
+            offsets.data_ptr(), pairs[total:].data_ptr(), ids.data_ptr(), *geometry)
     return cnt, offsets, ids
 
 
 # --- K8: the binned route -------------------------------------------------
 
 
-def _binned_fold(consts, bins, image_size, near, far, row_start, num_rows, tile):
-    """The z-buffer fold over the bins of the ``tile`` pixel tiles,
+def _binned_fold(consts, bins, image_size, near, far, row_start, num_rows):
+    """The z-buffer fold over the bins of the :data:`BIN_TILE` pixel tiles,
     vectorised over tiles: step k folds the k-th face of every tile's bin,
     so every pixel still takes its tile's faces in ascending order.
     Returns (index, depth) [bs, rows, S]."""
     cnt, offsets, ids = (t.long() for t in bins)
     bs = consts.shape[0]
     S, r0, rows = _window(image_size, row_start, num_rows)
-    th, tw = tile
+    th, tw = BIN_TILE
     ny, nx = -(-rows // th), -(-S // tw)
     dev = consts.device
     # pixel centres of every tile's th x tw pixels, those past the canvas
@@ -709,12 +724,10 @@ def _binned_fold(consts, bins, image_size, near, far, row_start, num_rows, tile)
     return crop(index), crop(depth)
 
 
-def _check_bins(bins, bs, rows, S, tile):
-    """Check K8's bins and tile; returns the bins' pointers."""
-    if tile not in BIN_TILES:
-        raise ValueError(f"K8 is built for the tiles {BIN_TILES}, not {tile}")
+def _check_bins(bins, bs, rows, S):
+    """Check K8's bins; returns their pointers."""
     cnt, offsets, ids = bins
-    th, tw = tile
+    th, tw = BIN_TILE
     n_tiles = -(-rows // th) * -(-S // tw)
     _check(cnt, "cnt", torch.int32, (bs, n_tiles))
     _check(offsets, "offsets", torch.int32, (bs, n_tiles))
@@ -723,78 +736,73 @@ def _check_bins(bins, bs, rows, S, tile):
 
 
 def resolve_binned_xy_plain(consts, fvp, bins, image_size, near, far, row_start=0,
-                            num_rows=None, *, tile):
-    index, depth = _binned_fold(consts, bins, image_size, near, far, row_start, num_rows,
-                                tile)
+                            num_rows=None):
+    index, depth = _binned_fold(consts, bins, image_size, near, far, row_start, num_rows)
     return _latch_xy(index, depth, fvp)
 
 
-def resolve_binned_xy(consts, fvp, bins, image_size, near, far, row_start=0,
-                      num_rows=None, *, tile):
+def resolve_binned_xy(consts, fvp, bins, image_size, near, far, row_start=0, num_rows=None):
     """:func:`resolve_xy` over the per-tile bins of :func:`bin_faces` (made
-    for the same window and ``tile``, one of :data:`BIN_TILES`); the same
-    outputs, bit for bit."""
+    for the same window); the same outputs, bit for bit."""
     if not _use_kernel(consts, fvp, *bins):
         return resolve_binned_xy_plain(consts, fvp, bins, image_size, near, far,
-                                       row_start, num_rows, tile=tile)
+                                       row_start, num_rows)
     bs, nf = consts.shape[0], consts.shape[-1]
     _check(consts, "consts", torch.float32, (bs, 17, nf))
     _check(fvp, "fvp", torch.float32, (bs, 3, 3, nf))
     S, r0, rows = _window(image_size, row_start, num_rows)
-    bin_ptrs = _check_bins(bins, bs, rows, S, tile)
+    bin_ptrs = _check_bins(bins, bs, rows, S)
     dev = consts.device
     index = torch.empty((bs, rows, S), dtype=torch.int32, device=dev)
     depth = torch.empty((bs, rows, S), dtype=torch.float32, device=dev)
     coords = torch.empty((bs, 6, rows, S), dtype=torch.float32, device=dev)
     _launch("resolve_binned_xy", dev.index, consts.data_ptr(), fvp.data_ptr(), *bin_ptrs,
             index.data_ptr(), depth.data_ptr(), coords.data_ptr(), bs, nf, S, r0, rows,
-            tile[0], float(near), float(far))
+            float(near), float(far))
     return index, depth, coords
 
 
 def resolve_binned_latch_plain(consts, fvp, face_attrs, bins, image_size, near, far,
-                               row_start=0, num_rows=None, *, tile):
-    index, depth = _binned_fold(consts, bins, image_size, near, far, row_start, num_rows,
-                                tile)
+                               row_start=0, num_rows=None):
+    index, depth = _binned_fold(consts, bins, image_size, near, far, row_start, num_rows)
     return _latch_copy(index, depth, fvp, face_attrs)
 
 
 def resolve_binned_latch(consts, fvp, face_attrs, bins, image_size, near, far, row_start=0,
-                         num_rows=None, *, tile):
+                         num_rows=None):
     """:func:`resolve_latch` over the per-tile bins of :func:`bin_faces`;
     the same outputs, bit for bit."""
     if not _use_kernel(consts, fvp, face_attrs, *bins):
         return resolve_binned_latch_plain(consts, fvp, face_attrs, bins, image_size, near,
-                                          far, row_start, num_rows, tile=tile)
+                                          far, row_start, num_rows)
     S, r0, rows = _window(image_size, row_start, num_rows)
-    bin_ptrs = _check_bins(bins, consts.shape[0], rows, S, tile)
-    bs, nf, A = _check_latch(consts, fvp, face_attrs, "resolve_binned_latch", tile[0])
+    bin_ptrs = _check_bins(bins, consts.shape[0], rows, S)
+    bs, nf, A = _check_latch(consts, fvp, face_attrs, "resolve_binned_latch", binned=True)
     out = _latch_outputs(bs, A, rows, S, consts.device)
     _launch("resolve_binned_latch", consts.get_device(), consts.data_ptr(), fvp.data_ptr(),
             face_attrs.data_ptr(), *bin_ptrs, *(t.data_ptr() for t in out), bs, nf, A, S,
-            r0, rows, tile[0], float(near), float(far))
+            r0, rows, float(near), float(far))
     return out
 
 
 def resolve_binned_depth_plain(consts, bins, image_size, near, far, row_start=0,
-                               num_rows=None, *, tile):
-    return _binned_fold(consts, bins, image_size, near, far, row_start, num_rows, tile)
+                               num_rows=None):
+    return _binned_fold(consts, bins, image_size, near, far, row_start, num_rows)
 
 
-def resolve_binned_depth(consts, bins, image_size, near, far, row_start=0, num_rows=None,
-                         *, tile):
+def resolve_binned_depth(consts, bins, image_size, near, far, row_start=0, num_rows=None):
     """:func:`resolve_depth` over the per-tile bins of :func:`bin_faces`;
     the same outputs, bit for bit."""
     if not _use_kernel(consts, *bins):
         return resolve_binned_depth_plain(consts, bins, image_size, near, far, row_start,
-                                          num_rows, tile=tile)
+                                          num_rows)
     bs, nf = consts.shape[0], consts.shape[-1]
     _check(consts, "consts", torch.float32, (bs, 17, nf))
     S, r0, rows = _window(image_size, row_start, num_rows)
-    bin_ptrs = _check_bins(bins, bs, rows, S, tile)
+    bin_ptrs = _check_bins(bins, bs, rows, S)
     dev = consts.device
     index = torch.empty((bs, rows, S), dtype=torch.int32, device=dev)
     depth = torch.empty((bs, rows, S), dtype=torch.float32, device=dev)
     _launch("resolve_binned_depth", dev.index, consts.data_ptr(), *bin_ptrs, index.data_ptr(),
-            depth.data_ptr(), bs, nf, S, r0, rows, tile[0], float(near), float(far))
+            depth.data_ptr(), bs, nf, S, r0, rows, float(near), float(far))
     return index, depth

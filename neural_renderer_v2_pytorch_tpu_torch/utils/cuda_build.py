@@ -3,7 +3,10 @@
 Each ``csrc/*.cu`` file compiles with its own ``nvcc`` process, all started
 together, into an object file; the objects link into one shared library
 with a plain C interface, loaded through ``ctypes``.  No PyTorch headers are
-involved, so a build takes seconds.  The library lands in
+involved, so a build takes seconds.  Every kernel's C entry takes two
+arguments, a block of int64 argument slots and the stream
+(``csrc/nr_entry.cuh``); :data:`SIGNATURES` says what each slot holds and
+:data:`PACKERS` packs a block.  The library lands in
 ``build/nr_torch_kernels/`` at the repository root, under a file name keyed
 by a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one is loaded as it is.  A failed build raises: there is no
@@ -16,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import tempfile
 import threading
@@ -35,31 +39,34 @@ NVCC_FLAGS = (
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nr_torch_kernels"
 
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# each kernel entry's arguments, one int64 slot each after the card's: P a
+# pointer, i an int, q a long long, f a float (the bits of a double, which
+# the entry rounds to float as a C call's float argument would be)
 SIGNATURES = {
-    "nr_face_setup": (_P, _P, _I, _I, _I, _P),
-    "nr_resolve_xy": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
-    "nr_resolve_latch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
-    "nr_resolve_depth": (_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
-    "nr_resolve_binned_xy": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
-                             _P),
-    "nr_resolve_binned_latch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _I, _I, _F, _F, _P),
-    "nr_resolve_binned_depth": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P),
-    "nr_resolve_latch_limits": (_I, _P, _P, _P),
-    "nr_bin_faces_count": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "nr_bin_faces": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "nr_scatter_pixels_to_faces": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "nr_scatter_faces_to_vertices": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "nr_gather_faces3": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "nr_gather_rows": (_P, _P, _P, _I, _I, _I, _I, _L, _I, _P),
-    "nr_scatter_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "face_setup": "PPiii",
+    "resolve_xy": "PPPPPiiiiiff",
+    "resolve_latch": "PPPPPPPiiiiiiff",
+    "resolve_depth": "PPPiiiiiff",
+    "resolve_binned_xy": "PPPPPPPPiiiiiff",
+    "resolve_binned_latch": "PPPPPPPPPPiiiiiiff",
+    "resolve_binned_depth": "PPPPPPiiiiiff",
+    "bin_faces_count": "PPiiiii",
+    "bin_faces": "PPPPPPiiiii",
+    "scatter_pixels_to_faces": "PPPiiii",
+    "scatter_faces_to_vertices": "PPPPiii",
+    "gather_faces3": "PPPiiii",
+    "gather_rows": "PPPiiiiqi",
+    "scatter_rows": "PPPiiii",
 }
+# entry -> the struct that packs the card and the arguments into a block
+PACKERS = {name: struct.Struct("<q" + "".join("d" if c == "f" else "q" for c in sig))
+           for name, sig in SIGNATURES.items()}
 
 _lock = threading.Lock()
 _lib = None
-# "face_setup" -> the loaded ``nr_face_setup``, and so on for every entry of
-# SIGNATURES: filled once by load(), read by the wrappers without the lock
+# "face_setup" -> the loaded ``nr_face_setup(const long long* args, void*
+# stream)``, and so on for every entry of SIGNATURES: filled once by load(),
+# read by the wrappers without the lock
 ENTRIES = {}
 
 
@@ -69,7 +76,7 @@ def sources():
 
 def library_path():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):      # the sources and their headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libnr_torch_kernels_{h.hexdigest()[:16]}.so"
@@ -129,10 +136,15 @@ def load():
         if _lib is None:
             path, _, _ = build()
             lib = ctypes.CDLL(str(path))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
+            for name in SIGNATURES:
+                fn = getattr(lib, "nr_" + name)
+                # the block as the bytes a wrapper packed (passed without a
+                # copy), and the stream
+                fn.argtypes = (ctypes.c_char_p, ctypes.c_void_p)
                 fn.restype = ctypes.c_int
-                ENTRIES[name[len("nr_"):]] = fn
+                ENTRIES[name] = fn
+            limits = lib.nr_resolve_latch_limits
+            limits.argtypes = (ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p)
+            limits.restype = ctypes.c_int
             _lib = lib
         return _lib

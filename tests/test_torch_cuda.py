@@ -175,13 +175,11 @@ def test_textured_slice_on_card_matches_cpu(cuda, scene):
                                    atol=1e-4 * float(out[0][i].abs().max()))
 
 
-@pytest.mark.parametrize("tile", rc.BIN_TILES)
 @pytest.mark.parametrize("window", [(0, None), (40, 27)])
 @pytest.mark.parametrize("bs,nf,size", [(2, 37, 64), (1, 300, 100), (3, 5, 17)])
-def test_bin_faces_and_binned_resolve_are_bit_exact(cuda, bs, nf, size, window, tile):
+def test_bin_faces_and_binned_resolve_are_bit_exact(cuda, bs, nf, size, window):
     """K7's bins against their plain version, and each K8 form against its
-    plain version and the tiled form, on ragged canvases and windows, at
-    each tile K8 is built for."""
+    plain version and the tiled form, on ragged canvases and windows."""
     row_start, num_rows = window
     if num_rows is not None and row_start + num_rows > size:
         row_start, num_rows = size // 3, size // 2
@@ -189,19 +187,19 @@ def test_bin_faces_and_binned_resolve_are_bit_exact(cuda, bs, nf, size, window, 
     consts = rc.face_setup(fvp, True)
     attrs = torch.randn((bs, nf, 6), device=cuda)
     w = (row_start, num_rows)
-    bins = rc.bin_faces(consts, size, *w, tile=tile)
-    for g, p in zip(bins, rc.bin_faces_plain(consts, size, *w, tile=tile)):
+    bins = rc.bin_faces(consts, size, *w)
+    for g, p in zip(bins, rc.bin_faces_plain(consts, size, *w)):
         assert torch.equal(g, p)
     args = (size, 0.1, 100.0, *w)
     forms = [
-        (rc.resolve_binned_xy(consts, fvp, bins, *args, tile=tile),
-         rc.resolve_binned_xy_plain(consts, fvp, bins, *args, tile=tile),
+        (rc.resolve_binned_xy(consts, fvp, bins, *args),
+         rc.resolve_binned_xy_plain(consts, fvp, bins, *args),
          rc.resolve_xy(consts, fvp, *args)),
-        (rc.resolve_binned_latch(consts, fvp, attrs, bins, *args, tile=tile),
-         rc.resolve_binned_latch_plain(consts, fvp, attrs, bins, *args, tile=tile),
+        (rc.resolve_binned_latch(consts, fvp, attrs, bins, *args),
+         rc.resolve_binned_latch_plain(consts, fvp, attrs, bins, *args),
          rc.resolve_latch(consts, fvp, attrs, *args)),
-        (rc.resolve_binned_depth(consts, bins, *args, tile=tile),
-         rc.resolve_binned_depth_plain(consts, bins, *args, tile=tile),
+        (rc.resolve_binned_depth(consts, bins, *args),
+         rc.resolve_binned_depth_plain(consts, bins, *args),
          rc.resolve_depth(consts, *args)),
     ]
     for got, plain, tiled in forms:
@@ -397,3 +395,99 @@ def test_face_sharded_ranks_on_one_card_match_one_device(cuda):
         assert launches["gather_rows"] == 1 and launches["resolve_depth"] == 1, launches
         assert launches["resolve_xy"] == 0 and launches["resolve_latch"] == 0, launches
         assert np.array_equal(grad, ranks[0][1])
+
+
+def test_kernels_read_zero_and_add_nothing_for_ids_outside_the_table(cuda):
+    """K5 and K9 (both layouts) read 0 and K4 adds nothing for ids of -1, n
+    and n + 5, equal to their plain versions (K4 on CPU copies), which the
+    CPU tier holds to the JAX package's one-hot kernels."""
+    v, faces = icosphere(2)
+    n, nf = len(v), len(faces)
+    faces = faces.copy()
+    faces[:3, 0], faces[3, 1], faces[4, 2] = (-1, n, n + 5), n, -1
+    f = torch.tensor(faces, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    table = torch.randn((2, n, 3), generator=gen, device=cuda)
+    got = rc.gather_faces3(table, f)
+    assert torch.equal(got, rc.gather_faces3_plain(table, f))
+    assert (got[:, :, 0, :3] == 0).all() and (got[:, :, 1, 3] == 0).all()
+    ids = torch.randint(0, n, (2, 500), generator=gen, device=cuda, dtype=torch.int32)
+    ids[:, :3] = torch.tensor([-1, n, n + 5], device=cuda, dtype=torch.int32)
+    for planar in (True, False):
+        got = rc.gather_rows(table, ids, planar)
+        assert torch.equal(got, rc.gather_rows_plain(table, ids, planar))
+        assert ((got[:, :, :3] if planar else got[:, :3]) == 0).all()
+    g = torch.randn((2, 3, 3, nf), generator=gen, device=cuda)
+    got = rc.scatter_faces_to_vertices(g, f, n)
+    assert torch.equal(got.cpu(), rc.scatter_faces_to_vertices_plain(g.cpu(), f.cpu(), n))
+
+
+def _bins_equal(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("window", [(0, None), (56, 16)])
+@pytest.mark.parametrize("mesh", ["icosphere(3)", "torus(320, 248)"])
+def test_bin_faces_on_a_crowded_tile(cuda, mesh, window):
+    """Every face K1 keeps in one bin, ordered through the block's bitmap:
+    icosphere(3) (1,280 faces) in a 3-pixel disc of a 128^2 canvas, one
+    window; textured-scale's torus (158,720 faces, about 74K kept) in a
+    6-pixel disc of a 512^2 canvas, ids spanning more than one window of
+    131,072, so two.  The plain version's bins either way, twice."""
+    from test_torch_bin_faces import _crowded
+
+    if mesh == "torus(320, 248)":
+        # seen from above (its axis is y), as chip_smoke.crowded_consts
+        v, f = torus(320, 248)
+        v = v / np.abs(v).max()
+        size, c, r = 512, (2.0 * 59.5 + 1.0 - 512) / 512, 2.0 * 3.0 / 512
+        fv = np.stack([c + r * v[:, 0], c + r * v[:, 2], 2.0 + v[:, 1]], -1)
+        fv = fv.astype(np.float32)[f][None]
+    else:
+        size = 128
+        fv = _crowded(size, (59.5, 59.5), 1.5)
+    fvp = torch.tensor(np.ascontiguousarray(fv.transpose(0, 3, 2, 1)), device=cuda)
+    consts = rc.face_setup(fvp, True)
+    want = rc.bin_faces_plain(consts, size, *window)
+    k = int(want[0].argmax())
+    top = want[2][int(want[1].reshape(-1)[k]):][:int(want[0].reshape(-1)[k])]
+    assert len(top) > 1200
+    if mesh == "torus(320, 248)":
+        assert len(top) > 50_000 and int(top.max() - top.min()) >= 32 * 4096
+    _bins_equal(rc.bin_faces(consts, size, *window), want)
+    _bins_equal(rc.bin_faces(consts, size, *window), want)
+
+
+def test_bin_faces_at_scale_repeats_its_bits_in_four_device_operations(cuda):
+    """K7 at scale's shapes (icosphere(6), 512^2): the plain version's bins,
+    the same bits on a second call, and per call at most four device
+    operations (the memset and the three kernels) and one readback."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    v, faces = icosphere(6)
+    r = nr.Renderer(cuda)
+    r.image_size, r.anti_aliasing = 512, False
+    r.viewpoints = nr.get_points_from_angles(2.732, 30, 30.0)
+    ndc = r.transform_vertices(torch.tensor(v[None], device=cuda))
+    consts = rc.face_setup(rc.gather_faces3(ndc.contiguous(), torch.tensor(faces, device=cuda)),
+                           True)
+    first = rc.bin_faces(consts, 512)
+    _bins_equal(first, rc.bin_faces_plain(consts, 512))
+    torch.cuda.synchronize()
+    rc.reset_launches()
+    calls = 4
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            again = rc.bin_faces(consts, 512)
+        torch.cuda.synchronize()
+    _bins_equal(again, first)
+    assert rc.LAUNCHES["bin_faces"] == calls
+    # the profiler may drop a record, never add one
+    records = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    readback = {k: n for k, n in records.items() if "Memcpy DtoH" in k}
+    ops = {k: n for k, n in records.items() if k not in readback}
+    assert sum(readback.values()) <= calls and sum(ops.values()) <= 4 * calls, records
+    kernels = ("bin_count_kernel", "bin_fill_kernel", "bin_order_kernel")
+    assert all(any(n in k for n in kernels) or "Memset" in k for k in ops), records

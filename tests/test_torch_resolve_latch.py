@@ -7,6 +7,8 @@ K2L and K5 are copies and must be bit-equal.  K6 is held to 1e-5 of the
 largest magnitude: the Pallas kernel splits gradients into bf16 halves
 (~2^-17 relative)."""
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -137,8 +139,7 @@ def _kernel_args():
     _, faces = icosphere(0)
     faces = torch.tensor(faces)
     fim = torch.randint(-1, 9, (1, 8, 8), dtype=torch.int32)
-    tile = {"tile": (8, 8)}
-    bins = rc.bin_faces_plain(consts, 40, **tile)
+    bins = rc.bin_faces_plain(consts, 40)
     return {
         "face_setup": ((fvp, True), {}),
         "resolve_xy": ((consts, fvp, 16, 0.1, 100.0), {}),
@@ -148,10 +149,10 @@ def _kernel_args():
         "scatter_faces_to_vertices": ((torch.ones(1, 3, 3, 20), faces, 12), {}),
         "gather_faces3": ((torch.ones(1, 12, 3), faces), {}),
         "scatter_rows": ((torch.ones(1, 12, 64), fim.reshape(1, 64), 9), {}),
-        "bin_faces": ((consts, 40), tile),
-        "resolve_binned_xy": ((consts, fvp, bins, 40, 0.1, 100.0), tile),
-        "resolve_binned_latch": ((consts, fvp, torch.ones(1, 9, 4), bins, 40, 0.1, 100.0), tile),
-        "resolve_binned_depth": ((consts, bins, 40, 0.1, 100.0), tile),
+        "bin_faces": ((consts, 40), {}),
+        "resolve_binned_xy": ((consts, fvp, bins, 40, 0.1, 100.0), {}),
+        "resolve_binned_latch": ((consts, fvp, torch.ones(1, 9, 4), bins, 40, 0.1, 100.0), {}),
+        "resolve_binned_depth": ((consts, bins, 40, 0.1, 100.0), {}),
         "gather_rows": ((torch.ones(1, 9, 5), fim.reshape(1, 64)), {"planar": True}),
     }
 
@@ -164,9 +165,17 @@ def test_plain_versions_switch_covers_every_wrapper(monkeypatch):
     launched = []
     monkeypatch.setattr(rc, "_on_cuda", lambda *tensors: True)
     monkeypatch.setattr(rc, "_latch_limits",
-                        lambda device, tile=0: (256, 1024, 18000, 49152))
-    monkeypatch.setattr(rc, "_call", lambda entry, device, *a: None)   # K7's count pass
-    monkeypatch.setattr(rc, "_launch", lambda name, device, *a: launched.append(name))
+                        lambda device, binned=False: (256, 1024, 18000, 49152))
+
+    def launch(name, device, *a):
+        if name == "bin_faces_count":
+            # K7's count pass: what its memset leaves in the scratch of one
+            # scan tile (no pairs), which the wrapper reads back
+            ctypes.memset(a[1], 0, 4 * (rc.BIN_SCAN_TILE + 4))
+        else:
+            launched.append(name)
+
+    monkeypatch.setattr(rc, "_launch", launch)
     for name, (a, kw) in args.items():
         getattr(rc, name)(*a, **kw)
     assert launched == list(args)
