@@ -8,10 +8,11 @@ Builds the hand-written kernels from ``neural_renderer_v2_pytorch_tpu_torch
 /csrc`` (one nvcc per source, in parallel) and then, for each path:
 
 - silhouettes: checks each kernel against its plain PyTorch version on the
-  card, the whole forward+backward against the plain versions and against a
-  golden made by the JAX package, takes five Adam steps of a vertex fit
-  (launch counts read around it), and repeats the checks on an 81,920-face
-  mesh;
+  card (K2, which forms the face constants itself, also against K1 + K7 +
+  K8 with and without backfaces), the whole forward+backward against the
+  plain versions and against a golden made by the JAX package, takes five
+  Adam steps of a vertex fit (launch counts read around it: the tiled
+  route launches no K1), and repeats the checks on an 81,920-face mesh;
 - textured: checks K5, K2L, K3 and K6 against their plain versions at the
   ``atlas``, ``lit`` and ``textured-scale`` configurations, the ``atlas``
   and ``lit`` steps through ``Renderer.render`` (and depth and
@@ -29,7 +30,7 @@ Builds the hand-written kernels from ``neural_renderer_v2_pytorch_tpu_torch
   route threshold; holds both steps against the plain versions; takes
   five Adam steps of a ``hires`` vertex fit and one ``hires-lit`` step, and
   drives ``compute_face_index_map`` and ``render_depth`` (launch counts
-  read around each);
+  read around each: K1 once per binned resolve, ``check_k1``);
 - sharded rendering (``parallel``): holds K9 ``gather_rows`` bit-equal to
   its plain version at the face-sharded path's shapes (``scale``, D = 9;
   ``textured-scale``, D = 27) in both layouts, then runs four meshes on
@@ -59,7 +60,14 @@ Builds the hand-written kernels from ``neural_renderer_v2_pytorch_tpu_torch
   both bit-equal to the plain bins, K7 in at most four device operations
   and a readback;
   K9 in turns with ``torch.gather`` at ``scale`` (D = 9) and
-  ``textured-scale`` (D = 27);
+  ``textured-scale`` (D = 27); K3 in turns with its parent design
+  (``tools/resolve_scatter_parents.cu``), its 32 x 8-pixel block and
+  ``index_add_`` at ``bench`` (D = 6), ``atlas`` (15), ``lit`` (36) and
+  K9's transpose at ``textured-scale`` (27), each within 1e-4 of the plain
+  version and K3 in at most two device operations; the tiled forms from
+  the face vertices in turns with the parent's K1 + K2/K2L/K2D pair and
+  the parent's form alone at ``bench`` (K2, K2D), ``atlas`` and ``lit``
+  (K2L) and ``scale`` (K2 over 81,920 faces), all bit-equal;
 
 then times each kernel, its plain version, the one PyTorch call that
 computes the same function where there is one, and each step, with CUDA
@@ -118,7 +126,7 @@ TPU_KERNELS = "neural_renderer_v2_pytorch_tpu/ops/resolve_pallas.py"
 # name -> (source, the TPU kernel it replaces, the configuration its times
 # in the kernels line come from)
 KERNELS = {
-    "face_setup": (f"{PKG}/csrc/face_setup.cu", f"{TPU_KERNELS}:180", "bench"),
+    "face_setup": (f"{PKG}/csrc/face_setup.cu", f"{TPU_KERNELS}:180", "hires"),
     "resolve_xy": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:348", "bench"),
     "resolve_latch": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:348", "atlas"),
     "resolve_depth": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:348", "bench"),
@@ -132,10 +140,12 @@ KERNELS = {
     "resolve_binned_depth": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:858", "hires-lit"),
     "gather_rows": (f"{PKG}/csrc/gather_rows.cu", f"{TPU_KERNELS}:2277", "textured-scale"),
 }
-SILHOUETTE_KERNELS = ("face_setup", "resolve_xy", "scatter_pixels_to_faces",
-                      "scatter_faces_to_vertices", "gather_faces3")
-TEXTURED_KERNELS = ("face_setup", "resolve_latch", "scatter_pixels_to_faces",
-                    "scatter_faces_to_vertices", "gather_faces3", "scatter_rows")
+# the tiled route's forms compute the face constants themselves: its paths
+# launch no K1 (check_k1)
+SILHOUETTE_KERNELS = ("resolve_xy", "scatter_pixels_to_faces", "scatter_faces_to_vertices",
+                      "gather_faces3")
+TEXTURED_KERNELS = ("resolve_latch", "scatter_pixels_to_faces", "scatter_faces_to_vertices",
+                    "gather_faces3", "scatter_rows")
 HIRES_KERNELS = ("face_setup", "bin_faces", "resolve_binned_xy", "scatter_pixels_to_faces",
                  "scatter_faces_to_vertices", "gather_faces3")
 HIRES_LIT_KERNELS = ("face_setup", "bin_faces", "resolve_binned_latch",
@@ -185,6 +195,14 @@ TEST_OPS = 30
 
 def log(msg):
     print(msg, flush=True)
+
+
+def check_k1(label, launches):
+    """K1 runs once per binned resolve (with K7) and never on the tiled
+    route, whose forms compute the face constants themselves."""
+    if launches["face_setup"] != launches["bin_faces"]:
+        raise AssertionError(f"{label}: {launches['face_setup']} K1 launches for "
+                             f"{launches['bin_faces']} binned resolves: {launches}")
 
 
 def check_close(name, got, want, rtol=SCATTER_RTOL):
@@ -249,14 +267,16 @@ def pixel_face_tests(consts, size, row_start=0, rows=None):
     return int((nx * ny).sum())
 
 
-def resolve_bound(consts, size, out_planes, in_bytes_per_face, extra_bytes=0, row_start=0,
+def resolve_bound(consts, size, out_planes, face_bytes, extra_bytes=0, row_start=0,
                   rows=None):
-    """Bound of a resolve form: the 17 constants (+ the latched rows) of
-    every face read once, ``out_planes`` 4-byte planes written once, and
-    TEST_OPS per (pixel, face) test."""
+    """Bound of a resolve form: ``face_bytes`` of every face's inputs read
+    once (the binned forms: K1's 17 constants, 68 bytes, + the latched rows;
+    the tiled forms: the face vertices, 36 bytes, + 4 A of attributes),
+    ``out_planes`` 4-byte planes written once, and TEST_OPS per (pixel,
+    face) test of K1's constants ``consts``."""
     bs, _, nf = consts.shape
     rows = size if rows is None else rows
-    nbytes = bs * nf * (68 + in_bytes_per_face) + 4 * out_planes * bs * rows * size
+    nbytes = bs * nf * face_bytes + 4 * out_planes * bs * rows * size
     return bound(nbytes + extra_bytes, TEST_OPS * pixel_face_tests(consts, size, row_start, rows))
 
 
@@ -289,7 +309,8 @@ PORT_KERNEL = port_kernel_pattern()
 
 Profile = collections.namedtuple(
     "Profile",
-    "wall busy complete dropped port_records port_launches per_launch top launched ops")
+    "wall busy complete dropped port_records port_launches per_launch top launched ops "
+    "records")
 
 
 def profile_device(step, n=10):
@@ -309,7 +330,9 @@ def profile_device(step, n=10):
     - ``top``: the six longest kernel names' kept ms per call;
     - ``ops``: the kept device records (kernels, fills, copies) per call;
     - ``dropped``: (name, count, kept ms per call) of each name whose count
-      is not a multiple of n."""
+      is not a multiple of n;
+    - ``records``: each device name's (kept records per call, mean record
+      ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -340,7 +363,9 @@ def profile_device(step, n=10):
     top = sorted(kept.items(), key=lambda kv: -kv[1])[:6]
     return Profile(wall, sum(kept.values()), complete, dropped, port_records / n,
                    port_launches, per_launch, [(k[:60], t) for k, t in top], launched,
-                   sum(e.count for e in events) / n)
+                   sum(e.count for e in events) / n,
+                   {e.key: (e.count / n, e.self_device_time_total / e.count / 1e3)
+                    for e in events})
 
 
 def kernel_device_ms(prof, name):
@@ -403,13 +428,15 @@ def kernels_vs_plain(label, ndc, faces, size, gen):
     for backside in (True, False):
         ck, cp = rc.face_setup(fvp, backside), rc.face_setup_plain(fvp, backside)
         errs["face_setup"] = check_equal(f"{label} face_setup draw_backside={backside}", ck, cp)
+        # K2 from the face vertices against K1 + K7 + K8 on the same faces
+        # (against the plain fold below)
+        check_parts(f"{label} resolve_xy vs K1 + K8, draw_backside={backside}",
+                    rc.resolve_xy(fvp, backside, size, 0.1, 100.0),
+                    rc.resolve_binned_xy(ck, fvp, rc.bin_faces(ck, size), size, 0.1, 100.0))
     consts = rc.face_setup(fvp, True)
-    calls["face_setup"] = Call(lambda: rc.face_setup(fvp, True),
-                               lambda: rc.face_setup_plain(fvp, True),
-                               bound(104 * nf, 30 * nf))
 
-    ik, dk, xk = rc.resolve_xy(consts, fvp, size, 0.1, 100.0)
-    ip, dp, xp = rc.resolve_xy_plain(consts, fvp, size, 0.1, 100.0)
+    ik, dk, xk = rc.resolve_xy(fvp, True, size, 0.1, 100.0)
+    ip, dp, xp = rc.resolve_xy_plain(fvp, True, size, 0.1, 100.0)
     diff = ik != ip
     if diff.any():
         gap = float((dk - dp).abs()[diff].max())
@@ -421,9 +448,9 @@ def kernels_vs_plain(label, ndc, faces, size, gen):
     errs["resolve_xy"] = 0.0
     coverage = float((ik >= 0).float().mean())
     calls["resolve_xy"] = Call(
-        lambda: rc.resolve_xy(consts, fvp, size, 0.1, 100.0),
-        lambda: rc.resolve_xy_plain(consts, fvp, size, 0.1, 100.0),
-        resolve_bound(consts, size, 8, 24),
+        lambda: rc.resolve_xy(fvp, True, size, 0.1, 100.0),
+        lambda: rc.resolve_xy_plain(fvp, True, size, 0.1, 100.0),
+        resolve_bound(consts, size, 8, 36),
     )
 
     errs["scatter_pixels_to_faces"], calls["scatter_pixels_to_faces"] = scatter_check(
@@ -474,7 +501,8 @@ def check_parts(label, got, want, parts=("index", "depth", "coords", "attrs")):
 
 
 def binned_kernels(label, fvp, consts, attrs, size, gen):
-    """K1 against its plain version on the path's faces; K7 against its
+    """K1 against its plain version on the path's faces (``consts``); K7
+    against its
     plain version on the whole canvas and on the row window S/2 .. S/2 +
     S/4; each K8 form against the tiled form (K2, K2L, K2D) there, and
     against its own plain version (the bin-by-bin fold, one call) on the
@@ -498,15 +526,15 @@ def binned_kernels(label, fvp, consts, attrs, size, gen):
     forms = {   # name -> (binned form on bins b, tiled form, plain binned form)
         "resolve_binned_xy": (
             lambda b, *w: rc.resolve_binned_xy(consts, fvp, b, S, 0.1, 100.0, *w),
-            lambda *w: rc.resolve_xy(consts, fvp, S, 0.1, 100.0, *w),
+            lambda *w: rc.resolve_xy(fvp, True, S, 0.1, 100.0, *w),
             lambda: rc.resolve_binned_xy_plain(consts, fvp, bins, S, 0.1, 100.0)),
         "resolve_binned_latch": (
             lambda b, *w: rc.resolve_binned_latch(consts, fvp, attrs, b, S, 0.1, 100.0, *w),
-            lambda *w: rc.resolve_latch(consts, fvp, attrs, S, 0.1, 100.0, *w),
+            lambda *w: rc.resolve_latch(fvp, attrs, True, S, 0.1, 100.0, *w),
             lambda: rc.resolve_binned_latch_plain(consts, fvp, attrs, bins, S, 0.1, 100.0)),
         "resolve_binned_depth": (
             lambda b, *w: rc.resolve_binned_depth(consts, b, S, 0.1, 100.0, *w),
-            lambda *w: rc.resolve_depth(consts, S, 0.1, 100.0, *w),
+            lambda *w: rc.resolve_depth(fvp, True, S, 0.1, 100.0, *w),
             lambda: rc.resolve_binned_depth_plain(consts, bins, S, 0.1, 100.0)),
     }
     plain_ms = {}
@@ -527,18 +555,23 @@ def binned_kernels(label, fvp, consts, attrs, size, gen):
         f"{json.dumps(plain_ms)}")
     tiled_forms = {"resolve_binned_xy": "resolve_xy", "resolve_binned_latch": "resolve_latch",
                    "resolve_binned_depth": "resolve_depth"}
-    shape = {"resolve_binned_xy": (8, 24), "resolve_binned_latch": (11 + A, 36 + 4 * A),
-             "resolve_binned_depth": (2, 0)}
+    # (output planes, per-face input bytes of the binned form, of the tiled one)
+    shape = {"resolve_binned_xy": (8, 68 + 24, 36),
+             "resolve_binned_latch": (11 + A, 68 + 36 + 4 * A, 36 + 4 * A),
+             "resolve_binned_depth": (2, 68, 36)}
     errs = {}
     errs["scatter_pixels_to_faces"], k3 = scatter_check(label, index, nf, 9 + A if A else 6, gen)
     calls = {"scatter_pixels_to_faces": k3,
+             "face_setup": Call(lambda: rc.face_setup(fvp, True),
+                                lambda: rc.face_setup_plain(fvp, True), bound(104 * nf, 30 * nf)),
              "bin_faces": Call(lambda: rc.bin_faces(consts, S),
                                lambda: rc.bin_faces_plain(consts, S),
                                bound(16 * nf + bin_bytes, 0))}
     for name, (binned, tiled, _) in forms.items():
+        planes, binned_bytes, tiled_bytes = shape[name]
         calls[name] = Call(lambda binned=binned: binned(bins), plain_ms[name],
-                           resolve_bound(consts, S, *shape[name], bin_bytes))
-        calls[tiled_forms[name]] = Call(tiled, None, resolve_bound(consts, S, *shape[name]))
+                           resolve_bound(consts, S, planes, binned_bytes, bin_bytes))
+        calls[tiled_forms[name]] = Call(tiled, None, resolve_bound(consts, S, planes, tiled_bytes))
     log(f"[{label}] K1 bit-equal to plain, K3 over D={9 + A if A else 6} max abs err "
         f"{errs['scatter_pixels_to_faces']}")
     return errs, calls
@@ -553,9 +586,9 @@ def binned_vs_plain_resolve(label, ndc, faces, size, gen):
     attrs = torch.randn((1, faces.shape[0], 6), generator=gen, device=ndc.device)
     for window in ((), (size // 2, size // 4)):
         args = (size, 0.1, 100.0, *window)
-        want_xy = rc.resolve_xy_plain(consts, fvp, *args)
-        want_latch = rc.resolve_latch_plain(consts, fvp, attrs, *args)
-        want = rc.resolve_depth_plain(consts, *args)
+        want_xy = rc.resolve_xy_plain(fvp, True, *args)
+        want_latch = rc.resolve_latch_plain(fvp, attrs, True, *args)
+        want = rc.resolve_depth_plain(fvp, True, *args)
         bins = rc.bin_faces(consts, size, *window)
         check_parts(f"{label} resolve_binned_xy vs plain {window}",
                     rc.resolve_binned_xy(consts, fvp, bins, *args), want_xy)
@@ -564,19 +597,20 @@ def binned_vs_plain_resolve(label, ndc, faces, size, gen):
         check_parts(f"{label} resolve_binned_depth vs plain {window}",
                     rc.resolve_binned_depth(consts, bins, *args), want)
         check_parts(f"{label} resolve_depth vs plain {window}",
-                    rc.resolve_depth(consts, *args), want)
+                    rc.resolve_depth(fvp, True, *args), want)
     log(f"[{label}] every K8 form and K2D bit-equal to the plain resolve at "
         f"{size}^2, whole canvas and rows {size // 2}..{size // 2 + size // 4 - 1}")
-    return {"resolve_depth": Call(lambda: rc.resolve_depth(consts, size, 0.1, 100.0),
-                                  lambda: rc.resolve_depth_plain(consts, size, 0.1, 100.0),
-                                  resolve_bound(consts, size, 2, 0))}
+    return {"resolve_depth": Call(lambda: rc.resolve_depth(fvp, True, size, 0.1, 100.0),
+                                  lambda: rc.resolve_depth_plain(fvp, True, size, 0.1, 100.0),
+                                  resolve_bound(consts, size, 2, 36))}
 
 
 def routes_agree(label, step, fim, resolve, shape, smi):
     """One step (``step()`` -> (images, {name: gradient})) and the index
     map (``fim()``) through each route: images and index maps equal,
     gradients within SCATTER_RTOL of their largest magnitude.  Times the
-    resolve (``resolve(route)``: K1 and the route's kernels) on each route.
+    resolve (``resolve(route)``: the tiled form alone, or K1, K7 and K8) on
+    each route.
     Returns ({route: ms}, the rule's route)."""
     out = {}
     for route in rc.ROUTES:
@@ -758,10 +792,10 @@ def textured_kernels_vs_plain(cfg, gen):
                                   bound(12 * nv + 12 * nf + 36 * nf, 0),
                                   lambda: ndc[:, faces_long])
 
-    got = rc.resolve_latch(consts, fvp, attrs, S, 0.1, 100.0)
+    got = rc.resolve_latch(fvp, attrs, True, S, 0.1, 100.0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want = rc.resolve_latch_plain(consts, fvp, attrs, S, 0.1, 100.0)
+    want = rc.resolve_latch_plain(fvp, attrs, True, S, 0.1, 100.0)
     torch.cuda.synchronize()
     plain_resolve_ms = (time.perf_counter() - t0) * 1e3
     for part, g, w in zip(("index", "depth", "coords", "attrs"), got, want):
@@ -769,8 +803,8 @@ def textured_kernels_vs_plain(cfg, gen):
     errs["resolve_latch"] = 0.0
     index, _, coords, attr_planes = got
     calls["resolve_latch"] = Call(
-        lambda: rc.resolve_latch(consts, fvp, attrs, S, 0.1, 100.0),
-        lambda: rc.resolve_latch_plain(consts, fvp, attrs, S, 0.1, 100.0),
+        lambda: rc.resolve_latch(fvp, attrs, True, S, 0.1, 100.0),
+        lambda: rc.resolve_latch_plain(fvp, attrs, True, S, 0.1, 100.0),
         resolve_bound(consts, S, 11 + A, 36 + 4 * A),
     )
 
@@ -1032,16 +1066,19 @@ def sharded_rank(names):
         if face > 1:
             route = rc.resolve_route(fv.shape[0], rows, case.size, per)
             depth_form = "resolve_binned_depth" if route == "binned" else "resolve_depth"
-            path = ("face_setup", depth_form, "gather_rows", "gather_faces3",
-                    "scatter_pixels_to_faces", "scatter_faces_to_vertices")
+            path = (depth_form, "gather_rows", "gather_faces3", "scatter_pixels_to_faces",
+                    "scatter_faces_to_vertices")
             ok = launches["gather_rows"] == 1 and launches[depth_form] == 1 and not any(
                 launches[k] for k in LATCH_FORMS)
         else:
             route = rc.resolve_route(fv.shape[0], rows, case.size, fv.shape[1])
             latch = "resolve_xy" if case.entry == "silhouettes" else "resolve_latch"
-            path = ("face_setup", latch if route == "tiled" else "resolve_binned_" + latch[8:],
+            path = (latch if route == "tiled" else "resolve_binned_" + latch[8:],
                     "gather_faces3", "scatter_pixels_to_faces", "scatter_faces_to_vertices")
             ok = launches["gather_rows"] == 0
+        if route == "binned":
+            path += ("face_setup", "bin_faces")
+        check_k1(label, launches)
         if not ok or not all(launches[k] > 0 for k in path):
             raise AssertionError(f"{label}: the step missed a kernel of its path: {launches}")
         ms, coll_ms = [], []
@@ -1463,6 +1500,150 @@ def redesigned_kernels(binned, gathers, smi):
     return rows
 
 
+def parent_designs():
+    """K3 and the tiled resolve forms as the port's parent had them
+    (``tools/resolve_scatter_parents.cu``): ``scatter(g, fim, nf)``, with
+    the parent wrapper's ``torch.zeros`` of the output, and
+    ``resolve(form, consts, fvp, attrs, S)``, the parent's K2, K2L or K2D
+    over K1's constants ``consts`` on the whole canvas."""
+    lib = tool_library("resolve_scatter_parents")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    k3 = typed_entry(lib, "parent_scatter_pixels_to_faces", (P, P, P, I, I, I, I))
+    entries = {"resolve_xy": typed_entry(lib, "parent_resolve_xy", (P,) * 5 + (I,) * 5 + (F, F)),
+               "resolve_latch": typed_entry(lib, "parent_resolve_latch",
+                                            (P,) * 7 + (I,) * 6 + (F, F)),
+               "resolve_depth": typed_entry(lib, "parent_resolve_depth",
+                                            (P,) * 3 + (I,) * 5 + (F, F))}
+
+    def scatter(g, fim, nf):
+        bs, D = g.shape[:2]
+        out = torch.zeros((bs, D, nf), dtype=torch.float32, device=g.device)
+        k3(g.data_ptr(), fim.data_ptr(), out.data_ptr(), bs, D, fim[0].numel(), nf)
+        return out
+
+    def resolve(form, consts, fvp, attrs, S):
+        bs, nf = fvp.shape[0], fvp.shape[-1]
+        out = [torch.empty((bs, S, S), dtype=torch.int32, device=fvp.device),
+               fvp.new_empty((bs, S, S))]
+        if form == "resolve_xy":
+            out.append(fvp.new_empty((bs, 6, S, S)))
+        elif form == "resolve_latch":
+            out += [fvp.new_empty((bs, 9, S, S)), fvp.new_empty((bs, attrs.shape[-1], S, S))]
+        inputs = {"resolve_xy": (consts, fvp), "resolve_latch": (consts, fvp, attrs),
+                  "resolve_depth": (consts,)}[form]
+        sizes = (bs, nf, attrs.shape[-1], S) if form == "resolve_latch" else (bs, nf, S)
+        entries[form](*(t.data_ptr() for t in (*inputs, *out)), *sizes, 0, S, 0.1, 100.0)
+        return tuple(out)
+
+    return scatter, resolve
+
+
+def design_row(calls, bound_):
+    """The designs of one function in turns: ``calls`` maps a design's name
+    to a call, the shipped one first; event medians in the order given and
+    back (a, b, c, c, b, a); under the profiler (:func:`profile_kept`),
+    each design's device operations per call and its device ms per call,
+    each record name's mean record times its records per call rounded (at
+    least 1), so that a dropped record does not count as time saved; and
+    the bound ``bound_`` = (ms, what bounds it)."""
+    names = list(calls)
+    turns = {name: [] for name in names}
+    for name in names + names[::-1]:
+        turns[name].append(median_ms(calls[name], 50))
+    profs = {name: profile_kept(calls[name]) for name in names}
+    return dict(ms={n: float(np.mean(t)) for n, t in turns.items()}, ms_turns=turns,
+                device_ms={n: sum(ms * max(1, round(per_call))
+                                  for per_call, ms in p.records.values())
+                           for n, p in profs.items()},
+                device_ops={n: p.ops for n, p in profs.items()},
+                bound_ms=bound_[0], bound_by=bound_[1])
+
+
+def log_design_row(label, name, row, checked, smi):
+    log(f"[redesign] {label} {name}: " + "; ".join(
+        f"{n} {row['ms'][n]:.4f} ms (turns {', '.join(f'{t:.4f}' for t in row['ms_turns'][n])}), "
+        f"device {row['device_ms'][n]:.5f} ms in {row['device_ops'][n]:.2f} operations"
+        for n in row["ms"]) + f"; bound {row['bound_ms']:.6f} ms by {row['bound_by']}; "
+        f"{checked}  ({smi})")
+
+
+def tile_order(t, tile_w=32, tile_h=8):
+    """``t`` [..., H, W] as [..., 1, H * W] with its pixels re-laid so that
+    each run of 256 is a ``tile_w`` x ``tile_h`` tile, row by row: K3 over
+    it groups pixels as a 32 x 8 block would (warp w on the tile's row w),
+    each warp reading the same 128 bytes, from one 1 KiB run, not 8 rows."""
+    *lead, H, W = t.shape
+    if H % tile_h or W % tile_w:
+        raise ValueError(f"{H} x {W} is not a whole number of {tile_w} x {tile_h} tiles")
+    t = t.reshape(*lead, H // tile_h, tile_h, W // tile_w, tile_w).transpose(-3, -2)
+    return t.contiguous().reshape(*lead, 1, H * W)
+
+
+def scatter_designs(cases, parent, gen, smi):
+    """K3 in turns with a 32 x 8-pixel block (maps with rows: K3 over
+    :func:`tile_order`'s re-laid map and planes, made before the timing),
+    its parent design and ``index_add_`` (background pixels into a spare
+    column), on random gradients over ``cases``: label -> (index map i32
+    [1, H, W], nf, D).  Each design within SCATTER_RTOL of the plain
+    version; the shipped one at most two device operations a call (the
+    zero fill and the kernel; the profiler may drop a record, never add
+    one).  Returns {label: row}."""
+    rows = {}
+    for label, (index, nf, D) in cases.items():
+        g = torch.randn((1, D, *index.shape[1:]), generator=gen, device=index.device)
+        calls = {"shipped": lambda g=g, index=index, nf=nf: rc.scatter_pixels_to_faces(
+            g, index, nf)}
+        if index.shape[1] > 1:
+            calls["32 x 8 tile"] = lambda g=tile_order(g), index=tile_order(index), nf=nf: \
+                rc.scatter_pixels_to_faces(g, index, nf)
+        calls["parent"] = lambda g=g, index=index, nf=nf: parent(g, index, nf)
+        want = rc.scatter_pixels_to_faces_plain(g, index, nf)
+        errs = {name: check_close(f"{label} K3 {name} D={D}", call(), want)
+                for name, call in calls.items()}
+        calls["index_add_"] = index_add_call(
+            torch.zeros((D, nf + 1), device=index.device), 1,
+            torch.where(index >= 0, index, nf).reshape(-1).long(), g.reshape(D, -1))
+        P, covered = index.numel(), int((index >= 0).sum())
+        row = design_row(calls, bound(4 * P + 4 * D * covered + 4 * D * nf, D * covered))
+        if row["device_ops"]["shipped"] > 2:
+            raise AssertionError(f"{label} K3: {row['device_ops']['shipped']} device operations")
+        row.update(D=D, nf=nf, P=P, covered=covered, max_abs_err=errs)
+        rows[label] = row
+        log_design_row(label, f"K3 D={D} (P={P}, covered {covered}, nf={nf})", row,
+                       f"max abs err vs plain {json.dumps(errs)}", smi)
+    return rows
+
+
+def tiled_designs(cases, parent, smi):
+    """The tiled forms from the face vertices in turns with the parent's K1
+    + tiled-form pair and with the parent's form alone (over constants made
+    beforehand), on ``cases``: label -> (form, fvp, face attributes, S);
+    all three bit-equal.  Returns {label: row}."""
+    rows = {}
+    for label, (form, fvp, attrs, S) in cases.items():
+        consts = rc.face_setup(fvp, True)
+        shipped = {"resolve_xy": lambda: rc.resolve_xy(fvp, True, S, 0.1, 100.0),
+                   "resolve_latch": lambda: rc.resolve_latch(fvp, attrs, True, S, 0.1, 100.0),
+                   "resolve_depth": lambda: rc.resolve_depth(fvp, True, S, 0.1, 100.0)}[form]
+        calls = {"shipped": shipped,
+                 "parent K1 + form": lambda form=form, fvp=fvp, attrs=attrs, S=S: parent(
+                     form, rc.face_setup(fvp, True), fvp, attrs, S),
+                 "parent form": lambda form=form, consts=consts, fvp=fvp, attrs=attrs, S=S:
+                     parent(form, consts, fvp, attrs, S)}
+        want = shipped()
+        for name in ("parent K1 + form", "parent form"):
+            check_parts(f"{label} {form} vs {name}", calls[name](), want)
+        A = attrs.shape[-1]
+        planes, face_bytes = {"resolve_xy": (8, 36), "resolve_latch": (11 + A, 36 + 4 * A),
+                              "resolve_depth": (2, 36)}[form]
+        row = design_row(calls, resolve_bound(consts, S, planes, face_bytes))
+        row.update(form=form, nf=fvp.shape[-1], A=A, S=S)
+        rows[label] = row
+        log_design_row(label, f"{form} nf={fvp.shape[-1]} A={A} {S}^2", row,
+                       "all three bit-equal", smi)
+    return rows
+
+
 def face_vertex_kernels(dev, gen, smi):
     """K5 and K4 at :func:`face_vertex_meshes`, batch 1 and 8
     (:func:`face_vertex_rows`): K5 bit-equal to its plain version, K4 to
@@ -1597,6 +1778,9 @@ def main():
         raise AssertionError(f"fit loss did not fall: {losses}")
     if not all(sil_launches[name] > 0 for name in SILHOUETTE_KERNELS):
         raise AssertionError(f"a kernel of the silhouette path never launched: {sil_launches}")
+    check_k1("silhouette fit", sil_launches)
+    if sil_launches["face_setup"]:
+        raise AssertionError(f"the silhouette fit took the binned route: {sil_launches}")
 
     # 6. scale: 81,920 faces at 512^2 without anti-aliasing
     iv, ifc = icosphere(6)
@@ -1675,6 +1859,9 @@ def main():
         raise AssertionError(f"textured fit loss did not fall: {losses}")
     if not all(tex_launches[name] > 0 for name in TEXTURED_KERNELS):
         raise AssertionError(f"a kernel of the textured path never launched: {tex_launches}")
+    check_k1("textured fit", tex_launches)
+    if tex_launches["face_setup"]:
+        raise AssertionError(f"the textured fit took the binned route: {tex_launches}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1794,6 +1981,7 @@ def main():
     if hires_launches["bin_faces"] != 5 or hires_launches["resolve_binned_xy"] != 5 or \
             hires_launches["resolve_xy"] != 0:
         raise AssertionError(f"the hires fit took the tiled route: {hires_launches}")
+    check_k1("hires fit", hires_launches)
 
     # 14. the hires-lit main path: one step into the vertices and the light
     # colours through Renderer.render
@@ -1812,6 +2000,7 @@ def main():
     if not all(hl_launches[name] > 0 for name in HIRES_LIT_KERNELS) or \
             hl_launches["resolve_latch"] != 0:
         raise AssertionError(f"the hires-lit step missed a kernel of its path: {hl_launches}")
+    check_k1("hires-lit step", hl_launches)
 
     # 15. the id/depth entry: compute_face_index_map at lit (the rule's tiled
     # route) and hires-lit (binned), whole and windowed, and render_depth at
@@ -1821,8 +2010,8 @@ def main():
         with torch.no_grad():
             ndc_c = cfg.renderer.transform_vertices(cfg.vertices)
             entry.append((cfg, ndc_c[:, cfg.faces.long()], cfg.fim()))
-    lit_consts = cfgs["lit"].latch_inputs()[2]
-    want_lit_depth = rc.resolve_depth_plain(lit_consts, cfgs["lit"].size, 0.1, 100.0)[1]
+    lit_fvp = cfgs["lit"].latch_inputs()[1]
+    want_lit_depth = rc.resolve_depth_plain(lit_fvp, True, cfgs["lit"].size, 0.1, 100.0)[1]
     torch.cuda.synchronize()
     rc.reset_launches()
     maps = []
@@ -1850,6 +2039,7 @@ def main():
         f"launches {json.dumps(index_launches)}")
     if not all(index_launches[name] > 0 for name in INDEX_MAP_KERNELS):
         raise AssertionError(f"the id/depth entry missed a kernel: {index_launches}")
+    check_k1("id/depth entry", index_launches)
 
     # 16. sharded rendering (parallel/) on ranks that share this card
     _, sharded_launches = sharded_runs(dev, smi)
@@ -1937,6 +2127,28 @@ def main():
         redesigned = redesigned_kernels(
             binned, {"scale": scale_calls["gather_rows"],
                      "textured-scale": tex_calls["textured-scale"]["gather_rows"]}, smi)
+        # K3 and the tiled resolve forms, in turns with the parent designs
+        parent_scatter, parent_resolve = parent_designs()
+        ts = cfgs["textured-scale"]
+        redesigned["scatter_pixels_to_faces"] = scatter_designs({
+            "bench": (index_map(renderer, torus_v, faces, False), faces.shape[0], 6),
+            "atlas": (cfgs["atlas"].fim(), cfgs["atlas"].faces.shape[0], 15),
+            "lit": (cfgs["lit"].fim(), cfgs["lit"].faces.shape[0], 36),
+            # K9's transpose on the face-sharded path: one row of P pixels
+            "textured-scale K9 transpose": (ts.fim().reshape(1, 1, -1).contiguous(),
+                                            ts.faces.shape[0], 27),
+        }, parent_scatter, gen, smi)
+        bench_fvp = rc.gather_faces3(ndc.detach().contiguous(), faces)
+        no_attrs = bench_fvp.new_empty((1, faces.shape[0], 0))
+        redesigned["tiled_resolve"] = tiled_designs({
+            "bench": ("resolve_xy", bench_fvp, no_attrs, 512),
+            "atlas": ("resolve_latch", *cfgs["atlas"].latch_inputs()[1::2], cfgs["atlas"].size),
+            "lit": ("resolve_latch", *cfgs["lit"].latch_inputs()[1::2], cfgs["lit"].size),
+            "bench id/depth": ("resolve_depth", bench_fvp, no_attrs, 512),
+            # 81,920 faces: the face stream through every tile dominates
+            "scale": ("resolve_xy", rc.gather_faces3(ndc6.detach().contiguous(), faces6),
+                      ndc6.new_empty((1, faces6.shape[0], 0)), 512),
+        }, parent_resolve, smi)
     log("[redesign] " + json.dumps(redesigned))
 
     log("[routes] resolve ms (tiled, binned) and the rule's route: " + json.dumps(

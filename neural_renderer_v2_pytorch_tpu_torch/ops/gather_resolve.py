@@ -89,13 +89,16 @@ def gather_winner_planes(per_face, index):
     return planes.reshape(bs, D, *index.shape[1:])
 
 
-def _route_bins(consts, image_size, row_start, num_rows, mode):
-    """K7's bins where the route of this resolve is binned, else None."""
-    bs, nf = consts.shape[0], consts.shape[-1]
+def _binned_inputs(fvp, draw_backside, image_size, row_start, num_rows, mode):
+    """(K1's constants, K7's bins) where the route of this resolve is
+    binned, else None: the route is decided from the shapes before any
+    constants exist, and the tiled forms compute their own."""
+    bs, nf = fvp.shape[0], fvp.shape[-1]
     rows = image_size if num_rows is None else num_rows
     if resolve_route(bs, rows, image_size, nf, mode) != "binned":
         return None
-    return bin_faces(consts, image_size, row_start, num_rows)
+    consts = face_setup(fvp, draw_backside)
+    return consts, bin_faces(consts, image_size, row_start, num_rows)
 
 
 class _ResolveAndGather(torch.autograd.Function):
@@ -106,22 +109,23 @@ class _ResolveAndGather(torch.autograd.Function):
             raise ValueError("attribute planes need latch_z=True")
         fvp = face_vertices.detach().contiguous()
         bs, nf = fvp.shape[0], fvp.shape[-1]
-        consts = face_setup(fvp, draw_backside)
         args = (image_size, near, far, row_start, num_rows)
-        bins = _route_bins(consts, image_size, row_start, num_rows, mode)
+        binned = _binned_inputs(fvp, draw_backside, image_size, row_start, num_rows, mode)
         if latch_z:
             attrs = (fvp.new_empty((bs, nf, 0)) if face_attrs is None
                      else face_attrs.detach().contiguous())
-            if bins:
+            if binned:
+                consts, bins = binned
                 index, _, fvm, attr_planes = resolve_binned_latch(consts, fvp, attrs, bins,
                                                                   *args)
             else:
-                index, _, fvm, attr_planes = resolve_latch(consts, fvp, attrs, *args)
+                index, _, fvm, attr_planes = resolve_latch(fvp, attrs, draw_backside, *args)
         else:
-            if bins:
+            if binned:
+                consts, bins = binned
                 index, _, coords = resolve_binned_xy(consts, fvp, bins, *args)
             else:
-                index, _, coords = resolve_xy(consts, fvp, *args)
+                index, _, coords = resolve_xy(fvp, draw_backside, *args)
             # 9-plane layout with zero z planes: silhouettes never read z
             z = torch.zeros_like(coords[:, :1])
             fvm = torch.cat(
@@ -167,10 +171,11 @@ def resolve_and_gather(face_vertices, image_size, near, far, draw_backside,
     ``latch_z=False`` latches the winner's XY coordinates only (the
     silhouette path); ``latch_z=True`` its nine coordinates and the
     per-face attributes ``face_attrs`` [bs, nf, A] (the RGB and depth
-    paths).  Kernel K1, then the route ``resolve_cuda.resolve_route`` picks
-    (``mode`` "auto", or forced "tiled" / "binned"; both give the same
-    bits): K2 or K2L, or K7 and K8's ``resolve_binned_xy`` or
-    ``resolve_binned_latch`` (over 8x8 tiles, ``resolve_cuda.BIN_TILE``).
+    paths).  The route ``resolve_cuda.resolve_route`` picks (``mode``
+    "auto", or forced "tiled" / "binned"; both give the same bits): K2 or
+    K2L, which compute the face constants themselves, or K1, K7 and K8's
+    ``resolve_binned_xy`` or ``resolve_binned_latch`` (over 8x8 tiles,
+    ``resolve_cuda.BIN_TILE``).
 
     Returns (face_index_map i32 [bs, rows, S], -1 on background and not
     differentiable; fvm_planar f32 [bs, 9, rows, S], the winner's vertex
@@ -195,17 +200,16 @@ def compute_face_index_map(faces, image_size, near=0.1, far=100.0, draw_backside
     when ``return_depth``, depth ``far`` on background.  Non-differentiable
     (integer output).
 
-    Kernel K1, then the id/depth form of the route ``resolve_route`` picks
-    (``mode`` as in :func:`resolve_and_gather`): K2D, or K7 and K8's
+    The id/depth form of the route ``resolve_route`` picks (``mode`` as in
+    :func:`resolve_and_gather`): K2D, or K1, K7 and K8's
     ``resolve_binned_depth``.  The JAX signature's ``face_chunk`` tuning
     knob has no counterpart, so the arguments after ``draw_backside`` are
     keyword-only."""
     fvp = faces.detach().permute(0, 3, 2, 1).contiguous()
-    consts = face_setup(fvp, draw_backside)
     args = (image_size, near, far, row_start, num_rows)
-    bins = _route_bins(consts, image_size, row_start, num_rows, mode)
-    if bins:
-        index, depth = resolve_binned_depth(consts, bins, *args)
+    binned = _binned_inputs(fvp, draw_backside, image_size, row_start, num_rows, mode)
+    if binned:
+        index, depth = resolve_binned_depth(*binned, *args)
     else:
-        index, depth = resolve_depth(consts, *args)
+        index, depth = resolve_depth(fvp, draw_backside, *args)
     return (index, depth) if return_depth else index

@@ -3,9 +3,9 @@
 
   1. supersample 2x when anti-aliasing
   2. planar face vertices = vertices[:, faces]      (K5; K4 backward)
-  3. z-buffer resolve with winner latch             (K1 + K2 for silhouettes,
-                                                     K1 + K2L for RGB/depth;
-                                                     K3 backward; or K7 + K8)
+  3. z-buffer resolve with winner latch             (K2 for silhouettes, K2L
+                                                     for RGB/depth; K3
+                                                     backward; or K1 + K7 + K8)
      or, faces sharded across ranks, the id/depth
      resolve, the ordered fold, the winner gather    (K9; K3 backward)
   4. stopped barycentric weights, coordinate map

@@ -2,11 +2,14 @@
 plain PyTorch version (counterpart of ``neural_renderer_v2_pytorch_tpu/ops/
 resolve_pallas.py``).
 
-  K1 ``face_setup``                 per-face constants + kill rule
+  K1 ``face_setup``                 per-face constants + kill rule (the
+                                    binned route's; the tiled forms compute
+                                    them while staging faces)
   K2 ``resolve_xy``                 z-buffer resolve with XY latch
   K2L ``resolve_latch``             z-buffer resolve with XYZ + attribute latch
   K2D ``resolve_depth``             z-buffer resolve, id and depth only
-  K3 ``scatter_pixels_to_faces``    pixel -> face gradient scatter
+  K3 ``scatter_pixels_to_faces``    pixel -> face gradient scatter, summed by
+                                    winner in each block before its atomics
   K4 ``scatter_faces_to_vertices``  face slot -> vertex gradient sum, each
                                     vertex over its own slots
                                     (:func:`vertex_slots`)
@@ -19,8 +22,10 @@ resolve_pallas.py``).
                                     face-sharded path's winner planes, to_map)
 
 The resolve has two routes that give the same bits: "tiled" (K2, K2L,
-K2D: every tile streams every face) and "binned" (K7 then K8: every tile
-streams its own bin).  :func:`resolve_route` picks one from the shapes.
+K2D, from the face vertices: every tile streams every face's coordinates
+and forms the constants of those that touch it) and "binned" (K1, K7, then
+K8: every tile streams its own bin of K1's constants).  :func:`resolve_route`
+picks one from the shapes.
 
 A wrapper runs the plain version for CPU tensors.  For CUDA tensors it
 launches the kernel on the current stream or raises; there is no fallback.
@@ -181,6 +186,13 @@ def _check(t, name, dtype, shape):
         )
 
 
+def _check_fvp(fvp):
+    """Check planar face vertices f32 [bs, 3, 3, nf]; returns (bs, nf)."""
+    bs, nf = fvp.shape[0], fvp.shape[-1]
+    _check(fvp, "fvp", torch.float32, (bs, 3, 3, nf))
+    return bs, nf
+
+
 # entry -> its loaded C function (filled by cuda_build.load()) and the
 # packer of its argument block
 _ENTRIES = cuda_build.ENTRIES
@@ -227,8 +239,7 @@ def face_setup(fvp, draw_backside):
     [bs, 17, nf] (see :func:`resolve.kill_invalid`)."""
     if not _use_kernel(fvp):
         return face_setup_plain(fvp, draw_backside)
-    bs, nf = fvp.shape[0], fvp.shape[-1]
-    _check(fvp, "fvp", torch.float32, (bs, 3, 3, nf))
+    bs, nf = _check_fvp(fvp)
     consts = torch.empty((bs, 17, nf), dtype=torch.float32, device=fvp.device)
     _launch("face_setup", fvp.get_device(), fvp.data_ptr(), consts.data_ptr(), bs, nf,
             int(draw_backside))
@@ -267,38 +278,43 @@ def _latch_copy(index, depth, fvp, face_attrs):
     return index, depth, _winner_planes(_coord_rows(fvp), index), _winner_planes(face_attrs, index)
 
 
-def resolve_xy_plain(consts, fvp, image_size, near, far, row_start=0, num_rows=None):
-    index, depth = resolve_constants(consts, image_size, near, far, row_start=row_start,
-                                     num_rows=num_rows)
+def _tiled_fold(fvp, draw_backside, image_size, near, far, row_start, num_rows):
+    """The tiled forms' plain version: K1's plain version, then the
+    sequential fold over all faces."""
+    return resolve_constants(face_setup_plain(fvp, draw_backside), image_size, near, far,
+                             row_start=row_start, num_rows=num_rows)
+
+
+def resolve_xy_plain(fvp, draw_backside, image_size, near, far, row_start=0, num_rows=None):
+    index, depth = _tiled_fold(fvp, draw_backside, image_size, near, far, row_start, num_rows)
     return _latch_xy(index, depth, fvp)
 
 
-def resolve_xy(consts, fvp, image_size, near, far, row_start=0, num_rows=None):
-    """Z-buffer resolve of killed constants [bs, 17, nf] at S = image_size,
-    over the image rows ``row_start .. row_start + num_rows`` (all S by
-    default).  Returns (index i32 [bs, rows, S] with -1 on background, depth
-    f32 [bs, rows, S] with ``far`` on background, latched coordinates f32
-    [bs, 6, rows, S] = x0,y0,x1,y1,x2,y2 of the winner, 0 on background)."""
-    if not _use_kernel(consts, fvp):
-        return resolve_xy_plain(consts, fvp, image_size, near, far, row_start, num_rows)
-    bs, nf = consts.shape[0], consts.shape[-1]
-    _check(consts, "consts", torch.float32, (bs, 17, nf))
-    _check(fvp, "fvp", torch.float32, (bs, 3, 3, nf))
+def resolve_xy(fvp, draw_backside, image_size, near, far, row_start=0, num_rows=None):
+    """Z-buffer resolve of planar face vertices f32 [bs, 3, 3, nf] at S =
+    image_size, over the image rows ``row_start .. row_start + num_rows``
+    (all S by default); degenerate faces, and backfacing ones unless
+    ``draw_backside``, are killed as K1 kills them.  Returns (index i32
+    [bs, rows, S] with -1 on background, depth f32 [bs, rows, S] with
+    ``far`` on background, latched coordinates f32 [bs, 6, rows, S] =
+    x0,y0,x1,y1,x2,y2 of the winner, 0 on background).  One launch: the
+    kernel computes each face's constants itself (no K1)."""
+    if not _use_kernel(fvp):
+        return resolve_xy_plain(fvp, draw_backside, image_size, near, far, row_start, num_rows)
+    bs, nf = _check_fvp(fvp)
     S, r0, rows = _window(image_size, row_start, num_rows)
-    dev = consts.device
-    index = torch.empty((bs, rows, S), dtype=torch.int32, device=dev)
-    depth = torch.empty((bs, rows, S), dtype=torch.float32, device=dev)
-    coords = torch.empty((bs, 6, rows, S), dtype=torch.float32, device=dev)
-    _launch("resolve_xy", dev.index, consts.data_ptr(), fvp.data_ptr(), index.data_ptr(),
-            depth.data_ptr(), coords.data_ptr(), bs, nf, S, r0, rows, float(near),
+    index = fvp.new_empty((bs, rows, S), dtype=torch.int32)
+    depth = fvp.new_empty((bs, rows, S))
+    coords = fvp.new_empty((bs, 6, rows, S))
+    _launch("resolve_xy", fvp.get_device(), fvp.data_ptr(), index.data_ptr(), depth.data_ptr(),
+            coords.data_ptr(), bs, nf, S, r0, rows, int(draw_backside), float(near),
             float(far))
     return index, depth, coords
 
 
-def resolve_latch_plain(consts, fvp, face_attrs, image_size, near, far, row_start=0,
+def resolve_latch_plain(fvp, face_attrs, draw_backside, image_size, near, far, row_start=0,
                         num_rows=None):
-    index, depth = resolve_constants(consts, image_size, near, far, row_start=row_start,
-                                     num_rows=num_rows)
+    index, depth = _tiled_fold(fvp, draw_backside, image_size, near, far, row_start, num_rows)
     return _latch_copy(index, depth, fvp, face_attrs)
 
 
@@ -335,15 +351,13 @@ def _latch_limits(device, binned=False):
     return (*(v.value for v in vals), shared_limit)
 
 
-def _check_latch(consts, fvp, face_attrs, kernel, binned=False):
+def _check_latch(fvp, face_attrs, kernel, binned=False):
     """Check the copy-form inputs and the launch limits of K2L, or K8 when
     ``binned``; returns (bs, nf, A)."""
-    bs, nf = consts.shape[0], consts.shape[-1]
+    bs, nf = _check_fvp(fvp)
     A = face_attrs.shape[-1]
-    _check(consts, "consts", torch.float32, (bs, 17, nf))
-    _check(fvp, "fvp", torch.float32, (bs, 3, 3, nf))
     _check(face_attrs, "face_attrs", torch.float32, (bs, nf, A))
-    error = latch_limit_error(A, *_latch_limits(consts.device, binned), kernel=kernel)
+    error = latch_limit_error(A, *_latch_limits(fvp.device, binned), kernel=kernel)
     if error:
         raise ValueError(error)
     return bs, nf, A
@@ -356,45 +370,41 @@ def _latch_outputs(bs, A, rows, S, device):
             torch.empty((bs, A, rows, S), dtype=torch.float32, device=device))
 
 
-def resolve_latch(consts, fvp, face_attrs, image_size, near, far, row_start=0,
+def resolve_latch(fvp, face_attrs, draw_backside, image_size, near, far, row_start=0,
                   num_rows=None):
-    """Z-buffer resolve of killed constants [bs, 17, nf] at S = image_size,
-    over the image rows ``row_start .. row_start + num_rows`` (all S by
-    default), with the winner's coordinates and attributes latched.
-    ``face_attrs`` f32 [bs, nf, A] (A may be 0).  Returns (index i32
-    [bs, rows, S], -1 on background; depth f32 [bs, rows, S], ``far`` on
-    background; coordinates f32 [bs, 9, rows, S], plane 3 * vertex + coord;
-    attributes f32 [bs, A, rows, S]; both 0 on background)."""
-    if not _use_kernel(consts, fvp, face_attrs):
-        return resolve_latch_plain(consts, fvp, face_attrs, image_size, near, far,
+    """:func:`resolve_xy` with the winner's coordinates and attributes
+    latched.  ``face_attrs`` f32 [bs, nf, A] (A may be 0).  Returns (index
+    i32 [bs, rows, S], -1 on background; depth f32 [bs, rows, S], ``far``
+    on background; coordinates f32 [bs, 9, rows, S], plane 3 * vertex +
+    coord; attributes f32 [bs, A, rows, S]; both 0 on background)."""
+    if not _use_kernel(fvp, face_attrs):
+        return resolve_latch_plain(fvp, face_attrs, draw_backside, image_size, near, far,
                                    row_start, num_rows)
-    bs, nf, A = _check_latch(consts, fvp, face_attrs, "resolve_latch")
+    bs, nf, A = _check_latch(fvp, face_attrs, "resolve_latch")
     S, r0, rows = _window(image_size, row_start, num_rows)
-    out = _latch_outputs(bs, A, rows, S, consts.device)
-    _launch("resolve_latch", consts.get_device(), consts.data_ptr(), fvp.data_ptr(),
-            face_attrs.data_ptr(), *(t.data_ptr() for t in out), bs, nf, A, S, r0, rows,
+    out = _latch_outputs(bs, A, rows, S, fvp.device)
+    _launch("resolve_latch", fvp.get_device(), fvp.data_ptr(), face_attrs.data_ptr(),
+            *(t.data_ptr() for t in out), bs, nf, A, S, r0, rows, int(draw_backside),
             float(near), float(far))
     return out
 
 
-def resolve_depth_plain(consts, image_size, near, far, row_start=0, num_rows=None):
-    return resolve_constants(consts, image_size, near, far, row_start=row_start,
-                             num_rows=num_rows)
+def resolve_depth_plain(fvp, draw_backside, image_size, near, far, row_start=0, num_rows=None):
+    return _tiled_fold(fvp, draw_backside, image_size, near, far, row_start, num_rows)
 
 
-def resolve_depth(consts, image_size, near, far, row_start=0, num_rows=None):
+def resolve_depth(fvp, draw_backside, image_size, near, far, row_start=0, num_rows=None):
     """The id/depth form of :func:`resolve_xy`: (index i32 [bs, rows, S],
     -1 on background; depth f32 [bs, rows, S], ``far`` on background)."""
-    if not _use_kernel(consts):
-        return resolve_depth_plain(consts, image_size, near, far, row_start, num_rows)
-    bs, nf = consts.shape[0], consts.shape[-1]
-    _check(consts, "consts", torch.float32, (bs, 17, nf))
+    if not _use_kernel(fvp):
+        return resolve_depth_plain(fvp, draw_backside, image_size, near, far, row_start,
+                                   num_rows)
+    bs, nf = _check_fvp(fvp)
     S, r0, rows = _window(image_size, row_start, num_rows)
-    dev = consts.device
-    index = torch.empty((bs, rows, S), dtype=torch.int32, device=dev)
-    depth = torch.empty((bs, rows, S), dtype=torch.float32, device=dev)
-    _launch("resolve_depth", dev.index, consts.data_ptr(), index.data_ptr(), depth.data_ptr(),
-            bs, nf, S, r0, rows, float(near), float(far))
+    index = fvp.new_empty((bs, rows, S), dtype=torch.int32)
+    depth = fvp.new_empty((bs, rows, S))
+    _launch("resolve_depth", fvp.get_device(), fvp.data_ptr(), index.data_ptr(),
+            depth.data_ptr(), bs, nf, S, r0, rows, int(draw_backside), float(near), float(far))
     return index, depth
 
 
@@ -404,7 +414,7 @@ def resolve_depth(consts, image_size, near, far, row_start=0, num_rows=None):
 def scatter_pixels_to_faces_plain(grad, face_index_map, num_faces):
     bs, D = grad.shape[:2]
     fim = face_index_map.reshape(bs, -1).long()
-    mask = fim >= 0
+    mask = (fim >= 0) & (fim < num_faces)
     ids = (fim + num_faces * torch.arange(bs, device=fim.device)[:, None])[mask]
     g = grad.reshape(bs, D, -1).permute(1, 0, 2)[:, mask]          # [D, n]
     out = torch.zeros((D, bs * num_faces), dtype=grad.dtype, device=grad.device)
@@ -415,13 +425,18 @@ def scatter_pixels_to_faces_plain(grad, face_index_map, num_faces):
 def scatter_pixels_to_faces(grad, face_index_map, num_faces):
     """``out[b, d, f] = sum of grad[b, d, p] over pixels p with
     face_index_map[b, p] == f``: grad f32 [bs, D, H, W], face_index_map i32
-    [bs, H, W] (-1 adds nothing) -> f32 [bs, D, num_faces]."""
+    [bs, H, W] (ids outside [0, num_faces) add nothing) -> f32
+    [bs, D, num_faces].
+
+    On the card one call is two device operations, the output's zero fill
+    and the kernel, which sums each block's pixels by winner before one
+    atomic per (face, plane); a block is a run of 256 pixels."""
     if not _use_kernel(grad, face_index_map):
         return scatter_pixels_to_faces_plain(grad, face_index_map, num_faces)
     bs, D, H, W = grad.shape
     _check(grad, "grad", torch.float32, (bs, D, H, W))
     _check(face_index_map, "face_index_map", torch.int32, (bs, H, W))
-    out = torch.zeros((bs, D, num_faces), dtype=torch.float32, device=grad.device)
+    out = grad.new_empty((bs, D, num_faces))
     _launch("scatter_pixels_to_faces", grad.get_device(), grad.data_ptr(),
             face_index_map.data_ptr(), out.data_ptr(), bs, D, H * W, num_faces)
     return out
@@ -742,14 +757,14 @@ def resolve_binned_xy_plain(consts, fvp, bins, image_size, near, far, row_start=
 
 
 def resolve_binned_xy(consts, fvp, bins, image_size, near, far, row_start=0, num_rows=None):
-    """:func:`resolve_xy` over the per-tile bins of :func:`bin_faces` (made
-    for the same window); the same outputs, bit for bit."""
+    """:func:`resolve_xy` over K1's constants of its faces (:func:`face_setup`)
+    and their per-tile bins (:func:`bin_faces`, made for the same window);
+    the same outputs, bit for bit."""
     if not _use_kernel(consts, fvp, *bins):
         return resolve_binned_xy_plain(consts, fvp, bins, image_size, near, far,
                                        row_start, num_rows)
-    bs, nf = consts.shape[0], consts.shape[-1]
+    bs, nf = _check_fvp(fvp)
     _check(consts, "consts", torch.float32, (bs, 17, nf))
-    _check(fvp, "fvp", torch.float32, (bs, 3, 3, nf))
     S, r0, rows = _window(image_size, row_start, num_rows)
     bin_ptrs = _check_bins(bins, bs, rows, S)
     dev = consts.device
@@ -770,14 +785,15 @@ def resolve_binned_latch_plain(consts, fvp, face_attrs, bins, image_size, near, 
 
 def resolve_binned_latch(consts, fvp, face_attrs, bins, image_size, near, far, row_start=0,
                          num_rows=None):
-    """:func:`resolve_latch` over the per-tile bins of :func:`bin_faces`;
-    the same outputs, bit for bit."""
+    """:func:`resolve_latch` over K1's constants and their per-tile bins
+    (:func:`bin_faces`); the same outputs, bit for bit."""
     if not _use_kernel(consts, fvp, face_attrs, *bins):
         return resolve_binned_latch_plain(consts, fvp, face_attrs, bins, image_size, near,
                                           far, row_start, num_rows)
     S, r0, rows = _window(image_size, row_start, num_rows)
     bin_ptrs = _check_bins(bins, consts.shape[0], rows, S)
-    bs, nf, A = _check_latch(consts, fvp, face_attrs, "resolve_binned_latch", binned=True)
+    bs, nf, A = _check_latch(fvp, face_attrs, "resolve_binned_latch", binned=True)
+    _check(consts, "consts", torch.float32, (bs, 17, nf))
     out = _latch_outputs(bs, A, rows, S, consts.device)
     _launch("resolve_binned_latch", consts.get_device(), consts.data_ptr(), fvp.data_ptr(),
             face_attrs.data_ptr(), *bin_ptrs, *(t.data_ptr() for t in out), bs, nf, A, S,
@@ -791,8 +807,8 @@ def resolve_binned_depth_plain(consts, bins, image_size, near, far, row_start=0,
 
 
 def resolve_binned_depth(consts, bins, image_size, near, far, row_start=0, num_rows=None):
-    """:func:`resolve_depth` over the per-tile bins of :func:`bin_faces`;
-    the same outputs, bit for bit."""
+    """:func:`resolve_depth` over K1's constants and their per-tile bins
+    (:func:`bin_faces`); the same outputs, bit for bit."""
     if not _use_kernel(consts, *bins):
         return resolve_binned_depth_plain(consts, bins, image_size, near, far, row_start,
                                           num_rows)

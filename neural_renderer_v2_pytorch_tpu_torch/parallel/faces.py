@@ -48,8 +48,8 @@ def compute_face_index_map_face_sharded(face_vertices, image_size, near=0.1, far
 
     Every rank passes the same full face set [bs, nf, 3, 3] (NDC) and
     resolves its contiguous range of ``ceil(nf / n)`` faces, the last range
-    padded with zero faces (degenerate, so kernel K1 kills them) as the JAX
-    package pads, through :func:`compute_face_index_map` (K1, then K2D or K7
+    padded with zero faces (degenerate, so the kill rule drops them) as the
+    JAX package pads, through :func:`compute_face_index_map` (K2D, or K1, K7
     and K8's id/depth form).  The ranks' maps are all-gathered and folded
     with :func:`ordered_z_combine`.  Returns the combined int32 map
     [bs, num_rows, S] of global face ids, the same on every rank, and with

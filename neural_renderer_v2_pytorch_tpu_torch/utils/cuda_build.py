@@ -44,9 +44,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nr_torch_kernels"
 # the entry rounds to float as a C call's float argument would be)
 SIGNATURES = {
     "face_setup": "PPiii",
-    "resolve_xy": "PPPPPiiiiiff",
-    "resolve_latch": "PPPPPPPiiiiiiff",
-    "resolve_depth": "PPPiiiiiff",
+    "resolve_xy": "PPPPiiiiiiff",
+    "resolve_latch": "PPPPPPiiiiiiiff",
+    "resolve_depth": "PPPiiiiiiff",
     "resolve_binned_xy": "PPPPPPPPiiiiiff",
     "resolve_binned_latch": "PPPPPPPPPPiiiiiiff",
     "resolve_binned_depth": "PPPPPPiiiiiff",

@@ -136,10 +136,10 @@ def test_binned_forms_at_each_tile_equal_the_tiled_forms(seed, window):
     args = (100, 0.1, 100.0, *window)
     bins = rc.bin_faces(consts, 100, *window)
     pairs = [
-        (rc.resolve_binned_xy(consts, fvp, bins, *args), rc.resolve_xy(consts, fvp, *args)),
+        (rc.resolve_binned_xy(consts, fvp, bins, *args), rc.resolve_xy(fvp, True, *args)),
         (rc.resolve_binned_latch(consts, fvp, attrs, bins, *args),
-         rc.resolve_latch(consts, fvp, attrs, *args)),
-        (rc.resolve_binned_depth(consts, bins, *args), rc.resolve_depth(consts, *args)),
+         rc.resolve_latch(fvp, attrs, True, *args)),
+        (rc.resolve_binned_depth(consts, bins, *args), rc.resolve_depth(fvp, True, *args)),
     ]
     for got, want in pairs:
         for g, w in zip(got, want):

@@ -41,13 +41,19 @@ def _soup_planar(seed, bs, nf, device):
 @pytest.mark.parametrize("draw_backside", [True, False])
 @pytest.mark.parametrize("bs,nf,size", [(2, 37, 64), (1, 300, 100), (3, 5, 17)])
 def test_face_setup_and_resolve_are_bit_exact(cuda, bs, nf, size, draw_backside):
+    """K1 and K2 (which forms K1's constants itself while staging faces)
+    against their plain versions, and K2 against K1 + K8, on a soup with a
+    duplicate, a degenerate face and backfacing ones."""
     fvp = _soup_planar(nf, bs, nf, cuda)
     consts = rc.face_setup(fvp, draw_backside)
     assert torch.equal(consts, rc.face_setup_plain(fvp, draw_backside))
-    got = rc.resolve_xy(consts, fvp, size, 0.1, 100.0)
-    want = rc.resolve_xy_plain(consts, fvp, size, 0.1, 100.0)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    rc.reset_launches()
+    got = rc.resolve_xy(fvp, draw_backside, size, 0.1, 100.0)
+    assert rc.LAUNCHES["resolve_xy"] == 1 and rc.LAUNCHES["face_setup"] == 0
+    want = rc.resolve_xy_plain(fvp, draw_backside, size, 0.1, 100.0)
+    binned = rc.resolve_binned_xy(consts, fvp, rc.bin_faces(consts, size), size, 0.1, 100.0)
+    for g, w, b in zip(got, want, binned):
+        assert torch.equal(g, w) and torch.equal(g, b)
     assert (got[0] >= 0).any()
 
 
@@ -68,6 +74,108 @@ def test_scatters_match_plain_versions(cuda):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
 
 
+def _winner_maps(bs, H, W, nf, seed):
+    """name -> an index map i32 [bs, H, W] for K3: random ids with
+    background; one face winning every pixel; a checkerboard of distinct
+    winners on background; runs of a few faces; ids outside the table."""
+    rng = np.random.RandomState(seed)
+    i, j = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    distinct = (i * W + j) % nf
+    runs = (j // 5 + 3 * (i // 4)) % nf
+    outside = rng.randint(0, nf, (bs, H, W))
+    outside.reshape(-1)[::7] = -7
+    outside.reshape(-1)[3::11] = nf
+    outside.reshape(-1)[5::13] = nf + 5
+    maps = {
+        "random": rng.randint(-1, nf, (bs, H, W)),
+        "one face": np.full((bs, H, W), nf // 2),
+        "checkerboard": np.broadcast_to(np.where((i + j) % 2 == 0, distinct, -1), (bs, H, W)),
+        "runs": np.broadcast_to(runs, (bs, H, W)),
+        "outside": outside,
+    }
+    return {k: np.ascontiguousarray(v).astype(np.int32) for k, v in maps.items()}
+
+
+@pytest.mark.parametrize("D", [6, 15, 27, 36])
+@pytest.mark.parametrize("bs,H,W,nf", [(2, 64, 64, 700), (2, 1, 5000, 3000), (1, 100, 37, 90)])
+def test_pixel_scatter_on_winner_maps(cuda, bs, H, W, nf, D):
+    """K3 against its plain version within 1e-4 of the largest magnitude on
+    every map of :func:`_winner_maps`, at the planes of the silhouette (6),
+    atlas (15), textured-scale gather (27) and lit (36) paths, and on one
+    row of P pixels (K9's transpose), where a block is a run of 256."""
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    g = torch.randn((bs, D, H, W), generator=gen, device=cuda)
+    for name, fim in _winner_maps(bs, H, W, nf, D).items():
+        f = torch.tensor(fim, device=cuda)
+        got = rc.scatter_pixels_to_faces(g, f, nf)
+        want = rc.scatter_pixels_to_faces_plain(g, f, nf)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()),
+                                   msg=name)
+
+
+def test_pixel_scatter_is_two_device_operations(cuda):
+    """One K3 call is the output's zero fill and the kernel, within 1e-4 of
+    the plain version."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    nf = 2560
+    fim = torch.tensor(_winner_maps(1, 512, 512, nf, 1)["runs"], device=cuda)
+    g = torch.randn((1, 6, 512, 512), generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda)
+    want = rc.scatter_pixels_to_faces_plain(g, fim, nf)
+    rc.scatter_pixels_to_faces(g, fim, nf)
+    torch.cuda.synchronize()
+    rc.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            got = rc.scatter_pixels_to_faces(g, fim, nf)
+        torch.cuda.synchronize()
+    assert rc.LAUNCHES["scatter_pixels_to_faces"] == 4
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+    # the profiler may drop a record, never add one
+    records = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    assert sum(records.values()) <= 8, records
+    assert all("Memset" in k or "scatter_pixels_to_faces_kernel" in k for k in records), records
+
+
+@pytest.mark.parametrize("draw_backside", [True, False])
+def test_tiled_forms_from_face_vertices_on_killed_faces(cuda, draw_backside):
+    """K2, K2L and K2D from the face vertices, on faces the kill rule drops
+    (degenerate, NaN, backfacing) beside live ones, a NaN depth and a face
+    wholly off the canvas: bit-equal to K1's plain version + the plain
+    fold, and to K1 + K7 + K8; no K1 launched."""
+    bs, nf, size = 2, 96, 48
+    fvp = _soup_planar(33, bs, nf, cuda)
+    fvp[:, :2, :, 10] = float("nan")           # NaN screen coordinates
+    fvp[:, 0, 1, 11] = float("nan")
+    fvp[:, 2, 0, 12] = float("nan")            # a NaN depth: zp NaN, rejected
+    fvp[:, :2, :, 13] += 5.0                   # off the canvas
+    fvp[:, :, 1, 14] = fvp[:, :, 0, 14]        # two vertices in one: zero area
+    attrs = torch.randn((bs, nf, 5), generator=torch.Generator(device=cuda).manual_seed(3),
+                        device=cuda)
+    consts = rc.face_setup(fvp, draw_backside)
+    bins = rc.bin_faces(consts, size)
+    args = (size, 0.1, 100.0)
+    rc.reset_launches()
+    tiled = [rc.resolve_xy(fvp, draw_backside, *args),
+             rc.resolve_latch(fvp, attrs, draw_backside, *args),
+             rc.resolve_depth(fvp, draw_backside, *args)]
+    assert rc.LAUNCHES["face_setup"] == 0
+    plain = [rc.resolve_xy_plain(fvp, draw_backside, *args),
+             rc.resolve_latch_plain(fvp, attrs, draw_backside, *args),
+             rc.resolve_depth_plain(fvp, draw_backside, *args)]
+    binned = [rc.resolve_binned_xy(consts, fvp, bins, *args),
+              rc.resolve_binned_latch(consts, fvp, attrs, bins, *args),
+              rc.resolve_binned_depth(consts, bins, *args)]
+    for t, p, b in zip(tiled, plain, binned):
+        for x, y, z in zip(t, p, b):
+            assert torch.equal(x, y) and torch.equal(x, z)
+    killed = (consts[:, 13] == 4.0) & (consts[:, 14] == -4.0)
+    assert killed[:, [10, 11, 14]].all() and (tiled[0][0] >= 0).any()
+
+
 def test_slice_on_card_matches_cpu(cuda):
     """Same NDC vertices on the card and the CPU: images equal, gradients
     within the atomics' bound, and every kernel launched."""
@@ -83,8 +191,9 @@ def test_slice_on_card_matches_cpu(cuda):
                                       nr.RasterizeHyperparam(image_size=64))
         torch.sum(im * im).backward()
         out.append((im.detach().cpu(), x.grad.cpu()))
-    silhouette = ("face_setup", "resolve_xy", "scatter_pixels_to_faces",
-                  "scatter_faces_to_vertices", "gather_faces3")
+    # the tiled route: K2 forms the face constants itself, so no K1
+    silhouette = ("resolve_xy", "scatter_pixels_to_faces", "scatter_faces_to_vertices",
+                  "gather_faces3")
     assert all(rc.LAUNCHES[n] == (1 if n in silhouette else 0) for n in rc.KERNELS), rc.LAUNCHES
     renderer = nr.Renderer("cuda")                  # no index: the current card
     renderer.render_silhouettes(torch.tensor(v[None], device=cuda), f)
@@ -99,23 +208,26 @@ def test_wrappers_reject_bad_inputs(cuda):
         rc.face_setup(fvp.double(), True)
     with pytest.raises(ValueError):
         rc.face_setup(fvp.transpose(1, 2), True)
-    consts = rc.face_setup(fvp, True)
     with pytest.raises(ValueError):
-        rc.resolve_xy(consts, fvp.cpu(), 16, 0.1, 100.0)
+        rc.resolve_xy(fvp.transpose(1, 2), True, 16, 0.1, 100.0)
+    with pytest.raises(ValueError):
+        rc.resolve_latch(fvp, torch.ones((1, 8, 3)), True, 16, 0.1, 100.0)
+    with pytest.raises(ValueError):
+        rc.scatter_pixels_to_faces(torch.ones((1, 6, 4, 4), device=cuda),
+                                   torch.zeros((1, 4, 4), dtype=torch.int64, device=cuda), 8)
 
 
 @pytest.mark.parametrize("num_attrs", [0, 6, 27])
 @pytest.mark.parametrize("bs,nf,size", [(2, 37, 64), (1, 300, 100)])
 def test_resolve_latch_is_bit_exact(cuda, bs, nf, size, num_attrs):
     fvp = _soup_planar(nf + 1, bs, nf, cuda)
-    consts = rc.face_setup(fvp, True)
     attrs = torch.randn((bs, nf, num_attrs), device=cuda)
-    got = rc.resolve_latch(consts, fvp, attrs, size, 0.1, 100.0)
-    want = rc.resolve_latch_plain(consts, fvp, attrs, size, 0.1, 100.0)
+    got = rc.resolve_latch(fvp, attrs, True, size, 0.1, 100.0)
+    want = rc.resolve_latch_plain(fvp, attrs, True, size, 0.1, 100.0)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     # its index and depth are K2's
-    xy = rc.resolve_xy(consts, fvp, size, 0.1, 100.0)
+    xy = rc.resolve_xy(fvp, True, size, 0.1, 100.0)
     assert torch.equal(got[0], xy[0]) and torch.equal(got[1], xy[1])
     assert torch.equal(got[2][:, [0, 1, 3, 4, 6, 7]], xy[2])
 
@@ -165,9 +277,10 @@ def test_textured_slice_on_card_matches_cpu(cuda, scene):
                                nr.RasterizeHyperparam(image_size=64))
         torch.sum(im * im).backward()
         out.append((im.detach().cpu(), x.grad.cpu(), t.grad.cpu()))
-    textured = ("face_setup", "resolve_latch", "scatter_pixels_to_faces",
-                "scatter_faces_to_vertices", "gather_faces3")
+    textured = ("resolve_latch", "scatter_pixels_to_faces", "scatter_faces_to_vertices",
+                "gather_faces3")
     assert all(rc.LAUNCHES[n] == 1 for n in textured), rc.LAUNCHES
+    assert rc.LAUNCHES["face_setup"] == 0 and rc.LAUNCHES["bin_faces"] == 0, rc.LAUNCHES
     assert rc.LAUNCHES["scatter_rows"] == (1 if scene == "atlas" else 0)
     torch.testing.assert_close(out[1][0], out[0][0], rtol=0, atol=1e-5)
     for i in (1, 2):
@@ -194,13 +307,13 @@ def test_bin_faces_and_binned_resolve_are_bit_exact(cuda, bs, nf, size, window):
     forms = [
         (rc.resolve_binned_xy(consts, fvp, bins, *args),
          rc.resolve_binned_xy_plain(consts, fvp, bins, *args),
-         rc.resolve_xy(consts, fvp, *args)),
+         rc.resolve_xy(fvp, True, *args)),
         (rc.resolve_binned_latch(consts, fvp, attrs, bins, *args),
          rc.resolve_binned_latch_plain(consts, fvp, attrs, bins, *args),
-         rc.resolve_latch(consts, fvp, attrs, *args)),
+         rc.resolve_latch(fvp, attrs, True, *args)),
         (rc.resolve_binned_depth(consts, bins, *args),
          rc.resolve_binned_depth_plain(consts, bins, *args),
-         rc.resolve_depth(consts, *args)),
+         rc.resolve_depth(fvp, True, *args)),
     ]
     for got, plain, tiled in forms:
         for g, p, t in zip(got, plain, tiled):
@@ -209,17 +322,19 @@ def test_bin_faces_and_binned_resolve_are_bit_exact(cuda, bs, nf, size, window):
 
 
 def test_compute_face_index_map_on_card_launches_kernels(cuda):
-    """The id/depth entry runs K1 and a resolve kernel on the card (the
-    route's), never the plain fold, and gives the CPU's result."""
+    """The id/depth entry runs the route's resolve kernel on the card (K2D
+    alone, or K1, K7 and K8), never the plain fold, and gives the CPU's
+    result."""
     rng = np.random.RandomState(5)
     fv = rng.uniform(-1, 1, (2, 40, 3, 3)).astype(np.float32)
     fv[..., 2] = np.abs(fv[..., 2]) + 0.1
     want = nr.compute_face_index_map(torch.tensor(fv), 64, return_depth=True)
-    for mode, kernel in (("auto", "resolve_depth"), ("binned", "resolve_binned_depth")):
+    for mode, kernel, k1 in (("auto", "resolve_depth", 0), ("binned", "resolve_binned_depth", 1)):
         rc.reset_launches()
         got = nr.compute_face_index_map(torch.tensor(fv, device=cuda), 64, return_depth=True,
                                         mode=mode)
-        assert rc.LAUNCHES["face_setup"] == 1 and rc.LAUNCHES[kernel] == 1, rc.LAUNCHES
+        assert rc.LAUNCHES["face_setup"] == k1 and rc.LAUNCHES[kernel] == 1, rc.LAUNCHES
+        assert rc.LAUNCHES["bin_faces"] == k1, rc.LAUNCHES
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
 

@@ -85,9 +85,8 @@ def test_resolve_xy_plain_matches_jax_pallas_latch(draw_backside):
             jnp.asarray(fv), size, draw_backside=draw_backside, return_depth=True
         )
     t = torch.tensor(fvp)
-    got_index, got_depth, got_coords = resolve_cuda.resolve_xy(
-        resolve_cuda.face_setup(t, draw_backside), t, size, 0.1, 100.0
-    )
+    got_index, got_depth, got_coords = resolve_cuda.resolve_xy(t, draw_backside, size, 0.1,
+                                                               100.0)
     np.testing.assert_array_equal(got_index.numpy(), np.asarray(index))
     np.testing.assert_array_equal(got_coords.numpy(), np.asarray(coords))
     np.testing.assert_array_equal(got_depth.numpy(), np.asarray(want_depth))

@@ -52,7 +52,7 @@ def test_resolve_latch_plain_is_bit_equal_to_pallas(num_attrs, draw_backside):
     )
     t = torch.tensor(fvp)
     got_index, _, got_coords, got_attrs = rc.resolve_latch(
-        rc.face_setup(t, draw_backside), t, torch.tensor(attrs), size, 0.1, 100.0
+        t, torch.tensor(attrs), draw_backside, size, 0.1, 100.0
     )
     np.testing.assert_array_equal(got_index.numpy(), np.asarray(index))
     np.testing.assert_array_equal(got_coords.numpy(), np.asarray(coords))
@@ -142,9 +142,9 @@ def _kernel_args():
     bins = rc.bin_faces_plain(consts, 40)
     return {
         "face_setup": ((fvp, True), {}),
-        "resolve_xy": ((consts, fvp, 16, 0.1, 100.0), {}),
-        "resolve_latch": ((consts, fvp, torch.ones(1, 9, 4), 16, 0.1, 100.0), {}),
-        "resolve_depth": ((consts, 16, 0.1, 100.0, 4, 9), {}),
+        "resolve_xy": ((fvp, True, 16, 0.1, 100.0), {}),
+        "resolve_latch": ((fvp, torch.ones(1, 9, 4), True, 16, 0.1, 100.0), {}),
+        "resolve_depth": ((fvp, False, 16, 0.1, 100.0, 4, 9), {}),
         "scatter_pixels_to_faces": ((torch.ones(1, 6, 8, 8), fim, 9), {}),
         "scatter_faces_to_vertices": ((torch.ones(1, 3, 3, 20), faces, 12), {}),
         "gather_faces3": ((torch.ones(1, 12, 3), faces), {}),

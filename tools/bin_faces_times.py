@@ -20,7 +20,7 @@ the package through its wrappers and entry points only.  Measured:
   ``torch.gather`` (``chip_smoke.turns_row``'s fields: event medians,
   device time and operations per call, bound);
 - K7 at ``scale``, ``textured-scale``, ``hires`` and ``hires-lit`` at the
-  checkout's tile: event median, device busy time and operations per call,
+  8x8 tiles: event median, device busy time and operations per call,
   its kernels' own device time;
 - the ``bench``, ``scale``, ``textured-scale``, ``hires`` and
   ``hires-lit`` steps: event median, device busy time and operations.
@@ -41,6 +41,7 @@ given.  Without CUDA the script fails.
 import argparse
 import ctypes
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -62,11 +63,14 @@ def load_chip_smoke():
     return module
 
 
-def tile_kwargs(rc, S, nf):
-    """The binned wrappers' ``tile=``: none in this checkout, whose tile is
-    fixed at 8x8; a checkout from before that (this one's parent) takes
-    the tile its shape rule ``bin_tile`` picks."""
-    return {"tile": rc.bin_tile(1, S, S, nf)} if hasattr(rc, "bin_tile") else {}
+def tiled_args(rc, consts, fvp, attrs):
+    """The one adapter to another checkout's signatures: the leading
+    arguments of the tiled forms (resolve_xy, resolve_latch,
+    resolve_depth).  This checkout's take the face vertices and
+    draw_backside; its parent's take K1's constants."""
+    if "consts" in inspect.signature(rc.resolve_xy).parameters:
+        return (consts, fvp), (consts, fvp, attrs), (consts,)
+    return (fvp, True), (fvp, attrs, True), (fvp, True)
 
 
 def tiny_calls(cs, dev):
@@ -81,27 +85,25 @@ def tiny_calls(cs, dev):
     faces = torch.tensor(cs.icosphere(0)[1], device=dev)
     fim = torch.tensor(rng.randint(-1, 9, (1, 8, 8)).astype(np.int32), device=dev)
     ids = fim.reshape(1, 64)
-    tile = tile_kwargs(rc, 16, 9)
-    bins = rc.bin_faces(consts, 16, **tile)
+    bins = rc.bin_faces(consts, 16)
     g6, g12 = torch.ones((1, 6, 8, 8), device=dev), torch.ones((1, 12, 64), device=dev)
     g9, table3 = torch.ones((1, 3, 3, 20), device=dev), torch.ones((1, 12, 3), device=dev)
     table9 = torch.ones((1, 9, 5), device=dev)
+    xy, latch, depth = tiled_args(rc, consts, fvp, attrs)
     return {
         "face_setup": lambda: rc.face_setup(fvp, True),
-        "resolve_xy": lambda: rc.resolve_xy(consts, fvp, 16, 0.1, 100.0),
-        "resolve_latch": lambda: rc.resolve_latch(consts, fvp, attrs, 16, 0.1, 100.0),
-        "resolve_depth": lambda: rc.resolve_depth(consts, 16, 0.1, 100.0),
+        "resolve_xy": lambda: rc.resolve_xy(*xy, 16, 0.1, 100.0),
+        "resolve_latch": lambda: rc.resolve_latch(*latch, 16, 0.1, 100.0),
+        "resolve_depth": lambda: rc.resolve_depth(*depth, 16, 0.1, 100.0),
         "scatter_pixels_to_faces": lambda: rc.scatter_pixels_to_faces(g6, fim, 9),
         "scatter_faces_to_vertices": lambda: rc.scatter_faces_to_vertices(g9, faces, 12),
         "gather_faces3": lambda: rc.gather_faces3(table3, faces),
         "scatter_rows": lambda: rc.scatter_rows(g12, ids, 9),
-        "bin_faces": lambda: rc.bin_faces(consts, 16, **tile),
-        "resolve_binned_xy": lambda: rc.resolve_binned_xy(consts, fvp, bins, 16, 0.1, 100.0,
-                                                          **tile),
+        "bin_faces": lambda: rc.bin_faces(consts, 16),
+        "resolve_binned_xy": lambda: rc.resolve_binned_xy(consts, fvp, bins, 16, 0.1, 100.0),
         "resolve_binned_latch": lambda: rc.resolve_binned_latch(consts, fvp, attrs, bins, 16, 0.1,
-                                                                100.0, **tile),
-        "resolve_binned_depth": lambda: rc.resolve_binned_depth(consts, bins, 16, 0.1, 100.0,
-                                                                **tile),
+                                                                100.0),
+        "resolve_binned_depth": lambda: rc.resolve_binned_depth(consts, bins, 16, 0.1, 100.0),
         "gather_rows": lambda: rc.gather_rows(table9, ids, True),
     }
 
@@ -174,14 +176,13 @@ def checkout_rows(cs, dev, gen):
         out["bin_faces"] = {}
         for label in BINNED:
             consts, S = scenes.consts(label)
-            tile = tile_kwargs(rc, S, consts.shape[-1])
 
-            def call(consts=consts, S=S, tile=tile):
-                return rc.bin_faces(consts, S, **tile)
+            def call(consts=consts, S=S):
+                return rc.bin_faces(consts, S)
 
             prof = cs.profile_kept(call)
             out["bin_faces"][label] = dict(
-                tile=list(tile["tile"] if tile else rc.BIN_TILE), ms=cs.median_ms(call, 50),
+                tile=list(rc.BIN_TILE), ms=cs.median_ms(call, 50),
                 device_ms=prof.busy,
                 device_ops=prof.ops,
                 # its kernels' mean records times the calls (two kernels in
