@@ -8,11 +8,11 @@ Builds the hand-written kernels from ``neural_renderer_v2_pytorch_tpu_torch
 /csrc`` (one nvcc per source, in parallel) and then, for each path:
 
 - silhouettes: checks each kernel against its plain PyTorch version on the
-  card (K2, which forms the face constants itself, also against K1 + K7 +
-  K8 with and without backfaces), the whole forward+backward against the
+  card (K2, which forms the face constants itself, also against K7 + K8
+  with and without backfaces), the whole forward+backward against the
   plain versions and against a golden made by the JAX package, takes five
-  Adam steps of a vertex fit (launch counts read around it: the tiled
-  route launches no K1), and repeats the checks on an 81,920-face mesh;
+  Adam steps of a vertex fit (launch counts read around it: no path
+  launches K1), and repeats the checks on an 81,920-face mesh;
 - textured: checks K5, K2L, K3 and K6 against their plain versions at the
   ``atlas``, ``lit`` and ``textured-scale`` configurations, the ``atlas``
   and ``lit`` steps through ``Renderer.render`` (and depth and
@@ -20,17 +20,18 @@ Builds the hand-written kernels from ``neural_renderer_v2_pytorch_tpu_torch
   golden, and takes five Adam steps of an atlas + vertex fit (launch counts
   read around it);
 - high resolution (``hires``: 81,920 faces at 1024^2 AA, resolve at 2048^2;
-  ``hires-lit``: 158,720 faces, lit, 512^2 AA): checks K7's bins against
-  their plain version, every K8 form against K2/K2L/K2D and against its
-  plain version there, and against the plain resolve at ``bench`` and at
-  S = 100; checks K1 and K3 against their plain versions at both paths'
-  shapes; runs both resolve routes at all seven configurations (images,
+  ``hires-lit``: 158,720 faces, lit, 512^2 AA): checks K7's bins (from the
+  face vertices) against their plain version, every K8 form against
+  K2/K2L/K2D and against its plain version there, with and without
+  backfaces, and against the plain resolve at ``bench`` and at S = 100;
+  checks K1 and K3 against their plain versions at both paths' shapes;
+  runs both resolve routes at all seven configurations (images,
   index maps and gradients held against each other, each route timed, the
   rule's choice printed) and at five tori between them that sweep the
   route threshold; holds both steps against the plain versions; takes
   five Adam steps of a ``hires`` vertex fit and one ``hires-lit`` step, and
   drives ``compute_face_index_map`` and ``render_depth`` (launch counts
-  read around each: K1 once per binned resolve, ``check_k1``);
+  read around each: no K1 on any path, ``check_k1``);
 - sharded rendering (``parallel``): holds K9 ``gather_rows`` bit-equal to
   its plain version at the face-sharded path's shapes (``scale``, D = 9;
   ``textured-scale``, D = 27) in both layouts, then runs four meshes on
@@ -64,10 +65,18 @@ Builds the hand-written kernels from ``neural_renderer_v2_pytorch_tpu_torch
   (``tools/resolve_scatter_parents.cu``), its 32 x 8-pixel block and
   ``index_add_`` at ``bench`` (D = 6), ``atlas`` (15), ``lit`` (36) and
   K9's transpose at ``textured-scale`` (27), each within 1e-4 of the plain
-  version and K3 in at most two device operations; the tiled forms from
-  the face vertices in turns with the parent's K1 + K2/K2L/K2D pair and
-  the parent's form alone at ``bench`` (K2, K2D), ``atlas`` and ``lit``
-  (K2L) and ``scale`` (K2 over 81,920 faces), all bit-equal;
+  version and K3 in at most two device operations; the tiled forms (every
+  CTA loading every face, the next batch into registers) in turns with the
+  parent's forms (the same feed) and with the designs of ``TILED_DESIGNS``
+  (``tools/resolve_designs.cu``: the face stream multicast by bulk copies
+  across clusters of 1, 2, 4 and 8 CTAs, or 2 of its 9 runs) at ``bench``
+  (K2, K2D), ``atlas`` and ``lit`` (K2L) and ``scale`` (K2 over 81,920
+  faces), all bit-equal;
+  each K8 form (a CTA per bin, from the face vertices) in turns with the
+  parent's K8 alone (a CTA per bin over K1's constants), with the parent's
+  chain K1 + K7 + K8 beside K7 + K8, and with the warp-per-bin design
+  (static stride or atomic counter), at ``hires`` (XY), ``hires-lit``
+  (copy, id/depth) and on the crowded tile, all bit-equal;
 
 then times each kernel, its plain version, the one PyTorch call that
 computes the same function where there is one, and each step, with CUDA
@@ -140,21 +149,22 @@ KERNELS = {
     "resolve_binned_depth": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:858", "hires-lit"),
     "gather_rows": (f"{PKG}/csrc/gather_rows.cu", f"{TPU_KERNELS}:2277", "textured-scale"),
 }
-# the tiled route's forms compute the face constants themselves: its paths
-# launch no K1 (check_k1)
+# every resolve form computes the face constants itself, K7 each face's
+# bbox: no path launches K1 (check_k1)
 SILHOUETTE_KERNELS = ("resolve_xy", "scatter_pixels_to_faces", "scatter_faces_to_vertices",
                       "gather_faces3")
 TEXTURED_KERNELS = ("resolve_latch", "scatter_pixels_to_faces", "scatter_faces_to_vertices",
                     "gather_faces3", "scatter_rows")
-HIRES_KERNELS = ("face_setup", "bin_faces", "resolve_binned_xy", "scatter_pixels_to_faces",
+HIRES_KERNELS = ("bin_faces", "resolve_binned_xy", "scatter_pixels_to_faces",
                  "scatter_faces_to_vertices", "gather_faces3")
-HIRES_LIT_KERNELS = ("face_setup", "bin_faces", "resolve_binned_latch",
-                     "scatter_pixels_to_faces", "scatter_faces_to_vertices", "gather_faces3")
-INDEX_MAP_KERNELS = ("face_setup", "resolve_depth", "bin_faces", "resolve_binned_depth",
+HIRES_LIT_KERNELS = ("bin_faces", "resolve_binned_latch", "scatter_pixels_to_faces",
+                     "scatter_faces_to_vertices", "gather_faces3")
+INDEX_MAP_KERNELS = ("resolve_depth", "bin_faces", "resolve_binned_depth",
                      "resolve_binned_latch")
 # tori whose 512^2 silhouettes sweep the route threshold: 9,920 (the perf
-# matrix's 9K row), 19,888, 39,680 (its 39K row), 50,400 and 62,000 faces
-SWEEP_TORI = ((80, 62), (113, 88), (160, 124), (180, 140), (200, 155))
+# matrix's 9K row), 19,888, 26,000, 32,480, 39,680 (its 39K row), 50,400
+# and 62,000 faces
+SWEEP_TORI = ((80, 62), (113, 88), (130, 100), (145, 112), (160, 124), (180, 140), (200, 155))
 SCATTER_RTOL = 1e-4   # K3/K6's atomics sum in run-dependent order; the JAX backward's bound
 GOLDEN_IMAGE_ATOL = 1e-5   # CUDA's pow and the card's sums against XLA:CPU
 # name -> (scene, texture_size, lit, image_size, anti_aliasing): rows of the
@@ -198,11 +208,10 @@ def log(msg):
 
 
 def check_k1(label, launches):
-    """K1 runs once per binned resolve (with K7) and never on the tiled
-    route, whose forms compute the face constants themselves."""
-    if launches["face_setup"] != launches["bin_faces"]:
-        raise AssertionError(f"{label}: {launches['face_setup']} K1 launches for "
-                             f"{launches['bin_faces']} binned resolves: {launches}")
+    """No path launches K1: the resolve forms of both routes compute the
+    face constants themselves, and K7 each face's bbox."""
+    if launches["face_setup"]:
+        raise AssertionError(f"{label}: {launches['face_setup']} K1 launches: {launches}")
 
 
 def check_close(name, got, want, rtol=SCATTER_RTOL):
@@ -270,8 +279,8 @@ def pixel_face_tests(consts, size, row_start=0, rows=None):
 def resolve_bound(consts, size, out_planes, face_bytes, extra_bytes=0, row_start=0,
                   rows=None):
     """Bound of a resolve form: ``face_bytes`` of every face's inputs read
-    once (the binned forms: K1's 17 constants, 68 bytes, + the latched rows;
-    the tiled forms: the face vertices, 36 bytes, + 4 A of attributes),
+    once (the face vertices, 36 bytes, + 4 A of attributes; the binned
+    forms also read their bins, ``extra_bytes``),
     ``out_planes`` 4-byte planes written once, and TEST_OPS per (pixel,
     face) test of K1's constants ``consts``."""
     bs, _, nf = consts.shape
@@ -380,6 +389,14 @@ def kernel_device_ms(prof, name):
     return sum(prof.per_launch.values()) * prof.launched[name]
 
 
+def call_device_ms(prof):
+    """The device ms per call of every record a profiled call leaves (its
+    kernels, fills and copies): each record name's mean record times its
+    records per call rounded (at least 1), so that a dropped record does not
+    count as time saved."""
+    return sum(ms * max(1, round(per_call)) for per_call, ms in prof.records.values())
+
+
 def scatter_check(label, index, nf, D, gen):
     """K3 against its plain version on random gradients over ``D`` planes of
     ``index``'s shape.  Returns (max_abs_err, Call)."""
@@ -428,11 +445,11 @@ def kernels_vs_plain(label, ndc, faces, size, gen):
     for backside in (True, False):
         ck, cp = rc.face_setup(fvp, backside), rc.face_setup_plain(fvp, backside)
         errs["face_setup"] = check_equal(f"{label} face_setup draw_backside={backside}", ck, cp)
-        # K2 from the face vertices against K1 + K7 + K8 on the same faces
-        # (against the plain fold below)
-        check_parts(f"{label} resolve_xy vs K1 + K8, draw_backside={backside}",
+        # K2 against K7 + K8 on the same faces (against the plain fold below)
+        check_parts(f"{label} resolve_xy vs K7 + K8, draw_backside={backside}",
                     rc.resolve_xy(fvp, backside, size, 0.1, 100.0),
-                    rc.resolve_binned_xy(ck, fvp, rc.bin_faces(ck, size), size, 0.1, 100.0))
+                    rc.resolve_binned_xy(fvp, backside, rc.bin_faces(fvp, backside, size), size,
+                                         0.1, 100.0))
     consts = rc.face_setup(fvp, True)
 
     ik, dk, xk = rc.resolve_xy(fvp, True, size, 0.1, 100.0)
@@ -501,77 +518,84 @@ def check_parts(label, got, want, parts=("index", "depth", "coords", "attrs")):
 
 
 def binned_kernels(label, fvp, consts, attrs, size, gen):
-    """K1 against its plain version on the path's faces (``consts``); K7
-    against its
-    plain version on the whole canvas and on the row window S/2 .. S/2 +
-    S/4; each K8 form against the tiled form (K2, K2L, K2D) there, and
-    against its own plain version (the bin-by-bin fold, one call) on the
-    whole canvas; and K3 against its plain
-    version over the path's planes (D = 6 without attributes, else 9 + A)
-    of the resolved index map.  Returns ({name: max_abs_err}, {name: Call})
-    for K3, K7, the K8 forms and the tiled forms at these shapes."""
-    S, nf, A = size, consts.shape[-1], attrs.shape[-1]
+    """K1 against its plain version on the path's faces (``consts``, K1's
+    constants, feed only the bounds: no path launches K1); with and without
+    backfaces, K7 against its plain version on the whole canvas and on the
+    row window S/2 .. S/2 + S/4 and each K8 form against the tiled form
+    (K2, K2L, K2D) there; with backfaces each K8 form against its own plain
+    version (the bin-by-bin fold, one call) on the whole canvas; and K3
+    against its plain version over the path's planes (D = 6 without
+    attributes, else 9 + A) of the resolved index map.  Returns ({name:
+    max_abs_err}, {name: Call}) for K3, K7, the K8 forms and the tiled
+    forms at these shapes."""
+    S, nf, A = size, fvp.shape[-1], attrs.shape[-1]
     for backside in (True, False):
         check_equal(f"{label} face_setup draw_backside={backside}",
                     rc.face_setup(fvp, backside), rc.face_setup_plain(fvp, backside))
     if not torch.equal(consts, rc.face_setup(fvp, True)):
         raise AssertionError(f"{label}: the constants are not K1's of these faces")
     window = (S // 2, S // 4)
-    bins = rc.bin_faces(consts, S)
-    check_parts(f"{label} bin_faces", bins, rc.bin_faces_plain(consts, S),
-                ("cnt", "offsets", "ids"))
-    win_bins = rc.bin_faces(consts, S, *window)
-    check_parts(f"{label} bin_faces window {window}", win_bins,
-                rc.bin_faces_plain(consts, S, *window), ("cnt", "offsets", "ids"))
-    forms = {   # name -> (binned form on bins b, tiled form, plain binned form)
-        "resolve_binned_xy": (
-            lambda b, *w: rc.resolve_binned_xy(consts, fvp, b, S, 0.1, 100.0, *w),
-            lambda *w: rc.resolve_xy(fvp, True, S, 0.1, 100.0, *w),
-            lambda: rc.resolve_binned_xy_plain(consts, fvp, bins, S, 0.1, 100.0)),
-        "resolve_binned_latch": (
-            lambda b, *w: rc.resolve_binned_latch(consts, fvp, attrs, b, S, 0.1, 100.0, *w),
-            lambda *w: rc.resolve_latch(fvp, attrs, True, S, 0.1, 100.0, *w),
-            lambda: rc.resolve_binned_latch_plain(consts, fvp, attrs, bins, S, 0.1, 100.0)),
-        "resolve_binned_depth": (
-            lambda b, *w: rc.resolve_binned_depth(consts, b, S, 0.1, 100.0, *w),
-            lambda *w: rc.resolve_depth(fvp, True, S, 0.1, 100.0, *w),
-            lambda: rc.resolve_binned_depth_plain(consts, bins, S, 0.1, 100.0)),
-    }
     plain_ms = {}
-    for name, (binned, tiled, plain) in forms.items():
-        check_parts(f"{label} {name} vs tiled", binned(bins), tiled())
-        check_parts(f"{label} {name} vs tiled, window {window}", binned(win_bins, *window),
-                    tiled(*window))
-        want, plain_ms[name] = host_ms(plain)
-        check_parts(f"{label} {name} vs plain", binned(bins), want)
+    for backside in (False, True):
+        bins = rc.bin_faces(fvp, backside, S)
+        check_parts(f"{label} bin_faces draw_backside={backside}", bins,
+                    rc.bin_faces_plain(fvp, backside, S), ("cnt", "offsets", "ids"))
+        win_bins = rc.bin_faces(fvp, backside, S, *window)
+        check_parts(f"{label} bin_faces window {window} draw_backside={backside}", win_bins,
+                    rc.bin_faces_plain(fvp, backside, S, *window), ("cnt", "offsets", "ids"))
+        forms = {   # name -> (binned form on bins b, tiled form, plain binned form)
+            "resolve_binned_xy": (
+                lambda b, *w, d=backside: rc.resolve_binned_xy(fvp, d, b, S, 0.1, 100.0, *w),
+                lambda *w, d=backside: rc.resolve_xy(fvp, d, S, 0.1, 100.0, *w),
+                lambda: rc.resolve_binned_xy_plain(fvp, True, bins, S, 0.1, 100.0)),
+            "resolve_binned_latch": (
+                lambda b, *w, d=backside: rc.resolve_binned_latch(fvp, attrs, d, b, S, 0.1,
+                                                                  100.0, *w),
+                lambda *w, d=backside: rc.resolve_latch(fvp, attrs, d, S, 0.1, 100.0, *w),
+                lambda: rc.resolve_binned_latch_plain(fvp, attrs, True, bins, S, 0.1, 100.0)),
+            "resolve_binned_depth": (
+                lambda b, *w, d=backside: rc.resolve_binned_depth(fvp, d, b, S, 0.1, 100.0, *w),
+                lambda *w, d=backside: rc.resolve_depth(fvp, d, S, 0.1, 100.0, *w),
+                lambda: rc.resolve_binned_depth_plain(fvp, True, bins, S, 0.1, 100.0)),
+        }
+        for name, (binned, tiled, plain) in forms.items():
+            check_parts(f"{label} {name} vs tiled, draw_backside={backside}", binned(bins),
+                        tiled())
+            check_parts(f"{label} {name} vs tiled, window {window}, draw_backside={backside}",
+                        binned(win_bins, *window), tiled(*window))
+            if backside:
+                want, plain_ms[name] = host_ms(plain)
+                check_parts(f"{label} {name} vs plain", binned(bins), want)
     cnt = bins[0]
     pairs = int(cnt.sum())
     index = forms["resolve_binned_depth"][0](bins)[0]
     bin_bytes = 8 * cnt.numel() + 4 * pairs
-    log(f"[{label}] K7 bins equal to plain (canvas and window), every K8 form bit-equal to "
-        f"the tiled form and to its plain version: nf={nf} A={A} canvas={S}^2 "
+    log(f"[{label}] K7 bins from the face vertices equal to plain (canvas and window, with and "
+        f"without backfaces), every K8 form bit-equal to the tiled form (both ways) and to its "
+        f"plain version: nf={nf} A={A} canvas={S}^2 "
         f"coverage={float((index >= 0).float().mean()):.4f} pairs={pairs} "
         f"({pairs / nf:.3f} per face) max bin {int(cnt.max())}; one plain call (host ms) "
         f"{json.dumps(plain_ms)}")
     tiled_forms = {"resolve_binned_xy": "resolve_xy", "resolve_binned_latch": "resolve_latch",
                    "resolve_binned_depth": "resolve_depth"}
-    # (output planes, per-face input bytes of the binned form, of the tiled one)
-    shape = {"resolve_binned_xy": (8, 68 + 24, 36),
-             "resolve_binned_latch": (11 + A, 68 + 36 + 4 * A, 36 + 4 * A),
-             "resolve_binned_depth": (2, 68, 36)}
+    # (output planes, per-face input bytes: the face vertices, + 4 A of
+    # attributes for the copy form; each form reads them once at least)
+    shape = {"resolve_binned_xy": (8, 36), "resolve_binned_latch": (11 + A, 36 + 4 * A),
+             "resolve_binned_depth": (2, 36)}
     errs = {}
     errs["scatter_pixels_to_faces"], k3 = scatter_check(label, index, nf, 9 + A if A else 6, gen)
     calls = {"scatter_pixels_to_faces": k3,
              "face_setup": Call(lambda: rc.face_setup(fvp, True),
                                 lambda: rc.face_setup_plain(fvp, True), bound(104 * nf, 30 * nf)),
-             "bin_faces": Call(lambda: rc.bin_faces(consts, S),
-                               lambda: rc.bin_faces_plain(consts, S),
-                               bound(16 * nf + bin_bytes, 0))}
+             # the six x/y coordinates of every face, the bins written
+             "bin_faces": Call(lambda: rc.bin_faces(fvp, True, S),
+                               lambda: rc.bin_faces_plain(fvp, True, S),
+                               bound(24 * nf + bin_bytes, 0))}
     for name, (binned, tiled, _) in forms.items():
-        planes, binned_bytes, tiled_bytes = shape[name]
+        planes, face_bytes = shape[name]
         calls[name] = Call(lambda binned=binned: binned(bins), plain_ms[name],
-                           resolve_bound(consts, S, planes, binned_bytes, bin_bytes))
-        calls[tiled_forms[name]] = Call(tiled, None, resolve_bound(consts, S, planes, tiled_bytes))
+                           resolve_bound(consts, S, planes, face_bytes, bin_bytes))
+        calls[tiled_forms[name]] = Call(tiled, None, resolve_bound(consts, S, planes, face_bytes))
     log(f"[{label}] K1 bit-equal to plain, K3 over D={9 + A if A else 6} max abs err "
         f"{errs['scatter_pixels_to_faces']}")
     return errs, calls
@@ -589,13 +613,13 @@ def binned_vs_plain_resolve(label, ndc, faces, size, gen):
         want_xy = rc.resolve_xy_plain(fvp, True, *args)
         want_latch = rc.resolve_latch_plain(fvp, attrs, True, *args)
         want = rc.resolve_depth_plain(fvp, True, *args)
-        bins = rc.bin_faces(consts, size, *window)
+        bins = rc.bin_faces(fvp, True, size, *window)
         check_parts(f"{label} resolve_binned_xy vs plain {window}",
-                    rc.resolve_binned_xy(consts, fvp, bins, *args), want_xy)
+                    rc.resolve_binned_xy(fvp, True, bins, *args), want_xy)
         check_parts(f"{label} resolve_binned_latch vs plain {window}",
-                    rc.resolve_binned_latch(consts, fvp, attrs, bins, *args), want_latch)
+                    rc.resolve_binned_latch(fvp, attrs, True, bins, *args), want_latch)
         check_parts(f"{label} resolve_binned_depth vs plain {window}",
-                    rc.resolve_binned_depth(consts, bins, *args), want)
+                    rc.resolve_binned_depth(fvp, True, bins, *args), want)
         check_parts(f"{label} resolve_depth vs plain {window}",
                     rc.resolve_depth(fvp, True, *args), want)
     log(f"[{label}] every K8 form and K2D bit-equal to the plain resolve at "
@@ -609,7 +633,7 @@ def routes_agree(label, step, fim, resolve, shape, smi):
     """One step (``step()`` -> (images, {name: gradient})) and the index
     map (``fim()``) through each route: images and index maps equal,
     gradients within SCATTER_RTOL of their largest magnitude.  Times the
-    resolve (``resolve(route)``: the tiled form alone, or K1, K7 and K8) on
+    resolve (``resolve(route)``: the tiled form alone, or K7 and K8) on
     each route.
     Returns ({route: ms}, the rule's route)."""
     out = {}
@@ -1077,7 +1101,7 @@ def sharded_rank(names):
                     "gather_faces3", "scatter_pixels_to_faces", "scatter_faces_to_vertices")
             ok = launches["gather_rows"] == 0
         if route == "binned":
-            path += ("face_setup", "bin_faces")
+            path += ("bin_faces",)
         check_k1(label, launches)
         if not ok or not all(launches[k] > 0 for k in path):
             raise AssertionError(f"{label}: the step missed a kernel of its path: {launches}")
@@ -1414,9 +1438,9 @@ def parent_bin_design():
     return parent
 
 
-def crowded_consts(dev):
-    """K1's constants of ``textured-scale``'s mesh (torus(320, 248), 158,720
-    faces) seen from above in a 3-pixel disc inside one 8x8 tile of a 512^2
+def crowded_fvp(dev):
+    """The face vertices of ``textured-scale``'s mesh (torus(320, 248),
+    158,720 faces) seen from above in a 3-pixel disc inside one 8x8 tile of a 512^2
     canvas: one bin holds every face K1 keeps (~74K; it kills those whose
     projected area is below its threshold at this size), with ids spanning
     more than K7's bitmap window of 131,072, so its order pass takes the
@@ -1425,8 +1449,7 @@ def crowded_consts(dev):
     v = v / np.abs(v).max()
     c, r = (2.0 * 59.5 + 1.0 - 512) / 512, 2.0 * 3.0 / 512
     ndc = np.stack([c + r * v[:, 0], c + r * v[:, 2], 2.0 + v[:, 1]], -1).astype(np.float32)
-    fvp = torch.tensor(np.ascontiguousarray(ndc[f][None].transpose(0, 3, 2, 1)), device=dev)
-    return rc.face_setup(fvp, True)
+    return torch.tensor(np.ascontiguousarray(ndc[f][None].transpose(0, 3, 2, 1)), device=dev)
 
 
 def turns_row(kernel, yardstick, nbytes):
@@ -1447,18 +1470,20 @@ def turns_row(kernel, yardstick, nbytes):
 
 def redesigned_kernels(binned, gathers, smi):
     """K7 at the four binned configurations and on a crowded tile
-    (``binned``: label -> (consts, S)), in turns with its parent design
-    (:func:`parent_bin_design`), both held to the plain version's bins and
+    (``binned``: label -> (fvp, S)), in turns with its parent design
+    (:func:`parent_bin_design`, over K1's constants made beforehand), both
+    held to the plain version's bins and
     K7 to at most four device operations and one readback per call; and K9
     in turns with ``torch.gather`` (``gathers``: label -> its Call).
     Returns {"bin_faces": {label: row}, "gather_rows": {label: row}}."""
     parent = parent_bin_design()
     rows = {"bin_faces": {}, "gather_rows": {}}
-    for label, (consts, S) in binned.items():
-        want = rc.bin_faces_plain(consts, S)
+    for label, (fvp, S) in binned.items():
+        want = rc.bin_faces_plain(fvp, True, S)
+        consts = rc.face_setup(fvp, True)
 
-        def shipped(consts=consts, S=S):
-            return rc.bin_faces(consts, S)
+        def shipped(fvp=fvp, S=S):
+            return rc.bin_faces(fvp, True, S)
 
         def design(consts=consts, S=S):
             return parent(consts, S, 0, S)
@@ -1467,7 +1492,7 @@ def redesigned_kernels(binned, gathers, smi):
         check_parts(f"{label} bin_faces parent design", design(), want, ("cnt", "offsets", "ids"))
         check_parts(f"{label} bin_faces second call", shipped(), want, ("cnt", "offsets", "ids"))
         nf, pairs = consts.shape[-1], len(want[2])
-        row = turns_row(shipped, design, 16 * nf + 8 * want[0].numel() + 4 * pairs)
+        row = turns_row(shipped, design, 24 * nf + 8 * want[0].numel() + 4 * pairs)
         # memset, three kernels and the readback; the profiler may drop a
         # record, never add one
         if row["device_ops"] > 5:
@@ -1500,20 +1525,68 @@ def redesigned_kernels(binned, gathers, smi):
     return rows
 
 
+def resolve_outputs(form, bs, rows, S, A, dev):
+    """The outputs of a resolve form ("xy", "latch" or "depth") of ``bs``
+    images of ``rows`` x ``S`` pixels and ``A`` attribute planes."""
+    out = [torch.empty((bs, rows, S), dtype=torch.int32, device=dev),
+           torch.empty((bs, rows, S), device=dev)]
+    if form == "xy":
+        out.append(torch.empty((bs, 6, rows, S), device=dev))
+    elif form == "latch":
+        out += [torch.empty((bs, 9, rows, S), device=dev), torch.empty((bs, A, rows, S), device=dev)]
+    return out
+
+
+P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the tiled forms' designs timed against the shipped ones (each thread
+# loading its own face a batch ahead): the face stream multicast across a
+# cluster of CTAs, name -> (cluster, ring stages, runs of the nine through
+# the ring) of tools/resolve_designs.cu
+TILED_DESIGNS = {
+    "cluster of 1": (1, 5, 9),
+    "cluster of 2": (2, 5, 9),
+    "cluster of 4": (4, 5, 9),
+    "cluster of 8": (8, 5, 9),
+    "cluster of 2, 2 runs multicast, 16 stages": (2, 16, 2),
+}
+# form -> the argument types of a tiled form's entry after its leading ones:
+# the inputs and outputs' pointers, the sizes and window and draw_backside
+TILED_ARGTYPES = {"xy": (P_,) * 4 + (I_,) * 6 + (F_, F_),
+                  "latch": (P_,) * 6 + (I_,) * 7 + (F_, F_),
+                  "depth": (P_,) * 3 + (I_,) * 6 + (F_, F_)}
+
+
+def _tiled_call(entry, lead, form, fvp, attrs, S, row_start, rows, draw_backside):
+    bs, nf, A = fvp.shape[0], fvp.shape[-1], attrs.shape[-1]
+    rows = S if rows is None else rows
+    out = resolve_outputs(form, bs, rows, S, A, fvp.device)
+    inputs = (fvp, attrs) if form == "latch" else (fvp,)
+    sizes = (bs, nf, A, S) if form == "latch" else (bs, nf, S)
+    entry(*lead, *(t.data_ptr() for t in (*inputs, *out)), *sizes, row_start, rows,
+          int(draw_backside), 0.1, 100.0)
+    return tuple(out)
+
+
 def parent_designs():
-    """K3 and the tiled resolve forms as the port's parent had them
+    """K3 and the resolve forms as the port's parent had them
     (``tools/resolve_scatter_parents.cu``): ``scatter(g, fim, nf)``, with
-    the parent wrapper's ``torch.zeros`` of the output, and
-    ``resolve(form, consts, fvp, attrs, S)``, the parent's K2, K2L or K2D
-    over K1's constants ``consts`` on the whole canvas."""
+    the parent wrapper's ``torch.zeros`` of the output; ``tiled(form, fvp,
+    attrs, S, row_start=0, rows=None, draw_backside=True)``, the parent's
+    K2, K2L or K2D (form "resolve_xy", "resolve_latch" or
+    "resolve_depth"), each CTA loading every face itself; and
+    ``binned(form, consts, fvp, attrs, bins, S)``, the parent's K8 (form
+    "xy", "latch" or "depth": a 64-thread CTA per bin) over K1's constants
+    ``consts`` on the whole canvas."""
     lib = tool_library("resolve_scatter_parents")
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    k3 = typed_entry(lib, "parent_scatter_pixels_to_faces", (P, P, P, I, I, I, I))
-    entries = {"resolve_xy": typed_entry(lib, "parent_resolve_xy", (P,) * 5 + (I,) * 5 + (F, F)),
-               "resolve_latch": typed_entry(lib, "parent_resolve_latch",
-                                            (P,) * 7 + (I,) * 6 + (F, F)),
-               "resolve_depth": typed_entry(lib, "parent_resolve_depth",
-                                            (P,) * 3 + (I,) * 5 + (F, F))}
+    k3 = typed_entry(lib, "parent_scatter_pixels_to_faces", (P_, P_, P_, I_, I_, I_, I_))
+    tiled_entries = {form: typed_entry(lib, f"parent_resolve_{form}", types)
+                     for form, types in TILED_ARGTYPES.items()}
+    binned_entries = {
+        "xy": typed_entry(lib, "parent_resolve_binned_xy", (P_,) * 8 + (I_,) * 5 + (F_, F_)),
+        "latch": typed_entry(lib, "parent_resolve_binned_latch",
+                             (P_,) * 10 + (I_,) * 6 + (F_, F_)),
+        "depth": typed_entry(lib, "parent_resolve_binned_depth",
+                             (P_,) * 6 + (I_,) * 5 + (F_, F_))}
 
     def scatter(g, fim, nf):
         bs, D = g.shape[:2]
@@ -1521,21 +1594,54 @@ def parent_designs():
         k3(g.data_ptr(), fim.data_ptr(), out.data_ptr(), bs, D, fim[0].numel(), nf)
         return out
 
-    def resolve(form, consts, fvp, attrs, S):
-        bs, nf = fvp.shape[0], fvp.shape[-1]
-        out = [torch.empty((bs, S, S), dtype=torch.int32, device=fvp.device),
-               fvp.new_empty((bs, S, S))]
-        if form == "resolve_xy":
-            out.append(fvp.new_empty((bs, 6, S, S)))
-        elif form == "resolve_latch":
-            out += [fvp.new_empty((bs, 9, S, S)), fvp.new_empty((bs, attrs.shape[-1], S, S))]
-        inputs = {"resolve_xy": (consts, fvp), "resolve_latch": (consts, fvp, attrs),
-                  "resolve_depth": (consts,)}[form]
-        sizes = (bs, nf, attrs.shape[-1], S) if form == "resolve_latch" else (bs, nf, S)
-        entries[form](*(t.data_ptr() for t in (*inputs, *out)), *sizes, 0, S, 0.1, 100.0)
+    def tiled(form, fvp, attrs, S, row_start=0, rows=None, draw_backside=True):
+        form = form.split("_")[-1]
+        return _tiled_call(tiled_entries[form], (), form, fvp, attrs, S, row_start, rows,
+                           draw_backside)
+
+    def binned(form, consts, fvp, attrs, bins, S):
+        bs, nf, A = fvp.shape[0], fvp.shape[-1], attrs.shape[-1]
+        out = resolve_outputs(form, bs, S, S, A, fvp.device)
+        inputs = {"xy": (consts, fvp), "latch": (consts, fvp, attrs), "depth": (consts,)}[form]
+        sizes = (bs, nf, A, S) if form == "latch" else (bs, nf, S)
+        binned_entries[form](*(t.data_ptr() for t in (*inputs, *bins, *out)), *sizes, 0, S,
+                             0.1, 100.0)
         return tuple(out)
 
-    return scatter, resolve
+    return scatter, tiled, binned
+
+
+def resolve_designs(dev):
+    """Other designs of the resolve forms (``tools/resolve_designs.cu``):
+    ``tiled(design, form, fvp, attrs, S)``, a tiled form whose face stream
+    a cluster shares, :data:`TILED_DESIGNS`; ``binned(kind,
+    form, fvp, attrs, bins, S)``, K8 as a warp per bin whose persistent
+    warps take bins by a static stride (kind "static") or from an atomic
+    counter ("atomic")."""
+    lib = tool_library("resolve_designs")
+    tiled_entries = {form: typed_entry(lib, f"design_resolve_{form}", (I_,) * 3 + types)
+                     for form, types in TILED_ARGTYPES.items()}
+    binned_entries = {
+        "xy": typed_entry(lib, "design_binned_xy", (P_,) * 8 + (I_,) * 6 + (F_, F_)),
+        "latch": typed_entry(lib, "design_binned_latch", (P_,) * 10 + (I_,) * 7 + (F_, F_)),
+        "depth": typed_entry(lib, "design_binned_depth", (P_,) * 7 + (I_,) * 6 + (F_, F_))}
+    work = torch.zeros((1,), dtype=torch.int32, device=dev)
+
+    def tiled(design, form, fvp, attrs, S):
+        form = form.split("_")[-1]
+        return _tiled_call(tiled_entries[form], design, form, fvp, attrs, S, 0, S, True)
+
+    def binned(kind, form, fvp, attrs, bins, S):
+        bs, nf, A = fvp.shape[0], fvp.shape[-1], attrs.shape[-1]
+        out = resolve_outputs(form, bs, S, S, A, fvp.device)
+        inputs = (fvp, attrs) if form == "latch" else (fvp,)
+        sizes = (bs, nf, A, S) if form == "latch" else (bs, nf, S)
+        binned_entries[form](work.data_ptr() if kind == "atomic" else None,
+                             *(t.data_ptr() for t in (*inputs, *bins, *out)),
+                             *sizes, 0, S, 1, 0.1, 100.0)
+        return tuple(out)
+
+    return tiled, binned
 
 
 def design_row(calls, bound_):
@@ -1552,9 +1658,7 @@ def design_row(calls, bound_):
         turns[name].append(median_ms(calls[name], 50))
     profs = {name: profile_kept(calls[name]) for name in names}
     return dict(ms={n: float(np.mean(t)) for n, t in turns.items()}, ms_turns=turns,
-                device_ms={n: sum(ms * max(1, round(per_call))
-                                  for per_call, ms in p.records.values())
-                           for n, p in profs.items()},
+                device_ms={n: call_device_ms(p) for n, p in profs.items()},
                 device_ops={n: p.ops for n, p in profs.items()},
                 bound_ms=bound_[0], bound_by=bound_[1])
 
@@ -1614,11 +1718,13 @@ def scatter_designs(cases, parent, gen, smi):
     return rows
 
 
-def tiled_designs(cases, parent, smi):
-    """The tiled forms from the face vertices in turns with the parent's K1
-    + tiled-form pair and with the parent's form alone (over constants made
-    beforehand), on ``cases``: label -> (form, fvp, face attributes, S);
-    all three bit-equal.  Returns {label: row}."""
+def tiled_designs(cases, parent, designs, smi):
+    """The tiled forms (every CTA loading every face itself, the next batch
+    into registers) in turns with the parent's forms (the same feed, in the
+    parent's template) and with :data:`TILED_DESIGNS` (the face stream
+    multicast across a cluster, :func:`resolve_designs`), on ``cases``:
+    label -> (form, fvp, face attributes, S); all bit-equal.  Returns
+    {label: row}."""
     rows = {}
     for label, (form, fvp, attrs, S) in cases.items():
         consts = rc.face_setup(fvp, True)
@@ -1626,21 +1732,71 @@ def tiled_designs(cases, parent, smi):
                    "resolve_latch": lambda: rc.resolve_latch(fvp, attrs, True, S, 0.1, 100.0),
                    "resolve_depth": lambda: rc.resolve_depth(fvp, True, S, 0.1, 100.0)}[form]
         calls = {"shipped": shipped,
-                 "parent K1 + form": lambda form=form, fvp=fvp, attrs=attrs, S=S: parent(
-                     form, rc.face_setup(fvp, True), fvp, attrs, S),
-                 "parent form": lambda form=form, consts=consts, fvp=fvp, attrs=attrs, S=S:
-                     parent(form, consts, fvp, attrs, S)}
+                 "parent form": lambda form=form, fvp=fvp, attrs=attrs, S=S: parent(
+                     form, fvp, attrs, S)}
+        for name, d in TILED_DESIGNS.items():
+            calls[name] = lambda d=d, form=form, fvp=fvp, attrs=attrs, S=S: designs(
+                d, form, fvp, attrs, S)
         want = shipped()
-        for name in ("parent K1 + form", "parent form"):
-            check_parts(f"{label} {form} vs {name}", calls[name](), want)
+        for name, call in calls.items():
+            check_parts(f"{label} {form} vs {name}", call(), want)
         A = attrs.shape[-1]
         planes, face_bytes = {"resolve_xy": (8, 36), "resolve_latch": (11 + A, 36 + 4 * A),
                               "resolve_depth": (2, 36)}[form]
         row = design_row(calls, resolve_bound(consts, S, planes, face_bytes))
-        row.update(form=form, nf=fvp.shape[-1], A=A, S=S)
+        tiles = (-(-S // 16)) ** 2
+        # the face stream from L2: 36 bytes a face for every CTA, or for
+        # every cluster of the multicast designs
+        stream_mb = {"shipped": 36e-6 * tiles * fvp.shape[-1]}
+        stream_mb.update({name: stream_mb["shipped"] / d[0] for name, d in TILED_DESIGNS.items()})
+        row.update(form=form, nf=fvp.shape[-1], A=A, S=S, stream_mb=stream_mb)
         rows[label] = row
         log_design_row(label, f"{form} nf={fvp.shape[-1]} A={A} {S}^2", row,
-                       "all three bit-equal", smi)
+                       "all bit-equal", smi)
+    return rows
+
+
+def binned_designs(cases, parent, designs, smi):
+    """Each K8 form (a 64-thread CTA per bin, from the face vertices) in
+    turns with the parent's K8 alone (a 64-thread CTA per bin over K1's
+    constants, made beforehand), with the warp-per-bin design, its bins by
+    a static stride or an atomic counter (:func:`resolve_designs`), and the
+    chains: K7 + K8 beside the parent's
+    K1 + K7 + K8 (its K7 the shipped one: the parent's read K1's bbox, the
+    shipped one forms it), on ``cases``: label -> (form, fvp, face
+    attributes, S); all bit-equal.  Returns {label: row}."""
+    rows = {}
+    for label, (form, fvp, attrs, S) in cases.items():
+        consts = rc.face_setup(fvp, True)
+        bins = rc.bin_faces(fvp, True, S)
+        shipped = {"xy": lambda b: rc.resolve_binned_xy(fvp, True, b, S, 0.1, 100.0),
+                   "latch": lambda b: rc.resolve_binned_latch(fvp, attrs, True, b, S, 0.1, 100.0),
+                   "depth": lambda b: rc.resolve_binned_depth(fvp, True, b, S, 0.1, 100.0)}[form]
+        calls = {
+            "shipped K8": lambda shipped=shipped, bins=bins: shipped(bins),
+            "parent K8": lambda form=form, consts=consts, fvp=fvp, attrs=attrs, bins=bins, S=S:
+                parent(form, consts, fvp, attrs, bins, S),
+            "warp per bin": lambda form=form, fvp=fvp, attrs=attrs, bins=bins, S=S:
+                designs("static", form, fvp, attrs, bins, S),
+            "warp per bin, atomic counter": lambda form=form, fvp=fvp, attrs=attrs, bins=bins,
+                S=S: designs("atomic", form, fvp, attrs, bins, S),
+            "K7 + K8": lambda shipped=shipped, fvp=fvp, S=S: shipped(rc.bin_faces(fvp, True, S)),
+            "parent K1 + K7 + K8": lambda form=form, fvp=fvp, attrs=attrs, S=S: parent(
+                form, rc.face_setup(fvp, True), fvp, attrs, rc.bin_faces(fvp, True, S), S),
+        }
+        want = calls["shipped K8"]()
+        for name, call in calls.items():
+            check_parts(f"{label} K8 {form} vs {name}", call(), want)
+        A = attrs.shape[-1]
+        planes, face_bytes = {"xy": (8, 36), "latch": (11 + A, 36 + 4 * A), "depth": (2, 36)}[form]
+        pairs = int(bins[0].sum())
+        row = design_row(calls, resolve_bound(consts, S, planes, face_bytes,
+                                              8 * bins[0].numel() + 4 * pairs))
+        row.update(form=form, nf=fvp.shape[-1], A=A, S=S, pairs=pairs,
+                   largest_bin=int(bins[0].max()))
+        rows[label] = row
+        log_design_row(label, f"K8 {form} nf={fvp.shape[-1]} A={A} {S}^2 pairs={pairs} largest "
+                       f"bin {row['largest_bin']}", row, "all bit-equal", smi)
     return rows
 
 
@@ -1779,7 +1935,7 @@ def main():
     if not all(sil_launches[name] > 0 for name in SILHOUETTE_KERNELS):
         raise AssertionError(f"a kernel of the silhouette path never launched: {sil_launches}")
     check_k1("silhouette fit", sil_launches)
-    if sil_launches["face_setup"]:
+    if sil_launches["bin_faces"]:
         raise AssertionError(f"the silhouette fit took the binned route: {sil_launches}")
 
     # 6. scale: 81,920 faces at 512^2 without anti-aliasing
@@ -1860,7 +2016,7 @@ def main():
     if not all(tex_launches[name] > 0 for name in TEXTURED_KERNELS):
         raise AssertionError(f"a kernel of the textured path never launched: {tex_launches}")
     check_k1("textured fit", tex_launches)
-    if tex_launches["face_setup"]:
+    if tex_launches["bin_faces"]:
         raise AssertionError(f"the textured fit took the binned route: {tex_launches}")
 
     smi = subprocess.run(
@@ -2059,7 +2215,13 @@ def main():
     for label, calls in all_calls:
         for name, call in calls.items():
             k_ms = median_ms(call.kernel, 50)
-            k_dev = kernel_device_ms(profile_device(call.kernel, 20), name)
+            prof = profile_device(call.kernel, 20)
+            k_dev = kernel_device_ms(prof, name)
+            if name == "scatter_rows":
+                # its bound counts the table written once, which is the
+                # wrapper's zero fill: its device time counts every record
+                # of the call, the fill's too
+                k_dev = call_device_ms(prof)
             p_ms = None
             if (label, name) == ("scale", "resolve_xy"):
                 p_ms = host_ms(call.plain)[1]      # one call of seconds
@@ -2111,24 +2273,25 @@ def main():
                    f"against {prof.port_launches:.1f} launches")
                 + "; top (per kernel name, kept records summed over the step) "
                 + ", ".join(f"{k} {t:.4f} ms" for k, t in prof.top))
-    # 19. the kernels this slice redesigned: K7 in turns with its parent
-    # design at the four binned configurations and a crowded tile (the
-    # order pass's bitmap in two windows), K9 in turns with
+    # 19. the kernels the port's slices redesigned: K7 in turns with its
+    # parent design at the four binned configurations and a crowded tile
+    # (the order pass's bitmap in two windows), K9 in turns with
     # torch.gather at the face-sharded path's two shapes
     with torch.no_grad():
         binned = {}
         for label, (r, v, f) in (("scale", (scale_renderer, sphere_v, faces6)),
                                  ("hires", (hires, sphere_v, faces6))):
             fvp = gather_face_vertices(r.transform_vertices(v), f)
-            binned[label] = (rc.face_setup(fvp, True), r.image_size * (2 if r.anti_aliasing else 1))
+            binned[label] = (fvp, r.image_size * (2 if r.anti_aliasing else 1))
         for label in ("textured-scale", "hires-lit"):
-            binned[label] = (cfgs[label].latch_inputs()[2], cfgs[label].size)
-        binned["crowded"] = (crowded_consts(dev), 512)
+            binned[label] = (cfgs[label].latch_inputs()[1], cfgs[label].size)
+        binned["crowded"] = (crowded_fvp(dev), 512)
         redesigned = redesigned_kernels(
             binned, {"scale": scale_calls["gather_rows"],
                      "textured-scale": tex_calls["textured-scale"]["gather_rows"]}, smi)
-        # K3 and the tiled resolve forms, in turns with the parent designs
-        parent_scatter, parent_resolve = parent_designs()
+        # K3 and the resolve forms, in turns with the parent designs
+        parent_scatter, parent_tiled, parent_binned = parent_designs()
+        design_tiled, design_binned = resolve_designs(dev)
         ts = cfgs["textured-scale"]
         redesigned["scatter_pixels_to_faces"] = scatter_designs({
             "bench": (index_map(renderer, torus_v, faces, False), faces.shape[0], 6),
@@ -2148,7 +2311,19 @@ def main():
             # 81,920 faces: the face stream through every tile dominates
             "scale": ("resolve_xy", rc.gather_faces3(ndc6.detach().contiguous(), faces6),
                       ndc6.new_empty((1, faces6.shape[0], 0)), 512),
-        }, parent_resolve, smi)
+        }, parent_tiled, design_tiled, smi)
+        # K8, a CTA per bin from the face vertices, in turns with the
+        # parent's K8 and chain and the warp-per-bin design
+        hl_fvp, hl_attrs = cfgs["hires-lit"].latch_inputs()[1::2]
+        hl_size = cfgs["hires-lit"].size
+        redesigned["binned_resolve"] = binned_designs({
+            "hires": ("xy", binned["hires"][0], no_attrs.new_empty((1, faces6.shape[0], 0)),
+                      2048),
+            "hires-lit": ("latch", hl_fvp, hl_attrs, hl_size),
+            "hires-lit id/depth": ("depth", hl_fvp, hl_attrs[..., :0].contiguous(), hl_size),
+            "crowded": ("xy", binned["crowded"][0],
+                        no_attrs.new_empty((1, binned["crowded"][0].shape[-1], 0)), 512),
+        }, parent_binned, design_binned, smi)
     log("[redesign] " + json.dumps(redesigned))
 
     log("[routes] resolve ms (tiled, binned) and the rule's route: " + json.dumps(

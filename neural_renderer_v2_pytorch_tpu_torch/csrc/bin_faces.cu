@@ -11,7 +11,10 @@
 // bin: the ids of the faces whose bbox meets the tile's pixel-centre range
 // by K2's strict test, !(xmax < x_lo || x_hi < xmin || ymax < y_lo ||
 // y_hi < ymin) with the range clipped at the canvas and window edges, in
-// ascending id order.  Killed faces (bbox 4,-4,4,-4 from K1) meet no tile.
+// ascending id order.  Each pass forms a face's bbox and K1's kill rule
+// from its six screen coordinates itself (face_constants.cuh: K1's
+// expressions, so K1's bits), so the binned route launches no K1; killed
+// faces (bbox 4,-4,4,-4) meet no tile.
 // Outputs: cnt [bs, tiles], offsets [bs, tiles] into ids, ids [pairs],
 // batch-major and tile-major.  The order must be ascending: the resolve's
 // accept rule, zp <= depth - 1e-4 applied in id order, is not commutative.
@@ -47,7 +50,7 @@
 //   Either way the sorted bin is the plain version's (a stable sort of
 //   face-major pairs by tile), bit for bit, whatever order the atomics took.
 //
-// Bound: memory.  It reads each face's 4 bbox constants once (16 bytes) and
+// Bound: memory.  It reads each face's six x/y coordinates once (24 bytes) and
 // writes 4 bytes per (tile, face) pair plus 8 per tile: at 81,920 faces and
 // ~3 pairs per face about 3 MB, about a microsecond of HBM time.  Its
 // scratch is the counters (4 bytes per tile, padded to a scan chunk), 8
@@ -60,6 +63,7 @@
 
 #include <climits>
 
+#include "face_constants.cuh"
 #include "nr_entry.cuh"
 
 namespace {
@@ -83,7 +87,7 @@ constexpr int kMaxTableTiles = 48 * 1024 / (2 * sizeof(float));
 constexpr int kTicket = 0, kTotal = 1, kScanned = 2, kStates = 4;
 
 struct Geometry {
-  int size, row_start, num_rows, tiles_x, tiles_y, n_tiles;
+  int size, row_start, num_rows, tiles_x, tiles_y, n_tiles, draw_backside;
 };
 
 struct Rect {
@@ -126,14 +130,19 @@ __device__ __forceinline__ int2 tile_interval(float vmin, float vmax, const floa
   return make_int2(a, c);
 }
 
-// Face f of image b: the rectangle of tiles its bbox meets (empty: 0 x 0).
-__device__ __forceinline__ Rect face_rect(const float* __restrict__ consts, size_t b, int f,
+// Face f of image b: the rectangle of tiles its bbox meets (empty: 0 x 0),
+// from its screen coordinates fvp[b, coord, vertex, f] by K1's expressions
+// and kill rule.
+__device__ __forceinline__ Rect face_rect(const float* __restrict__ fvp, size_t b, int f,
                                           int nf, const float2* bounds, const Geometry& g) {
+  const float* v = fvp + b * 9 * (size_t)nf + f;
+  float c[nr_face::kConsts];
+  nr_face::constants_xy(v[0], v[3 * (size_t)nf], v[(size_t)nf], v[4 * (size_t)nf],
+                        v[2 * (size_t)nf], v[5 * (size_t)nf], c);
+  nr_face::kill_invalid(c, g.draw_backside);
   // c[13..16] = xmin, xmax, ymin, ymax
-  const float* c = consts + b * 17 * (size_t)nf + f;
-  const int2 x = tile_interval(c[13 * (size_t)nf], c[14 * (size_t)nf], bounds, g.tiles_x);
-  const int2 y = tile_interval(c[15 * (size_t)nf], c[16 * (size_t)nf], bounds + g.tiles_x,
-                               g.tiles_y);
+  const int2 x = tile_interval(c[13], c[14], bounds, g.tiles_x);
+  const int2 y = tile_interval(c[15], c[16], bounds + g.tiles_x, g.tiles_y);
   int wx = x.y - x.x, wy = y.y - y.x;
   if (wx <= 0 || wy <= 0) wx = wy = 0;
   return Rect{x.x, y.x, wx, wy};
@@ -178,7 +187,7 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* sums, int& total
 }
 
 __global__ void __launch_bounds__(kCountThreads)
-bin_count_kernel(const float* __restrict__ consts, int* scratch, Geometry g, int nf,
+bin_count_kernel(const float* __restrict__ fvp, int* scratch, Geometry g, int nf,
                  int padded) {
   extern __shared__ float2 bounds[];
   __shared__ int block_pairs;
@@ -187,7 +196,7 @@ bin_count_kernel(const float* __restrict__ consts, int* scratch, Geometry g, int
   const int f = blockIdx.x * kCountThreads + threadIdx.x;
   int pairs = 0;
   if (f < nf) {
-    const Rect r = face_rect(consts, blockIdx.y, f, nf, bounds, g);
+    const Rect r = face_rect(fvp, blockIdx.y, f, nf, bounds, g);
     int* counters = scratch + (size_t)blockIdx.y * g.n_tiles;
     for (int ty = r.ty0; ty < r.ty0 + r.wy; ++ty) {
       for (int tx = r.tx0; tx < r.tx0 + r.wx; ++tx) warp_add_one(counters, ty * g.tiles_x + tx);
@@ -262,7 +271,7 @@ __device__ void scan_chunk(int t, int* scratch, int* __restrict__ cnt_out,
 }
 
 __global__ void __launch_bounds__(kFillThreads)
-bin_fill_kernel(const float* __restrict__ consts, int* scratch, int* __restrict__ cnt_out,
+bin_fill_kernel(const float* __restrict__ fvp, int* scratch, int* __restrict__ cnt_out,
                 int* __restrict__ off_out, int* __restrict__ unsorted, Geometry g, int nf,
                 int n_bins, int padded) {
   extern __shared__ float2 bounds[];
@@ -286,7 +295,7 @@ bin_fill_kernel(const float* __restrict__ consts, int* scratch, int* __restrict_
   const int f = blockIdx.x * kFillThreads + threadIdx.x;
   if (f >= nf) return;
   const size_t b = blockIdx.y;
-  const Rect r = face_rect(consts, b, f, nf, bounds, g);
+  const Rect r = face_rect(fvp, b, f, nf, bounds, g);
   int* cur = scratch + b * g.n_tiles;
   for (int ty = r.ty0; ty < r.ty0 + r.wy; ++ty) {
     for (int tx = r.tx0; tx < r.tx0 + r.wx; ++tx) {
@@ -430,8 +439,8 @@ bin_order_kernel(const int* __restrict__ cnt, const int* __restrict__ off,
   }
 }
 
-Geometry geometry(int size, int row_start, int num_rows) {
-  Geometry g{size, row_start, num_rows, 0, 0, 0};
+Geometry geometry(int size, int row_start, int num_rows, int draw_backside) {
+  Geometry g{size, row_start, num_rows, 0, 0, 0, draw_backside};
   g.tiles_x = (size + kTile - 1) / kTile;
   g.tiles_y = (num_rows + kTile - 1) / kTile;
   g.n_tiles = g.tiles_x * g.tiles_y;
@@ -440,13 +449,13 @@ Geometry geometry(int size, int row_start, int num_rows) {
 
 int padded_bins(int n_bins) { return (n_bins + kScanChunk - 1) / kScanChunk * kScanChunk; }
 
-// Passes 1 and 2.  consts: f32 [bs, 17, nf] from K1; scratch: i32
+// Passes 1 and 2.  fvp: f32 [bs, 3, 3, nf]; scratch: i32
 // [padded + 4 + 2 * padded / kScanChunk], padded = bs * tiles rounded up to
 // kScanChunk (4096).  Afterwards scratch[padded + 1] holds the pair total.
 // At most kMaxTableTiles tiles along both axes together.
-int bin_faces_count(void* stream, const float* consts, int* scratch, int bs, int nf, int size,
-                    int row_start, int num_rows) {
-  const Geometry g = geometry(size, row_start, num_rows);
+int bin_faces_count(void* stream, const float* fvp, int* scratch, int bs, int nf, int size,
+                    int row_start, int num_rows, int draw_backside) {
+  const Geometry g = geometry(size, row_start, num_rows, draw_backside);
   const int n_bins = bs * g.n_tiles;
   if (n_bins == 0) return 0;
   if (g.tiles_x + g.tiles_y > kMaxTableTiles) return static_cast<int>(cudaErrorInvalidValue);
@@ -457,15 +466,16 @@ int bin_faces_count(void* stream, const float* consts, int* scratch, int bs, int
   if (err != cudaSuccess || nf == 0) return static_cast<int>(err);
   const dim3 grid((nf + kCountThreads - 1) / kCountThreads, bs);
   bin_count_kernel<<<grid, kCountThreads, sizeof(float2) * (g.tiles_x + g.tiles_y), s>>>(
-      consts, scratch, g, nf, padded);
+      fvp, scratch, g, nf, padded);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Passes 3 and 4 (the launch counted as bin_faces).  scratch from passes 1
 // and 2; cnt, off: i32 [bs, tiles] out; unsorted and ids: i32 [pairs].
-int bin_faces(void* stream, const float* consts, int* scratch, int* cnt, int* off, int* unsorted,
-              int* ids, int bs, int nf, int size, int row_start, int num_rows) {
-  const Geometry g = geometry(size, row_start, num_rows);
+int bin_faces(void* stream, const float* fvp, int* scratch, int* cnt, int* off, int* unsorted,
+              int* ids, int bs, int nf, int size, int row_start, int num_rows,
+              int draw_backside) {
+  const Geometry g = geometry(size, row_start, num_rows, draw_backside);
   const int n_bins = bs * g.n_tiles;
   if (n_bins == 0) return 0;
   if (g.tiles_x + g.tiles_y > kMaxTableTiles) return static_cast<int>(cudaErrorInvalidValue);
@@ -475,7 +485,7 @@ int bin_faces(void* stream, const float* consts, int* scratch, int* cnt, int* of
   const int chunks = padded / kScanChunk;
   const dim3 fill_grid(max((nf + kFillThreads - 1) / kFillThreads, (chunks + bs - 1) / bs), bs);
   bin_fill_kernel<<<fill_grid, kFillThreads, sizeof(float2) * (g.tiles_x + g.tiles_y), s>>>(
-      consts, scratch, cnt, off, unsorted, g, nf, n_bins, padded);
+      fvp, scratch, cnt, off, unsorted, g, nf, n_bins, padded);
   // the bitmap for bins above kWarpCap: a window spans at most the nf ids
   const size_t shared = sizeof(unsigned) * max(1, min(kBitmapWords, (nf + 31) / 32));
   bin_order_kernel<<<(n_bins + kOrderWarps - 1) / kOrderWarps, kOrderWarps * 32, shared, s>>>(

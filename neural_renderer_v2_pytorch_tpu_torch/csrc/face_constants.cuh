@@ -7,13 +7,15 @@
 //   c[12]     det = C0 + C1 + C2
 //   c[13..16] xmin, xmax, ymin, ymax
 //
-// K1 (face_setup.cu) writes them for every face; the tiled resolve forms
-// (resolve.cu) compute them while staging a batch of faces: the x/y part
-// and the kill rule for each face whose bbox touches the tile, the 1/z
-// part for those that still touch it after the kill rule.  Both include
-// this header, and both build with --fmad=false and correctly rounded
-// division, so the same expressions give the same bits, which are the
-// plain version's: each expression is the plain version's, in its order.
+// K1 (face_setup.cu) writes them for every face; the resolve forms
+// (resolve.cu) compute them while staging faces (tiled: the x/y part and
+// the kill rule for each face whose bbox touches the tile, the 1/z part for
+// those that still touch it after the kill rule; binned: all of them for
+// each bin entry), and K7 (bin_faces.cu) the x/y part and the kill rule for
+// each face's bbox.  All include this header and build with --fmad=false
+// and correctly rounded division, so the same expressions give the same
+// bits, which are the plain version's: each expression is the plain
+// version's, in its order.
 
 #pragma once
 

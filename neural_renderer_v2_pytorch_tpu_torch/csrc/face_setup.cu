@@ -18,9 +18,10 @@
 // [bs, 3, 3, nf] in and [bs, 17, nf] out put neighbouring faces on
 // neighbouring addresses, so every load and store is coalesced.
 //
-// The binned route launches it (K7's count pass and K8 read its output);
-// the tiled forms (K2, K2L, K2D) compute the same constants themselves
-// while staging faces, so the tiled route launches no K1.
+// No path launches it: the resolve forms (K2, K2L, K2D and K8) compute the
+// same constants themselves while staging faces, and K7 the bbox and the
+// kill rule, all from face_constants.cuh.  It stays as the standalone
+// counterpart of the TPU kernel, held to its plain version on the card.
 //
 // Exactness: the expressions (face_constants.cuh, shared with the tiled
 // resolve) are those of the plain version in the same order.  Built with

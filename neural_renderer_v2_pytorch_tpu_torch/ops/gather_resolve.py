@@ -14,7 +14,6 @@ import torch
 
 from .resolve_cuda import (
     bin_faces,
-    face_setup,
     gather_faces3,
     gather_rows,
     resolve_binned_depth,
@@ -90,15 +89,14 @@ def gather_winner_planes(per_face, index):
 
 
 def _binned_inputs(fvp, draw_backside, image_size, row_start, num_rows, mode):
-    """(K1's constants, K7's bins) where the route of this resolve is
-    binned, else None: the route is decided from the shapes before any
-    constants exist, and the tiled forms compute their own."""
+    """K7's bins where the route of this resolve is binned (decided from
+    the shapes), else None.  No route launches K1: K7 and both routes'
+    resolve forms compute the face constants themselves."""
     bs, nf = fvp.shape[0], fvp.shape[-1]
     rows = image_size if num_rows is None else num_rows
     if resolve_route(bs, rows, image_size, nf, mode) != "binned":
         return None
-    consts = face_setup(fvp, draw_backside)
-    return consts, bin_faces(consts, image_size, row_start, num_rows)
+    return bin_faces(fvp, draw_backside, image_size, row_start, num_rows)
 
 
 class _ResolveAndGather(torch.autograd.Function):
@@ -110,20 +108,18 @@ class _ResolveAndGather(torch.autograd.Function):
         fvp = face_vertices.detach().contiguous()
         bs, nf = fvp.shape[0], fvp.shape[-1]
         args = (image_size, near, far, row_start, num_rows)
-        binned = _binned_inputs(fvp, draw_backside, image_size, row_start, num_rows, mode)
+        bins = _binned_inputs(fvp, draw_backside, image_size, row_start, num_rows, mode)
         if latch_z:
             attrs = (fvp.new_empty((bs, nf, 0)) if face_attrs is None
                      else face_attrs.detach().contiguous())
-            if binned:
-                consts, bins = binned
-                index, _, fvm, attr_planes = resolve_binned_latch(consts, fvp, attrs, bins,
-                                                                  *args)
+            if bins is not None:
+                index, _, fvm, attr_planes = resolve_binned_latch(fvp, attrs, draw_backside,
+                                                                  bins, *args)
             else:
                 index, _, fvm, attr_planes = resolve_latch(fvp, attrs, draw_backside, *args)
         else:
-            if binned:
-                consts, bins = binned
-                index, _, coords = resolve_binned_xy(consts, fvp, bins, *args)
+            if bins is not None:
+                index, _, coords = resolve_binned_xy(fvp, draw_backside, bins, *args)
             else:
                 index, _, coords = resolve_xy(fvp, draw_backside, *args)
             # 9-plane layout with zero z planes: silhouettes never read z
@@ -173,9 +169,9 @@ def resolve_and_gather(face_vertices, image_size, near, far, draw_backside,
     per-face attributes ``face_attrs`` [bs, nf, A] (the RGB and depth
     paths).  The route ``resolve_cuda.resolve_route`` picks (``mode``
     "auto", or forced "tiled" / "binned"; both give the same bits): K2 or
-    K2L, which compute the face constants themselves, or K1, K7 and K8's
-    ``resolve_binned_xy`` or ``resolve_binned_latch`` (over 8x8 tiles,
-    ``resolve_cuda.BIN_TILE``).
+    K2L, or K7 and K8's ``resolve_binned_xy`` or ``resolve_binned_latch``
+    (over 8x8 tiles, ``resolve_cuda.BIN_TILE``); each computes the face
+    constants itself (no K1).
 
     Returns (face_index_map i32 [bs, rows, S], -1 on background and not
     differentiable; fvm_planar f32 [bs, 9, rows, S], the winner's vertex
@@ -201,15 +197,15 @@ def compute_face_index_map(faces, image_size, near=0.1, far=100.0, draw_backside
     (integer output).
 
     The id/depth form of the route ``resolve_route`` picks (``mode`` as in
-    :func:`resolve_and_gather`): K2D, or K1, K7 and K8's
+    :func:`resolve_and_gather`): K2D, or K7 and K8's
     ``resolve_binned_depth``.  The JAX signature's ``face_chunk`` tuning
     knob has no counterpart, so the arguments after ``draw_backside`` are
     keyword-only."""
     fvp = faces.detach().permute(0, 3, 2, 1).contiguous()
     args = (image_size, near, far, row_start, num_rows)
-    binned = _binned_inputs(fvp, draw_backside, image_size, row_start, num_rows, mode)
-    if binned:
-        index, depth = resolve_binned_depth(*binned, *args)
+    bins = _binned_inputs(fvp, draw_backside, image_size, row_start, num_rows, mode)
+    if bins is not None:
+        index, depth = resolve_binned_depth(fvp, draw_backside, bins, *args)
     else:
         index, depth = resolve_depth(fvp, draw_backside, *args)
     return (index, depth) if return_depth else index

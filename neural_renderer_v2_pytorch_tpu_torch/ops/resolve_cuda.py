@@ -2,9 +2,9 @@
 plain PyTorch version (counterpart of ``neural_renderer_v2_pytorch_tpu/ops/
 resolve_pallas.py``).
 
-  K1 ``face_setup``                 per-face constants + kill rule (the
-                                    binned route's; the tiled forms compute
-                                    them while staging faces)
+  K1 ``face_setup``                 per-face constants + kill rule (on no
+                                    path: every resolve form computes them
+                                    while staging faces, K7 the bbox)
   K2 ``resolve_xy``                 z-buffer resolve with XY latch
   K2L ``resolve_latch``             z-buffer resolve with XYZ + attribute latch
   K2D ``resolve_depth``             z-buffer resolve, id and depth only
@@ -15,17 +15,19 @@ resolve_pallas.py``).
                                     (:func:`vertex_slots`)
   K5 ``gather_faces3``              vertex -> planar face-vertex gather
   K6 ``scatter_rows``               row scatter-add (texture-atlas gradient)
-  K7 ``bin_faces``                  per-tile face bins
+  K7 ``bin_faces``                  per-tile face bins from the face vertices
   K8 ``resolve_binned_xy``, ``resolve_binned_latch``, ``resolve_binned_depth``
-                                    the three resolve forms over K7's bins
+                                    the three resolve forms over K7's bins,
+                                    a CTA per bin
   K9 ``gather_rows``                row gather, planar or row layout (the
                                     face-sharded path's winner planes, to_map)
 
-The resolve has two routes that give the same bits: "tiled" (K2, K2L,
-K2D, from the face vertices: every tile streams every face's coordinates
-and forms the constants of those that touch it) and "binned" (K1, K7, then
-K8: every tile streams its own bin of K1's constants).  :func:`resolve_route`
-picks one from the shapes.
+The resolve has two routes that give the same bits, both from the face
+vertices: "tiled" (K2, K2L, K2D: every tile streams every face's
+coordinates and forms the constants of those that touch it) and "binned"
+(K7, then K8: every tile streams its own bin and forms its entries'
+constants).  Neither launches K1.  :func:`resolve_route` picks one from
+the shapes.
 
 A wrapper runs the plain version for CPU tensors.  For CUDA tensors it
 launches the kernel on the current stream or raises; there is no fallback.
@@ -95,10 +97,11 @@ BIN_SCAN_TILE = 4096
 BIN_MAX_AXIS_TILES = 6144
 # the binned route from this many (batch image, 16x16 tile, face) products
 # on.  chip_smoke.py times both routes at its seven configurations and at
-# five tori between them: on an H100 the tiled one won up to 20.4M products
-# and the binned one, in most runs, from 40.6M on; the tiled time grows
-# ~0.0093 ms per million products past 20M and meets the binned route's
-# run-to-run 0.33-0.47 ms between 33M and 47M (PERF.md)
+# seven tori between them: on an H100 the tiled one won up to 33.3M
+# products and the binned one from 40.6M on; the tiled time grows ~0.007
+# ms per million products and meets the binned route's run-to-run
+# 0.15-0.29 ms (its K7 reads the pair total back) between 26M and 41M
+# (PERF.md)
 BINNED_FROM = 34_000_000
 
 
@@ -543,6 +546,9 @@ def gather_faces3(table, faces):
 
 def gather_rows_plain(table, ids, planar=False):
     bs, n, D = table.shape
+    if n == 0:                          # every id lies outside an empty table
+        out = table.new_zeros((bs, ids.shape[-1], D))
+        return out.permute(0, 2, 1).contiguous() if planar else out
     ok = (ids >= 0) & (ids < n)
     rows = torch.gather(table, 1, torch.where(ok, ids, 0).long()[..., None].expand(bs, -1, D))
     out = torch.where(ok[..., None], rows, 0.0)
@@ -624,7 +630,8 @@ def _tile_centre_ranges(image_size, start, extent, tile):
     return pixel_centres(start + first, image_size), pixel_centres(start + last, image_size)
 
 
-def bin_faces_plain(consts, image_size, row_start=0, num_rows=None):
+def bin_faces_plain(fvp, draw_backside, image_size, row_start=0, num_rows=None):
+    consts = face_setup_plain(fvp, draw_backside)
     bs, _, nf = consts.shape
     S, r0, rows = _window(image_size, row_start, num_rows)
     th, tw = BIN_TILE
@@ -654,20 +661,21 @@ def bin_faces_plain(consts, image_size, row_start=0, num_rows=None):
             offsets.reshape(bs, n_tiles).to(torch.int32), ids)
 
 
-def bin_faces(consts, image_size, row_start=0, num_rows=None):
-    """Per-tile face bins of killed constants [bs, 17, nf] over the image
-    rows ``row_start .. row_start + num_rows`` (all S by default), in
-    tiles of :data:`BIN_TILE` pixels, row-major: (cnt i32 [bs, tiles],
-    offsets i32 [bs, tiles], ids i32 [pairs]).  Tile t of image b holds
-    ``ids[offsets[b, t] : offsets[b, t] + cnt[b, t]]``, the faces whose
-    bbox meets its pixel-centre range, in ascending order.
+def bin_faces(fvp, draw_backside, image_size, row_start=0, num_rows=None):
+    """Per-tile face bins of planar face vertices f32 [bs, 3, 3, nf] over
+    the image rows ``row_start .. row_start + num_rows`` (all S by
+    default), in tiles of :data:`BIN_TILE` pixels, row-major: (cnt i32
+    [bs, tiles], offsets i32 [bs, tiles], ids i32 [pairs]).  Tile t of
+    image b holds ``ids[offsets[b, t] : offsets[b, t] + cnt[b, t]]``, the
+    faces that K1's kill rule (with ``draw_backside``) keeps and whose bbox
+    meets its pixel-centre range, in ascending order.
 
-    On the card: four device operations (``csrc/bin_faces.cu``) and one
+    On the card: four device operations (``csrc/bin_faces.cu``, which forms
+    each bbox and the kill rule from the coordinates, as K1 would) and one
     host sync, which reads the pair total back to size ``ids``."""
-    if not _use_kernel(consts):
-        return bin_faces_plain(consts, image_size, row_start, num_rows)
-    bs, nf = consts.shape[0], consts.shape[-1]
-    _check(consts, "consts", torch.float32, (bs, 17, nf))
+    if not _use_kernel(fvp):
+        return bin_faces_plain(fvp, draw_backside, image_size, row_start, num_rows)
+    bs, nf = _check_fvp(fvp)
     S, r0, rows = _window(image_size, row_start, num_rows)
     th, tw = BIN_TILE
     tiles_x, tiles_y = -(-S // tw), -(-rows // th)
@@ -676,7 +684,7 @@ def bin_faces(consts, image_size, row_start=0, num_rows=None):
                          f"{BIN_MAX_AXIS_TILES} along both axes together")
     n_tiles = tiles_x * tiles_y
     n_bins = bs * n_tiles
-    cnt = consts.new_empty((bs, n_tiles), dtype=torch.int32)
+    cnt = fvp.new_empty((bs, n_tiles), dtype=torch.int32)
     offsets = torch.empty_like(cnt)
     if n_bins == 0:
         return cnt, offsets, cnt.new_empty((0,))
@@ -684,9 +692,9 @@ def bin_faces(consts, image_size, row_start=0, num_rows=None):
     # the per-tile counters (then fill cursors), four control words and a
     # 64-bit scan state per chunk
     scratch = cnt.new_empty((padded + 4 + 2 * (padded // BIN_SCAN_TILE),))
-    geometry = (bs, nf, S, r0, rows)
-    index = consts.get_device()
-    _launch("bin_faces_count", index, consts.data_ptr(), scratch.data_ptr(), *geometry)
+    geometry = (bs, nf, S, r0, rows, int(draw_backside))
+    index = fvp.get_device()
+    _launch("bin_faces_count", index, fvp.data_ptr(), scratch.data_ptr(), *geometry)
     total = int(scratch[padded + 1])                                # the host sync
     # ids, then the fill's unsorted pairs, which the order pass reads
     pairs = cnt.new_empty((2 * total,))
@@ -694,7 +702,7 @@ def bin_faces(consts, image_size, row_start=0, num_rows=None):
     # K7 is two entries of one wrapper call; LAUNCHES counts the call once,
     # at its scan, fill and order passes (this entry), so that one binning
     # reads as one launch
-    _launch("bin_faces", index, consts.data_ptr(), scratch.data_ptr(), cnt.data_ptr(),
+    _launch("bin_faces", index, fvp.data_ptr(), scratch.data_ptr(), cnt.data_ptr(),
             offsets.data_ptr(), pairs[total:].data_ptr(), ids.data_ptr(), *geometry)
     return cnt, offsets, ids
 
@@ -702,11 +710,13 @@ def bin_faces(consts, image_size, row_start=0, num_rows=None):
 # --- K8: the binned route -------------------------------------------------
 
 
-def _binned_fold(consts, bins, image_size, near, far, row_start, num_rows):
+def _binned_fold(fvp, draw_backside, bins, image_size, near, far, row_start, num_rows):
     """The z-buffer fold over the bins of the :data:`BIN_TILE` pixel tiles,
-    vectorised over tiles: step k folds the k-th face of every tile's bin,
-    so every pixel still takes its tile's faces in ascending order.
-    Returns (index, depth) [bs, rows, S]."""
+    of K1's plain constants of the face vertices, vectorised over tiles:
+    step k folds the k-th face of every tile's bin, so every pixel still
+    takes its tile's faces in ascending order.  Returns (index, depth)
+    [bs, rows, S]."""
+    consts = face_setup_plain(fvp, draw_backside)
     cnt, offsets, ids = (t.long() for t in bins)
     bs = consts.shape[0]
     S, r0, rows = _window(image_size, row_start, num_rows)
@@ -750,75 +760,76 @@ def _check_bins(bins, bs, rows, S):
     return tuple(t.data_ptr() for t in bins)
 
 
-def resolve_binned_xy_plain(consts, fvp, bins, image_size, near, far, row_start=0,
+def resolve_binned_xy_plain(fvp, draw_backside, bins, image_size, near, far, row_start=0,
                             num_rows=None):
-    index, depth = _binned_fold(consts, bins, image_size, near, far, row_start, num_rows)
+    index, depth = _binned_fold(fvp, draw_backside, bins, image_size, near, far, row_start,
+                                num_rows)
     return _latch_xy(index, depth, fvp)
 
 
-def resolve_binned_xy(consts, fvp, bins, image_size, near, far, row_start=0, num_rows=None):
-    """:func:`resolve_xy` over K1's constants of its faces (:func:`face_setup`)
-    and their per-tile bins (:func:`bin_faces`, made for the same window);
-    the same outputs, bit for bit."""
-    if not _use_kernel(consts, fvp, *bins):
-        return resolve_binned_xy_plain(consts, fvp, bins, image_size, near, far,
+def resolve_binned_xy(fvp, draw_backside, bins, image_size, near, far, row_start=0,
+                      num_rows=None):
+    """:func:`resolve_xy` over the per-tile bins of its faces
+    (:func:`bin_faces`, made for the same window and ``draw_backside``);
+    the same outputs, bit for bit.  The kernel gathers each bin entry's
+    face vertices and forms its constants itself (no K1)."""
+    if not _use_kernel(fvp, *bins):
+        return resolve_binned_xy_plain(fvp, draw_backside, bins, image_size, near, far,
                                        row_start, num_rows)
     bs, nf = _check_fvp(fvp)
-    _check(consts, "consts", torch.float32, (bs, 17, nf))
     S, r0, rows = _window(image_size, row_start, num_rows)
     bin_ptrs = _check_bins(bins, bs, rows, S)
-    dev = consts.device
-    index = torch.empty((bs, rows, S), dtype=torch.int32, device=dev)
-    depth = torch.empty((bs, rows, S), dtype=torch.float32, device=dev)
-    coords = torch.empty((bs, 6, rows, S), dtype=torch.float32, device=dev)
-    _launch("resolve_binned_xy", dev.index, consts.data_ptr(), fvp.data_ptr(), *bin_ptrs,
-            index.data_ptr(), depth.data_ptr(), coords.data_ptr(), bs, nf, S, r0, rows,
+    index = fvp.new_empty((bs, rows, S), dtype=torch.int32)
+    depth = fvp.new_empty((bs, rows, S))
+    coords = fvp.new_empty((bs, 6, rows, S))
+    _launch("resolve_binned_xy", fvp.get_device(), fvp.data_ptr(), *bin_ptrs, index.data_ptr(),
+            depth.data_ptr(), coords.data_ptr(), bs, nf, S, r0, rows, int(draw_backside),
             float(near), float(far))
     return index, depth, coords
 
 
-def resolve_binned_latch_plain(consts, fvp, face_attrs, bins, image_size, near, far,
+def resolve_binned_latch_plain(fvp, face_attrs, draw_backside, bins, image_size, near, far,
                                row_start=0, num_rows=None):
-    index, depth = _binned_fold(consts, bins, image_size, near, far, row_start, num_rows)
+    index, depth = _binned_fold(fvp, draw_backside, bins, image_size, near, far, row_start,
+                                num_rows)
     return _latch_copy(index, depth, fvp, face_attrs)
 
 
-def resolve_binned_latch(consts, fvp, face_attrs, bins, image_size, near, far, row_start=0,
-                         num_rows=None):
-    """:func:`resolve_latch` over K1's constants and their per-tile bins
+def resolve_binned_latch(fvp, face_attrs, draw_backside, bins, image_size, near, far,
+                         row_start=0, num_rows=None):
+    """:func:`resolve_latch` over the per-tile bins of its faces
     (:func:`bin_faces`); the same outputs, bit for bit."""
-    if not _use_kernel(consts, fvp, face_attrs, *bins):
-        return resolve_binned_latch_plain(consts, fvp, face_attrs, bins, image_size, near,
-                                          far, row_start, num_rows)
-    S, r0, rows = _window(image_size, row_start, num_rows)
-    bin_ptrs = _check_bins(bins, consts.shape[0], rows, S)
+    if not _use_kernel(fvp, face_attrs, *bins):
+        return resolve_binned_latch_plain(fvp, face_attrs, draw_backside, bins, image_size,
+                                          near, far, row_start, num_rows)
     bs, nf, A = _check_latch(fvp, face_attrs, "resolve_binned_latch", binned=True)
-    _check(consts, "consts", torch.float32, (bs, 17, nf))
-    out = _latch_outputs(bs, A, rows, S, consts.device)
-    _launch("resolve_binned_latch", consts.get_device(), consts.data_ptr(), fvp.data_ptr(),
-            face_attrs.data_ptr(), *bin_ptrs, *(t.data_ptr() for t in out), bs, nf, A, S,
-            r0, rows, float(near), float(far))
+    S, r0, rows = _window(image_size, row_start, num_rows)
+    bin_ptrs = _check_bins(bins, bs, rows, S)
+    out = _latch_outputs(bs, A, rows, S, fvp.device)
+    _launch("resolve_binned_latch", fvp.get_device(), fvp.data_ptr(), face_attrs.data_ptr(),
+            *bin_ptrs, *(t.data_ptr() for t in out), bs, nf, A, S, r0, rows,
+            int(draw_backside), float(near), float(far))
     return out
 
 
-def resolve_binned_depth_plain(consts, bins, image_size, near, far, row_start=0,
+def resolve_binned_depth_plain(fvp, draw_backside, bins, image_size, near, far, row_start=0,
                                num_rows=None):
-    return _binned_fold(consts, bins, image_size, near, far, row_start, num_rows)
+    return _binned_fold(fvp, draw_backside, bins, image_size, near, far, row_start, num_rows)
 
 
-def resolve_binned_depth(consts, bins, image_size, near, far, row_start=0, num_rows=None):
-    """:func:`resolve_depth` over K1's constants and their per-tile bins
+def resolve_binned_depth(fvp, draw_backside, bins, image_size, near, far, row_start=0,
+                         num_rows=None):
+    """:func:`resolve_depth` over the per-tile bins of its faces
     (:func:`bin_faces`); the same outputs, bit for bit."""
-    if not _use_kernel(consts, *bins):
-        return resolve_binned_depth_plain(consts, bins, image_size, near, far, row_start,
-                                          num_rows)
-    bs, nf = consts.shape[0], consts.shape[-1]
-    _check(consts, "consts", torch.float32, (bs, 17, nf))
+    if not _use_kernel(fvp, *bins):
+        return resolve_binned_depth_plain(fvp, draw_backside, bins, image_size, near, far,
+                                          row_start, num_rows)
+    bs, nf = _check_fvp(fvp)
     S, r0, rows = _window(image_size, row_start, num_rows)
     bin_ptrs = _check_bins(bins, bs, rows, S)
-    dev = consts.device
-    index = torch.empty((bs, rows, S), dtype=torch.int32, device=dev)
-    depth = torch.empty((bs, rows, S), dtype=torch.float32, device=dev)
-    _launch("resolve_binned_depth", dev.index, consts.data_ptr(), *bin_ptrs, index.data_ptr(),
-            depth.data_ptr(), bs, nf, S, r0, rows, float(near), float(far))
+    index = fvp.new_empty((bs, rows, S), dtype=torch.int32)
+    depth = fvp.new_empty((bs, rows, S))
+    _launch("resolve_binned_depth", fvp.get_device(), fvp.data_ptr(), *bin_ptrs,
+            index.data_ptr(), depth.data_ptr(), bs, nf, S, r0, rows, int(draw_backside),
+            float(near), float(far))
     return index, depth

@@ -47,11 +47,11 @@ SIGNATURES = {
     "resolve_xy": "PPPPiiiiiiff",
     "resolve_latch": "PPPPPPiiiiiiiff",
     "resolve_depth": "PPPiiiiiiff",
-    "resolve_binned_xy": "PPPPPPPPiiiiiff",
-    "resolve_binned_latch": "PPPPPPPPPPiiiiiiff",
-    "resolve_binned_depth": "PPPPPPiiiiiff",
-    "bin_faces_count": "PPiiiii",
-    "bin_faces": "PPPPPPiiiii",
+    "resolve_binned_xy": "PPPPPPPiiiiiiff",
+    "resolve_binned_latch": "PPPPPPPPPiiiiiiiff",
+    "resolve_binned_depth": "PPPPPPiiiiiiff",
+    "bin_faces_count": "PPiiiiii",
+    "bin_faces": "PPPPPPiiiiii",
     "scatter_pixels_to_faces": "PPPiiii",
     "scatter_faces_to_vertices": "PPPPiii",
     "gather_faces3": "PPPiiii",

@@ -2,8 +2,10 @@
 against its plain version ``bin_faces_plain`` (itself held to the JAX
 package's ``_bin_faces`` by ``tests/test_torch_binned.py``).
 
-The emulation follows the kernel: each face's tile rectangle by the same
-pixel-centre intervals, per-tile counters, their exclusive scan (padded to
+The emulation follows the kernel: each face's bbox and K1's kill rule
+formed from its screen coordinates (the plain K1, whose bits the kernel's
+face_constants.cuh gives), its tile rectangle by the same pixel-centre
+intervals, per-tile counters, their exclusive scan (padded to
 the scan chunk), a fill through per-tile cursors in a seeded random order
 (standing in for the atomics' order), then the order pass: a bin of at
 most ``warp_cap`` ids ranked (each id's rank is the count of smaller
@@ -38,9 +40,8 @@ def _soup(seed, bs, nf):
     return fv
 
 
-def _consts(fv, draw_backside=True):
-    return rc.face_setup_plain(torch.tensor(np.ascontiguousarray(fv.transpose(0, 3, 2, 1))),
-                               draw_backside)
+def _fvp(fv):
+    return torch.tensor(np.ascontiguousarray(fv.transpose(0, 3, 2, 1)))
 
 
 def _crowded(size, centre_px, radius_px):
@@ -55,10 +56,12 @@ def _crowded(size, centre_px, radius_px):
     return ndc[f][None]
 
 
-def _emulated_bins(consts, size, row_start, num_rows, warp_cap, bitmap_words, seed):
+def _emulated_bins(fvp, draw_backside, size, row_start, num_rows, warp_cap, bitmap_words,
+                   seed):
     """(cnt, offsets, ids, paths): the kernel's four passes in numpy;
     ``paths`` counts the bins each order path took and the bitmap windows."""
-    c = consts.numpy()
+    # each pass forms the bbox and the kill rule from the coordinates
+    c = rc.face_setup_plain(fvp, draw_backside).numpy()
     bs, _, nf = c.shape
     rows = size if num_rows is None else num_rows
     th, tw = rc.BIN_TILE
@@ -129,11 +132,11 @@ def _emulated_bins(consts, size, row_start, num_rows, warp_cap, bitmap_words, se
     return cnt, offsets[:bs * n_tiles].reshape(bs, n_tiles), ids, paths
 
 
-def _assert_plain_bins(consts, size, window, warp_cap=WARP_CAP, bitmap_words=BITMAP_WORDS,
-                       seed=0):
-    cnt, offsets, ids, paths = _emulated_bins(consts, size, *window, warp_cap, bitmap_words,
-                                              seed)
-    want = rc.bin_faces_plain(consts, size, *window)
+def _assert_plain_bins(fvp, size, window, warp_cap=WARP_CAP, bitmap_words=BITMAP_WORDS,
+                       seed=0, draw_backside=True):
+    cnt, offsets, ids, paths = _emulated_bins(fvp, draw_backside, size, *window, warp_cap,
+                                              bitmap_words, seed)
+    want = rc.bin_faces_plain(fvp, draw_backside, size, *window)
     np.testing.assert_array_equal(cnt, want[0].numpy())
     np.testing.assert_array_equal(offsets, want[1].numpy())
     np.testing.assert_array_equal(ids, want[2].numpy())
@@ -143,26 +146,36 @@ def _assert_plain_bins(consts, size, window, warp_cap=WARP_CAP, bitmap_words=BIT
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 @pytest.mark.parametrize("size,window", [(64, (0, None)), (100, (37, 41)), (128, (0, None))])
 def test_emulated_passes_give_the_plain_bins(size, window, seed):
-    paths = _assert_plain_bins(_consts(_soup(seed + 3, 2, 90)), size, window, seed=seed)
-    assert paths["warp"] > 0
+    for backside in (True, False):
+        paths = _assert_plain_bins(_fvp(_soup(seed + 3, 2, 90)), size, window, seed=seed,
+                                   draw_backside=backside)
+        assert paths["warp"] > 0
 
 
 @pytest.mark.parametrize("seed", [5, 6])
 def test_emulated_passes_on_a_lowered_warp_cap_give_the_plain_bins(seed):
     """The soup's larger bins through the bitmap, in windows of 32 ids."""
-    paths = _assert_plain_bins(_consts(_soup(seed, 2, 90)), 64, (0, None), warp_cap=4,
+    paths = _assert_plain_bins(_fvp(_soup(seed, 2, 90)), 64, (0, None), warp_cap=4,
                                bitmap_words=1, seed=seed)
     assert paths["bitmap"] > 0 and paths["windows"] > paths["bitmap"]
 
 
 def test_emulated_passes_on_an_empty_mesh_and_killed_faces():
-    empty = torch.zeros((1, 17, 0))
+    empty = torch.zeros((1, 3, 3, 0))
     paths = _assert_plain_bins(empty, 64, (0, None))
     assert set(paths.values()) == {0}
-    killed = _consts(_soup(6, 1, 20))
-    killed[:, 13:17] = torch.tensor([4.0, -4.0, 4.0, -4.0])[:, None]   # K1's killed bbox
-    _assert_plain_bins(killed, 64, (0, None))
-    assert int(rc.bin_faces_plain(killed, 64)[0].sum()) == 0
+    # faces the kill rule drops: zero area (two vertices in one), NaN
+    # coordinates, and, without draw_backside, the backfacing half
+    fv = _soup(6, 1, 20)
+    fv[:, :8, 1] = fv[:, :8, 0]
+    fv[:, 8:10, :, :2] = np.nan
+    killed = _fvp(fv)
+    for backside in (True, False):
+        _assert_plain_bins(killed, 64, (0, None), draw_backside=backside)
+    assert (rc.face_setup_plain(killed, True)[0, 13, :10] == 4.0).all()
+    assert int(rc.bin_faces_plain(killed[..., :10].contiguous(), True, 64)[0].sum()) == 0
+    assert 0 < int(rc.bin_faces_plain(killed, False, 64)[0].sum()) < int(
+        rc.bin_faces_plain(killed, True, 64)[0].sum())
 
 
 @pytest.mark.parametrize("window", [(0, None), (56, 16)])
@@ -173,11 +186,12 @@ def test_emulated_passes_on_a_crowded_tile(centre, window):
     far above a lowered warp cap: the bitmap path, in five windows of 256
     ids, gives the plain bin; the kernel's caps (one window of 4096 words)
     too."""
-    consts = _consts(_crowded(128, centre, 1.5))
-    cnt = rc.bin_faces_plain(consts, 128, *window)[0]
+    fvp = _fvp(_crowded(128, centre, 1.5))
+    consts = rc.face_setup_plain(fvp, True)
+    cnt = rc.bin_faces_plain(fvp, True, 128, *window)[0]
     alive = int((consts[:, 13] <= consts[:, 14]).sum())
     assert int(cnt.max()) == alive > 1200 and consts.shape[-1] == 1280
-    paths = _assert_plain_bins(consts, 128, window, warp_cap=32, bitmap_words=8, seed=2)
+    paths = _assert_plain_bins(fvp, 128, window, warp_cap=32, bitmap_words=8, seed=2)
     assert paths["bitmap"] >= 1 and paths["windows"] == 5 * paths["bitmap"]
-    paths = _assert_plain_bins(consts, 128, window, seed=3)
+    paths = _assert_plain_bins(fvp, 128, window, seed=3)
     assert paths["windows"] == paths["bitmap"] >= 1

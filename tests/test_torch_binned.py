@@ -84,8 +84,8 @@ def test_bins_match_jax(seed, window, draw_backside):
     jcnt = np.asarray(jcnt).reshape(bs, ty_n, jax_tx)[:, :, :tx_n].reshape(bs, -1)
     order = np.asarray(order).reshape(bs, ty_n, jax_tx, nf)[:, :, :tx_n].reshape(bs, -1, nf)
 
-    consts = rc.face_setup(_planar(fv), draw_backside)
-    cnt, offsets, ids = (t.numpy() for t in rc.bin_faces(consts, S, row_start, num_rows))
+    cnt, offsets, ids = (t.numpy() for t in rc.bin_faces(_planar(fv), draw_backside, S,
+                                                         row_start, num_rows))
     np.testing.assert_array_equal(cnt, jcnt)
     assert cnt.sum() > 0
     for b in range(bs):
@@ -102,9 +102,9 @@ def test_bins_hold_exactly_the_faces_that_touch_each_tile(size, window, seed):
     row_start, num_rows = window
     rows = size if num_rows is None else num_rows
     th, tw = rc.BIN_TILE
-    consts = rc.face_setup(_planar(_soup(seed, 2, 90)), True)
-    cnt, offsets, ids = rc.bin_faces(consts, size, row_start, num_rows)
-    c = consts.numpy()
+    fvp = _planar(_soup(seed, 2, 90))
+    cnt, offsets, ids = rc.bin_faces(fvp, True, size, row_start, num_rows)
+    c = rc.face_setup(fvp, True).numpy()
     f32 = np.float32
 
     def centre(i):
@@ -131,15 +131,14 @@ def test_binned_forms_at_each_tile_equal_the_tiled_forms(seed, window):
     """K8's three forms (plain versions) over the bins of its 8x8 tiles, on
     a ragged canvas and two soups: the tiled forms' bits."""
     fvp = _planar(_soup(seed, 2, 80))
-    consts = rc.face_setup(fvp, True)
     attrs = torch.tensor(np.random.RandomState(7).rand(2, 80, 5).astype(np.float32))
     args = (100, 0.1, 100.0, *window)
-    bins = rc.bin_faces(consts, 100, *window)
+    bins = rc.bin_faces(fvp, True, 100, *window)
     pairs = [
-        (rc.resolve_binned_xy(consts, fvp, bins, *args), rc.resolve_xy(fvp, True, *args)),
-        (rc.resolve_binned_latch(consts, fvp, attrs, bins, *args),
+        (rc.resolve_binned_xy(fvp, True, bins, *args), rc.resolve_xy(fvp, True, *args)),
+        (rc.resolve_binned_latch(fvp, attrs, True, bins, *args),
          rc.resolve_latch(fvp, attrs, True, *args)),
-        (rc.resolve_binned_depth(consts, bins, *args), rc.resolve_depth(fvp, True, *args)),
+        (rc.resolve_binned_depth(fvp, True, bins, *args), rc.resolve_depth(fvp, True, *args)),
     ]
     for got, want in pairs:
         for g, w in zip(got, want):
@@ -315,10 +314,11 @@ def test_route_rule_reads_shapes_only():
               (1, 2048, 2048, 81920), (1, 1024, 1024, 158720)]  # hires, hires-lit
     assert all(rc.resolve_route(*s) == "tiled" for s in tiled)
     assert all(rc.resolve_route(*s) == "binned" for s in binned)
-    # its threshold sweep at 512^2: tiled was faster up to 19,888 faces,
+    # its threshold sweep at 512^2: tiled was faster up to 32,480 faces,
     # binned from 39,680 on
-    assert [rc.resolve_route(1, 512, 512, nf) for nf in (9920, 19888, 39680, 50400, 62000)] \
-        == ["tiled"] * 2 + ["binned"] * 3
+    assert [rc.resolve_route(1, 512, 512, nf)
+            for nf in (9920, 19888, 26000, 32480, 39680, 50400, 62000)] \
+        == ["tiled"] * 4 + ["binned"] * 3
     # K8's tile on the binned route: 8x8, measured faster than 16x16 at all
     # four, hires included
     assert rc.BIN_TILE == (8, 8)

@@ -42,7 +42,7 @@ def _soup_planar(seed, bs, nf, device):
 @pytest.mark.parametrize("bs,nf,size", [(2, 37, 64), (1, 300, 100), (3, 5, 17)])
 def test_face_setup_and_resolve_are_bit_exact(cuda, bs, nf, size, draw_backside):
     """K1 and K2 (which forms K1's constants itself while staging faces)
-    against their plain versions, and K2 against K1 + K8, on a soup with a
+    against their plain versions, and K2 against K7 + K8, on a soup with a
     duplicate, a degenerate face and backfacing ones."""
     fvp = _soup_planar(nf, bs, nf, cuda)
     consts = rc.face_setup(fvp, draw_backside)
@@ -51,7 +51,9 @@ def test_face_setup_and_resolve_are_bit_exact(cuda, bs, nf, size, draw_backside)
     got = rc.resolve_xy(fvp, draw_backside, size, 0.1, 100.0)
     assert rc.LAUNCHES["resolve_xy"] == 1 and rc.LAUNCHES["face_setup"] == 0
     want = rc.resolve_xy_plain(fvp, draw_backside, size, 0.1, 100.0)
-    binned = rc.resolve_binned_xy(consts, fvp, rc.bin_faces(consts, size), size, 0.1, 100.0)
+    binned = rc.resolve_binned_xy(fvp, draw_backside, rc.bin_faces(fvp, draw_backside, size),
+                                  size, 0.1, 100.0)
+    assert rc.LAUNCHES["face_setup"] == 0
     for g, w, b in zip(got, want, binned):
         assert torch.equal(g, w) and torch.equal(g, b)
     assert (got[0] >= 0).any()
@@ -145,7 +147,7 @@ def test_tiled_forms_from_face_vertices_on_killed_faces(cuda, draw_backside):
     """K2, K2L and K2D from the face vertices, on faces the kill rule drops
     (degenerate, NaN, backfacing) beside live ones, a NaN depth and a face
     wholly off the canvas: bit-equal to K1's plain version + the plain
-    fold, and to K1 + K7 + K8; no K1 launched."""
+    fold, and to K7 + K8; no K1 launched."""
     bs, nf, size = 2, 96, 48
     fvp = _soup_planar(33, bs, nf, cuda)
     fvp[:, :2, :, 10] = float("nan")           # NaN screen coordinates
@@ -155,10 +157,10 @@ def test_tiled_forms_from_face_vertices_on_killed_faces(cuda, draw_backside):
     fvp[:, :, 1, 14] = fvp[:, :, 0, 14]        # two vertices in one: zero area
     attrs = torch.randn((bs, nf, 5), generator=torch.Generator(device=cuda).manual_seed(3),
                         device=cuda)
-    consts = rc.face_setup(fvp, draw_backside)
-    bins = rc.bin_faces(consts, size)
+    consts = rc.face_setup_plain(fvp, draw_backside)
     args = (size, 0.1, 100.0)
     rc.reset_launches()
+    bins = rc.bin_faces(fvp, draw_backside, size)
     tiled = [rc.resolve_xy(fvp, draw_backside, *args),
              rc.resolve_latch(fvp, attrs, draw_backside, *args),
              rc.resolve_depth(fvp, draw_backside, *args)]
@@ -166,9 +168,10 @@ def test_tiled_forms_from_face_vertices_on_killed_faces(cuda, draw_backside):
     plain = [rc.resolve_xy_plain(fvp, draw_backside, *args),
              rc.resolve_latch_plain(fvp, attrs, draw_backside, *args),
              rc.resolve_depth_plain(fvp, draw_backside, *args)]
-    binned = [rc.resolve_binned_xy(consts, fvp, bins, *args),
-              rc.resolve_binned_latch(consts, fvp, attrs, bins, *args),
-              rc.resolve_binned_depth(consts, bins, *args)]
+    binned = [rc.resolve_binned_xy(fvp, draw_backside, bins, *args),
+              rc.resolve_binned_latch(fvp, attrs, draw_backside, bins, *args),
+              rc.resolve_binned_depth(fvp, draw_backside, bins, *args)]
+    assert rc.LAUNCHES["face_setup"] == 0
     for t, p, b in zip(tiled, plain, binned):
         for x, y, z in zip(t, p, b):
             assert torch.equal(x, y) and torch.equal(x, z)
@@ -297,22 +300,21 @@ def test_bin_faces_and_binned_resolve_are_bit_exact(cuda, bs, nf, size, window):
     if num_rows is not None and row_start + num_rows > size:
         row_start, num_rows = size // 3, size // 2
     fvp = _soup_planar(nf + 2, bs, nf, cuda)
-    consts = rc.face_setup(fvp, True)
     attrs = torch.randn((bs, nf, 6), device=cuda)
     w = (row_start, num_rows)
-    bins = rc.bin_faces(consts, size, *w)
-    for g, p in zip(bins, rc.bin_faces_plain(consts, size, *w)):
+    bins = rc.bin_faces(fvp, True, size, *w)
+    for g, p in zip(bins, rc.bin_faces_plain(fvp, True, size, *w)):
         assert torch.equal(g, p)
     args = (size, 0.1, 100.0, *w)
     forms = [
-        (rc.resolve_binned_xy(consts, fvp, bins, *args),
-         rc.resolve_binned_xy_plain(consts, fvp, bins, *args),
+        (rc.resolve_binned_xy(fvp, True, bins, *args),
+         rc.resolve_binned_xy_plain(fvp, True, bins, *args),
          rc.resolve_xy(fvp, True, *args)),
-        (rc.resolve_binned_latch(consts, fvp, attrs, bins, *args),
-         rc.resolve_binned_latch_plain(consts, fvp, attrs, bins, *args),
+        (rc.resolve_binned_latch(fvp, attrs, True, bins, *args),
+         rc.resolve_binned_latch_plain(fvp, attrs, True, bins, *args),
          rc.resolve_latch(fvp, attrs, True, *args)),
-        (rc.resolve_binned_depth(consts, bins, *args),
-         rc.resolve_binned_depth_plain(consts, bins, *args),
+        (rc.resolve_binned_depth(fvp, True, bins, *args),
+         rc.resolve_binned_depth_plain(fvp, True, bins, *args),
          rc.resolve_depth(fvp, True, *args)),
     ]
     for got, plain, tiled in forms:
@@ -323,18 +325,18 @@ def test_bin_faces_and_binned_resolve_are_bit_exact(cuda, bs, nf, size, window):
 
 def test_compute_face_index_map_on_card_launches_kernels(cuda):
     """The id/depth entry runs the route's resolve kernel on the card (K2D
-    alone, or K1, K7 and K8), never the plain fold, and gives the CPU's
-    result."""
+    alone, or K7 and K8; K1 on neither), never the plain fold, and gives
+    the CPU's result."""
     rng = np.random.RandomState(5)
     fv = rng.uniform(-1, 1, (2, 40, 3, 3)).astype(np.float32)
     fv[..., 2] = np.abs(fv[..., 2]) + 0.1
     want = nr.compute_face_index_map(torch.tensor(fv), 64, return_depth=True)
-    for mode, kernel, k1 in (("auto", "resolve_depth", 0), ("binned", "resolve_binned_depth", 1)):
+    for mode, kernel, k7 in (("auto", "resolve_depth", 0), ("binned", "resolve_binned_depth", 1)):
         rc.reset_launches()
         got = nr.compute_face_index_map(torch.tensor(fv, device=cuda), 64, return_depth=True,
                                         mode=mode)
-        assert rc.LAUNCHES["face_setup"] == k1 and rc.LAUNCHES[kernel] == 1, rc.LAUNCHES
-        assert rc.LAUNCHES["bin_faces"] == k1, rc.LAUNCHES
+        assert rc.LAUNCHES["face_setup"] == 0 and rc.LAUNCHES[kernel] == 1, rc.LAUNCHES
+        assert rc.LAUNCHES["bin_faces"] == k7, rc.LAUNCHES
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
 
@@ -553,7 +555,7 @@ def test_bin_faces_on_a_crowded_tile(cuda, mesh, window):
     from test_torch_bin_faces import _crowded
 
     if mesh == "torus(320, 248)":
-        # seen from above (its axis is y), as chip_smoke.crowded_consts
+        # seen from above (its axis is y), as chip_smoke.crowded_fvp
         v, f = torus(320, 248)
         v = v / np.abs(v).max()
         size, c, r = 512, (2.0 * 59.5 + 1.0 - 512) / 512, 2.0 * 3.0 / 512
@@ -563,15 +565,14 @@ def test_bin_faces_on_a_crowded_tile(cuda, mesh, window):
         size = 128
         fv = _crowded(size, (59.5, 59.5), 1.5)
     fvp = torch.tensor(np.ascontiguousarray(fv.transpose(0, 3, 2, 1)), device=cuda)
-    consts = rc.face_setup(fvp, True)
-    want = rc.bin_faces_plain(consts, size, *window)
+    want = rc.bin_faces_plain(fvp, True, size, *window)
     k = int(want[0].argmax())
     top = want[2][int(want[1].reshape(-1)[k]):][:int(want[0].reshape(-1)[k])]
     assert len(top) > 1200
     if mesh == "torus(320, 248)":
         assert len(top) > 50_000 and int(top.max() - top.min()) >= 32 * 4096
-    _bins_equal(rc.bin_faces(consts, size, *window), want)
-    _bins_equal(rc.bin_faces(consts, size, *window), want)
+    _bins_equal(rc.bin_faces(fvp, True, size, *window), want)
+    _bins_equal(rc.bin_faces(fvp, True, size, *window), want)
 
 
 def test_bin_faces_at_scale_repeats_its_bits_in_four_device_operations(cuda):
@@ -586,16 +587,15 @@ def test_bin_faces_at_scale_repeats_its_bits_in_four_device_operations(cuda):
     r.image_size, r.anti_aliasing = 512, False
     r.viewpoints = nr.get_points_from_angles(2.732, 30, 30.0)
     ndc = r.transform_vertices(torch.tensor(v[None], device=cuda))
-    consts = rc.face_setup(rc.gather_faces3(ndc.contiguous(), torch.tensor(faces, device=cuda)),
-                           True)
-    first = rc.bin_faces(consts, 512)
-    _bins_equal(first, rc.bin_faces_plain(consts, 512))
+    fvp = rc.gather_faces3(ndc.contiguous(), torch.tensor(faces, device=cuda))
+    first = rc.bin_faces(fvp, True, 512)
+    _bins_equal(first, rc.bin_faces_plain(fvp, True, 512))
     torch.cuda.synchronize()
     rc.reset_launches()
     calls = 4
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            again = rc.bin_faces(consts, 512)
+            again = rc.bin_faces(fvp, True, 512)
         torch.cuda.synchronize()
     _bins_equal(again, first)
     assert rc.LAUNCHES["bin_faces"] == calls
@@ -606,3 +606,96 @@ def test_bin_faces_at_scale_repeats_its_bits_in_four_device_operations(cuda):
     assert sum(readback.values()) <= calls and sum(ops.values()) <= 4 * calls, records
     kernels = ("bin_count_kernel", "bin_fill_kernel", "bin_order_kernel")
     assert all(any(n in k for n in kernels) or "Memset" in k for k in ops), records
+
+
+@pytest.mark.parametrize("window", [(0, None), (30, 41)])
+@pytest.mark.parametrize("bs,nf", [(2, 37), (1, 257), (2, 2561), (1, 0)])
+def test_tiled_forms_on_ragged_shapes_match_plain_and_binned(cuda, bs, nf, window):
+    """K2, K2L and K2D bit-equal to their plain versions and to K7 + K8 at
+    S = 100 (a ragged last tile), on nf % 4 != 0 (every face row of fvp
+    unaligned but the first), nf under one batch, several batches and nf =
+    0, on the canvas and a row window, with and without backfaces."""
+    S = 100
+    fvp = _soup_planar(nf + 7, bs, max(nf, 3), cuda)[..., :nf].contiguous()
+    attrs = torch.randn((bs, nf, 4), generator=torch.Generator(device=cuda).manual_seed(nf),
+                        device=cuda)
+    for backside in (True, False):
+        args = (S, 0.1, 100.0, *window)
+        bins = rc.bin_faces(fvp, backside, S, *window)
+        forms = {
+            "resolve_xy": (rc.resolve_xy(fvp, backside, *args),
+                           rc.resolve_xy_plain(fvp, backside, *args),
+                           rc.resolve_binned_xy(fvp, backside, bins, *args)),
+            "resolve_latch": (rc.resolve_latch(fvp, attrs, backside, *args),
+                              rc.resolve_latch_plain(fvp, attrs, backside, *args),
+                              rc.resolve_binned_latch(fvp, attrs, backside, bins, *args)),
+            "resolve_depth": (rc.resolve_depth(fvp, backside, *args),
+                              rc.resolve_depth_plain(fvp, backside, *args),
+                              rc.resolve_binned_depth(fvp, backside, bins, *args)),
+        }
+        for form, (got, plain, binned) in forms.items():
+            for g, p, b in zip(got, plain, binned):
+                assert torch.equal(g, p) and torch.equal(g, b), (form, backside)
+        index = forms["resolve_depth"][0][0]
+        assert (index >= 0).any() if nf else (index == -1).all()
+
+
+@pytest.mark.parametrize("mesh", ["icosphere(3)", "torus(320, 248)"])
+def test_binned_resolve_on_a_crowded_tile(cuda, mesh):
+    """K8 over one bin that holds every live face (its CTA stages it 64
+    entries at a time: ~20 batches for icosphere(3), ~1,150 for
+    textured-scale's torus) bit-equal to the tiled forms, and, for the
+    small mesh, to its plain version."""
+    from test_torch_bin_faces import _crowded
+
+    if mesh == "torus(320, 248)":
+        v, f = torus(320, 248)
+        v = v / np.abs(v).max()
+        size, c, r = 512, (2.0 * 59.5 + 1.0 - 512) / 512, 2.0 * 3.0 / 512
+        fv = np.stack([c + r * v[:, 0], c + r * v[:, 2], 2.0 + v[:, 1]], -1)
+        fv = fv.astype(np.float32)[f][None]
+    else:
+        size = 128
+        fv = _crowded(size, (59.5, 59.5), 1.5)
+    fvp = torch.tensor(np.ascontiguousarray(fv.transpose(0, 3, 2, 1)), device=cuda)
+    attrs = torch.randn((1, fvp.shape[-1], 3), device=cuda)
+    bins = rc.bin_faces(fvp, True, size)
+    args = (size, 0.1, 100.0)
+    forms = [(rc.resolve_binned_xy(fvp, True, bins, *args), rc.resolve_xy(fvp, True, *args)),
+             (rc.resolve_binned_latch(fvp, attrs, True, bins, *args),
+              rc.resolve_latch(fvp, attrs, True, *args)),
+             (rc.resolve_binned_depth(fvp, True, bins, *args), rc.resolve_depth(fvp, True, *args))]
+    for got, tiled in forms:
+        for g, t in zip(got, tiled):
+            assert torch.equal(g, t)
+    assert int(bins[0].max()) > 1200 and (forms[0][0][0] >= 0).any()
+    if mesh == "icosphere(3)":
+        plain = [rc.resolve_binned_xy_plain(fvp, True, bins, *args),
+                 rc.resolve_binned_latch_plain(fvp, attrs, True, bins, *args),
+                 rc.resolve_binned_depth_plain(fvp, True, bins, *args)]
+        for (got, _), want in zip(forms, plain):
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+
+
+def test_binned_step_launches_no_k1(cuda):
+    """A silhouette step and an RGB step forced down the binned route launch
+    K7 and K8 and no K1, and give the tiled route's images."""
+    v, f = torus(40, 32)
+    r = nr.Renderer(cuda)
+    r.image_size = 64
+    r.viewpoints = nr.get_points_from_angles(2.732, 30, 0)
+    x = torch.tensor(v[None], device=cuda)
+    faces = torch.tensor(f, device=cuda)
+    want = r.render_silhouettes(x, faces)
+    depth_want = r.render_depth(x, faces)
+    rc.reset_launches()
+    with rc.forced_route("binned"):
+        xx = x.clone().requires_grad_(True)
+        images = r.render_silhouettes(xx, faces)
+        images.sum().backward()
+        depth = r.render_depth(x, faces)
+    assert torch.equal(images.detach(), want) and torch.equal(depth, depth_want)
+    assert rc.LAUNCHES["face_setup"] == 0, rc.LAUNCHES
+    assert rc.LAUNCHES["bin_faces"] == 2 and rc.LAUNCHES["resolve_binned_xy"] == 1
+    assert rc.LAUNCHES["resolve_binned_latch"] == 1, rc.LAUNCHES

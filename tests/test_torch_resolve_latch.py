@@ -135,11 +135,10 @@ def test_resolve_and_gather_latch_without_attrs():
 def _kernel_args():
     """Small CPU inputs for every wrapper in rc.KERNELS: (args, kwargs)."""
     fvp = torch.tensor(_planar(_soup(14, 1, 9)))
-    consts = rc.face_setup_plain(fvp, True)
     _, faces = icosphere(0)
     faces = torch.tensor(faces)
     fim = torch.randint(-1, 9, (1, 8, 8), dtype=torch.int32)
-    bins = rc.bin_faces_plain(consts, 40)
+    bins = rc.bin_faces_plain(fvp, True, 40)
     return {
         "face_setup": ((fvp, True), {}),
         "resolve_xy": ((fvp, True, 16, 0.1, 100.0), {}),
@@ -149,10 +148,10 @@ def _kernel_args():
         "scatter_faces_to_vertices": ((torch.ones(1, 3, 3, 20), faces, 12), {}),
         "gather_faces3": ((torch.ones(1, 12, 3), faces), {}),
         "scatter_rows": ((torch.ones(1, 12, 64), fim.reshape(1, 64), 9), {}),
-        "bin_faces": ((consts, 40), {}),
-        "resolve_binned_xy": ((consts, fvp, bins, 40, 0.1, 100.0), {}),
-        "resolve_binned_latch": ((consts, fvp, torch.ones(1, 9, 4), bins, 40, 0.1, 100.0), {}),
-        "resolve_binned_depth": ((consts, bins, 40, 0.1, 100.0), {}),
+        "bin_faces": ((fvp, True, 40), {}),
+        "resolve_binned_xy": ((fvp, True, bins, 40, 0.1, 100.0), {}),
+        "resolve_binned_latch": ((fvp, torch.ones(1, 9, 4), False, bins, 40, 0.1, 100.0), {}),
+        "resolve_binned_depth": ((fvp, True, bins, 40, 0.1, 100.0), {}),
         "gather_rows": ((torch.ones(1, 9, 5), fim.reshape(1, 64)), {"planar": True}),
     }
 

@@ -15,6 +15,18 @@ faces whose killed bbox touches the tile, in ascending order, with K1's
 gives the plain resolve's index and depth on the tile's pixels.  The faces
 include degenerate, NaN, backfacing and off-canvas ones, under both
 ``draw_backside`` values, on a ragged canvas and a row window.
+
+The face stream's cluster design (``tools/resolve_designs.cu``, timed
+against the shipped forms and not shipped: it measured slower) loads the
+stream once for a cluster of C CTAs (a row of tiles): each batch's nine
+runs of the planar ``fvp`` come by multicast bulk copies (run j from rank
+j % C) into a ring of five stages, each run at its address's offset within
+a 128-byte line in a slot of 288 floats, its unaligned head and tail read
+from global memory by the threads whose faces they hold; a stage is
+refilled once every CTA has released it.  The ring's indexing is emulated:
+every CTA receives every face exactly once, in id order, from aligned
+copies whose bytes the stage's barrier expects, for nf not a multiple of
+4, under one batch and zero.
 """
 
 import numpy as np
@@ -163,21 +175,150 @@ def test_staging_selects_k1s_touching_faces_with_k1s_bits(size, window, draw_bac
 
 def test_tiled_forms_take_face_vertices_and_match_the_binned_route():
     """The tiled wrappers' plain versions (K1's plain version, then the
-    fold) against the binned route's (K1, K7, K8) on the same faces: the
-    same bits in all three forms and both backside modes."""
+    fold) against the binned route's (K7, K8, both from the face vertices)
+    on the same faces: the same bits in all three forms and both backside
+    modes."""
     fvp = torch.tensor(_faces(5))
     attrs = torch.tensor(np.random.RandomState(6).rand(2, 300, 4).astype(f32))
     for draw_backside in (True, False):
-        consts = rc.face_setup(fvp, draw_backside)
         args = (40, 0.1, 100.0, 5, 30)
-        bins = rc.bin_faces(consts, 40, 5, 30)
+        bins = rc.bin_faces(fvp, draw_backside, 40, 5, 30)
         pairs = [(rc.resolve_xy(fvp, draw_backside, *args),
-                  rc.resolve_binned_xy(consts, fvp, bins, *args)),
+                  rc.resolve_binned_xy(fvp, draw_backside, bins, *args)),
                  (rc.resolve_latch(fvp, attrs, draw_backside, *args),
-                  rc.resolve_binned_latch(consts, fvp, attrs, bins, *args)),
+                  rc.resolve_binned_latch(fvp, attrs, draw_backside, bins, *args)),
                  (rc.resolve_depth(fvp, draw_backside, *args),
-                  rc.resolve_binned_depth(consts, bins, *args))]
+                  rc.resolve_binned_depth(fvp, draw_backside, bins, *args))]
         for tiled, binned in pairs:
             for t, b in zip(tiled, binned):
                 assert torch.equal(t, b)
         assert (pairs[0][0][0] >= 0).any()
+
+
+# the cluster ring of tools/resolve_designs.cu: five stages, nine runs a
+# batch, a run's slot of 288 floats (a batch and a 128-byte line)
+STAGES, RUN_SLOT = 5, BATCH + 32
+
+
+def _run_plan(addr, length):
+    """run_plan: (q, a0, body) of a run starting at float address ``addr``
+    (4-byte units) with ``length`` entries."""
+    q = addr & 3
+    a0 = (4 - q) & 3
+    body = (length - a0) & ~3 if length > a0 else 0
+    return q, a0, body
+
+
+def _emulate_cluster(bs, nf, cluster, offset):
+    """Every CTA of a cluster walking the batches of image b's face stream,
+    the face vertices at float address ``offset`` + their index (the tensor
+    at ``offset`` floats past a 16-byte boundary): the copies each rank
+    issues, what lands in each CTA's ring, what each thread reads.
+    Returns, for each image and CTA, the faces each thread took, in order,
+    with their nine coordinates as read."""
+    fvp = np.arange(bs * 9 * nf, dtype=np.int64)       # each float: its own index
+    taken = {}
+    for b in range(bs):
+        vb = b * 9 * nf
+        rings = np.full((cluster, STAGES, 9, RUN_SLOT), -1, dtype=np.int64)
+        writes = np.zeros((cluster, STAGES, 9, RUN_SLOT), dtype=np.int64)
+        got = {(rank, t): [] for rank in range(cluster) for t in range(BATCH)}
+        batches = -(-nf // BATCH)
+        pending = {}                                   # stage -> expected bytes
+        landed = np.zeros((cluster, STAGES), dtype=np.int64)
+        released = np.full((cluster, STAGES), cluster)  # empty barriers: arrivals
+
+        def issue(i):
+            stage, base = i % STAGES, i * BATCH
+            length = min(BATCH, nf - base)
+            plans = [_run_plan(offset + vb + j * nf + base, length) for j in range(9)]
+            # every CTA's thread 0 expects the whole batch's bodies
+            pending[stage] = sum(4 * body for _, _, body in plans)
+            # a stage is refilled only once every CTA has released it
+            assert (released[:, stage] == cluster).all()
+            released[:, stage] = 0
+            writes[:, stage] = 0
+            landed[:, stage] = 0
+            for rank in range(cluster):
+                for j in range(rank, 9, cluster):
+                    q, a0, body = plans[j]
+                    if body == 0:
+                        continue
+                    src = offset + vb + j * nf + base + a0
+                    line = (offset + vb + j * nf) % 32      # the run's offset in its line
+                    dst = line + a0
+                    # a bulk copy: 16-byte source, destination and size, the
+                    # destination at the source's offset within a line
+                    assert src % 4 == 0 and dst % 4 == 0 and (4 * body) % 16 == 0
+                    assert dst % 32 == src % 32 and dst + body <= RUN_SLOT
+                    for dest in range(cluster):            # multicast to every CTA
+                        rings[dest, stage, j, dst:dst + body] = fvp[src - offset:
+                                                                    src - offset + body]
+                        writes[dest, stage, j, dst:dst + body] += 1
+                        landed[dest, stage] += 4 * body
+
+        for i in range(min(STAGES, batches)):
+            issue(i)
+        for i in range(batches):
+            stage, base = i % STAGES, i * BATCH
+            length = min(BATCH, nf - base)
+            # the stage's barrier completes with exactly its expected bytes
+            assert (landed[:, stage] == pending[stage]).all()
+            assert writes[:, stage].max() <= 1
+            for rank in range(cluster):
+                for t in range(BATCH):
+                    v = []
+                    for j in range(9):
+                        run = vb + j * nf + base
+                        q, a0, body = _run_plan(offset + run, length)
+                        if a0 <= t < a0 + body:
+                            v.append(rings[rank, stage, j, (offset + run) % 32 + t])
+                        else:
+                            v.append(fvp[run + t] if t < length else -1)
+                    if t < length:
+                        got[rank, t].append((base + t, v))
+                # this CTA has read the stage: it releases it to every CTA
+                released[:, stage] += 1
+            if i + STAGES < batches:
+                issue(i + STAGES)
+        taken[b] = got
+    return taken
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("cluster", [2, 4, 8])
+@pytest.mark.parametrize("nf", [1, 3, 255, 257, 2561])
+def test_cluster_ring_delivers_every_face_to_every_cta_once_in_order(nf, cluster, offset):
+    bs = 2
+    taken = _emulate_cluster(bs, nf, cluster, offset)
+    for b in range(bs):
+        for rank in range(cluster):
+            faces = []
+            for t in range(BATCH):
+                for f, v in taken[b][rank, t]:
+                    assert f % BATCH == t
+                    # fvp[b, coord, vertex, f] at (b * 9 + 3 * coord + vertex) * nf + f
+                    assert v == [(b * 9 + j) * nf + f for j in range(9)]
+                    faces.append(f)
+            # every face once, and each thread's faces in ascending order
+            assert sorted(faces) == list(range(nf))
+            for t in range(BATCH):
+                ids = [f for f, _ in taken[b][rank, t]]
+                assert ids == sorted(ids)
+
+
+def test_cluster_ring_with_no_faces_issues_nothing():
+    taken = _emulate_cluster(2, 0, 4, 0)
+    assert all(not v for got in taken.values() for v in got.values())
+
+
+def test_cluster_ring_copies_most_of_each_run():
+    """What the threads read from global memory: at most three floats at
+    each end of a run, none when the run is aligned."""
+    for nf in (257, 2561):
+        for j in range(9):
+            q, a0, body = _run_plan(j * nf, BATCH)
+            assert a0 <= 3 and BATCH - a0 - body <= 3
+            assert (q, a0, body) == ((j * nf) % 4, (4 - (j * nf) % 4) % 4, body)
+    assert _run_plan(0, BATCH) == (0, 0, BATCH)
+    assert _run_plan(1, 3) == (1, 3, 0)            # a run under 4 floats: no copy

@@ -29,7 +29,7 @@ the package through its wrappers and entry points only.  Measured:
 tool_library``) and times K7 as its parent had it (``chip_smoke.
 parent_bin_design``) and a stable LSD radix sort of the pairs by tile key
 (:func:`radix_design`) beside this checkout's K7 at the four binned shapes
-and on a crowded tile (``chip_smoke.crowded_consts``: one bin of ~74K ids
+and on a crowded tile (``chip_smoke.crowded_fvp``: one bin of ~74K ids
 spanning two bitmap windows), all at 8x8 tiles: device ms per call under
 the profiler and event medians, in the order shipped, parent, radix,
 radix, parent, shipped, each held bit-equal to the plain version.
@@ -63,14 +63,23 @@ def load_chip_smoke():
     return module
 
 
-def tiled_args(rc, consts, fvp, attrs):
+def lead_args(rc, fvp, attrs):
     """The one adapter to another checkout's signatures: the leading
-    arguments of the tiled forms (resolve_xy, resolve_latch,
-    resolve_depth).  This checkout's take the face vertices and
-    draw_backside; its parent's take K1's constants."""
-    if "consts" in inspect.signature(rc.resolve_xy).parameters:
-        return (consts, fvp), (consts, fvp, attrs), (consts,)
-    return (fvp, True), (fvp, attrs, True), (fvp, True)
+    arguments of K7 (``bin_faces``), of the tiled forms (``xy``, ``latch``,
+    ``depth``) and of the binned forms (``binned_xy``, ...: functions of
+    the bins), with draw_backside.  This checkout's K7 and K8 take the face
+    vertices; its parent's took K1's constants, made here beforehand."""
+    tiled = dict(xy=(fvp, True), latch=(fvp, attrs, True), depth=(fvp, True))
+    if "consts" in inspect.signature(rc.bin_faces).parameters:
+        consts = rc.face_setup(fvp, True)
+        return dict(tiled, bin_faces=(consts,),
+                    binned_xy=lambda bins: (consts, fvp, bins),
+                    binned_latch=lambda bins: (consts, fvp, attrs, bins),
+                    binned_depth=lambda bins: (consts, bins))
+    return dict(tiled, bin_faces=(fvp, True),
+                binned_xy=lambda bins: (fvp, True, bins),
+                binned_latch=lambda bins: (fvp, attrs, True, bins),
+                binned_depth=lambda bins: (fvp, True, bins))
 
 
 def tiny_calls(cs, dev):
@@ -80,36 +89,37 @@ def tiny_calls(cs, dev):
     fv = rng.uniform(-1, 1, (1, 9, 3, 3)).astype(np.float32)
     fv[..., 2] = np.abs(fv[..., 2]) + 0.1
     fvp = torch.tensor(np.ascontiguousarray(fv.transpose(0, 3, 2, 1)), device=dev)
-    consts = rc.face_setup(fvp, True)
     attrs = torch.ones((1, 9, 4), device=dev)
+    lead = lead_args(rc, fvp, attrs)
     faces = torch.tensor(cs.icosphere(0)[1], device=dev)
     fim = torch.tensor(rng.randint(-1, 9, (1, 8, 8)).astype(np.int32), device=dev)
     ids = fim.reshape(1, 64)
-    bins = rc.bin_faces(consts, 16)
+    bins = rc.bin_faces(*lead["bin_faces"], 16)
     g6, g12 = torch.ones((1, 6, 8, 8), device=dev), torch.ones((1, 12, 64), device=dev)
     g9, table3 = torch.ones((1, 3, 3, 20), device=dev), torch.ones((1, 12, 3), device=dev)
     table9 = torch.ones((1, 9, 5), device=dev)
-    xy, latch, depth = tiled_args(rc, consts, fvp, attrs)
     return {
         "face_setup": lambda: rc.face_setup(fvp, True),
-        "resolve_xy": lambda: rc.resolve_xy(*xy, 16, 0.1, 100.0),
-        "resolve_latch": lambda: rc.resolve_latch(*latch, 16, 0.1, 100.0),
-        "resolve_depth": lambda: rc.resolve_depth(*depth, 16, 0.1, 100.0),
+        "resolve_xy": lambda: rc.resolve_xy(*lead["xy"], 16, 0.1, 100.0),
+        "resolve_latch": lambda: rc.resolve_latch(*lead["latch"], 16, 0.1, 100.0),
+        "resolve_depth": lambda: rc.resolve_depth(*lead["depth"], 16, 0.1, 100.0),
         "scatter_pixels_to_faces": lambda: rc.scatter_pixels_to_faces(g6, fim, 9),
         "scatter_faces_to_vertices": lambda: rc.scatter_faces_to_vertices(g9, faces, 12),
         "gather_faces3": lambda: rc.gather_faces3(table3, faces),
         "scatter_rows": lambda: rc.scatter_rows(g12, ids, 9),
-        "bin_faces": lambda: rc.bin_faces(consts, 16),
-        "resolve_binned_xy": lambda: rc.resolve_binned_xy(consts, fvp, bins, 16, 0.1, 100.0),
-        "resolve_binned_latch": lambda: rc.resolve_binned_latch(consts, fvp, attrs, bins, 16, 0.1,
-                                                                100.0),
-        "resolve_binned_depth": lambda: rc.resolve_binned_depth(consts, bins, 16, 0.1, 100.0),
+        "bin_faces": lambda: rc.bin_faces(*lead["bin_faces"], 16),
+        "resolve_binned_xy": lambda: rc.resolve_binned_xy(*lead["binned_xy"](bins), 16, 0.1,
+                                                          100.0),
+        "resolve_binned_latch": lambda: rc.resolve_binned_latch(*lead["binned_latch"](bins), 16,
+                                                                0.1, 100.0),
+        "resolve_binned_depth": lambda: rc.resolve_binned_depth(*lead["binned_depth"](bins), 16,
+                                                                0.1, 100.0),
         "gather_rows": lambda: rc.gather_rows(table9, ids, True),
     }
 
 
 class Scenes:
-    """The configurations' renderers, meshes and K1 constants on the card."""
+    """The configurations' renderers, meshes and face vertices on the card."""
 
     def __init__(self, cs, dev):
         nr = cs.nr
@@ -130,16 +140,16 @@ class Scenes:
         self.hires.viewpoints = nr.get_points_from_angles(2.732, 30, 30.0)
         self.textured = {name: cs.Textured(name, dev) for name in ("textured-scale", "hires-lit")}
 
-    def consts(self, label):
-        """(K1's constants, S) of a binned configuration."""
-        rc, cs = self.cs.rc, self.cs
+    def faces(self, label):
+        """(face vertices, S) of a binned configuration."""
+        cs = self.cs
         with torch.no_grad():
             if label in self.textured:
                 cfg = self.textured[label]
-                return cfg.latch_inputs()[2], cfg.size
+                return cfg.latch_inputs()[1], cfg.size
             r = self.scale if label == "scale" else self.hires
             fvp = cs.gather_face_vertices(r.transform_vertices(self.sphere_v), self.sphere_f)
-            return rc.face_setup(fvp, True), r.image_size * (2 if r.anti_aliasing else 1)
+            return fvp, r.image_size * (2 if r.anti_aliasing else 1)
 
     def steps(self):
         cs = self.cs
@@ -175,10 +185,11 @@ def checkout_rows(cs, dev, gen):
                               for label, call in gathers.items()}
         out["bin_faces"] = {}
         for label in BINNED:
-            consts, S = scenes.consts(label)
+            fvp, S = scenes.faces(label)
+            lead = lead_args(rc, fvp, fvp.new_empty((1, fvp.shape[-1], 0)))["bin_faces"]
 
-            def call(consts=consts, S=S):
-                return rc.bin_faces(consts, S)
+            def call(lead=lead, S=S):
+                return rc.bin_faces(*lead, S)
 
             prof = cs.profile_kept(call)
             out["bin_faces"][label] = dict(
@@ -244,15 +255,17 @@ def design_rows(cs, dev):
     rc = cs.rc
     designs = {"parent": cs.parent_bin_design(), "radix": radix_design(cs)}
     scenes = Scenes(cs, dev)
-    shapes = {label: scenes.consts(label) for label in BINNED}
-    shapes["crowded"] = (cs.crowded_consts(dev), 512)
+    shapes = {label: scenes.faces(label) for label in BINNED}
+    shapes["crowded"] = (cs.crowded_fvp(dev), 512)
     rows = []
     with torch.no_grad():
-        for label, (consts, S) in shapes.items():
-            calls = {"shipped": lambda consts=consts, S=S: rc.bin_faces(consts, S)}
+        for label, (fvp, S) in shapes.items():
+            # the designs read K1's constants, made beforehand
+            consts = rc.face_setup(fvp, True)
+            calls = {"shipped": lambda fvp=fvp, S=S: rc.bin_faces(fvp, True, S)}
             for name, fn in designs.items():
                 calls[name] = lambda consts=consts, S=S, fn=fn: fn(consts, S, 0, S)
-            want = rc.bin_faces_plain(consts, S)
+            want = rc.bin_faces_plain(fvp, True, S)
             exact = {name: all(torch.equal(g, w) for g, w in zip(call(), want))
                      for name, call in calls.items()}
             device_ms = {name: [] for name in calls}
