@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's optimisation steps on one CUDA GPU: silhouettes,
-textured, lit and depth rendering, and both at high resolution.
+textured, lit and depth rendering, both at high resolution, and the
+user-facing path (OBJ I/O, examples 1-5, the convergence fit).
 
     python3 chip_smoke.py
 
@@ -46,6 +47,19 @@ Builds the hand-written kernels from ``neural_renderer_v2_pytorch_tpu_torch
   bits as every other rank's.  These times show what a step costs when
   ranks share a card, not how the path scales;
 
+- the user-facing path (``examples``): ``utils.scenes.write_example_data``
+  at 256^2 and its torus OBJ through ``load_obj`` (int32 faces on the
+  card, the fan triangulation of the written quads), then examples 1-4
+  through their ``run()`` at 256^2 with anti-aliasing (example 1's 90
+  views; 30 steps of examples 2-4), example 5's sharded fit at 64^2 on two
+  ranks sharing the card, and the convergence fit (the JAX package's
+  tests/test_rasterize.py:165-204: two triangles, IoU loss, the port's
+  ``Adam(lr=0.005)``, 256^2 without anti-aliasing) to below 0.01 within
+  350 steps.  Each fit's first step is held to the plain versions (images
+  and index map equal, gradients within 1e-4) and timed (median step ms,
+  device operations and busy share per step); each run's launches are
+  read around it (every kernel of its path, no K1, at most one K4 vertex
+  -> slot table per fit), each loss must fall and each GIF be written;
 - the face-vertex gather and its transpose (K5, K4) at the meshes of
   ``bench`` (and ``atlas``), ``scale`` and ``textured-scale``, batch 1 and
   8: K5 bit-equal to its plain version, K4 to the plain version on CPU
@@ -100,6 +114,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -1861,6 +1876,297 @@ def face_vertex_kernels(dev, gen, smi):
     return split
 
 
+# the examples phase: fits of EXAMPLE_STEPS steps at 256^2 with
+# anti-aliasing (the examples' defaults) on write_example_data's torus OBJ,
+# example 5 at 64^2 on two ranks sharing the card, and the convergence fit
+EXAMPLE_SIZE = 256
+EXAMPLE_STEPS = 30
+EXAMPLE5_SIZE = 64
+EXAMPLE5_STEPS = 10
+CONVERGENCE_STEPS = 350      # the JAX package's test: below 0.01 within 350 steps
+CONVERGENCE_LOSS = 0.01
+
+
+def example_fit_checks(label, fit, forward, fim, smi):
+    """A fit's first step (``forward(fit, param)`` -> (images, loss) from
+    ``fit.param``, then backward) with the kernels and with their plain
+    versions (``steps_vs_plain``), then its median step ms (CUDA events,
+    after warm-up) and its device operations per step (profiler).  Returns
+    the printed numbers."""
+    def step():
+        p = fit.param.clone().requires_grad_(True)
+        images, loss = forward(fit, p)
+        loss.backward()
+        return images.detach(), {"param": p.grad}
+
+    steps_vs_plain(label, step, fim)
+    ms = median_ms(step, 20, warmup=3)
+    prof = profile_device(step)
+    rel = "=" if prof.complete else ">="
+    out = dict(step_ms=ms, busy_ms=prof.busy, busy_share=prof.busy / ms, ops=prof.ops,
+               complete=prof.complete)
+    log(f"[examples] {label} step: {ms:.4f} ms (median of 20, CUDA events), device busy "
+        f"{rel} {prof.busy:.4f} ms ({rel} {100 * prof.busy / ms:.1f}%) in {rel} "
+        f"{prof.ops:.1f} device operations per step  ({smi})")
+    return out
+
+
+def check_fit_launches(label, launches, kernels, slot_tables):
+    """The kernels of a fit's path launched, no K1, and at most one vertex ->
+    slot table built over the whole fit (K4's, kept across its steps)."""
+    if slot_tables > 1:
+        raise AssertionError(f"{label}: {slot_tables} vertex -> slot table builds in one fit")
+    if not all(launches[name] > 0 for name in kernels):
+        raise AssertionError(f"{label} missed a kernel of its path {kernels}: {launches}")
+    check_k1(label, launches)
+
+
+def check_falls(label, losses):
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the loss did not fall: {losses}")
+
+
+def check_camera_nears(cameras):
+    """Example 4's camera, after each step, nearer at the end to the view
+    its target was rendered from than where it started."""
+    from neural_renderer_v2_pytorch_tpu_torch.examples import example4
+    from neural_renderer_v2_pytorch_tpu_torch.utils import scenes
+
+    target = np.asarray(nr.get_points_from_angles(*scenes.EXAMPLE4_VIEW), np.float64)
+    start, end = (float(np.linalg.norm(np.asarray(c) - target))
+                  for c in (example4.START, cameras[-1]))
+    if not end < start:
+        raise AssertionError(f"example4: the camera {cameras[-1]} is no nearer to "
+                             f"{target.tolist()} than its start ({end} >= {start})")
+    log(f"[examples] example4: the camera's distance to the target view "
+        f"{scenes.EXAMPLE4_VIEW} went {start:.4f} -> {end:.4f} in {len(cameras)} steps "
+        f"(at {[round(x, 4) for x in cameras[-1]]})")
+
+
+def parser_times(directory):
+    """Host seconds of ``load_obj``'s two geometry parsers (the C++ one of
+    ``native_loader`` and the Python one), median of 3, on the examples'
+    torus OBJ and on a 256,000-face one; the two must agree.  Returns
+    {faces: (native s, python s)}."""
+    from neural_renderer_v2_pytorch_tpu_torch.utils import native_loader, obj_io, scenes
+
+    times = {}
+    for n_major, n_minor in ((40, 32), (400, 320)):
+        path = os.path.join(directory, f"torus_{n_major}_{n_minor}.obj")
+        scenes.write_torus_obj(path, n_major, n_minor)
+        row, parsed = [], []
+        for parse in (native_loader.parse_obj_native, obj_io._parse_geometry_python):
+            seconds = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                geometry = parse(path)
+                seconds.append(time.perf_counter() - t0)
+            if geometry is None:
+                raise AssertionError("the C++ OBJ parser did not build or load")
+            row.append(float(np.median(seconds)))
+            parsed.append(geometry[:2])
+        if not all(np.array_equal(a, b) for a, b in zip(*parsed)):
+            raise AssertionError(f"{path}: the C++ and Python parsers disagree")
+        times[2 * n_major * n_minor] = tuple(row)
+    log("[examples] OBJ geometry parse, host s (median of 3) {faces: [C++, Python]}: "
+        + json.dumps(times))
+    return times
+
+
+def examples_phase(dev, smi):
+    """The user-facing path at full width: write_example_data at 256^2, the
+    torus OBJ through load_obj (int32 faces on the card), examples 1-4
+    through their run() (EXAMPLE_STEPS steps each), example 5 on two ranks
+    sharing the card, and the convergence fit at 256^2 without
+    anti-aliasing.  Each fit's first step is held to the plain versions and
+    timed; each run's launches are read around it.  Returns ({label:
+    launches}, {label: step numbers})."""
+    import tempfile
+
+    from neural_renderer_v2_pytorch_tpu_torch.examples import (
+        example1,
+        example2,
+        example3,
+        example4,
+        example5_sharded,
+    )
+    from neural_renderer_v2_pytorch_tpu_torch.utils import scenes
+
+    launches, numbers = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = scenes.write_example_data(os.path.join(tmp, "data"), EXAMPLE_SIZE, device=dev)
+        vertices, faces = nr.load_obj(data["torus.obj"], device=dev)
+        want = scenes.fan_triangles(scenes.torus_quads(40, 32))
+        if faces.dtype != torch.int32 or faces.device.type != dev.type or \
+                not np.array_equal(faces.cpu().numpy(), want) or \
+                sorted(map(tuple, want)) != sorted(map(tuple, torus(40, 32)[1])):
+            raise AssertionError(f"load_obj: faces {faces.dtype} on {faces.device}, not the "
+                                 f"torus's int32 faces on the card")
+        log(f"[examples] write_example_data at {EXAMPLE_SIZE}^2 and load_obj: {len(vertices)} "
+            f"vertices, {len(faces)} int32 faces on {faces.device}, the fan triangulation of "
+            f"the torus's quads; {time.perf_counter() - t0:.1f} s")
+        parser_times(tmp)
+        out = os.path.join(tmp, "out")
+        common = ["-s", str(EXAMPLE_SIZE), "--device", dev.type]
+        size = 2 * EXAMPLE_SIZE           # anti-aliasing on
+
+        # example 1: three batches of 30 views, forward only; its first
+        # batch held to the plain versions through the same renderer
+        argv1 = ["-i", data["torus.obj"], "-o", f"{out}/ex1.gif"] + common
+        args1 = example1.parse_arguments(argv1)
+        sweep = example1.setup(args1)
+        first = sweep.azimuths[:args1.batch]
+
+        def sweep_step():
+            with torch.no_grad():
+                return example1.render_batch(sweep, first), {}
+
+        t0 = time.perf_counter()
+        steps_vs_plain("example1", sweep_step, lambda: index_map(
+            sweep.renderer, sweep.vertices[None].expand(len(first), -1, -1), sweep.faces,
+            False))
+        log(f"[examples] example1: its first batch of {len(first)} views held to the plain "
+            f"versions in {time.perf_counter() - t0:.1f} s")
+        rc.reset_launches()
+        views = example1.run(argv1)
+        torch.cuda.synchronize()
+        launches["example1"] = dict(rc.LAUNCHES)
+        route = rc.resolve_route(30, size, size, len(faces))
+        ex1_kernels = ("gather_faces3", "resolve_xy") if route == "tiled" else \
+            ("gather_faces3", "bin_faces", "resolve_binned_xy")
+        check_fit_launches("example1", launches["example1"], ex1_kernels, rc.SLOT_TABLE_BUILDS)
+        if views != 90 or not os.path.getsize(f"{out}/ex1.gif"):
+            raise AssertionError(f"example1: {views} views, or no GIF")
+        log(f"[examples] example1: {views} views in batches of 30 ({route} route), GIF "
+            f"written; launches {json.dumps(launches['example1'])}")
+
+        fits = (
+            ("example2", example2, ["-io", data["torus.obj"], "-ir", data["example2_ref.png"],
+                                    "-oo", f"{out}/ex2_opt.gif", "-or", f"{out}/ex2_res.gif",
+                                    "-n", str(EXAMPLE_STEPS)], SILHOUETTE_KERNELS),
+            ("example3", example3, ["-io", data["torus.obj"], "-ir", data["example3_ref.png"],
+                                    "-or", f"{out}/ex3_res.gif", "-n", str(EXAMPLE_STEPS)],
+             ("gather_faces3", "resolve_latch", "scatter_pixels_to_faces")),
+            ("example4", example4, ["-io", data["torus.obj"], "-ir", data["example4_ref.png"],
+                                    "-or", f"{out}/ex4_res.gif", "-n", str(EXAMPLE_STEPS)],
+             SILHOUETTE_KERNELS),
+        )
+        for label, module, argv, kernels in fits:
+            argv = argv + common
+            fit = module.setup(module.parse_arguments(argv))
+            batch = fit.vertices if fit.vertices.ndim == 3 else fit.vertices[None]
+            numbers[label] = example_fit_checks(
+                label, fit, module.forward,
+                lambda fit=fit, batch=batch, label=label: index_map(
+                    fit.renderer, batch, fit.faces, label == "example3"), smi)
+            torch.cuda.synchronize()
+            rc.reset_launches()
+            t0 = time.perf_counter()
+            cameras = []
+            losses = module.run(argv, cameras) if module is example4 else module.run(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches[label] = dict(rc.LAUNCHES)
+            check_fit_launches(label, launches[label], kernels, rc.SLOT_TABLE_BUILDS)
+            check_falls(label, losses)
+            if module is example4:
+                check_camera_nears(cameras)
+            gifs = [a for a in argv if a.endswith(".gif")]
+            if not all(os.path.getsize(g) for g in gifs):
+                raise AssertionError(f"{label}: a GIF was not written: {gifs}")
+            log(f"[examples] {label}: {len(losses)} losses {losses[0]:.3f} -> {losses[-1]:.3f} "
+                f"(run() with its frames and GIFs {seconds:.1f} s), slot tables built "
+                f"{rc.SLOT_TABLE_BUILDS}; launches {json.dumps(launches[label])}")
+
+        # example 5: the sharded fit on two ranks sharing the card (gloo)
+        args5 = example5_sharded.parse_args(
+            ["-i", data["torus.obj"], "-o", f"{out}/ex5.gif", "-s", str(EXAMPLE5_SIZE),
+             "-n", str(EXAMPLE5_STEPS), "--ranks", "2", "--device", dev.type])
+        t0 = time.perf_counter()
+        ranks = example5_sharded.fit(args5, vs_plain=True)
+        example5_sharded.write_turntable(args5, ranks[0]["vertices"])
+        seconds = time.perf_counter() - t0
+        summed = collections.Counter()
+        for r in ranks:
+            summed.update(r["launches"])
+        launches["example5"] = dict(summed)
+        check_falls("example5", ranks[0]["losses"])
+        mesh5 = ranks[0]["mesh"]
+        # each rank renders 2 views (the batch is 2 per data rank), a band of
+        # the rows without anti-aliasing
+        route5 = rc.resolve_route(2, -(-EXAMPLE5_SIZE // mesh5[1]), EXAMPLE5_SIZE, len(faces))
+        ex5_kernels = ("gather_faces3", "scatter_pixels_to_faces", "scatter_faces_to_vertices",
+                       "resolve_xy" if route5 == "tiled" else "resolve_binned_xy")
+        errs5 = []
+        for rank, r in enumerate(ranks):
+            check_fit_launches(f"example5 rank {rank}", collections.Counter(r["launches"]),
+                               ex5_kernels, r["slot_tables"])
+            (ik, gk), (ip, gp) = r["first_step"]["kernels"], r["first_step"]["plain"]
+            check_equal(f"example5 rank {rank} images", ik, ip)
+            if not torch.isfinite(gk).all() or float(gk.abs().max()) == 0.0:
+                raise AssertionError(f"example5 rank {rank}: gradients not finite or all zero")
+            errs5.append(check_close(f"example5 rank {rank} vertex grads", gk, gp))
+        log(f"[examples] example5 first step, kernels vs plain on each rank: images equal, "
+            f"vertex grad max abs err {errs5} (max |g| {float(gp.abs().max())})")
+        if not os.path.getsize(args5.output_file):
+            raise AssertionError("example5: no GIF")
+        log(f"[examples] example5: mesh {mesh5} on 2 ranks sharing the card (gloo), "
+            f"{EXAMPLE5_SIZE}^2, losses {ranks[0]['losses'][0]:.6f} -> "
+            f"{ranks[0]['losses'][-1]:.6f}, every rank's vertices rank 0's bits, GIF written, "
+            f"{seconds:.1f} s with rank start-up; launches (ranks summed) "
+            f"{json.dumps(launches['example5'])}")
+
+    # the convergence fit (JAX tests/test_rasterize.py:165-204): the 0.1
+    # square of two faces at z = 1 to a larger, moved square's silhouette,
+    # IoU loss, the port's Adam(lr=0.005), 256^2 without anti-aliasing
+    hp = nr.RasterizeHyperparam(image_size=EXAMPLE_SIZE, anti_aliasing=False)
+    tv, tf = scenes.square(**scenes.CONVERGENCE_TARGET)
+    sq_faces = torch.tensor(tf, device=dev)
+    with torch.no_grad():
+        ref = nr.rasterize_silhouettes(torch.tensor(tv, device=dev)[None], sq_faces, None, hp)[0]
+    v0 = torch.tensor(scenes.square(0.1)[0], device=dev)
+
+    def forward(fit, v):
+        image = nr.rasterize_silhouettes(v[None], sq_faces, None, hp)
+        return image, 1.0 - torch.sum(image[0] * ref) / torch.sum(
+            image[0] + ref - image[0] * ref)
+
+    def fim():
+        with torch.no_grad():
+            return resolve_and_gather(gather_face_vertices(v0[None], sq_faces), EXAMPLE_SIZE,
+                                      hp.near, hp.far, hp.draw_backside, None, False)[0]
+
+    fit = types.SimpleNamespace(param=v0)
+    numbers["convergence"] = example_fit_checks("convergence", fit, forward, fim, smi)
+    v = v0.clone().requires_grad_(True)
+    opt = nr.Adam([v], lr=0.005)
+    losses = []
+    torch.cuda.synchronize()
+    rc.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(CONVERGENCE_STEPS):
+        opt.zero_grad()
+        loss = forward(fit, v)[1]
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+        if losses[-1] < CONVERGENCE_LOSS:
+            break
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches["convergence"] = dict(rc.LAUNCHES)
+    check_fit_launches("convergence", launches["convergence"], SILHOUETTE_KERNELS,
+                       rc.SLOT_TABLE_BUILDS)
+    log(f"[examples] convergence: IoU loss {losses[0]:.6f} -> {losses[-1]:.6f} in "
+        f"{len(losses)} steps ({seconds:.2f} s); launches {json.dumps(launches['convergence'])}")
+    if not losses[-1] < CONVERGENCE_LOSS:
+        raise AssertionError(f"convergence: the loss stayed above {CONVERGENCE_LOSS} for "
+                             f"{CONVERGENCE_STEPS} steps: last {losses[-5:]}")
+    log("[examples] step numbers: " + json.dumps(numbers))
+    return launches, numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -2200,6 +2506,10 @@ def main():
     # 16. sharded rendering (parallel/) on ranks that share this card
     _, sharded_launches = sharded_runs(dev, smi)
 
+    # 16b. the user-facing path: OBJ I/O, examples 1-5 and the convergence
+    # fit through their entry points
+    example_launches, _ = examples_phase(dev, smi)
+
     # 17. K5 and K4 at four meshes and two batch sizes, in turns with their
     # yardsticks, and the host-time split of a wrapper call
     face_vertex_kernels(dev, gen, smi)
@@ -2334,7 +2644,7 @@ def main():
 
     launches = collections.Counter()
     for path in (sil_launches, tex_launches, hires_launches, hl_launches, index_launches,
-                 sharded_launches):
+                 sharded_launches, *example_launches.values()):
         launches.update(path)
     log(smi)
     log(json.dumps({"kernels": [

@@ -1,12 +1,15 @@
 """PyTorch + CUDA port of the neural mesh renderer
 (``neural_renderer_v2_pytorch_tpu``): differentiable silhouette, textured,
 lit and depth rendering with the NMR gradient, with its resolve, gathers
-and gradient scatters as hand-written Hopper kernels (``csrc/``).  Imports
+and gradient scatters as hand-written Hopper kernels (``csrc/``), OBJ/MTL
+I/O, a trainable ``Mesh``, the reference's per-parameter ``Adam`` and the
+examples (``examples/``).  The public names are the JAX package's.  Imports
 no JAX."""
 
 from .models.lights import AmbientLight, DirectionalLight, Light, SpecularLight
+from .models.mesh import Mesh
 from .models.renderer import Renderer
-from .ops.camera import look_at, perspective
+from .ops.camera import look, look_at, perspective
 from .ops.differentiation import differentiation
 from .ops.gather_resolve import compute_face_index_map
 from .ops.maps import cross, mask_foreground, to_map
@@ -20,24 +23,45 @@ from .ops.rasterize import (
     rasterize_rgba,
     rasterize_silhouettes,
 )
-from .utils.helpers import create_textures, get_points_from_angles
+from .ops.resolve import compute_weight_map
+from .utils.helpers import (
+    create_textures,
+    get_points_from_angles,
+    imread,
+    imsave,
+    make_gif,
+    to_device,
+    to_gpu,
+)
+from .utils.obj_io import load_mtl, load_obj, save_obj
+from .utils.optim import Adam, adam
 
 __version__ = "2.0.2"
 
 __all__ = [
+    "Adam",
     "AmbientLight",
     "DirectionalLight",
     "Light",
+    "Mesh",
     "Renderer",
     "RasterizeHyperparam",
     "RasterizeParam",
     "SpecularLight",
+    "adam",
     "compute_face_index_map",
+    "compute_weight_map",
     "create_textures",
     "cross",
     "differentiation",
     "get_points_from_angles",
+    "imread",
+    "imsave",
+    "load_mtl",
+    "load_obj",
+    "look",
     "look_at",
+    "make_gif",
     "mask_foreground",
     "perspective",
     "rasterize",
@@ -46,6 +70,9 @@ __all__ = [
     "rasterize_rgb",
     "rasterize_rgba",
     "rasterize_silhouettes",
+    "save_obj",
+    "to_device",
+    "to_gpu",
     "to_map",
     "__version__",
 ]

@@ -9,7 +9,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.camera import look_at, perspective
+from ..ops.camera import look, look_at, perspective
 from ..ops.rasterize import (
     RasterizeHyperparam,
     RasterizeParam,
@@ -27,8 +27,8 @@ class Renderer(nn.Module):
 
     Inputs must already lie on ``device``; ``faces`` may be any integer
     array-like and is moved there (:meth:`faces_on_device`).
-    ``viewpoints`` may be a tensor (e.g. one that requires grad, to
-    optimise the camera)."""
+    ``viewpoints`` (and, with ``camera_mode="look"``, ``camera_direction``)
+    may be a tensor, e.g. one that requires grad, to optimise the camera."""
 
     def __init__(self, device="cuda"):
         super().__init__()
@@ -83,7 +83,7 @@ class Renderer(nn.Module):
         if self.camera_mode == "look_at":
             vertices = look_at(vertices, self.viewpoints)
         elif self.camera_mode == "look":
-            raise NotImplementedError("camera_mode='look' is not ported yet")
+            vertices = look(vertices, self.viewpoints, self.camera_direction)
         else:
             raise ValueError(f"unknown camera_mode {self.camera_mode!r}")
         if self.perspective:

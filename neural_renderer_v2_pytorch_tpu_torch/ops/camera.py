@@ -1,7 +1,8 @@
 """Camera transforms (counterpart of
 ``neural_renderer_v2_pytorch_tpu/ops/camera.py``).
 
-``look_at`` and ``perspective`` follow the reference conventions exactly:
+``look_at``, ``look`` and ``perspective`` follow the reference conventions
+exactly:
 ``perspective`` divides x, y by ``z * tan(angle)`` and keeps z, and converts
 degrees with the reference's literal 3.1416.  All math is elementwise
 float32 (no matmul, so no TF32 path can touch it).
@@ -57,6 +58,32 @@ def look_at(vertices, viewpoints, at=None, up=None):
     up = _as_batched(up, batch_size, device)
 
     z_axis = _normalize(at - viewpoints)                        # [bs, 3]
+    x_axis = _normalize(torch.cross(up, z_axis, dim=-1))
+    y_axis = _normalize(torch.cross(z_axis, x_axis, dim=-1))
+    r = torch.stack((x_axis, y_axis, z_axis), dim=1)            # [bs, 3, 3]
+    return _rotate(vertices - viewpoints[:, None, :], r)
+
+
+def look(vertices, viewpoints, direction=None, up=None):
+    """'Look' transformation of [bs, nv, 3] vertices: the camera at
+    ``viewpoints`` gazes along ``direction`` (default +z) instead of at a
+    point.  ``viewpoints``, ``direction`` and ``up`` (default +y) are [3] or
+    [bs, 3], placed on the vertices' device.  The intended semantics of the
+    reference's look.py:5-41, as the JAX package implements them (the
+    reference transposes batched inputs by mistake; PARITY.md row 14)."""
+    if vertices.ndim != 3:
+        raise ValueError(f"vertices must be [bs, nv, 3], got {tuple(vertices.shape)}")
+    batch_size, device = vertices.shape[0], vertices.device
+    if direction is None:
+        direction = (0.0, 0.0, 1.0)
+    if up is None:
+        up = (0.0, 1.0, 0.0)
+
+    viewpoints = _as_batched(viewpoints, batch_size, device)
+    direction = _as_batched(direction, batch_size, device)
+    up = _as_batched(up, batch_size, device)
+
+    z_axis = _normalize(direction)
     x_axis = _normalize(torch.cross(up, z_axis, dim=-1))
     y_axis = _normalize(torch.cross(z_axis, x_axis, dim=-1))
     r = torch.stack((x_axis, y_axis, z_axis), dim=1)            # [bs, 3, 3]

@@ -188,9 +188,7 @@ def _flip_pool(images):
 def finalize_images(images, coordinate_map, foreground, backgrounds, hp):
     """Background blend -> NMR differentiation hook -> flip -> AA pool."""
     if backgrounds is not None and hp.draw_rgb:
-        # backgrounds are pre-flipped because the merged image is flipped below
-        bg = backgrounds.flip(2, 3)
-        rgb = foreground * images[:, :3] + (1.0 - foreground) * bg
+        rgb = shading.blend_background_planes(foreground, images[:, :3], backgrounds)
         images = torch.cat([rgb, images[:, 3:]], dim=1)
     images = differentiation(images, coordinate_map)
     if hp.anti_aliasing:

@@ -1,6 +1,9 @@
 """Channel-planar shading maps: coordinates, depth, texture sampling,
 normals and lights (counterpart of the planar functions of
-``neural_renderer_v2_pytorch_tpu/ops/shading.py``).
+``neural_renderer_v2_pytorch_tpu/ops/shading.py``), and at the end the JAX
+package's NHWC functions (``compute_depth_map``, ``sample_textures``,
+``apply_lights``, ...), the reference-shaped API, as layouts over the
+planar ones.
 
 Plain PyTorch, as the JAX package leaves this layer to XLA, except the
 texture-atlas gradient, which is kernel K6 (:func:`resolve_cuda.
@@ -14,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..models import lights as light_lib
-from .maps import cross
+from .maps import cross, mask_foreground, to_map
 from .resolve_cuda import scatter_rows
 
 
@@ -29,11 +32,15 @@ def coordinate_planes(fvm_planar, weight_planes):
     return torch.stack((cx, cy), dim=1)
 
 
+def _depth(z, w):
+    """Perspective-correct depth ``1 / sum(w / z)`` from triples of planes."""
+    return 1.0 / (w[0] / z[0] + w[1] / z[1] + w[2] / z[2])
+
+
 def depth_plane(fvm_planar, face_index_map, weight_planes):
     """Perspective-correct depth [bs, 1, H, W], 0 on background."""
-    z0, z1, z2 = fvm_planar[:, 2], fvm_planar[:, 5], fvm_planar[:, 8]
-    w0, w1, w2 = weight_planes[:, 0], weight_planes[:, 1], weight_planes[:, 2]
-    d = 1.0 / (w0 / z0 + w1 / z1 + w2 / z2)
+    d = _depth((fvm_planar[:, 2], fvm_planar[:, 5], fvm_planar[:, 8]),
+               (weight_planes[:, 0], weight_planes[:, 1], weight_planes[:, 2]))
     return torch.where((face_index_map >= 0)[:, None], d[:, None], 0.0)
 
 
@@ -122,11 +129,18 @@ def sample_textures_atlas_planes(fvm_planar, uv_planes, textures, face_index_map
     5, 8); ``uv_planes`` [bs, 6, H, W] its texel-coordinate triangle
     u0,v0,u1,v1,u2,v2; ``textures`` [bs, 3, th, tw], differentiable;
     ``weight_planes`` [bs, 3, H, W]."""
-    bs, _, H, W = fvm_planar.shape
+    return _sample_atlas(fvm_planar[:, 2::3], uv_planes, textures, face_index_map,
+                         weight_planes, eps)
+
+
+def _sample_atlas(z_planes, uv_planes, textures, face_index_map, weight_planes, eps):
+    """:func:`sample_textures_atlas_planes` from the winner's vertex depths
+    ``z_planes`` [bs, 3, H, W]."""
+    bs, _, H, W = z_planes.shape
     th, tw = textures.shape[2:]
     fg = face_index_map >= 0
     x, y = _uv_coords(
-        (fvm_planar[:, 2], fvm_planar[:, 5], fvm_planar[:, 8]),
+        (z_planes[:, 0], z_planes[:, 1], z_planes[:, 2]),
         (uv_planes[:, 0], uv_planes[:, 2], uv_planes[:, 4]),
         (uv_planes[:, 1], uv_planes[:, 3], uv_planes[:, 5]),
         (weight_planes[:, 0], weight_planes[:, 1], weight_planes[:, 2]),
@@ -260,3 +274,113 @@ def apply_lights_planar(rgb_planes, normal_map_planes, lights):
         else:
             raise TypeError(f"unknown light type: {light!r}")
     return rgb_planes * color_weight
+
+
+def blend_background_planes(foreground, rgb_planes, backgrounds):
+    """The RGB planes [bs, 3, H, W] over ``backgrounds`` [bs, 3, H, W] where
+    ``foreground`` [bs, 1, H, W] is 0.  The backgrounds are flipped in H and
+    W here because the merged image is flipped at the end of the pipeline
+    (chainer rasterize.py:574-577)."""
+    return foreground * rgb_planes + (1.0 - foreground) * backgrounds.flip(2, 3)
+
+
+# ---------------------------------------------------------------------------
+# The NHWC functions of the JAX package (reference rasterize.py:80-190,
+# 252-283), each a layout over the planar function above: maps [bs, H, W,
+# ...], weights [bs, H, W, 3], face vertices [bs, nf, 3 (vertex), 3].
+
+
+def _planar(t):
+    """[bs, H, W, C] -> [bs, C, H, W]."""
+    return t.permute(0, 3, 1, 2)
+
+
+def _nhwc(t):
+    """[bs, C, H, W] -> [bs, H, W, C]."""
+    return t.permute(0, 2, 3, 1)
+
+
+def compute_depth_map_from(faces_z_map, face_index_map, weight_map):
+    """Perspective-correct depth [bs, H, W] from the winner's vertex depths
+    [bs, H, W, 3]; 0 on background."""
+    d = _depth(faces_z_map.unbind(-1), weight_map.unbind(-1))
+    return mask_foreground(d, face_index_map)
+
+
+def compute_depth_map(faces, face_index_map, weight_map):
+    """:func:`compute_depth_map_from` with the depths gathered from the face
+    vertices [bs, nf, 3, 3] (reference rasterize.py:80-88)."""
+    faces_z_map = to_map(faces[:, :, :, -1:], face_index_map)[:, :, :, :, 0]
+    return compute_depth_map_from(faces_z_map, face_index_map, weight_map)
+
+
+def compute_coordinate_map_from(face_vertex_map, weight_map):
+    """Barycentric screen XY [bs, H, W, 2] from the winner's vertices
+    [bs, H, W, 3, 3]: the map through which the NMR backward reaches the
+    vertices (:func:`coordinate_planes`)."""
+    bs, H, W = face_vertex_map.shape[:3]
+    fvm_planar = face_vertex_map.reshape(bs, H, W, 9).permute(0, 3, 1, 2)
+    return _nhwc(coordinate_planes(fvm_planar, _planar(weight_map)))
+
+
+def compute_coordinate_map(faces, face_index_map, weight_map):
+    """:func:`compute_coordinate_map_from` with the winners gathered from
+    the face vertices [bs, nf, 3, 3] (reference rasterize.py:91-97)."""
+    return compute_coordinate_map_from(to_map(faces, face_index_map), weight_map)
+
+
+def sample_textures_from(faces_z_map, vertices_textures_map, textures, face_index_map,
+                         weight_map, eps):
+    """Bilinear atlas sampling, RGB [bs, H, W, 3]
+    (:func:`sample_textures_atlas_planes`): the winner's vertex depths
+    [bs, H, W, 3] and texel-coordinate triangle [bs, H, W, 3, 2], the atlas
+    [bs, 3, th, tw], the weights [bs, H, W, 3].  Differentiable with respect
+    to the atlas, the depths and the texel coordinates, as the reference's
+    torch path (rasterize.py:100-153)."""
+    bs, H, W = face_index_map.shape
+    uv_planes = vertices_textures_map.reshape(bs, H, W, 6).permute(0, 3, 1, 2)
+    return _nhwc(_sample_atlas(_planar(faces_z_map), uv_planes, textures, face_index_map,
+                               _planar(weight_map), eps))
+
+
+def sample_textures(faces, faces_textures, textures, face_index_map, weight_map, eps):
+    """:func:`sample_textures_from` with the winners' depths and texel
+    triangles gathered from the face vertices [bs, nf, 3, 3] and the face
+    texel coordinates [bs, nf, 3, 2] (reference rasterize.py:100-153)."""
+    faces_z_map = to_map(faces[:, :, :, 2], face_index_map)
+    vertices_textures_map = to_map(faces_textures, face_index_map)
+    return sample_textures_from(faces_z_map, vertices_textures_map, textures, face_index_map,
+                                weight_map, eps)
+
+
+def blend_backgrounds(face_index_map, rgb_map, backgrounds):
+    """:func:`blend_background_planes` of RGB [bs, H, W, 3] over
+    ``backgrounds`` [bs, H, W, 3] (pre-flipped in H and W)."""
+    foreground = (face_index_map >= 0).to(torch.float32)[:, None]
+    return _nhwc(blend_background_planes(foreground, _planar(rgb_map), _planar(backgrounds)))
+
+
+def normal_map_from_gathered(normal_vertex_map, weight_map, smooth=True):
+    """Per-pixel normals [bs, H, W, 3] from the winner's vertex normals
+    [bs, H, W, 3, 3]: weighted (:func:`normal_planes`), or with ``smooth``
+    off their mean."""
+    if not smooth:
+        return torch.mean(normal_vertex_map, dim=-2)
+    bs, H, W = normal_vertex_map.shape[:3]
+    nvp = normal_vertex_map.reshape(bs, H, W, 9).permute(0, 3, 1, 2)
+    return _nhwc(normal_planes(nvp, _planar(weight_map)))
+
+
+def compute_normal_map(vertices, face_indices, faces, face_index_map, weight_map,
+                       smooth=True):
+    """Per-pixel normals [bs, H, W, 3] of ``vertices`` [bs, nv, 3] with faces
+    ``face_indices`` [nf, 3] and face vertices ``faces`` [bs, nf, 3, 3]
+    (:func:`face_vertex_normals`; reference rasterize.py:162-190)."""
+    normals = face_vertex_normals(vertices, face_indices, faces.permute(0, 3, 2, 1))
+    return normal_map_from_gathered(to_map(normals, face_index_map), weight_map, smooth)
+
+
+def apply_lights(rgb_map, normal_map, lights):
+    """RGB [bs, H, W, 3] times the colour weight that ``lights`` give the
+    normals [bs, H, W, 3] (:func:`apply_lights_planar`)."""
+    return _nhwc(apply_lights_planar(_planar(rgb_map), _planar(normal_map), lights))

@@ -1,4 +1,4 @@
-"""Deterministic procedural meshes (numpy only) shared by the tests and
+"""Deterministic procedural meshes (numpy) shared by the tests and
 ``chip_smoke.py``: the repository ships no mesh assets.
 
 ``torus(40, 32)`` (1,280 vertices, 2,560 faces) stands in for the
@@ -11,9 +11,15 @@ atlas (by default at the size of the loaded atlas of the JAX package's
 perf matrix, ``ATLAS_HW``), ``texel_scene`` gives it a ``create_textures``
 atlas of seeded random texels, and ``lit_light_arrays`` are that perf
 matrix's three lights.
+
+``write_example_data`` writes what the examples (``examples/``) read in
+place of the reference's teapot and target images, and ``square`` is the
+two-triangle square of the silhouette convergence fit.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -40,6 +46,26 @@ def torus(n_major, n_minor, major_radius=0.6, minor_radius=0.25):
         (np.stack((a, c, b), -1).reshape(-1, 3), np.stack((a, d, c), -1).reshape(-1, 3))
     )
     return vertices.astype(np.float32), faces.astype(np.int32)
+
+
+def torus_quads(n_major, n_minor):
+    """``torus(n_major, n_minor)``'s faces as quads i32 [n_major*n_minor, 4]
+    (a, d, c, b): fan-triangulated, quad q gives the faces (a, d, c) and
+    (a, c, b), which are ``torus``'s faces n_major*n_minor + q and q."""
+    i, j = np.meshgrid(np.arange(n_major), np.arange(n_minor), indexing="ij")
+    i1, j1 = (i + 1) % n_major, (j + 1) % n_minor
+    a, b = i * n_minor + j, i1 * n_minor + j
+    c, d = i1 * n_minor + j1, i * n_minor + j1
+    return np.stack((a, d, c, b), -1).reshape(-1, 4).astype(np.int32)
+
+
+def fan_triangles(polygons):
+    """Fan triangulation of equal-sized polygons [n, k]: the faces
+    [n * (k - 2), 3], each polygon's in turn, as an OBJ loader makes them."""
+    polygons = np.asarray(polygons)
+    k = polygons.shape[1]
+    fans = [polygons[:, [0, i + 1, i + 2]] for i in range(k - 2)]
+    return np.stack(fans, 1).reshape(-1, 3)
 
 
 def torus_uv(n_major, n_minor, height, width):
@@ -138,3 +164,94 @@ def icosphere(level, radius=0.5):
         )
     vertices = radius * vertices / np.linalg.norm(vertices, axis=1, keepdims=True)
     return vertices.astype(np.float32), faces.astype(np.int32)
+
+
+def square(half, centre=(0.0, 0.0), z=1.0):
+    """A square of side ``2 * half`` around ``centre`` at depth ``z``, as NDC
+    vertices f32 [4, 3] and two faces i32 [2, 3]; at ``half`` 0.1 around the
+    origin, the start of the JAX package's convergence test
+    (tests/test_rasterize.py:165-204)."""
+    cx, cy = centre
+    vertices = np.array([[cx + half, cy + half, z], [cx - half, cy + half, z],
+                         [cx - half, cy - half, z], [cx + half, cy - half, z]], np.float32)
+    return vertices, np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+
+
+# the convergence fit's target, a larger square moved off the centre: its
+# silhouette stands in for the reference's gradient.png, which the
+# repository does not ship (the fit starts at square(0.1))
+CONVERGENCE_TARGET = dict(half=0.3, centre=(0.2, -0.15))
+
+# the examples' cameras, here alone: distance, elevation and azimuth of
+# example 2's view, example 3's evaluation view (both examples import them)
+# and the view example 4's camera fit should find
+EXAMPLE2_VIEW = (2.732, 0, 90)
+EXAMPLE3_VIEW = (2.732, 0, 0)
+EXAMPLE4_VIEW = (2.732, 30, 30)
+
+
+def _write_gray(path, image):
+    from .helpers import imsave
+
+    imsave(path, np.repeat(np.asarray(image)[..., None], 3, axis=-1))
+
+
+def write_torus_obj(path, n_major, n_minor):
+    """``torus(n_major, n_minor)`` as an OBJ file of quads."""
+    v, _ = torus(n_major, n_minor)
+    with open(path, "w") as f:
+        f.write(f"# torus({n_major}, {n_minor}) as quads\n\n")
+        f.writelines("v %.8f %.8f %.8f\n" % tuple(p) for p in v)
+        f.write("\n")
+        f.writelines("f %d %d %d %d\n" % tuple(q + 1) for q in torus_quads(n_major, n_minor))
+
+
+def write_example_data(directory, size, device="cuda"):
+    """Write the examples' inputs into ``directory`` and return their paths
+    by name:
+
+    - ``torus.obj``: ``torus(40, 32)`` (2,560 faces, the stand-in for the
+      reference teapot's 2,464) written as quads, so that loading it
+      fan-triangulates;
+    - ``example2_ref.png``: the silhouette of that torus, scaled and moved,
+      from example 2's view;
+    - ``example3_ref.png``: the orthographic RGB render of the torus with a
+      ``create_textures`` atlas (texture size 4) of seeded random texels,
+      from example 3's evaluation view;
+    - ``example4_ref.png``: the silhouette from (2.732, 30, 30), the camera
+      example 4 should find from its start at (6, 10, -14).
+
+    The images are ``size`` x ``size`` RGB, rendered with anti-aliasing on
+    ``device`` from the torus as ``load_obj`` gives it."""
+    import torch
+
+    from ..models.renderer import Renderer
+    from .helpers import create_textures, get_points_from_angles, imsave
+    from .obj_io import load_obj
+
+    os.makedirs(directory, exist_ok=True)
+    paths = {name: os.path.join(directory, name) for name in (
+        "torus.obj", "example2_ref.png", "example3_ref.png", "example4_ref.png")}
+    write_torus_obj(paths["torus.obj"], 40, 32)
+
+    vertices, faces = load_obj(paths["torus.obj"], device=device)
+    r = Renderer(device)
+    r.image_size = size
+    with torch.no_grad():
+        r.viewpoints = get_points_from_angles(*EXAMPLE2_VIEW)
+        scale = vertices.new_tensor([1.1, 1.3, 1.1])
+        moved = vertices * scale + vertices.new_tensor([0.0, 0.1, 0.0])
+        _write_gray(paths["example2_ref.png"], r.render_silhouettes(moved[None], faces)[0].cpu())
+
+        r.viewpoints = get_points_from_angles(*EXAMPLE4_VIEW)
+        _write_gray(paths["example4_ref.png"], r.render_silhouettes(vertices[None], faces)[0].cpu())
+
+        r.viewpoints = get_points_from_angles(*EXAMPLE3_VIEW)
+        r.perspective = False
+        r.texture_size = 4
+        vt, ft, tex = create_textures(faces.shape[0], texture_size=4, device=device)
+        texels = np.random.RandomState(3).rand(*tex.shape).astype(np.float32)
+        rgb = r.render_rgb(vertices[None], faces, vt[None], ft,
+                           vertices.new_tensor(texels)[None])[0]
+        imsave(paths["example3_ref.png"], rgb.permute(1, 2, 0).cpu())
+    return paths

@@ -699,3 +699,48 @@ def test_binned_step_launches_no_k1(cuda):
     assert rc.LAUNCHES["face_setup"] == 0, rc.LAUNCHES
     assert rc.LAUNCHES["bin_faces"] == 2 and rc.LAUNCHES["resolve_binned_xy"] == 1
     assert rc.LAUNCHES["resolve_binned_latch"] == 1, rc.LAUNCHES
+
+
+def test_user_surface_on_the_card(cuda, tmp_path):
+    """``load_obj`` and ``Mesh`` default to the card with int32 faces;
+    ``Adam`` on the card matches it on the CPU; ``camera_mode="look"``
+    renders the same images through the kernels as through their plain
+    versions, and a fit over one faces tensor builds one K4 table."""
+    v, f = torus(16, 12)
+    path = tmp_path / "torus.obj"
+    with open(path, "w") as fh:
+        fh.writelines("v %.8f %.8f %.8f\n" % tuple(p) for p in v)
+        fh.writelines("f %d %d %d\n" % tuple(t + 1) for t in f)
+    vertices, faces = nr.load_obj(str(path))
+    assert vertices.is_cuda and faces.is_cuda and faces.dtype == torch.int32
+    mesh = nr.Mesh(str(path))
+    assert mesh.vertices.is_cuda and mesh.faces.dtype == torch.int32
+
+    grads = torch.randn((5,) + vertices.shape, generator=torch.Generator().manual_seed(0))
+    params = {d: vertices.detach().to(d).clone().requires_grad_(True) for d in ("cpu", cuda)}
+    opts = {d: nr.Adam([p], lr=0.01) for d, p in params.items()}
+    for g in grads:
+        for d, p in params.items():
+            p.grad = g.to(d)
+            opts[d].step()
+    torch.testing.assert_close(params[cuda].detach().cpu(), params["cpu"].detach(),
+                               rtol=1e-6, atol=1e-7)
+
+    r = nr.Renderer(cuda)
+    r.image_size = 64
+    r.camera_mode = "look"
+    r.viewpoints = (0.4, 0.9, -2.6)
+    r.camera_direction = torch.tensor([-0.15, -0.3, 1.0], device=cuda)
+    images = r.render_silhouettes(vertices[None], faces)
+    with rc.plain_versions():
+        assert torch.equal(images, r.render_silhouettes(vertices[None], faces))
+    assert 0.05 < float(images.mean()) < 0.5
+
+    rc.reset_launches()
+    x = vertices.clone()[None].requires_grad_(True)
+    opt = nr.Adam([x], lr=0.01)
+    for _ in range(3):
+        opt.zero_grad()
+        torch.sum((r.render_silhouettes(x, faces) - images.flip(2)) ** 2).backward()
+        opt.step()
+    assert rc.SLOT_TABLE_BUILDS == 1 and rc.LAUNCHES["scatter_faces_to_vertices"] == 3

@@ -199,3 +199,95 @@ def test_empty_lights_render_black():
     rgb, normals, *_ = _light_inputs(18)
     out = ts.apply_lights_planar(torch.tensor(rgb), torch.tensor(normals), ())
     assert torch.equal(out, torch.zeros_like(out))
+
+
+# --- the NHWC functions (layouts over the planar ones) ----------------------
+
+NF = 30
+
+
+def _nhwc_inputs(seed):
+    """Face vertices [bs, nf, 3, 3] (z > 0), face texel triangles [bs, nf,
+    3, 2] inside a 40 x 64 atlas, the atlas, an index map with background
+    and weights [bs, H, W, 3] summing to 1."""
+    rng = np.random.RandomState(seed)
+    faces = rng.uniform(-1, 1, (BS, NF, 3, 3)).astype(np.float32)
+    faces[..., 2] = rng.uniform(0.5, 3.0, (BS, NF, 3))
+    uv = np.empty((BS, NF, 3, 2), np.float32)
+    uv[..., 0] = rng.uniform(0, 63, (BS, NF, 3))
+    uv[..., 1] = rng.uniform(0, 39, (BS, NF, 3))
+    atlas = rng.rand(BS, 3, 40, 64).astype(np.float32)
+    fim = rng.randint(-1, NF, (BS, H, W)).astype(np.int32)
+    w = rng.uniform(0, 1, (BS, H, W, 3)).astype(np.float32)
+    w = (w / w.sum(-1, keepdims=True)).astype(np.float32)
+    return faces, uv, atlas, fim, w
+
+
+def _shim(jax_fn, torch_fn, *inputs, exact=True):
+    want = np.asarray(jax_fn(*(jnp.asarray(x) for x in inputs)))
+    got = torch_fn(*(torch.tensor(x) for x in inputs)).numpy()
+    assert got.shape == want.shape
+    if exact:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+    return got
+
+
+def test_nhwc_depth_and_coordinate_maps():
+    faces, _, _, fim, w = _nhwc_inputs(30)
+    fv_map = np.take_along_axis(faces, np.maximum(fim, 0).reshape(BS, -1, 1, 1), 1)
+    fv_map = np.where((fim >= 0).reshape(BS, -1, 1, 1), fv_map, 0).reshape(BS, H, W, 3, 3)
+    d = _shim(js.compute_depth_map_from, ts.compute_depth_map_from,
+              fv_map[..., 2], fim, w)
+    assert (d[fim < 0] == 0).all() and (d[fim >= 0] > 0).all()
+    _shim(js.compute_depth_map, ts.compute_depth_map, faces, fim, w)
+    _shim(js.compute_coordinate_map_from, ts.compute_coordinate_map_from, fv_map, w)
+    _shim(js.compute_coordinate_map, ts.compute_coordinate_map, faces, fim, w)
+
+
+def test_nhwc_texture_sampling_and_backgrounds():
+    faces, uv, atlas, fim, w = _nhwc_inputs(31)
+    _shim(lambda f, t, a, i, w: js.sample_textures(f, t, a, i, w, 1e-5),
+          lambda f, t, a, i, w: ts.sample_textures(f, t, a, i, w, 1e-5),
+          faces, uv, atlas, fim, w)
+    z_map = np.random.RandomState(32).uniform(0.5, 3.0, (BS, H, W, 3)).astype(np.float32)
+    uv_map = np.take_along_axis(uv, np.maximum(fim, 0).reshape(BS, -1, 1, 1), 1)
+    _shim(lambda z, t, a, i, w: js.sample_textures_from(z, t, a, i, w, 1e-5),
+          lambda z, t, a, i, w: ts.sample_textures_from(z, t, a, i, w, 1e-5),
+          z_map, uv_map.reshape(BS, H, W, 3, 2), atlas, fim, w)
+    rgb, bg = np.random.RandomState(33).rand(2, BS, H, W, 3).astype(np.float32)
+    _shim(js.blend_backgrounds, ts.blend_backgrounds, fim, rgb, bg)
+
+
+@pytest.mark.parametrize("smooth", [True, False])
+def test_nhwc_normals(smooth):
+    v, faces = icosphere(1)
+    v = np.stack([v, 0.7 * v + 0.1]).astype(np.float32)
+    fv = v[:, faces]                                   # [bs, nf, 3, 3]
+    fim = np.random.RandomState(34).randint(-1, len(faces), (BS, H, W)).astype(np.int32)
+    _, _, _, _, w = _nhwc_inputs(35)
+    nvm = np.random.RandomState(36).randn(BS, H, W, 3, 3).astype(np.float32)
+    # XLA sums the three weighted normals in another order than the planar
+    # function's (n0 + n1) + n2: within 1e-6, not equal
+    _shim(lambda n, w: js.normal_map_from_gathered(n, w, smooth),
+          lambda n, w: ts.normal_map_from_gathered(n, w, smooth), nvm, w, exact=False)
+    _shim(lambda v, i, f, m, w: js.compute_normal_map(v, i, f, m, w, smooth),
+          lambda v, i, f, m, w: ts.compute_normal_map(v, i, f, m, w, smooth),
+          v, faces, fv, fim, w, exact=False)
+
+
+def test_nhwc_apply_lights():
+    """Within 1e-6: XLA sums the directional light's dot product in another
+    order."""
+    rgb, normals, colors, direction, alpha = _light_inputs(37)
+    rgb, normals = rgb.transpose(0, 2, 3, 1), normals.transpose(0, 2, 3, 1)
+
+    def lights(lib, colors, direction, alpha):
+        return (lib.DirectionalLight(color=colors[1], direction=direction, backside=True),
+                lib.AmbientLight(color=colors[0]),
+                lib.SpecularLight(color=colors[2], alpha=alpha))
+
+    _shim(lambda r, n, c, d, a: js.apply_lights(r, n, lights(jl, c, d, a)),
+          lambda r, n, c, d, a: ts.apply_lights(r, n, lights(tl, c, d, a)),
+          rgb, normals, colors, direction, alpha, exact=False)
