@@ -35,17 +35,21 @@ Builds the hand-written kernels from ``neural_renderer_v2_pytorch_tpu_torch
   read around each: no K1 on any path, ``check_k1``);
 - sharded rendering (``parallel``): holds K9 ``gather_rows`` bit-equal to
   its plain version at the face-sharded path's shapes (``scale``, D = 9;
-  ``textured-scale``, D = 27) in both layouts, then runs four meshes on
+  ``textured-scale``, D = 27) in both layouts, then runs five meshes on
   ranks that share the one card through gloo (NCCL takes one rank per
   card): ``scale-face2`` and ``textured-scale-face2`` (faces over 2 ranks),
-  ``bench-tile2`` (rows over 2) and ``all-axes`` (the lit scene, two views,
-  over (2, 2, 2): 8 ranks).  Each rank holds its step to the single-device
-  step on the card (images and its index band equal, cross-shard near-tie
-  pixels counted, gradients within 1e-4 of their largest magnitude), takes
-  the collective census and the launch counts around it, and times its
-  steps and their collectives; every rank's gradients must be the same
-  bits as every other rank's.  These times show what a step costs when
-  ranks share a card, not how the path scales;
+  ``bench-tile2`` and ``atlas-tile2-backgrounds`` (rows over 2; the atlas
+  scene blended over a seeded background, whose gradient is checked too)
+  and ``all-axes`` (the lit scene, two views, over (2, 2, 2): 8 ranks).
+  Each rank runs the global stage on its row band (the NMR backward's
+  1-row halos exchanged) and gathers the finished images; it holds its
+  step to the single-device step on the card (images and its index band
+  equal, cross-shard near-tie pixels counted, gradients within 1e-4 of
+  their largest magnitude), takes the collective census (no collective
+  of render-size planes) and the launch counts around it, and times its
+  steps and their collectives (by kind); every rank's gradients must be
+  the same bits as every other rank's.  These times show what a step
+  costs when ranks share a card, not how the path scales;
 
 - the user-facing path (``examples``): ``utils.scenes.write_example_data``
   at 256^2 and its torus OBJ through ``load_obj`` (int32 faces on the
@@ -197,12 +201,14 @@ TEXTURED = {
 # scale-face2 and textured-scale-face2 are scale and textured-scale with
 # their faces over two ranks (the JAX package's auto_mesh gives two devices
 # a face axis from 20K faces on); bench-tile2 is bench over two row bands
-# (auto_mesh's choice for a small mesh); all-axes is the lit scene, two
-# views, at the JAX package's multichip shape (2, 2, 2)
+# (auto_mesh's choice for a small mesh); atlas-tile2-backgrounds is atlas
+# over two row bands, blended over a seeded background image; all-axes is
+# the lit scene, two views, at the JAX package's multichip shape (2, 2, 2)
 SHARDED = {
     "scale-face2": (1, 1, 2),
     "textured-scale-face2": (1, 1, 2),
     "bench-tile2": (1, 2, 1),
+    "atlas-tile2-backgrounds": (1, 2, 1),
     "all-axes": (2, 2, 2),
 }
 SHARDED_TIMEOUT = 300.0   # seconds for one spawn of ranks, every collective included
@@ -957,13 +963,14 @@ def gather_rows_check(label, table, index):
 
 class ShardedCase:
     """One sharded run's global inputs (see SHARDED), made alike on every
-    rank: the NDC vertices and, textured, the texels and the lights'
-    tensors as leaves that take gradients; the entry it renders through
-    and its loss (scale's, bench's, or the perf matrix's sum(rgba^2))."""
+    rank: the NDC vertices and, textured, the texels, the lights' tensors
+    and the background image as leaves that take gradients; the entry it
+    renders through and its loss (scale's, bench's, or the perf matrix's
+    sum(rgba^2))."""
 
     def __init__(self, name, dev):
         self.name, self.shape = name, SHARDED[name]
-        tex, lights = None, ()
+        tex, lights, self.texture_size = None, (), 2
         if name == "scale-face2":
             v, f = icosphere(6)
             azimuths, self.image_size, self.anti_aliasing = (30.0,), 512, False
@@ -975,6 +982,11 @@ class ShardedCase:
         elif name == "textured-scale-face2":
             v, f, vt, ft, tex = texel_scene(320, 248, 2)
             azimuths, self.image_size, self.anti_aliasing = (0.0,), 512, False
+        elif name == "atlas-tile2-backgrounds":
+            make_scene, self.texture_size, _, self.image_size, self.anti_aliasing = \
+                TEXTURED["atlas"]
+            v, f, vt, ft, tex = make_scene()
+            azimuths = (0.0,)
         else:
             v, f, vt, ft, tex = texel_scene(40, 32, 2)
             lights = lit_light_arrays()
@@ -999,6 +1011,10 @@ class ShardedCase:
         for i, (_, arrays) in enumerate(lights):
             for field, a in arrays.items():
                 self.leaves[f"light{i}_{field}"] = torch.tensor(a, device=dev)
+        if name.endswith("-backgrounds"):
+            rng = np.random.RandomState(0)
+            self.leaves["backgrounds"] = torch.tensor(
+                rng.rand(bs, 3, self.size, self.size).astype(np.float32), device=dev)
 
     def step(self, mesh=None):
         """Forward + backward, sharded over ``mesh`` or on this device alone:
@@ -1011,7 +1027,8 @@ class ShardedCase:
             lights = tuple(cls[kind](**{field: t[f"light{i}_{field}"] for field in fields})
                            for i, (kind, fields) in enumerate(self.lights)) or None
             params = nr.RasterizeParam(vertices_textures=self.vt, faces_textures=self.ft,
-                                       textures=t["textures"], texture_size=2, lights=lights)
+                                       textures=t["textures"], texture_size=self.texture_size,
+                                       lights=lights, backgrounds=t.get("backgrounds"))
         hp = nr.RasterizeHyperparam(image_size=self.image_size, anti_aliasing=self.anti_aliasing)
         if mesh is None:
             images = getattr(nr, f"rasterize_{self.entry}")(t["vertices"], self.faces, params, hp)
@@ -1029,7 +1046,7 @@ class ShardedCase:
         bl = self.leaves["vertices"].shape[0] // data
         d = mesh.coords["data"]
         fv = self.leaves["vertices"][d * bl:(d + 1) * bl][:, self.faces.long()]
-        rows = -(-self.size // tile)
+        rows = parallel.band_rows(self.image_size, self.anti_aliasing, tile)
         return fv, (mesh.coords["tile"] * rows, rows), -(-self.faces.shape[0] // face)
 
 
@@ -1065,6 +1082,16 @@ def check_index_band(label, case, mesh):
     return int(ties.sum())
 
 
+def sharded_census(data, tile, face):
+    """(forward, step) counts of ``parallel.COLLECTIVES`` for one sharded
+    step on a (data, tile, face) mesh: the face fold's two all-gathers, the
+    finished images' all-gather, then in the backward the NMR halo rows and
+    the one gradient all-reduce."""
+    forward = {"face_all_gather": 2 * (face > 1), "image_all_gather": int(data * tile > 1),
+               "halo_exchange": 0, "grad_all_reduce": 0}
+    return forward, dict(forward, halo_exchange=int(tile > 1), grad_all_reduce=1)
+
+
 def sharded_rank(names):
     """One rank's share of a spawn: each run in ``names`` on its mesh, once
     with its census and launch counts read around the step and held to the
@@ -1096,10 +1123,7 @@ def sharded_rank(names):
                 raise AssertionError(f"{label}: {k} gradients not finite or all zero")
             errs[k] = check_close(f"{label} {k} grads", grads[k], g)
         near_ties = check_index_band(label, case, mesh)
-        cells = int(data * tile > 1)
-        want_forward = {"face_all_gather": 2 * (face > 1), "canvas_all_gather": cells,
-                        "grad_all_reduce": 0}
-        if forward != want_forward or step_census != dict(want_forward, grad_all_reduce=1):
+        if (forward, step_census) != sharded_census(data, tile, face):
             raise AssertionError(f"{label}: census forward {forward} step {step_census}")
         fv, (_, rows), per = case.band(mesh)
         if face > 1:
@@ -1120,7 +1144,7 @@ def sharded_rank(names):
         check_k1(label, launches)
         if not ok or not all(launches[k] > 0 for k in path):
             raise AssertionError(f"{label}: the step missed a kernel of its path: {launches}")
-        ms, coll_ms = [], []
+        ms, coll_ms, kind_ms = [], [], collections.defaultdict(list)
         for _ in range(SHARDED_STEPS):
             dist.barrier()
             torch.cuda.synchronize()
@@ -1130,13 +1154,16 @@ def sharded_rank(names):
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             coll_ms.append(sum(parallel.COLLECTIVE_SECONDS.values()) * 1e3)
+            for kind, seconds in parallel.COLLECTIVE_SECONDS.items():
+                kind_ms[kind].append(seconds * 1e3)
         out[name] = dict(
             coords=mesh.coords, route=route, errs=errs, near_ties=near_ties,
             digests={k: hashlib.sha256(g.cpu().numpy().tobytes()).hexdigest()
                      for k, g in grads.items()},
             max_g={k: float(g.abs().max()) for k, g in want_grads.items()},
             census=step_census, launches={k: v for k, v in launches.items() if v},
-            ms=ms, coll_ms=coll_ms)
+            ms=ms, coll_ms=coll_ms,
+            kind_ms={k: float(np.median(v)) for k, v in kind_ms.items() if any(v)})
     return out
 
 
@@ -1180,6 +1207,9 @@ def sharded_runs(dev, smi):
                         f"{float(np.median(r['coll_ms'])):.4f} ms)" for i, r in enumerate(ranks))
             + f" (medians of {SHARDED_STEPS}); the single-device step alone "
             f"{single_ms[name]:.4f} ms  ({smi})")
+        log(f"[time] {name} collectives by kind, ms (medians of {SHARDED_STEPS}): "
+            + "; ".join(f"rank {i} " + ", ".join(f"{k} {v:.4f}" for k, v in r["kind_ms"].items())
+                        for i, r in enumerate(ranks)))
     return runs, launches
 
 

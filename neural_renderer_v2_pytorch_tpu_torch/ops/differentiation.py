@@ -30,36 +30,52 @@ def maximum(data_right, data_left, eps=1e-4):
     return torch.where(zero, 0.0, picked)
 
 
-def _pad_shift(g, dim, side):
-    """Pad one zero slice on ``side`` of ``dim`` (dim 1 or 2 of [bs, H, W])."""
-    left, right = (1, 0) if side == "left" else (0, 1)
-    pad = (left, right) if dim == 2 else (0, 0, left, right)
-    return F.pad(g, pad)
+def _pair_terms(I, G, dim, step):
+    """(grad_r, grad_l) of each pair of neighbours along ``dim`` (2: rows,
+    3: columns) of images ``I`` and grad ``G`` [bs, C, H, W], summed over
+    the channels: one entry fewer than ``I`` along ``dim``."""
+    n = I.shape[dim] - 1
+    I0, I1 = I.narrow(dim, 0, n), I.narrow(dim, 1, n)
+    G0, G1 = G.narrow(dim, 0, n), G.narrow(dim, 1, n)
+    return (-torch.sum((I0 - I1) * G1, dim=1) / step,
+            -torch.sum((I1 - I0) * G0, dim=1) / step)
+
+
+def band_coordinate_grad(images, grad_output, above, below, render_size):
+    """Rows ``r0 .. r0 + rows - 1`` of the coordinate-map gradient of a
+    ``render_size``-row image, from those rows of the images and of the
+    incoming gradient [bs, C, rows, W] (rows > 0) and the rows just outside
+    them: ``above`` and ``below`` are (images, grad) rows [bs, C, 1, W], or
+    None at the image's top or bottom edge, where the whole image's pair
+    terms pad with zeros.  Returns [bs, 2, rows, W] (x on channel 0, y on
+    channel 1): the same bits as those rows of the whole image's."""
+    # a tensor divisor: on CUDA, dividing by a Python scalar multiplies by
+    # its reciprocal, which is inexact unless the image size is a power of 2
+    step = torch.tensor(2.0 / render_size, dtype=images.dtype, device=images.device)
+    I, G = images, grad_output
+    if above is not None:
+        I, G = torch.cat([above[0], I], 2), torch.cat([above[1], G], 2)
+    if below is not None:
+        I, G = torch.cat([I, below[0]], 2), torch.cat([G, below[1]], 2)
+
+    # y (rows): entry k of the padded pair terms joins band rows k - 1 and
+    # k; a pair past the image edge is the zero pad
+    gyr, gyl = (F.pad(g, (0, 0, int(above is None), int(below is None)))
+                for g in _pair_terms(I, G, 2, step))
+    grad_y = maximum(gyr[:, 1:] + gyr[:, :-1], gyl[:, :-1] + gyl[:, 1:])
+
+    # x (columns): row-local
+    gxr, gxl = _pair_terms(images, grad_output, 3, step)
+    grad_x = maximum(F.pad(gxr, (0, 1)) + F.pad(gxr, (1, 0)),
+                     F.pad(gxl, (1, 0)) + F.pad(gxl, (0, 1)))
+
+    return torch.stack((grad_x, grad_y), dim=1)
 
 
 def _coordinate_grad(images, grad_output):
     """Gradient of the coordinate map: images and grad [bs, C, H, W] ->
     [bs, 2, H, W] (x on channel 0, y on channel 1)."""
-    # a tensor divisor: on CUDA, dividing by a Python scalar multiplies by
-    # its reciprocal, which is inexact unless the image size is a power of 2
-    step = torch.tensor(2.0 / images.shape[2], dtype=images.dtype, device=images.device)
-    I, G = images, grad_output
-
-    # y (rows; dim 2)
-    gyr = -torch.sum((I[:, :, :-1] - I[:, :, 1:]) * G[:, :, 1:], dim=1) / step
-    grad_y_r = _pad_shift(gyr, 1, "right") + _pad_shift(gyr, 1, "left")
-    gyl = -torch.sum((I[:, :, 1:] - I[:, :, :-1]) * G[:, :, :-1], dim=1) / step
-    grad_y_l = _pad_shift(gyl, 1, "left") + _pad_shift(gyl, 1, "right")
-    grad_y = maximum(grad_y_r, grad_y_l)
-
-    # x (columns; dim 3)
-    gxr = -torch.sum((I[:, :, :, :-1] - I[:, :, :, 1:]) * G[:, :, :, 1:], dim=1) / step
-    grad_x_r = _pad_shift(gxr, 2, "right") + _pad_shift(gxr, 2, "left")
-    gxl = -torch.sum((I[:, :, :, 1:] - I[:, :, :, :-1]) * G[:, :, :, :-1], dim=1) / step
-    grad_x_l = _pad_shift(gxl, 2, "left") + _pad_shift(gxl, 2, "right")
-    grad_x = maximum(grad_x_r, grad_x_l)
-
-    return torch.stack((grad_x, grad_y), dim=1)
+    return band_coordinate_grad(images, grad_output, None, None, images.shape[2])
 
 
 class _Differentiation(torch.autograd.Function):

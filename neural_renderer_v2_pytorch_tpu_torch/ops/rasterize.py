@@ -185,12 +185,17 @@ def _flip_pool(images):
     return _FlipPool.apply(images)
 
 
-def finalize_images(images, coordinate_map, foreground, backgrounds, hp):
-    """Background blend -> NMR differentiation hook -> flip -> AA pool."""
+def finalize_images(images, coordinate_map, foreground, backgrounds, hp, hook=differentiation):
+    """Background blend -> NMR differentiation hook -> flip -> AA pool.
+
+    The sharded entry runs it on a band of rows (``parallel.render``):
+    ``backgrounds`` are then the rows that the flip brings onto the band,
+    and ``hook`` the NMR hook on a band, which takes its neighbours' rows in
+    the backward."""
     if backgrounds is not None and hp.draw_rgb:
         rgb = shading.blend_background_planes(foreground, images[:, :3], backgrounds)
         images = torch.cat([rgb, images[:, 3:]], dim=1)
-    images = differentiation(images, coordinate_map)
+    images = hook(images, coordinate_map)
     if hp.anti_aliasing:
         return _flip_pool(images)
     return images.flip(2, 3)

@@ -7,6 +7,7 @@ from .faces import compute_face_index_map_face_sharded, ordered_z_combine
 from .launch import run_ranks
 from .mesh import Mesh, auto_mesh, make_mesh
 from .render import (
+    band_rows,
     rasterize_core_sharded,
     rasterize_depth_sharded,
     rasterize_rgb_sharded,

@@ -23,7 +23,10 @@ import time
 import torch
 import torch.distributed as dist
 
-KINDS = ("face_all_gather", "canvas_all_gather", "grad_all_reduce")
+# per step of a sharded render: the face fold's two all-gathers (face > 1),
+# the finished images' all-gather (more than one (data, tile) cell), the NMR
+# backward's halo rows (tile > 1) and the one gradient all-reduce
+KINDS = ("face_all_gather", "image_all_gather", "halo_exchange", "grad_all_reduce")
 COLLECTIVES = dict.fromkeys(KINDS, 0)
 COLLECTIVE_SECONDS = dict.fromkeys(KINDS, 0.0)
 

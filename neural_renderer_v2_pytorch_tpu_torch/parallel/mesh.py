@@ -2,7 +2,8 @@
 ``neural_renderer_v2_pytorch_tpu/parallel/mesh.py``).
 
   * ``data``: the batch; a rank renders its slice of the images.
-  * ``tile``: image rows; a rank renders a band of ``ceil(S / tile)`` rows.
+  * ``tile``: image rows; a rank renders a band of rows
+    (``parallel.render.band_rows``).
   * ``face``: the resolve's face loop (``parallel.faces``); a rank resolves
     a range of the faces and the winners fold across the axis.
 
@@ -11,8 +12,9 @@ Ranks are laid out as the JAX package lays out devices,
 ``((d * tile + t) * face + f)``.  Each axis has one process group per line
 of the mesh; ``Mesh.groups[axis]`` is this rank's.  ``Mesh.groups["cells"]``
 holds the ranks at this rank's face coordinate, one per (data, tile) cell:
-the sharded entry gathers its canvas over it.  ``Mesh.groups["all"]`` holds
-every rank: the sharded entry sums its gradients over it.
+the sharded entry gathers its finished images over it.
+``Mesh.groups["all"]`` holds every rank: the sharded entry sums its
+gradients over it.
 """
 
 from __future__ import annotations

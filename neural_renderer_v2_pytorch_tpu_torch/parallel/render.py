@@ -6,24 +6,32 @@ images.  Each rank:
 
   * renders the row-local stage (``ops.rasterize.compute_channel_maps``:
     resolve, maps, shading) for its batch slice (``data``), its band of
-    ``ceil(S / tile)`` rows (``tile``; the last band runs past the image
-    bottom and is cropped) and, with ``face`` > 1, its face range with the
-    ordered fold (``parallel.faces``);
-  * gathers the (data, tile) cells' planes into the full canvas (one
-    all-gather over ``Mesh.groups["cells"]``) and runs the global stage
-    (``finalize_images``: background blend, the NMR hook, flip, AA pool)
-    there.  The JAX package runs that stage on the sharded canvas with
-    1-row halo exchanges instead; the gather's backward hands each rank its
-    own cell of the cotangent, so nothing is counted twice;
-  * sums the gradients of the inputs the row-local stage read (vertices,
-    texel coordinates, textures, light tensors) in one all-reduce of one
-    buffer per backward over every rank of the mesh, so that every rank
-    receives the same bits.  Ranks along ``face`` compute the same
+    :func:`band_rows` rows (``tile``; bands past the image bottom are
+    cropped, and may be empty) and, with ``face`` > 1, its face range with
+    the ordered fold (``parallel.faces``);
+  * runs the global stage (``finalize_images``: background blend, the NMR
+    hook, flip, AA pool) on its band.  The forward needs no collective.
+    The NMR backward reads one row on each side of the band: one
+    all-gather over ``Mesh.groups["tile"]`` of every band's first and last
+    rows of the images and of the incoming gradient (the JAX package's
+    1-row halos, which GSPMD inserts there);
+  * gathers the finished bands (one all-gather over ``Mesh.groups
+    ["cells"]``), each placed at its mirrored rows, so that the H flip
+    needs no exchange of its own.  The gather's backward hands each rank
+    its band of the cotangent, which every rank holds alike;
+  * sums the gradients of the global inputs it read (vertices, texel
+    coordinates, textures, backgrounds, light tensors) in one all-reduce
+    of one buffer per backward over every rank of the mesh, so that every
+    rank receives the same bits.  Ranks along ``face`` compute the same
     contribution (the winner gather reads the whole face set) up to the
     order of the scatters' atomics on the card, so only the rank at face
     coordinate 0 contributes its own and the others contribute zeros:
     replicas that each kept their own gradient would take different
     optimiser steps and drift apart.
+
+Every collective goes through ``parallel.collectives`` (gloo staged
+through host memory, or NCCL as it is); a rank whose band is empty still
+joins each one, in the same order as the others.
 """
 
 from __future__ import annotations
@@ -31,7 +39,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
+from ..ops import differentiation as nmr
 from ..ops.rasterize import (
     RasterizeHyperparam,
     RasterizeParam,
@@ -68,12 +78,12 @@ def _light_tensors(light):
             if isinstance(getattr(light, f.name), torch.Tensor)}
 
 
-_PARAM_TENSORS = ("vertices_textures", "textures")
+_PARAM_TENSORS = ("vertices_textures", "textures", "backgrounds")
 
 
 def _local_inputs(vertices, params):
-    """The tensors the row-local stage reads: the vertices, the texel
-    coordinates, the textures and the lights' tensors."""
+    """The global tensors a rank reads: the vertices, the texel
+    coordinates, the textures, the backgrounds and the lights' tensors."""
     out = [vertices] + [getattr(params, k) for k in _PARAM_TENSORS
                         if getattr(params, k) is not None]
     for light in params.lights or ():
@@ -93,8 +103,8 @@ def _map_local_inputs(vertices, params, fn):
 
 
 def _sum_gradients_over(vertices, params, group, contributes):
-    """Route the row-local inputs that take gradients through one
-    :class:`_SumGradients`."""
+    """Route the inputs of :func:`_local_inputs` that take gradients
+    through one :class:`_SumGradients`."""
     wanted = [t for t in _local_inputs(vertices, params) if t.requires_grad]
     if not wanted:
         return vertices, params
@@ -102,25 +112,110 @@ def _sum_gradients_over(vertices, params, group, contributes):
     return _map_local_inputs(vertices, params, lambda t: summed.get(id(t), t))
 
 
-class _GatherCanvas(torch.autograd.Function):
-    """The cells' planes [bs / data, K, rows, S] -> the canvas [bs, K, S, S]
-    on every rank; the backward returns this rank's cell of the cotangent."""
+def band_rows(image_size, anti_aliasing, n_tile):
+    """The rows of each tile's band of the render: ``ceil(image_size /
+    n_tile)``, doubled with anti-aliasing, so that no 2x2 pool straddles two
+    bands.  The bands past the image bottom are cropped (the last ones may
+    be empty): the resolve is per pixel, so no output depends on the
+    split."""
+    return (2 if anti_aliasing else 1) * -(-image_size // n_tile)
+
+
+def _real_rows(render_size, rows, tile):
+    """The rows of band ``tile`` that lie in the image."""
+    return max(0, min(rows, render_size - tile * rows))
+
+
+def _band_backgrounds(backgrounds, render_size, row_start, real):
+    """The rows of ``backgrounds`` [bs, 3, S, S] that the blend's flip
+    brings onto the band of ``real`` rows from ``row_start``: rows ``S -
+    row_start - real .. S - row_start - 1``, which it reverses."""
+    first = max(render_size - row_start - real, 0)
+    return backgrounds[:, :, first:first + real]
+
+
+def _band_edges(images, grad):
+    """The band's first and last rows of the images and of the gradient
+    [bs, C, rows, W] as one tensor [bs, 2C, 2, W] (zeros for an empty
+    band), which the halo exchange gathers."""
+    bs, c, rows, w = images.shape
+    if not rows:
+        return images.new_zeros(bs, 2 * c, 2, w)
+    ends = [0, rows - 1]
+    return torch.cat([images[:, :, ends], grad[:, :, ends]], 1)
+
+
+def _band_grad(images, grad, halo, tile, rows, render_size):
+    """Band ``tile``'s rows of the coordinate gradient [bs, 2, rows', W]
+    from its images and gradient [bs, C, rows', W] and ``halo``, every
+    band's :func:`_band_edges` [n_tile, bs, 2C, 2, W]: the last row of the
+    band above, the first of the band below, none at the image's top row or
+    below its last real row."""
+    bs, c, real, w = images.shape
+    if not real:
+        return images.new_zeros(bs, 2, 0, w)
+    above = below = None
+    if tile > 0:
+        edge = halo[tile - 1][:, :, 1:]
+        above = edge[:, :c], edge[:, c:]
+    if (tile + 1) * rows < render_size:
+        edge = halo[tile + 1][:, :, :1]
+        below = edge[:, :c], edge[:, c:]
+    return nmr.band_coordinate_grad(images, grad, above, below, render_size)
+
+
+class _BandDifferentiation(torch.autograd.Function):
+    """The NMR hook on this rank's band of the render: the identity forward;
+    the backward exchanges the band edges over ``group`` (the tile line) in
+    one all-gather and returns the band's rows of the whole image's
+    coordinate gradient."""
 
     @staticmethod
-    def forward(ctx, planes, group, n_data, n_tile, coords, size):
-        bl, k, rows, _ = planes.shape
-        cells = all_gather(planes, group, "canvas_all_gather")      # [data*tile, bl, K, rows, S]
-        canvas = cells.reshape(n_data, n_tile, bl, k, rows, size).permute(0, 2, 3, 1, 4, 5)
-        ctx.cell = (coords["data"] * bl, coords["tile"] * rows, bl, rows)
-        return canvas.reshape(n_data * bl, k, n_tile * rows, size)[:, :, :size].contiguous()
+    def forward(ctx, images, coordinates, group, tile, rows, render_size):
+        ctx.save_for_backward(images)
+        ctx.band = group, tile, rows, render_size
+        return images.view_as(images)
 
     @staticmethod
     def backward(ctx, grad):
-        b0, r0, bl, rows = ctx.cell
-        g = grad[b0:b0 + bl, :, r0:r0 + rows]
-        # the rows past the image bottom were cropped: no gradient
-        g = torch.nn.functional.pad(g, (0, 0, 0, rows - g.shape[2]))
-        return g, None, None, None, None, None
+        (images,) = ctx.saved_tensors
+        group, tile, rows, render_size = ctx.band
+        halo = all_gather(_band_edges(images, grad), group, "halo_exchange")
+        coordinate_grad = _band_grad(images, grad, halo, tile, rows, render_size)
+        return grad, coordinate_grad, None, None, None, None
+
+
+def _assemble(cells, counts):
+    """The images [n_data * bl, C, H, W] from every cell's finished band
+    ``cells`` [n_data, n_tile, bl, C, rows, W], band t's first ``counts[t]``
+    rows real: the flip puts the last band on top."""
+    n_data, n_tile, bl, c, _, w = cells.shape
+    out = torch.cat([cells[:, t, :, :, :counts[t]] for t in reversed(range(n_tile))], 3)
+    return out.reshape(n_data * bl, c, sum(counts), w)
+
+
+def _band_top(counts, tile):
+    """The first row of the images that band ``tile`` lands on."""
+    return sum(counts[tile + 1:])
+
+
+class _GatherImages(torch.autograd.Function):
+    """Every (data, tile) cell's finished band [bl, C, counts[tile], W]
+    -> the images [bs, C, H, W] on every rank (:func:`_assemble`); the
+    backward returns this rank's band of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, band, group, n_data, counts, coords):
+        bl, _, n, w = band.shape
+        padded = F.pad(band, (0, 0, 0, max(counts) - n))
+        cells = all_gather(padded, group, "image_all_gather")    # [data*tile, bl, C, rows, W]
+        ctx.cell = coords["data"] * bl, bl, _band_top(counts, coords["tile"]), n
+        return _assemble(cells.reshape(n_data, len(counts), *padded.shape), counts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        b0, bl, top, n = ctx.cell
+        return grad[b0:b0 + bl, :, top:top + n], None, None, None, None
 
 
 def rasterize_core_sharded(vertices, faces, params, hyperparams, mesh):
@@ -129,7 +224,8 @@ def rasterize_core_sharded(vertices, faces, params, hyperparams, mesh):
     rank.  ``vertices`` [bs, nv, 3] NDC (bs divisible by the data axis),
     ``faces`` [nf, 3] int32 and ``params`` are the global inputs, the same
     on every rank; batch-major parameters (texel coordinates, textures,
-    light tensors whose first dimension is bs) are sliced over ``data``."""
+    backgrounds, light tensors whose first dimension is bs) are sliced over
+    ``data``."""
     hp = hyperparams
     check_inputs(vertices, faces, params, hp)
     bs = vertices.shape[0]
@@ -137,7 +233,9 @@ def rasterize_core_sharded(vertices, faces, params, hyperparams, mesh):
     if bs % n_data:
         raise ValueError(f"batch {bs} does not divide over data={n_data}")
     render_size = hp.image_size * 2 if hp.anti_aliasing else hp.image_size
-    rows = -(-render_size // n_tile)
+    rows = band_rows(hp.image_size, hp.anti_aliasing, n_tile)
+    tile = mesh.coords["tile"]
+    row_start, real = tile * rows, _real_rows(render_size, rows, tile)
     bl = bs // n_data
     mine = slice(mesh.coords["data"] * bl, (mesh.coords["data"] + 1) * bl)
     if n_data * n_tile * n_face > 1:
@@ -145,20 +243,22 @@ def rasterize_core_sharded(vertices, faces, params, hyperparams, mesh):
                                                mesh.coords["face"] == 0)
     local_vertices, local_params = _map_local_inputs(
         vertices, params, lambda t: t[mine] if t.ndim and t.shape[0] == bs else t)
-    images, coordinate_map, foreground = compute_channel_maps(
+    images, coordinate_map, foreground = (m[:, :, :real] for m in compute_channel_maps(
         local_vertices, faces, local_params, hp, render_size,
-        row_start=mesh.coords["tile"] * rows, num_rows=rows,
+        row_start=row_start, num_rows=rows,
         face_group=mesh.groups["face"] if n_face > 1 else None,
-    )
-    if n_data * n_tile > 1:
-        c = images.shape[1]
-        canvas = _GatherCanvas.apply(torch.cat([images, coordinate_map, foreground], 1),
-                                     mesh.groups["cells"],
-                                     n_data, n_tile, mesh.coords, render_size)
-        images, coordinate_map = canvas[:, :c], canvas[:, c:c + 2]
-        foreground = canvas[:, c + 2:].detach()
+    ))
     backgrounds = make_backgrounds(params, bs, render_size, vertices.device)
-    return finalize_images(images, coordinate_map, foreground, backgrounds, hp)
+    if backgrounds is not None:
+        backgrounds = _band_backgrounds(backgrounds[mine], render_size, row_start, real)
+    def hook(images, coordinates):
+        return _BandDifferentiation.apply(images, coordinates, mesh.groups["tile"], tile, rows,
+                                          render_size)
+
+    band = finalize_images(images, coordinate_map, foreground, backgrounds, hp, hook)
+    pool = 2 if hp.anti_aliasing else 1
+    counts = [_real_rows(render_size, rows, t) // pool for t in range(n_tile)]
+    return _GatherImages.apply(band, mesh.groups["cells"], n_data, counts, mesh.coords)
 
 
 def _run(vertices, faces, params, hp, mesh):

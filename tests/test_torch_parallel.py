@@ -17,6 +17,7 @@ jit contracts multiply-adds.
 """
 
 import collections
+import contextlib
 
 import numpy as np
 import pytest
@@ -24,13 +25,15 @@ import torch
 
 import neural_renderer_v2_pytorch_tpu_torch as tnr
 from neural_renderer_v2_pytorch_tpu_torch import parallel
+from neural_renderer_v2_pytorch_tpu_torch.ops import differentiation as nmr
 from neural_renderer_v2_pytorch_tpu_torch.ops import resolve_cuda as rc
 from neural_renderer_v2_pytorch_tpu_torch.utils.scenes import texel_scene
 
 SPAWN_TIMEOUT = 120.0       # seconds for one spawn of ranks, each collective included
 LIGHTS = ("directional", "ambient", "specular")
 
-Config = collections.namedtuple("Config", "shape entry image_size anti_aliasing")
+Config = collections.namedtuple("Config", "shape entry image_size anti_aliasing backgrounds",
+                                defaults=(False,))
 CONFIGS = {
     "face2-silhouettes": Config((1, 1, 2), "silhouettes", 64, True),
     "face2-lit": Config((1, 1, 2), "rgba", 64, True),
@@ -38,10 +41,17 @@ CONFIGS = {
     "tile2-silhouettes": Config((1, 2, 1), "silhouettes", 64, True),
     # 33 rows over 2 bands of 17: the second runs one row past the bottom
     "tile2-uneven": Config((1, 2, 1), "silhouettes", 33, False),
+    # the blend reads each band's mirrored rows of a seeded background,
+    # whose gradient is summed over the ranks like the other inputs'
+    "tile2-backgrounds": Config((1, 2, 1), "rgb", 64, True, True),
     "all-axes-lit": Config((2, 2, 2), "rgba", 64, True),
-    # 66 rows over 4 bands of 17: two rows past the bottom (the JAX
-    # package's uneven split, tests/test_parallel.py:330)
+    # 66 rows over 4 bands of 18 (even under AA, so that no 2x2 pool
+    # straddles two bands): the last has 12, six rows past the bottom
+    # cropped; the JAX package splits them as 4 x 17 (tests/test_parallel.py:330)
     "tile4-face2-uneven": Config((1, 4, 2), "rgba", 33, True),
+    # 24 rows over 8 bands of 4: the last two bands lie wholly past the
+    # bottom and are empty, yet join every collective
+    "tile8-empty": Config((1, 8, 1), "silhouettes", 12, True),
 }
 
 
@@ -69,6 +79,7 @@ def _scene_arrays(image_size, anti_aliasing):
         ndc.append(np.asarray(r.transform_vertices(jnp.asarray(v[None])))[0])
     rng = np.random.RandomState(image_size)
     size = image_size
+    render_size = image_size * (2 if anti_aliasing else 1)
     return {
         "vertices": np.stack(ndc), "faces": f, "vertices_textures": np.repeat(vt, 2, 0),
         "faces_textures": ft, "textures": rng.rand(2, *tex.shape[1:]).astype(np.float32),
@@ -77,7 +88,8 @@ def _scene_arrays(image_size, anti_aliasing):
         "ambient_color": rng.uniform(0.2, 0.4, (2, 3)).astype(np.float32),
         "specular_color": rng.uniform(0.1, 0.3, (2, 3)).astype(np.float32),
         "weight": rng.rand(2, 5, size, size).astype(np.float32),
-        "render_size": image_size * (2 if anti_aliasing else 1),
+        "backgrounds": rng.rand(2, 3, render_size, render_size).astype(np.float32),
+        "render_size": render_size,
     }
 
 
@@ -93,19 +105,26 @@ def _tie_arrays():
 # --- the port, in a rank or in this process -------------------------------
 
 
-def _port_inputs(arrays, entry):
-    """(leaves {name: tensor requiring grad}, vertices, faces, params)."""
+def _leaf_names(arrays, cfg):
+    """The inputs that take gradients."""
     names = ["vertices"]
-    if entry == "rgba":
+    if cfg.entry in ("rgba", "rgb"):
         names += ["vertices_textures", "textures"] + [
             k for k in arrays if k.split("_")[0] in LIGHTS]
-    t = {k: torch.tensor(arrays[k], requires_grad=True) for k in names}
+    if cfg.backgrounds:
+        names.append("backgrounds")
+    return names
+
+
+def _port_inputs(arrays, cfg):
+    """(leaves {name: tensor requiring grad}, vertices, faces, params)."""
+    t = {k: torch.tensor(arrays[k], requires_grad=True) for k in _leaf_names(arrays, cfg)}
     params = None
-    if entry == "rgba":
+    if cfg.entry in ("rgba", "rgb"):
         params = tnr.RasterizeParam(
             vertices_textures=t["vertices_textures"],
             faces_textures=torch.tensor(arrays["faces_textures"]), textures=t["textures"],
-            texture_size=2, lights=(
+            texture_size=2, backgrounds=t.get("backgrounds"), lights=(
                 tnr.DirectionalLight(t["directional_color"], t["directional_direction"]),
                 tnr.AmbientLight(t["ambient_color"]), tnr.SpecularLight(t["specular_color"])),
         )
@@ -121,7 +140,7 @@ def _weighted_sum(images, weight):
 def _port_render(cfg, arrays, mesh=None):
     """(images, {leaf: gradient}) of sum(images * weight), sharded over
     ``mesh`` or on one device."""
-    t, x, f, params = _port_inputs(arrays, cfg.entry)
+    t, x, f, params = _port_inputs(arrays, cfg)
     hp = tnr.RasterizeHyperparam(image_size=cfg.image_size, anti_aliasing=cfg.anti_aliasing)
     if mesh is None:
         images = getattr(tnr, "rasterize_" + cfg.entry)(x, f, params, hp)
@@ -131,13 +150,14 @@ def _port_render(cfg, arrays, mesh=None):
     return images.detach().numpy(), {k: v.grad.numpy() for k, v in t.items()}
 
 
-def _band_index_map(arrays, render_size, mesh):
+def _band_index_map(arrays, cfg, mesh):
     """This rank's band of the index map over its batch slice."""
     x = torch.tensor(arrays["vertices"])
     bl = x.shape[0] // mesh.shape["data"]
     d, t = mesh.coords["data"], mesh.coords["tile"]
     fv = x[d * bl:(d + 1) * bl][:, torch.tensor(arrays["faces"]).long()]
-    rows = -(-render_size // mesh.shape["tile"])
+    render_size = arrays["render_size"]
+    rows = parallel.band_rows(cfg.image_size, cfg.anti_aliasing, mesh.shape["tile"])
     window = dict(row_start=t * rows, num_rows=rows)
     if mesh.shape["face"] > 1:
         return parallel.compute_face_index_map_face_sharded(fv, render_size,
@@ -168,16 +188,35 @@ def _rank_body(jobs):
         mesh = mesh_of(cfg.shape)
         parallel.reset_collectives()
         rc.reset_launches()
-        t, x, f, params = _port_inputs(arrays, cfg.entry)
+        t, x, f, params = _port_inputs(arrays, cfg)
         hp = tnr.RasterizeHyperparam(image_size=cfg.image_size, anti_aliasing=cfg.anti_aliasing)
         images = getattr(parallel, f"rasterize_{cfg.entry}_sharded")(x, f, params, hp, mesh=mesh)
         forward = dict(parallel.COLLECTIVES)
-        _weighted_sum(images, arrays["weight"]).backward()
+        with _nmr_inputs_seen() as seen:
+            _weighted_sum(images, arrays["weight"]).backward()
         out[name] = dict(
             image=images.detach().numpy(), grads={k: v.grad.numpy() for k, v in t.items()},
             forward=forward, step=dict(parallel.COLLECTIVES), launches=dict(rc.LAUNCHES),
-            coords=mesh.coords, index=_band_index_map(arrays, arrays["render_size"], mesh).numpy())
+            coords=mesh.coords, index=_band_index_map(arrays, cfg, mesh).numpy(), nmr=seen)
     return out
+
+
+@contextlib.contextmanager
+def _nmr_inputs_seen():
+    """The shapes of the images each NMR backward's coordinate gradient
+    reads (``band_coordinate_grad``, the whole image's and a band's), in a
+    list filled while the block runs."""
+    real, seen = nmr.band_coordinate_grad, []
+
+    def spy(images, *args):
+        seen.append(tuple(images.shape))
+        return real(images, *args)
+
+    nmr.band_coordinate_grad = spy
+    try:
+        yield seen
+    finally:
+        nmr.band_coordinate_grad = real
 
 
 # --- the JAX package's sharded render (this process) ----------------------
@@ -200,15 +239,16 @@ def _jax_sharded(cfg, arrays):
     hp = RasterizeHyperparam(image_size=cfg.image_size, anti_aliasing=cfg.anti_aliasing)
     fn = getattr(jpar, f"rasterize_{cfg.entry}_sharded")
     faces = jnp.asarray(arrays["faces"])
-    names = list(_port_inputs(arrays, cfg.entry)[0])
+    names = _leaf_names(arrays, cfg)
 
     def loss(leaves):
         params = None
-        if cfg.entry == "rgba":
+        if cfg.entry in ("rgba", "rgb"):
             params = RasterizeParam(
                 vertices_textures=leaves["vertices_textures"],
                 faces_textures=jnp.asarray(arrays["faces_textures"]),
-                textures=leaves["textures"], texture_size=2, lights=(
+                textures=leaves["textures"], texture_size=2,
+                backgrounds=leaves.get("backgrounds"), lights=(
                     jnr.DirectionalLight(leaves["directional_color"],
                                          leaves["directional_direction"]),
                     jnr.AmbientLight(leaves["ambient_color"]),
@@ -346,14 +386,36 @@ def test_sharded_render_matches_jax_sharded(spawned, scenes, name):
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_collective_census(spawned, name):
     """Per step: two face all-gathers (depth, id) when face > 1, none with
-    face = 1; one canvas all-gather when the mesh has more than one (data,
-    tile) cell; one gradient all-reduce, over every rank."""
+    face = 1; one all-gather of the finished images when the mesh has more
+    than one (data, tile) cell; in the backward, one halo exchange when
+    tile > 1 and one gradient all-reduce, over every rank.  No collective
+    carries the render-size planes."""
     data, tile, face = CONFIGS[name].shape
-    cells = int(data * tile > 1)
     for r in _ranks(spawned, name):
-        assert r["forward"] == {"face_all_gather": 2 * (face > 1), "canvas_all_gather": cells,
-                                "grad_all_reduce": 0}
-        assert r["step"] == dict(r["forward"], grad_all_reduce=1)
+        assert r["forward"] == {"face_all_gather": 2 * (face > 1),
+                                "image_all_gather": int(data * tile > 1),
+                                "halo_exchange": 0, "grad_all_reduce": 0}
+        assert r["step"] == dict(r["forward"], halo_exchange=int(tile > 1), grad_all_reduce=1)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_nmr_backward_reads_its_band(spawned, name):
+    """Each rank's NMR backward reads its batch slice of its band's rows of
+    the images (the whole image only where tile = 1), and an empty band's
+    none."""
+    cfg = CONFIGS[name]
+    data, tile, _ = cfg.shape
+    size = _arrays_size(name)
+    rows = parallel.band_rows(cfg.image_size, cfg.anti_aliasing, tile)
+    channels = {"silhouettes": 1, "depth": 1, "rgb": 3, "rgba": 4}[cfg.entry]
+    seen_rows = []
+    for r in _ranks(spawned, name):
+        real = max(0, min(rows, size - r["coords"]["tile"] * rows))
+        assert r["nmr"] == ([(2 // data, channels, real, size)] if real else [])
+        seen_rows.append(real)
+    assert max(seen_rows) < size or tile == 1
+    if name == "tile8-empty":
+        assert seen_rows == [4, 4, 4, 4, 4, 4, 0, 0]
 
 
 @pytest.mark.parametrize("name", ["face2-lit", "all-axes-lit", "tile2-silhouettes"])
