@@ -99,8 +99,23 @@ Builds the hand-written kernels from ``neural_renderer_v2_pytorch_tpu_torch
 then times each kernel, its plain version, the one PyTorch call that
 computes the same function where there is one, and each step, with CUDA
 events and the profiler's device time, beside the least time the card
-could take for the same work.  Each five-step fit builds one vertex -> slot
-table for K4 (``resolve_cuda.SLOT_TABLE_BUILDS``).
+could take for the same work.  All of the above runs under ``nr.eager()``,
+op by op, as before the compiled core, so that each launch check counts
+its steps' launches as they run.  Last, the compiled core
+(``ops/graphs.py``): at ``bench``, ``atlas`` and ``lit`` through the
+user's entry points, under ``bench.py``'s loss, the graphed core (each
+render replays a CUDA graph captured at its second call) and the whole step
+captured by its caller (camera, render, loss, backward and ``bench.py``'s
+update in one ``torch.cuda.graph``) against the eager step: images equal,
+gradients within 1e-4, the graphs holding the eager step's launches, a
+replay from the second call, step t's outputs intact after step t + 1 and
+no output a graph's buffer; the three forms timed in turns (CUDA events,
+busy share and operations under the profiler), the capture seconds
+logged; int64 faces over 10 steps in one capture and one K4 table, an
+in-place edit of them captured anew, a no_grad render equal, and
+``scale`` run eagerly on the binned route and logged so.  Each five-step
+fit builds one vertex -> slot table for K4
+(``resolve_cuda.SLOT_TABLE_BUILDS``).
 
 Any failure raises and the script exits non-zero without its last line.  On
 success the last line is
@@ -113,6 +128,7 @@ import contextlib
 import ctypes
 import hashlib
 import json
+import logging
 import os
 import re
 import subprocess
@@ -125,6 +141,7 @@ import torch
 
 import neural_renderer_v2_pytorch_tpu_torch as nr
 from neural_renderer_v2_pytorch_tpu_torch import parallel
+from neural_renderer_v2_pytorch_tpu_torch.ops import graphs
 from neural_renderer_v2_pytorch_tpu_torch.ops import resolve_cuda as rc
 from neural_renderer_v2_pytorch_tpu_torch.ops import shading
 from neural_renderer_v2_pytorch_tpu_torch.ops.gather_resolve import (
@@ -343,7 +360,7 @@ Profile = collections.namedtuple(
     "records")
 
 
-def profile_device(step, n=10):
+def profile_device(step, n=10, launched=None):
     """Profile ``n`` calls of ``step`` once under torch.profiler.
 
     The profiler sometimes drops device records (once half of a long
@@ -356,7 +373,9 @@ def profile_device(step, n=10):
       ops) and the port's kernels hold as many as ``resolve_cuda.LAUNCHES``
       counted (``port_launches``, all three of K7's kernels);
     - ``per_launch``: each port kernel name's mean record, in ms;
-    - ``launched``: the wrappers' launches per call, counted by LAUNCHES;
+    - ``launched``: the wrappers' launches per call, counted by LAUNCHES,
+      or as given (a replayed graph's: ``Graph.launches``, which LAUNCHES
+      counted at its capture and does not count at a replay);
     - ``top``: the six longest kernel names' kept ms per call;
     - ``ops``: the kept device records (kernels, fills, copies) per call;
     - ``dropped``: (name, count, kept ms per call) of each name whose count
@@ -375,7 +394,9 @@ def profile_device(step, n=10):
             step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n * 1e3
-    launched = {k: (rc.LAUNCHES[k] - before[k]) / n for k in before if rc.LAUNCHES[k] > before[k]}
+    if launched is None:
+        launched = {k: (rc.LAUNCHES[k] - before[k]) / n for k in before
+                    if rc.LAUNCHES[k] > before[k]}
     # device-side events only (kernels, copies, fills): a CPU op's entry
     # also carries the device time of what it launched
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -2197,6 +2218,310 @@ def examples_phase(dev, smi):
     return launches, numbers
 
 
+# phase 20: the compiled core (ops/graphs.py) at bench, atlas and lit, in
+# three forms timed in turns: eager (nr.eager()), the graphed core (each
+# render replays its graph; camera, loss and backward's rest eager) and the
+# whole step captured by its caller
+GRAPH_STEPS = 20
+GRAPH_TURNS = ("eager", "core", "whole", "whole", "core", "eager")
+UPDATE = 1e-6          # bench.py's update: vertices - 1e-6 * grad
+TWO_VIEWS_AZIMUTH = 90.0
+
+
+class GraphCase:
+    """One configuration of the graphs phase: ``forward(*leaves)`` -> images
+    through the user's entry point over ``faces``, for leaves made from
+    ``values`` (the tensors that take gradients), under bench.py's loss."""
+
+    def __init__(self, label, renderer, faces, forward, values):
+        self.label, self.renderer, self.faces = label, renderer, faces
+        self.forward, self.values = forward, values
+
+    def step(self, values=None):
+        """Camera + render + loss + backward of fresh leaves: (images,
+        [gradient of each value])."""
+        leaves = [v.clone().requires_grad_(True) for v in (values or self.values)]
+        images = self.forward(*leaves)
+        bench_loss(images).backward()
+        return images.detach(), [t.grad for t in leaves]
+
+
+class CallerGraph:
+    """A GraphCase's whole step captured by its caller in one
+    torch.cuda.graph (the counterpart of bench.py's jitted step): camera,
+    render (its ops straight into this graph), loss, backward and bench.py's
+    update of each leaf.  ``launches``: the kernels it holds."""
+
+    def __init__(self, case):
+        self.case = case
+        self.leaves = [v.clone().requires_grad_(True) for v in case.values]
+
+        def step():
+            images = case.forward(*self.leaves)
+            bench_loss(images).backward()
+            with torch.no_grad():
+                for t in self.leaves:
+                    t.sub_(UPDATE * t.grad)
+            return images
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        # warm-up: builds what the step keeps per faces tensor, eagerly (no
+        # graph of the core that the whole step would not use)
+        with torch.cuda.stream(side), nr.eager():
+            for _ in range(2):
+                for t in self.leaves:
+                    t.grad = None
+                step()
+        torch.cuda.current_stream().wait_stream(side)
+        for t in self.leaves:
+            t.grad = None
+        self.graph = torch.cuda.CUDAGraph()
+        before = dict(rc.LAUNCHES)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(self.graph):
+            self.images = step()
+        self.seconds = time.perf_counter() - t0
+        self.launches = {k: n - before[k] for k, n in rc.LAUNCHES.items() if n > before[k]}
+
+    def __call__(self, values=None):
+        with torch.no_grad():
+            for t, v in zip(self.leaves, values or self.case.values):
+                t.copy_(v)
+        self.graph.replay()
+        return self.images, [t.grad for t in self.leaves]
+
+
+class LogLines(logging.Handler):
+    """Prints the package's log records as ``[graphs]`` lines and keeps
+    their messages."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+        log(f"[graphs] log: {self.messages[-1]}")
+
+
+def case_graph(case):
+    """The one graph kept over ``case.faces``."""
+    kept = graphs.kept_graphs(case.faces)
+    if len(kept) != 1:
+        raise AssertionError(f"{case.label}: {len(kept)} graphs over its faces, want 1")
+    return kept[0]
+
+
+def check_against(label, got, want):
+    """Images bit-equal, each gradient within SCATTER_RTOL of the largest
+    magnitude of its eager counterpart; returns the largest error."""
+    (images, grads), (want_images, want_grads) = got, want
+    check_equal(f"{label} images", images, want_images)
+    errs = [check_close(f"{label} gradient {i}", g, w)
+            for i, (g, w) in enumerate(zip(grads, want_grads))]
+    return max(errs)
+
+
+def graph_case(case, smi):
+    """The checks and the timed turns of one GraphCase; returns its
+    numbers."""
+    rc.reset_launches()
+    with nr.eager():
+        want = case.step()
+    eager_launches = {k: n for k, n in rc.LAUNCHES.items() if n}
+
+    # the graphed core: the first call runs eagerly, the second captures,
+    # every call from the second replays
+    rc.reset_launches()
+    check_against(f"{case.label} first call", case.step(), want)
+    if any(rc.GRAPHS.values()):
+        raise AssertionError(f"{case.label}: first call {rc.GRAPHS}, want it eager")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = case.step()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    graph = case_graph(case)
+    if rc.GRAPHS["captures"] != 1 or rc.GRAPHS["forward_replays"] != 1 or \
+            rc.GRAPHS["backward_replays"] != 1:
+        raise AssertionError(f"{case.label}: second call {rc.GRAPHS}, want 1 capture, 1 replay")
+    errs = {"core": check_against(f"{case.label} graphed core", first, want)}
+    second = case.step()
+    if rc.GRAPHS["captures"] != 1 or rc.GRAPHS["forward_replays"] != 2:
+        raise AssertionError(f"{case.label}: third call {rc.GRAPHS}, want a replay")
+    check_against(f"{case.label} graphed core, third call", second, want)
+    held = collections.Counter(graph.launches["forward"])
+    held.update(graph.launches["backward"])
+    if dict(held) != eager_launches:
+        raise AssertionError(f"{case.label}: the graphs hold {dict(held)}, the eager step "
+                             f"launches {eager_launches}")
+
+    # fresh outputs: step t's images and gradients survive step t + 1, which
+    # sees its own vertex values; none is a buffer of the graph
+    kept = (first[0].clone(), [g.clone() for g in first[1]])
+    moved = [case.values[0] * 1.02] + list(case.values[1:])
+    third = case.step(moved)
+    check_equal(f"{case.label} step t images after step t + 1", first[0], kept[0])
+    for g, k in zip(first[1], kept[1]):
+        check_equal(f"{case.label} step t gradient after step t + 1", g, k)
+    with nr.eager():
+        want_moved = case.step(moved)
+    check_against(f"{case.label} graphed core, moved vertices", third, want_moved)
+    if torch.equal(third[0], first[0]):
+        raise AssertionError(f"{case.label}: moved vertices gave the same images")
+    buffers = {graph.output.data_ptr(), *(g.data_ptr() for g in graph.grads if g is not None)}
+    if any(t.data_ptr() in buffers for t in (first[0], third[0], *first[1], *third[1])):
+        raise AssertionError(f"{case.label}: an output or gradient is a graph's buffer")
+
+    # the whole step, captured by the caller
+    rc.reset_launches()
+    whole = CallerGraph(case)
+    if rc.GRAPHS["captures"]:
+        raise AssertionError(f"{case.label}: the caller's capture captured the core itself")
+    got_images, got_grads = whole()
+    errs["whole"] = check_against(f"{case.label} whole step", (got_images, got_grads), want)
+    for i, (t, v, g) in enumerate(zip(whole.leaves, case.values, got_grads)):
+        check_equal(f"{case.label} whole step update {i}", t.detach(), v - UPDATE * g)
+    if dict(whole.launches) != eager_launches:
+        raise AssertionError(f"{case.label}: the caller's graph holds {whole.launches}, "
+                             f"the eager step launches {eager_launches}")
+
+    def eager_step():
+        with nr.eager():
+            return case.step()
+
+    forms = {"eager": (eager_step, None), "core": (case.step, dict(held)),
+             "whole": (whole, whole.launches)}
+    turns = {name: [] for name in forms}
+    for name in GRAPH_TURNS:
+        turns[name].append(median_ms(forms[name][0], GRAPH_STEPS, warmup=3))
+    out = dict(capture_s=graph.seconds, capturing_call_s=first_s, caller_capture_s=whole.seconds,
+               launches=dict(held), max_abs_err=errs)
+    for name, (fn, launched) in forms.items():
+        prof = profile_device(fn, launched=launched)
+        ms = float(np.median(turns[name]))
+        rel = "=" if prof.complete else ">="
+        out[name] = dict(turns_ms=turns[name], ms=ms, busy_ms=prof.busy,
+                         busy_share=prof.busy / ms if prof.busy else None, ops=prof.ops,
+                         complete=prof.complete)
+        log(f"[graphs] {case.label} {name}: {ms:.4f} ms (median of the turns' medians of "
+            f"{GRAPH_STEPS}: {', '.join(f'{t:.4f}' for t in turns[name])}), device busy "
+            + (f"{rel} {prof.busy:.4f} ms ({rel} {100 * prof.busy / ms:.1f}%) in {rel} "
+               f"{prof.ops:.1f} device operations per step" if prof.busy else
+               "not measured (the profiler saw no device time)")
+            + f"  ({smi})")
+    log(f"[graphs] {case.label}: capture {graph.seconds:.6f} s (the capturing call "
+        f"{first_s:.6f} s), the caller's capture {whole.seconds:.6f} s; graphed images equal "
+        f"to eager, gradient max abs err {json.dumps(errs)}; the graphs hold "
+        f"{json.dumps(dict(held))}")
+    return out
+
+
+def two_views(case, x):
+    """The images of ``case``'s renderer from its viewpoint and from
+    TWO_VIEWS_AZIMUTH beside it, stacked on channels: two renders of one
+    signature before the one backward of their loss."""
+    r = case.renderer
+    saved = r.viewpoints
+    try:
+        views = [r.render_silhouettes(x, case.faces)]
+        r.viewpoints = nr.get_points_from_angles(2.732, 30, TWO_VIEWS_AZIMUTH)
+        views.append(r.render_silhouettes(x, case.faces))
+    finally:
+        r.viewpoints = saved
+    return torch.stack(views, 1)
+
+
+def graphs_phase(cases, scale, smi):
+    """Phase 20: the compiled core at ``cases`` (bench, atlas, lit), and at
+    bench: int64 faces over 10 steps (one capture, one K4 table), an
+    in-place faces edit (a new capture), a fresh faces tensor each step (no
+    capture), two views under one loss (a graph each), a no_grad
+    render; at ``scale`` =
+    (renderer, vertices, faces): the binned route, run eagerly and logged."""
+    handler = LogLines()
+    logger = logging.getLogger(PKG)
+    saved = logger.level
+    logger.setLevel(logging.INFO)
+    logger.addHandler(handler)
+    try:
+        numbers = {case.label: graph_case(case, smi) for case in cases}
+        bench = cases[0]
+
+        faces64 = bench.faces.long()
+        case64 = GraphCase("bench int64 faces", bench.renderer, faces64,
+                           lambda x: bench.renderer.render_silhouettes(x, faces64),
+                           bench.values)
+        rc.reset_launches()
+        for _ in range(10):
+            case64.step()
+        if rc.GRAPHS["captures"] != 1 or rc.SLOT_TABLE_BUILDS != 1 or \
+                rc.GRAPHS["forward_replays"] != 9:
+            raise AssertionError(f"int64 faces over 10 steps: {rc.GRAPHS}, "
+                                 f"{rc.SLOT_TABLE_BUILDS} K4 tables; want 1 capture, 1 table")
+        nf = faces64.shape[0]
+        faces64[: nf // 2] = faces64[nf // 2:nf // 2 * 2].clone()     # in place
+        edited = [case64.step() for _ in range(2)]
+        if rc.GRAPHS["captures"] != 2:
+            raise AssertionError(f"an in-place faces edit did not recapture: {rc.GRAPHS}")
+        with nr.eager():
+            want = case64.step()
+        for i, e in enumerate(edited):
+            check_against(f"bench after an in-place faces edit, call {i + 1}", e, want)
+
+        # a fresh faces tensor at each step: every call its tensor's first,
+        # run eagerly, no capture
+        with nr.eager():
+            want_bench = bench.step()
+        fresh = GraphCase("bench fresh faces", bench.renderer, None,
+                          lambda x: bench.renderer.render_silhouettes(x, bench.faces.clone()),
+                          bench.values)
+        rc.reset_launches()
+        for _ in range(5):
+            check_against("bench, fresh faces each step", fresh.step(), want_bench)
+        if any(rc.GRAPHS.values()) or rc.LAUNCHES["resolve_xy"] != 5:
+            raise AssertionError(f"fresh faces tensors over 5 steps: {rc.GRAPHS}, "
+                                 f"{rc.LAUNCHES['resolve_xy']} K2 launches; want 5 eager steps")
+
+        # two views under one loss: each render replays a graph of its own
+        two = GraphCase("bench two views", bench.renderer, bench.faces,
+                        lambda x: two_views(bench, x), bench.values)
+        with nr.eager():
+            want_two = two.step()
+        rc.reset_launches()
+        for step in range(3):
+            check_against(f"bench two views, step {step + 1}", two.step(), want_two)
+        kept = len(graphs.kept_graphs(bench.faces))
+        if rc.GRAPHS["captures"] != 1 or kept != 2 or rc.GRAPHS["backward_replays"] != 6:
+            raise AssertionError(f"two views: {rc.GRAPHS}, {kept} graphs kept; want one "
+                                 f"more capture, two graphs, six backward replays")
+
+        renderer = bench.renderer
+        with torch.no_grad():
+            got = renderer.render_silhouettes(bench.values[0], bench.faces)
+        with torch.no_grad(), nr.eager():
+            check_equal("bench no_grad render", got,
+                        renderer.render_silhouettes(bench.values[0], bench.faces))
+
+        r, v, f = scale
+        rc.reset_launches()
+        x = v.clone().requires_grad_(True)
+        pattern_loss(r.render_silhouettes(x, f)).backward()
+        if rc.GRAPHS["captures"] or rc.GRAPHS["forward_replays"] or not rc.LAUNCHES["bin_faces"]:
+            raise AssertionError(f"scale: {rc.GRAPHS}, {rc.LAUNCHES}: want eager, binned")
+        if not any(m.startswith("eager, binned route") for m in handler.messages):
+            raise AssertionError("scale: no log line says it ran eagerly on the binned route")
+        numbers["checks"] = ("int64 faces: 1 capture, 1 K4 table over 10 steps; an in-place "
+                             "edit recaptured; fresh faces each step: eager; two views "
+                             "under one loss: 2 graphs; no_grad equal; scale eager, binned")
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(saved)
+    log("[graphs] " + json.dumps(numbers))
+    return numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -2217,6 +2542,12 @@ def main():
     for line in compiler_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
+
+    # phases 2-19 run eagerly, op by op, as before the compiled core: each
+    # launch check counts its steps' launches as they run, and each time
+    # compares with earlier runs of this script; phase 20 runs the graphs
+    eagerly = nr.eager()
+    eagerly.__enter__()
 
     # 2. each silhouette kernel vs its plain version at the slice's shapes
     tv, tf = torus(40, 32)
@@ -2665,6 +2996,31 @@ def main():
                         no_attrs.new_empty((1, binned["crowded"][0].shape[-1], 0)), 512),
         }, parent_binned, design_binned, smi)
     log("[redesign] " + json.dumps(redesigned))
+
+    eagerly.__exit__(None, None, None)
+
+    # 20. the compiled core: bench, atlas and lit graphed, eager and captured
+    # whole by the caller, in turns
+    atlas, lit = cfgs["atlas"], cfgs["lit"]
+    light_kinds = {"ambient": nr.AmbientLight, "directional": nr.DirectionalLight,
+                   "specular": nr.SpecularLight}
+    fixed = [(light_kinds[kind], {k: torch.tensor(a, device=dev) for k, a in arrays.items()
+                                  if k != "color"})
+             for kind, arrays in lit.light_arrays]
+    colors = [torch.tensor(arrays["color"], device=dev) for _, arrays in lit.light_arrays]
+
+    def lit_forward(x, *light_colors):
+        lights = tuple(cls(color=c, **rest) for (cls, rest), c in zip(fixed, light_colors))
+        return lit.renderer.render(x, lit.faces, lit.vt, lit.ft, lit.textures, lights=lights)
+
+    graphs_phase([
+        GraphCase("bench", renderer, faces, lambda x: renderer.render_silhouettes(x, faces),
+                  [torus_v]),
+        GraphCase("atlas", atlas.renderer, atlas.faces,
+                  lambda x, t: atlas.renderer.render(x, atlas.faces, atlas.vt, atlas.ft, t),
+                  [atlas.vertices, atlas.textures]),
+        GraphCase("lit", lit.renderer, lit.faces, lit_forward, [lit.vertices, *colors]),
+    ], (scale_renderer, sphere_v, faces6), smi)
 
     log("[routes] resolve ms (tiled, binned) and the rule's route: " + json.dumps(
         {label: [route_ms[label]["tiled"], route_ms[label]["binned"], route_rule[label]]

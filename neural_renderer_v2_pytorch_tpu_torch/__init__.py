@@ -3,8 +3,10 @@
 lit and depth rendering with the NMR gradient, with its resolve, gathers
 and gradient scatters as hand-written Hopper kernels (``csrc/``), OBJ/MTL
 I/O, a trainable ``Mesh``, the reference's per-parameter ``Adam`` and the
-examples (``examples/``).  The public names are the JAX package's.  Imports
-no JAX."""
+examples (``examples/``).  The public names are the JAX package's, and
+``eager``, the counterpart of ``jax.disable_jit``: on the card each
+``rasterize_*`` call replays a CUDA graph captured once per signature
+(``ops/graphs.py``).  Imports no JAX."""
 
 from .models.lights import AmbientLight, DirectionalLight, Light, SpecularLight
 from .models.mesh import Mesh
@@ -12,6 +14,7 @@ from .models.renderer import Renderer
 from .ops.camera import look, look_at, perspective
 from .ops.differentiation import differentiation
 from .ops.gather_resolve import compute_face_index_map
+from .ops.graphs import eager
 from .ops.maps import cross, mask_foreground, to_map
 from .ops.rasterize import (
     RasterizeHyperparam,
@@ -54,6 +57,7 @@ __all__ = [
     "create_textures",
     "cross",
     "differentiation",
+    "eager",
     "get_points_from_angles",
     "imread",
     "imsave",

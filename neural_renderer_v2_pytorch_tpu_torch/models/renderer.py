@@ -25,8 +25,8 @@ class Renderer(nn.Module):
     the current card by default, as ``Renderer()`` is called in the JAX
     package; pass ``"cpu"`` for the plain versions of the kernels.
 
-    Inputs must already lie on ``device``; ``faces`` may be any integer
-    array-like and is moved there (:meth:`faces_on_device`).
+    Inputs must already lie on ``device``; ``faces`` and ``faces_t`` may be
+    any integer array-like and are moved there (:meth:`faces_on_device`).
     ``viewpoints`` (and, with ``camera_mode="look"``, ``camera_direction``)
     may be a tensor, e.g. one that requires grad, to optimise the camera."""
 
@@ -49,32 +49,45 @@ class Renderer(nn.Module):
         # the create_textures texel size, for its per-face patch sampling;
         # None for any other (loaded) atlas
         self.texture_size = None
-        # (the ids of the last array-like faces, their tensor on device)
-        self._kept_faces = None
+        # role ("faces", "faces_t") -> (the last host ids, their tensor on
+        # device)
+        self._kept = {}
 
     def faces_on_device(self, faces):
-        """``faces`` [nf, 3] as an int32 tensor on ``device``.
+        """``faces`` [nf, 3] as an integer tensor on ``device``.
 
-        The gradient's vertex sum (kernel K4) keeps one vertex -> slot table
-        per faces tensor, so a fit should hand it the same tensor every
-        step.  An int32 tensor on ``device`` is that tensor.  An array-like
-        (a numpy array, as the JAX package's ``Renderer`` is called, or
-        lists) is copied to ``device`` once, and the copy is kept while the
-        same ids come back (compared on the host: an in-place edit of the
-        array makes a new copy).  A tensor of another dtype or device is
-        converted at every call, and each conversion builds its table."""
-        if isinstance(faces, torch.Tensor):
-            return faces.to(self.device, torch.int32)
-        ids = np.asarray(faces, dtype=np.int32)
-        if self._kept_faces is None or not np.array_equal(self._kept_faces[0], ids):
-            self._kept_faces = (ids.copy(), torch.tensor(ids, device=self.device))
-        return self._kept_faces[1]
+        The rasterizer keeps one int32 copy, and so K4 one vertex -> slot
+        table, per faces tensor, and the compiled core its graphs per faces
+        content (``ops/graphs.py``), so a fit should hand the renderer the
+        same faces every step.  A tensor on ``device`` is that tensor, of
+        any integer dtype (the rasterizer converts it to int32 once).  Host
+        faces (a numpy array, as the JAX package's ``Renderer`` is called,
+        lists, or a tensor on another device) are copied to ``device`` as
+        int32 once, and the copy is kept while the same ids come back
+        (compared on the host: an in-place edit of the array makes a new
+        copy)."""
+        return self._kept_on_device("faces", faces)
+
+    def _kept_on_device(self, role, ids):
+        """The faces (or texel faces, by ``role``) ``ids`` on ``device``; see
+        :meth:`faces_on_device`."""
+        if isinstance(ids, torch.Tensor) and self._on_device(ids):
+            return ids
+        if isinstance(ids, torch.Tensor):
+            ids = ids.cpu()
+        ids = np.asarray(ids, dtype=np.int32)
+        kept = self._kept.get(role)
+        if kept is None or not np.array_equal(kept[0], ids):
+            kept = self._kept[role] = (ids.copy(), torch.tensor(ids, device=self.device))
+        return kept[1]
+
+    def _on_device(self, t):
+        # "cuda" names whichever card is current, so it accepts any index
+        return t.device.type == self.device.type and (
+            self.device.index is None or t.device.index == self.device.index)
 
     def _check_device(self, t):
-        # "cuda" names whichever card is current, so it accepts any index
-        if t.device.type != self.device.type or (
-            self.device.index is not None and t.device.index != self.device.index
-        ):
+        if not self._on_device(t):
             raise ValueError(f"input on {t.device}, renderer on {self.device}")
 
     def transform_vertices(self, vertices):
@@ -111,7 +124,7 @@ class Renderer(nn.Module):
     def _textured_params(self, vertices_t, faces_t, textures, backgrounds, lights):
         return RasterizeParam(
             vertices_textures=vertices_t,
-            faces_textures=torch.as_tensor(faces_t, dtype=torch.int32, device=self.device),
+            faces_textures=self._kept_on_device("faces_t", faces_t),
             textures=textures,
             background_color=self.background_color,
             texture_size=self.texture_size,

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from . import graphs
+
 
 def _normalize(x, eps=1e-12):
     """L2-normalize along the last dim (same semantics as F.normalize)."""
@@ -19,8 +21,17 @@ def _normalize(x, eps=1e-12):
     return x / torch.clamp(norm, min=eps)
 
 
+def _on_device(v, device):
+    """``v`` (a tensor, or host numbers) as float32 on ``device``; host
+    numbers through ``graphs.constant``, so that a step captured in a CUDA
+    graph can hold its camera."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device, torch.float32)
+    return graphs.constant(v, device)
+
+
 def _as_batched(v, batch_size, device):
-    v = torch.as_tensor(v, dtype=torch.float32, device=device)
+    v = _on_device(v, device)
     if v.ndim == 1:
         v = v[None, :].expand(batch_size, v.shape[0])
     return v
@@ -95,7 +106,7 @@ def perspective(vertices, angle=30.0):
     keeping z; ``angle`` in degrees, a python scalar or a [bs] tensor."""
     if vertices.ndim != 3:
         raise ValueError(f"vertices must be [bs, nv, 3], got {tuple(vertices.shape)}")
-    angle = torch.as_tensor(angle, dtype=torch.float32, device=vertices.device)
+    angle = _on_device(angle, vertices.device)
     # the reference's literal 3.1416 (not pi): golden renders depend on it
     angle = angle / 180.0 * 3.1416
     width = torch.tan(angle)

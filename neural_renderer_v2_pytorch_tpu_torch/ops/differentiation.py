@@ -50,8 +50,10 @@ def band_coordinate_grad(images, grad_output, above, below, render_size):
     terms pad with zeros.  Returns [bs, 2, rows, W] (x on channel 0, y on
     channel 1): the same bits as those rows of the whole image's."""
     # a tensor divisor: on CUDA, dividing by a Python scalar multiplies by
-    # its reciprocal, which is inexact unless the image size is a power of 2
-    step = torch.tensor(2.0 / render_size, dtype=images.dtype, device=images.device)
+    # its reciprocal, which is inexact unless the image size is a power of 2.
+    # Filled on the device (a captured step copies nothing from the host),
+    # the same double rounded to the same float32 as torch.tensor
+    step = torch.full((), 2.0 / render_size, dtype=images.dtype, device=images.device)
     I, G = images, grad_output
     if above is not None:
         I, G = torch.cat([above[0], I], 2), torch.cat([above[1], G], 2)

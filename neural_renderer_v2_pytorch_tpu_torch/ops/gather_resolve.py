@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from .graphs import note_eager
 from .resolve_cuda import (
     bin_faces,
     gather_faces3,
@@ -26,10 +27,6 @@ from .resolve_cuda import (
     scatter_faces_to_vertices,
     scatter_pixels_to_faces,
 )
-
-# the XY planes of the 9-plane latched map (plane = 3 * vertex + coord)
-_XY_PLANES = (0, 1, 3, 4, 6, 7)
-
 
 class _GatherFaceVertices(torch.autograd.Function):
     @staticmethod
@@ -143,7 +140,9 @@ class _ResolveAndGather(torch.autograd.Function):
         if not ctx.latch_z:
             # the z planes are constant zeros in the forward: drop their
             # cotangents, scatter the six XY planes, and pad z back
-            g6 = grad_fvm[:, _XY_PLANES].contiguous()
+            # the XY planes of the 9-plane map (plane = 3 * vertex + coord),
+            # by slices: an index tuple would be copied from the host
+            g6 = torch.cat([grad_fvm[:, 0:2], grad_fvm[:, 3:5], grad_fvm[:, 6:8]], 1)
             per_face = scatter_pixels_to_faces(g6, index, nf)     # [bs, 6, nf]
             gk = torch.nn.functional.pad(
                 per_face.reshape(bs, 3, 2, nf), (0, 0, 0, 1)
@@ -202,6 +201,8 @@ def compute_face_index_map(faces, image_size, near=0.1, far=100.0, draw_backside
     knob has no counterpart, so the arguments after ``draw_backside`` are
     keyword-only."""
     fvp = faces.detach().permute(0, 3, 2, 1).contiguous()
+    note_eager("compute_face_index_map", f"bs={fvp.shape[0]} nf={fvp.shape[-1]} "
+               f"image {image_size} rows {row_start}+{num_rows}")
     args = (image_size, near, far, row_start, num_rows)
     bins = _binned_inputs(fvp, draw_backside, image_size, row_start, num_rows, mode)
     if bins is not None:

@@ -23,7 +23,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from . import shading
+from . import graphs, shading
 from .differentiation import differentiation
 from .gather_resolve import gather_face_vertices, gather_winner_planes, resolve_and_gather
 from .resolve import weight_planes_from_gathered
@@ -206,8 +206,10 @@ def make_backgrounds(params, batch_size, render_size, device):
     renders the real colour (a deliberate departure from the reference,
     whose ``zeros * color`` always gives black; see the JAX package)."""
     if params.background_color is not None:
-        color = torch.as_tensor(params.background_color, dtype=torch.float32,
-                                device=device)
+        if len(params.background_color) != 3:
+            raise ValueError(f"background_color must be 3 values, got "
+                             f"{params.background_color!r}")
+        color = graphs.constant(params.background_color, device)
         return color[None, :, None, None].expand(batch_size, 3, render_size, render_size)
     if params.backgrounds is not None:
         if tuple(params.backgrounds.shape) != (batch_size, 3, render_size, render_size):
@@ -248,9 +250,94 @@ def rasterize_core(vertices, faces, params, hyperparams):
     return finalize_images(images, coordinate_map, foreground, backgrounds, hp)
 
 
+def _graph_inputs(vertices, params):
+    """The tensors a graph of this render copies in at each call, in order
+    (absent ones None): the vertices, texel coordinates, texel faces,
+    atlas, backgrounds and each light's tensor fields; and the lights'
+    structure (their types and other fields)."""
+    tensors = [vertices, params.vertices_textures, params.faces_textures, params.textures,
+               params.backgrounds]
+    structure = None
+    if params.lights is not None:
+        structure = []
+        for light in params.lights:
+            fields = []
+            for field in dataclasses.fields(light):
+                value = getattr(light, field.name)
+                if isinstance(value, torch.Tensor):
+                    tensors.append(value)
+                    value = torch.Tensor
+                fields.append((field.name, value))
+            structure.append((type(light), tuple(fields)))
+        structure = tuple(structure)
+    return tensors, structure
+
+
+def _with_inputs(params, tensors, background_color):
+    """``params`` over the graph's own ``tensors`` (in :func:`_graph_inputs`'
+    order)."""
+    vertices, vt, ft, textures, backgrounds, *light_tensors = tensors
+    lights = None
+    if params.lights is not None:
+        fields = iter(light_tensors)
+        lights = tuple(
+            dataclasses.replace(light, **{
+                f.name: next(fields) for f in dataclasses.fields(light)
+                if isinstance(getattr(light, f.name), torch.Tensor)})
+            for light in params.lights)
+    return vertices, dataclasses.replace(
+        params, vertices_textures=vt, faces_textures=ft, textures=textures,
+        backgrounds=backgrounds, background_color=background_color, lights=lights)
+
+
+def graph_signature(vertices, params, hp):
+    """The key of a render's graph over its faces (the counterpart of what
+    ``jax.jit`` specialises on): the hyperparameters, the device, the grad
+    and inference modes, each tensor input's shape, strides, dtype and
+    ``requires_grad``, the ``background_color`` value, ``texture_size``
+    and the lights' structure.  Also returns the graph's inputs and the
+    background colour as floats."""
+    tensors, structure = _graph_inputs(vertices, params)
+    color = params.background_color
+    if color is not None:
+        color = tuple(float(c) for c in color)
+    signature = (
+        hp, vertices.device, torch.is_grad_enabled(), torch.is_inference_mode_enabled(),
+        tuple(None if t is None else (tuple(t.shape), t.stride(), t.dtype, t.requires_grad)
+              for t in tensors),
+        color, params.texture_size, structure,
+    )
+    return signature, tensors, color
+
+
+def _label(vertices, faces, hp):
+    return (f"{'rgb ' if hp.draw_rgb else ''}{'silhouettes ' if hp.draw_silhouettes else ''}"
+            f"{'depth ' if hp.draw_depth else ''}bs={vertices.shape[0]} nf={faces.shape[0]} "
+            f"image {hp.image_size} AA {hp.anti_aliasing}")
+
+
+def _capture(record, params, hp, tensors, color, label):
+    def render(*inputs):
+        v, static_params = _with_inputs(params, inputs, color)
+        return rasterize_core(v, record.faces, static_params, hp)
+
+    return graphs.Graph(render, tensors, torch.is_grad_enabled(), label)
+
+
 def _run(vertices, faces, params, hp):
     params = RasterizeParam() if params is None else params
-    return rasterize_core(vertices, faces.to(torch.int32).contiguous(), params, hp)
+    how = graphs.route(vertices, faces, hp)
+    record = graphs.faces_record(faces)
+    graph = None
+    if how == "graph":
+        signature, tensors, color = graph_signature(vertices, params, hp)
+        label = _label(vertices, faces, hp)
+        graph = graphs.cached_graph(
+            record, signature, lambda: _capture(record, params, hp, tensors, color, label),
+            label)
+    if graph is None:
+        return rasterize_core(vertices, record.faces, params, hp)
+    return graph(*tensors)
 
 
 def rasterize_silhouettes(vertices, faces, params=None, hyperparams=RasterizeHyperparam()):

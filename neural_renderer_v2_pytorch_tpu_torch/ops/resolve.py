@@ -13,6 +13,8 @@ kernels in ``resolve_cuda.py`` evaluate the same expressions per pixel.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 DEPTH_MIN_DELTA = 1e-4
@@ -34,9 +36,17 @@ def pixel_centres(indices, image_size):
 
 def _pixel_grid(image_size, device, row_start=0, num_rows=None):
     """Pixel centres: xp [1, S] over the columns, yp [num_rows, 1] over the
-    rows ``row_start ..`` of a row window (the whole image by default)."""
+    rows ``row_start ..`` of a row window (the whole image by default).
+    Shared by every caller, so read only."""
     if num_rows is None:
         num_rows = image_size
+    return _pixel_grid_on(int(image_size), torch.device(device), int(row_start), int(num_rows))
+
+
+# a step's grids are copied to the card once and kept (a captured step
+# copies nothing from the host); a few grids per image size and row band
+@functools.lru_cache(maxsize=64)
+def _pixel_grid_on(image_size, device, row_start, num_rows):
     xp = pixel_centres(torch.arange(image_size), image_size).to(device)
     yp = pixel_centres(torch.arange(row_start, row_start + num_rows), image_size).to(device)
     return xp[None, :], yp[:, None]

@@ -80,6 +80,11 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 # builds of K4's vertex -> slot tables (:func:`vertex_slots`); reset with
 # LAUNCHES
 SLOT_TABLE_BUILDS = 0
+# the compiled core's graphs (``ops/graphs.py``): captures, and replays of
+# forward and backward graphs.  A wrapper counts its launch in LAUNCHES when
+# it runs, at a warm-up or a capture too, and never at a replay: a replay
+# of a graph launches what its capture counted (``Graph.launches``)
+GRAPHS = dict.fromkeys(("captures", "forward_replays", "backward_replays"), 0)
 # a module flag and not a ContextVar: autograd runs the backward of CUDA
 # tensors on threads of its own, which do not see the caller's context
 _route = {"plain": False, "mode": None}
@@ -109,6 +114,8 @@ def reset_launches():
     global SLOT_TABLE_BUILDS
     for name in KERNELS:
         LAUNCHES[name] = 0
+    for name in GRAPHS:
+        GRAPHS[name] = 0
     SLOT_TABLE_BUILDS = 0
 
 

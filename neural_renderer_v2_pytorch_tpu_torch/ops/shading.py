@@ -18,7 +18,7 @@ import torch
 
 from ..models import lights as light_lib
 from .maps import cross, mask_foreground, to_map
-from .resolve_cuda import scatter_rows
+from .resolve_cuda import scatter_rows, vertex_slots
 
 
 def coordinate_planes(fvm_planar, weight_planes):
@@ -216,19 +216,21 @@ def face_vertex_normals(vertices, faces, face_vertices):
     products, summed per vertex, normalised, gathered per face.
 
     The per-vertex sum is a segment sum over the face-major slots grouped
-    by vertex (a stable sort keeps each vertex's slots in order), so it
-    adds in the JAX package's segment-sum order and, unlike an atomic
+    by vertex in ascending order (K4's vertex -> slot table, kept per faces
+    tensor, so a step sorts and counts nothing and makes no host sync), so
+    it adds in the JAX package's segment-sum order and, unlike an atomic
     ``index_add_`` on CUDA, gives the same bits on every run."""
     bs, nv = vertices.shape[:2]
     v01 = face_vertices[:, :, 1] - face_vertices[:, :, 0]          # [bs, 3, nf]
     v12 = face_vertices[:, :, 2] - face_vertices[:, :, 1]
     n = cross(v01, v12, dim=1).permute(0, 2, 1)                    # [bs, nf, 3]
+    offsets, slots = vertex_slots(faces, nv)
+    counts = (offsets[1:] - offsets[:-1]).expand(bs, nv)
+    # unsafe: no check of the lengths against the data, which reads them
+    # back to the host; the table's lengths sum to 3 nf by construction
+    vn = torch.segment_reduce(n.repeat_interleave(3, dim=1).index_select(1, slots), "sum",
+                              lengths=counts, axis=1, unsafe=True)
     ids = faces.long()
-    slots = ids.reshape(-1)
-    order = torch.argsort(slots, stable=True)
-    counts = torch.bincount(slots, minlength=nv)
-    vn = torch.segment_reduce(n.repeat_interleave(3, dim=1)[:, order], "sum",
-                              lengths=counts.expand(bs, nv), axis=1)
     norm = torch.sqrt(torch.sum(vn * vn, dim=2, keepdim=True))
     vn = vn / torch.clamp(norm, min=1e-12)
     return vn[:, ids]

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import differentiation as nmr
+from ..ops import graphs
 from ..ops.rasterize import (
     RasterizeHyperparam,
     RasterizeParam,
@@ -263,8 +264,11 @@ def rasterize_core_sharded(vertices, faces, params, hyperparams, mesh):
 
 def _run(vertices, faces, params, hp, mesh):
     params = RasterizeParam() if params is None else params
-    return rasterize_core_sharded(vertices, faces.to(torch.int32).contiguous(), params, hp,
-                                  mesh)
+    # eager: a CUDA graph cannot hold the collectives (gloo's go through the
+    # host); the int32 faces are kept per faces tensor, as the
+    # single-device entry keeps them
+    graphs.note_eager("sharded entry (its collectives)", hp, tuple(mesh.shape.items()))
+    return rasterize_core_sharded(vertices, graphs.faces_record(faces).faces, params, hp, mesh)
 
 
 def rasterize_silhouettes_sharded(vertices, faces, params=None,

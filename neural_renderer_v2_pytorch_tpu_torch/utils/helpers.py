@@ -75,7 +75,7 @@ def imsave(filename, image):
     write_image(filename, image)
 
 
-def create_textures(num_faces, texture_size=16, flatten=False, device="cpu"):
+def create_textures(num_faces, texture_size=16, flatten=False, device="cuda"):
     """A white tiled atlas with one ``texture_size`` square patch per face,
     and each face's texel-coordinate triangle in its patch (reference
     utils.py:30-52).  Returns tensors on ``device``: (vertices_t f32

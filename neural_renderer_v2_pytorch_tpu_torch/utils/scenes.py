@@ -110,7 +110,7 @@ def texel_scene(n_major, n_minor, texture_size, seed=2):
     from .helpers import create_textures
 
     v, f = torus(n_major, n_minor)
-    vt, ft, tex = (t.numpy() for t in create_textures(len(f), texture_size))
+    vt, ft, tex = (t.numpy() for t in create_textures(len(f), texture_size, device="cpu"))
     tex = np.random.RandomState(seed).rand(*tex.shape).astype(np.float32)
     return v, f, vt[None], ft, tex[None]
 

@@ -1,15 +1,24 @@
-"""The port's hand-written CUDA kernels against their plain versions, on the
-card.  Marked ``cuda``: each test skips without a CUDA device.  This file
-imports no JAX, so it also runs on a machine without it:
+"""The port's hand-written CUDA kernels against their plain versions, and
+the compiled core (``ops/graphs.py``: each tiled ``rasterize_*`` call
+replays a CUDA graph) against the eager step, on the card.  Marked
+``cuda``: each test skips without a CUDA device.  A test that counts one
+step's launches runs it under ``nr.eager()``: a graph's kernels are counted
+when it is captured, not at its replays.  This file imports no JAX, so it
+also runs on a machine without it:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
+
+import collections
+import gc
+import weakref
 
 import numpy as np
 import pytest
 import torch
 
 import neural_renderer_v2_pytorch_tpu_torch as nr
+from neural_renderer_v2_pytorch_tpu_torch.ops import graphs
 from neural_renderer_v2_pytorch_tpu_torch.ops import resolve_cuda as rc
 from neural_renderer_v2_pytorch_tpu_torch.utils.scenes import (
     atlas_scene,
@@ -190,9 +199,10 @@ def test_slice_on_card_matches_cpu(cuda):
     rc.reset_launches()
     for dev in ("cpu", cuda):
         x = ndc.detach().to(dev).requires_grad_(True)
-        im = nr.rasterize_silhouettes(x, torch.tensor(f, device=dev), None,
-                                      nr.RasterizeHyperparam(image_size=64))
-        torch.sum(im * im).backward()
+        with nr.eager():                 # one step's launches, counted as they run
+            im = nr.rasterize_silhouettes(x, torch.tensor(f, device=dev), None,
+                                          nr.RasterizeHyperparam(image_size=64))
+            torch.sum(im * im).backward()
         out.append((im.detach().cpu(), x.grad.cpu()))
     # the tiled route: K2 forms the face constants itself, so no K1
     silhouette = ("resolve_xy", "scatter_pixels_to_faces", "scatter_faces_to_vertices",
@@ -276,9 +286,10 @@ def test_textured_slice_on_card_matches_cpu(cuda, scene):
         p = nr.RasterizeParam(vertices_textures=torch.tensor(vt, device=dev),
                               faces_textures=torch.tensor(ft, device=dev), textures=t,
                               texture_size=ts, lights=ls)
-        im = nr.rasterize_rgba(x, torch.tensor(f, device=dev), p,
-                               nr.RasterizeHyperparam(image_size=64))
-        torch.sum(im * im).backward()
+        with nr.eager():                 # one step's launches, counted as they run
+            im = nr.rasterize_rgba(x, torch.tensor(f, device=dev), p,
+                                   nr.RasterizeHyperparam(image_size=64))
+            torch.sum(im * im).backward()
         out.append((im.detach().cpu(), x.grad.cpu(), t.grad.cpu()))
     textured = ("resolve_latch", "scatter_pixels_to_faces", "scatter_faces_to_vertices",
                 "gather_faces3")
@@ -739,8 +750,311 @@ def test_user_surface_on_the_card(cuda, tmp_path):
     rc.reset_launches()
     x = vertices.clone()[None].requires_grad_(True)
     opt = nr.Adam([x], lr=0.01)
-    for _ in range(3):
-        opt.zero_grad()
-        torch.sum((r.render_silhouettes(x, faces) - images.flip(2)) ** 2).backward()
-        opt.step()
+    with nr.eager():                     # three steps' launches, counted as they run
+        for _ in range(3):
+            opt.zero_grad()
+            torch.sum((r.render_silhouettes(x, faces) - images.flip(2)) ** 2).backward()
+            opt.step()
     assert rc.SLOT_TABLE_BUILDS == 1 and rc.LAUNCHES["scatter_faces_to_vertices"] == 3
+
+
+# ---------------------------------------------------------------------------
+# the compiled core: graphs captured per signature, replayed after
+
+
+@pytest.fixture
+def fresh_cache(monkeypatch):
+    """An empty cache of faces records and graphs for the test."""
+    monkeypatch.setattr(graphs, "_records", {})
+    monkeypatch.setattr(graphs, "_entries", collections.OrderedDict())
+
+
+def _graph_scene(kind, cuda):
+    """A full-path scene at 64^2 AA: (renderer, vertices, faces, step), ``step(x)``
+    -> (images, {name: gradient}) of sum(images^2) through the user's
+    entry point, with fresh lights (and, at ``atlas``, an atlas that takes
+    gradients) each call."""
+    r = nr.Renderer(cuda)
+    r.image_size = 64
+    r.viewpoints = nr.get_points_from_angles(2.732, 30, 20)
+    if kind == "bench":
+        v, f = torus(40, 32)
+        faces = torch.tensor(f, device=cuda)
+
+        def step(x):
+            x = x.clone().requires_grad_(True)
+            images = r.render_silhouettes(x, faces)
+            (torch.sum(images * images) / (torch.sum(images) + 1.0)).backward()
+            return images, {"vertices": x.grad}
+        return r, torch.tensor(v[None], device=cuda), faces, step
+    if kind == "atlas":
+        v, f, vt, ft, tex = atlas_scene(16, 12, 40, 64)
+        lights = None
+    else:
+        v, f, vt, ft, tex = texel_scene(16, 12, 2)
+        r.texture_size, lights = 2, lit_light_arrays()
+    faces, vt, ft = (torch.tensor(a, device=cuda) for a in (f, vt, ft))
+    tex = torch.tensor(tex, device=cuda)
+    cls = {"ambient": nr.AmbientLight, "directional": nr.DirectionalLight,
+           "specular": nr.SpecularLight}
+
+    def step(x):
+        x = x.clone().requires_grad_(True)
+        t = tex.clone().requires_grad_(kind == "atlas")
+        ls = None if lights is None else tuple(
+            cls[k](**{n: torch.tensor(a, device=cuda, requires_grad=n == "color")
+                      for n, a in arrays.items()}) for k, arrays in lights)
+        images = r.render(x, faces, vt, ft, t, lights=ls)
+        torch.sum(images * images).backward()
+        grads = {"vertices": x.grad}
+        if t.grad is not None:
+            grads["textures"] = t.grad
+        for i, light in enumerate(ls or ()):
+            grads[f"light{i}"] = light.color.grad
+        return images, grads
+    return r, torch.tensor(v[None], device=cuda), faces, step
+
+
+def _only_graph(faces):
+    """The one graph kept over ``faces``."""
+    kept = graphs.kept_graphs(faces)
+    assert len(kept) == 1, kept
+    return kept[0]
+
+
+@pytest.mark.parametrize("kind", ["bench", "atlas", "lit"])
+def test_graphed_core_replays_the_eager_steps_kernels(cuda, fresh_cache, kind):
+    """The first call runs eagerly, the second captures, every call from
+    the second replays; images equal the eager step's bits and gradients
+    lie within 1e-4 of its largest (K3's and K6's atomics); the graphs hold
+    the kernels the eager step launches, as many times."""
+    r, v, faces, step = _graph_scene(kind, cuda)
+    rc.reset_launches()
+    with nr.eager():
+        want_images, want = step(v)
+    eager_launches = {k: n for k, n in rc.LAUNCHES.items() if n}
+    rc.reset_launches()
+    for call in range(4):
+        images, grads = step(v)
+        assert rc.GRAPHS["captures"] == min(call, 1)
+        assert rc.GRAPHS["forward_replays"] == rc.GRAPHS["backward_replays"] == call
+        assert torch.equal(images, want_images)
+        for name, g in grads.items():
+            torch.testing.assert_close(g, want[name], rtol=0,
+                                       atol=1e-4 * float(want[name].abs().max()))
+    graph = _only_graph(faces)
+    held = dict(graph.launches["forward"])
+    for k, n in graph.launches["backward"].items():
+        held[k] = held.get(k, 0) + n
+    assert held == eager_launches, (held, eager_launches)
+    assert graph.seconds > 0
+    assert rc.LAUNCHES["face_setup"] == 0 and rc.LAUNCHES["bin_faces"] == 0
+
+
+def test_graphed_outputs_and_gradients_are_fresh_tensors(cuda, fresh_cache):
+    """Step t's images and ``.grad`` are unchanged by step t + 1 (new vertex
+    values, which its images reflect), and neither is the graph's buffer."""
+    r, v, faces, step = _graph_scene("bench", cuda)
+    step(v)                                    # the first call: eager
+    first_images, first = step(v)
+    kept = (first_images.clone(), first["vertices"].clone())
+    moved = v * 1.1
+    second_images, second = step(moved)
+    assert rc.GRAPHS["forward_replays"] >= 2
+    assert torch.equal(first_images, kept[0]) and torch.equal(first["vertices"], kept[1])
+    assert not torch.equal(second_images, first_images)
+    with nr.eager():
+        want_images, want = step(moved)
+    assert torch.equal(second_images, want_images)
+    graph = _only_graph(faces)
+    buffers = {graph.output.data_ptr(), *(g.data_ptr() for g in graph.grads if g is not None)}
+    for t in (first_images, second_images, first["vertices"], second["vertices"]):
+        assert t.data_ptr() not in buffers
+
+
+def _silhouette_ndc(cuda):
+    v, f = torus(40, 32)
+    r = nr.Renderer(cuda)
+    r.viewpoints = nr.get_points_from_angles(2.732, 30, 20)
+    return r.transform_vertices(torch.tensor(v[None], device=cuda)).detach(), f
+
+
+def test_int64_faces_give_one_capture_and_one_slot_table(cuda, fresh_cache):
+    """Ten steps over one int64 faces tensor: one int32 conversion, one K4
+    table and one capture (at the second step); then an in-place edit of
+    the faces runs its first call eagerly, recaptures at its second, and
+    both render the edited mesh."""
+    ndc, f = _silhouette_ndc(cuda)
+    faces = torch.tensor(f, device=cuda).long()
+    hp = nr.RasterizeHyperparam(image_size=64)
+    rc.reset_launches()
+    for _ in range(10):
+        x = ndc.clone().requires_grad_(True)
+        nr.rasterize_silhouettes(x, faces, None, hp).sum().backward()
+    assert rc.GRAPHS["captures"] == 1 and rc.SLOT_TABLE_BUILDS == 1
+    assert rc.GRAPHS["forward_replays"] == 9
+    before = nr.rasterize_silhouettes(ndc.clone().requires_grad_(True), faces, None, hp)
+    nf = faces.shape[0]
+    faces[: nf // 2] = faces[nf // 2:].clone()             # in place: half the mesh gone
+    edited = [nr.rasterize_silhouettes(ndc.clone().requires_grad_(True), faces, None, hp)
+              for _ in range(2)]
+    assert rc.GRAPHS["captures"] == 2
+    with nr.eager():
+        want = nr.rasterize_silhouettes(ndc, faces, None, hp)
+    for e in edited:
+        assert torch.equal(e.detach(), want) and not torch.equal(e, before)
+
+
+def test_fresh_faces_tensors_each_step_bound_the_captures(cuda, fresh_cache):
+    """``faces.int()`` at every step, or a mesh of new ids at every step:
+    each call is its faces tensor's first, which runs eagerly, so nothing
+    is captured, and the images are the eager step's."""
+    ndc, f = _silhouette_ndc(cuda)
+    faces = torch.tensor(f, device=cuda).long()
+    hp = nr.RasterizeHyperparam(image_size=64)
+    with nr.eager():
+        want = nr.rasterize_silhouettes(ndc, faces, None, hp)
+    rc.reset_launches()
+    for k in range(6):
+        x = ndc.clone().requires_grad_(True)
+        images = nr.rasterize_silhouettes(x, faces.int(), None, hp)
+        images.sum().backward()
+        assert torch.equal(images.detach(), want)
+        # the same triangles in another order: new ids
+        turned = faces.roll(k + 1, dims=0).int()
+        nr.rasterize_silhouettes(x.detach().requires_grad_(True), turned, None,
+                                 hp).sum().backward()
+    assert rc.GRAPHS["captures"] == 0 and rc.GRAPHS["forward_replays"] == 0
+    assert graphs.graph_count() == 0 and rc.LAUNCHES["resolve_xy"] == 12
+
+
+def test_graphs_kept_stay_within_the_caps(cuda, fresh_cache):
+    """A render at more batch sizes than the cache keeps, twice each: the
+    graphs kept stay within MAX_ENTRIES signatures, and an evicted graph
+    is freed, with its memory pool."""
+    ndc, f = _silhouette_ndc(cuda)
+    faces = torch.tensor(f, device=cuda)
+    hp = nr.RasterizeHyperparam(image_size=64)
+    rc.reset_launches()
+    first = None
+    for bs in range(1, graphs.MAX_ENTRIES + 5):
+        for _ in range(2):
+            x = ndc.expand(bs, -1, -1).clone().requires_grad_(True)
+            nr.rasterize_silhouettes(x, faces, None, hp).sum().backward()
+        assert len(graphs._entries) <= graphs.MAX_ENTRIES
+        assert graphs.graph_count() <= graphs.MAX_ENTRIES
+        if first is None:
+            first = weakref.ref(_only_graph(faces))
+    assert rc.GRAPHS["captures"] == graphs.MAX_ENTRIES + 4
+    assert len(graphs.kept_graphs(faces)) == graphs.MAX_ENTRIES
+    gc.collect()
+    assert first() is None                     # evicted: its graphs and pool freed
+
+
+def test_binned_route_runs_eagerly_and_says_so(cuda, fresh_cache, caplog):
+    import logging
+
+    r, v, _, step = _graph_scene("bench", cuda)
+    graphs.note_eager.cache_clear()            # each reason is logged once
+    rc.reset_launches()
+    with rc.forced_route("binned"), caplog.at_level(logging.INFO, logger=graphs.__name__):
+        step(v)
+        step(v)
+    assert rc.GRAPHS["captures"] == 0 and rc.GRAPHS["forward_replays"] == 0
+    assert rc.LAUNCHES["bin_faces"] == 2
+    assert any("eager, binned route" in rec.getMessage() for rec in caplog.records)
+
+
+def test_no_grad_render_is_a_forward_graph(cuda, fresh_cache):
+    r, v, faces, _ = _graph_scene("bench", cuda)
+    rc.reset_launches()
+    with torch.no_grad():
+        got = [r.render_silhouettes(v, faces) for _ in range(3)]
+    with nr.eager():
+        want = r.render_silhouettes(v, faces)
+    assert all(torch.equal(g, want) for g in got)
+    assert rc.GRAPHS["captures"] == 1 and rc.GRAPHS["forward_replays"] == 2
+    assert rc.GRAPHS["backward_replays"] == 0
+    assert got[1].data_ptr() != got[2].data_ptr()
+
+
+def test_two_views_under_one_loss_take_one_backward(cuda, fresh_cache):
+    """Two renders of one signature before one backward (a loss summed over
+    two views): each replays a graph of its own, and the gradient is the
+    eager step's."""
+    r, v, faces, _ = _graph_scene("bench", cuda)
+    views = (nr.get_points_from_angles(2.732, 30, 20), nr.get_points_from_angles(2.732, 30, 110))
+
+    def step(x):
+        x = x.clone().requires_grad_(True)
+        loss = 0.0
+        for viewpoint in views:
+            r.viewpoints = viewpoint
+            images = r.render_silhouettes(x, faces)
+            loss = loss + torch.sum(images * images) / (torch.sum(images) + 1.0)
+        loss.backward()
+        return x.grad
+
+    with nr.eager():
+        want = step(v)
+    rc.reset_launches()
+    for _ in range(3):
+        got = step(v)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+    assert rc.GRAPHS["captures"] == 2 and len(graphs.kept_graphs(faces)) == 2
+    assert rc.GRAPHS["forward_replays"] == rc.GRAPHS["backward_replays"] == 5
+
+
+def test_a_second_backward_after_a_later_replay_raises(cuda, fresh_cache):
+    """A render kept for a second backward (retain_graph) while a later
+    render replayed its graph would read the later saved tensors: it
+    raises."""
+    r, v, faces, _ = _graph_scene("bench", cuda)
+    x = v.clone().requires_grad_(True)
+    r.render_silhouettes(x, faces)                 # the first call: eager
+    first = r.render_silhouettes(x, faces)
+    first.sum().backward(retain_graph=True)
+    r.render_silhouettes(x * 1.01, faces).sum().backward()
+    with pytest.raises(RuntimeError, match="replayed by a later call"):
+        first.sum().backward()
+
+
+def test_caller_captures_a_whole_step(cuda, fresh_cache):
+    """Camera, render, bench.py's loss, backward and update in one graph of
+    the caller's: the render runs straight into it; one replay gives the
+    eager step's images, gradient and update."""
+    r, v, faces, _ = _graph_scene("bench", cuda)
+    x = v.clone().requires_grad_(True)
+
+    def step():
+        images = r.render_silhouettes(x, faces)
+        loss = torch.sum(images * images) / (torch.sum(images) + 1.0)
+        loss.backward()
+        with torch.no_grad():
+            x.sub_(1e-6 * x.grad)
+        return images
+
+    with nr.eager():
+        want_x = v.clone().requires_grad_(True)
+        want_images = r.render_silhouettes(want_x, faces)
+        (torch.sum(want_images * want_images) / (torch.sum(want_images) + 1.0)).backward()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), nr.eager():
+        for _ in range(2):
+            x.grad = None
+            step()
+    torch.cuda.current_stream().wait_stream(side)
+    x.grad = None
+    graph = torch.cuda.CUDAGraph()
+    rc.reset_launches()
+    with torch.cuda.graph(graph):
+        images = step()
+    assert rc.GRAPHS["captures"] == 0 and rc.LAUNCHES["resolve_xy"] == 1
+    with torch.no_grad():
+        x.copy_(v)
+    graph.replay()
+    assert torch.equal(images, want_images.detach())
+    torch.testing.assert_close(x.grad, want_x.grad, rtol=0,
+                               atol=1e-4 * float(want_x.grad.abs().max()))
+    assert torch.equal(x.detach(), v - 1e-6 * x.grad)

@@ -111,7 +111,7 @@ def test_atlas_sampler_values_and_gradients():
 def test_texel_sampler_values_and_gradients(texture_size):
     fvm, _, w, fim = _planes(5)
     nf = 30
-    vt, ft, tex = create_textures(nf, texture_size)
+    vt, ft, tex = create_textures(nf, texture_size, device="cpu")
     tile_width = tex.shape[2] // texture_size
     # each pixel's winner's own texel triangle (u0, v0, u1, v1, u2, v2)
     tri = vt.numpy()[ft.numpy().reshape(-1)].reshape(nf, 6)

@@ -210,11 +210,16 @@ def test_renderer_keeps_array_like_faces_on_its_device(form):
 
 
 def test_renderer_passes_tensor_faces_through():
-    """An int32 tensor on the renderer's device is used as it is; another
-    dtype is converted at each call."""
+    """A tensor on the renderer's device is used as it is, of any integer
+    dtype: the rasterizer keeps one int32 copy per faces tensor
+    (``ops/graphs.py``), so int64 faces convert once, not at each call."""
     f = torch.tensor(_faces("torus")[0])
     r = nr.Renderer("cpu")
     assert r.faces_on_device(f) is f
-    converted = r.faces_on_device(f.long())
+    f64 = f.long()
+    assert r.faces_on_device(f64) is f64
+    from neural_renderer_v2_pytorch_tpu_torch.ops import graphs
+
+    converted = graphs.faces_record(f64).faces
     assert converted.dtype == torch.int32 and torch.equal(converted, f)
-    assert r.faces_on_device(f.long()) is not converted
+    assert graphs.faces_record(f64).faces is converted
