@@ -102,8 +102,10 @@ events and the profiler's device time, beside the least time the card
 could take for the same work.  All of the above runs under ``nr.eager()``,
 op by op, as before the compiled core, so that each launch check counts
 its steps' launches as they run.  Last, the compiled core
-(``ops/graphs.py``): at ``bench``, ``atlas`` and ``lit`` through the
-user's entry points, under ``bench.py``'s loss, the graphed core (each
+(``ops/graphs.py``): at ``bench``, ``atlas`` and ``lit`` (the tiled
+route) and ``scale`` and ``hires`` (the binned route, K7 in its capped
+form) through the user's entry points, under ``bench.py``'s loss, the
+graphed core (each
 render replays a CUDA graph captured at its second call) and the whole step
 captured by its caller (camera, render, loss, backward and ``bench.py``'s
 update in one ``torch.cuda.graph``) against the eager step: images equal,
@@ -112,8 +114,11 @@ replay from the second call, step t's outputs intact after step t + 1 and
 no output a graph's buffer; the three forms timed in turns (CUDA events,
 busy share and operations under the profiler), the capture seconds
 logged; int64 faces over 10 steps in one capture and one K4 table, an
-in-place edit of them captured anew, a no_grad render equal, and
-``scale`` run eagerly on the binned route and logged so.  Each five-step
+in-place edit of them captured anew, a no_grad render equal, and at
+``scale`` a graph captured with half its pair total's slots: its replay
+bit-equal with overflow bins, which it reports, and the next call
+captured anew at twice the capacity; K7 + K8 over exact, half-capacity and
+zero-capacity bins timed in turns.  Each five-step
 fit builds one vertex -> slot table for K4
 (``resolve_cuda.SLOT_TABLE_BUILDS``).
 
@@ -2218,7 +2223,8 @@ def examples_phase(dev, smi):
     return launches, numbers
 
 
-# phase 20: the compiled core (ops/graphs.py) at bench, atlas and lit, in
+# phase 20: the compiled core (ops/graphs.py) at bench, atlas and lit (the
+# tiled route) and at scale and hires (the binned route: K7 capped), in
 # three forms timed in turns: eager (nr.eager()), the graphed core (each
 # render replays its graph; camera, loss and backward's rest eager) and the
 # whole step captured by its caller
@@ -2433,13 +2439,84 @@ def two_views(case, x):
     return torch.stack(views, 1)
 
 
+def overflow_times(fvp, size, smi):
+    """K7 and K8's XY form at ``fvp``'s shapes over exact bins, over capped
+    bins with half the pair total's slots and with none (every bin from the
+    first that holds a face overflows), each bit-equal to the exact bins'
+    resolve: event medians in turns (exact, half, zero, zero, half, exact)
+    and device ms and operations per call."""
+    exact = rc.bin_faces(fvp, True, size)
+    total = exact[2].shape[0]
+    want = rc.resolve_binned_xy(fvp, True, exact, size, 0.1, 100.0)
+    calls, out = {}, {}
+    for name, capacity in (("exact", None), ("half", total // 2), ("zero", 0)):
+        def call(capacity=capacity):
+            bins = rc.bin_faces(fvp, True, size, capacity=capacity)
+            return rc.resolve_binned_xy(fvp, True, bins[:3], size, 0.1, 100.0)
+        for part, got, w in zip(("index", "depth", "coords"), call(), want):
+            check_equal(f"scale K8 over {name} bins {part}", got, w)
+        overflow = 0 if capacity is None else int(
+            rc.bin_faces(fvp, True, size, capacity=capacity)[3])
+        calls[name] = call
+        out[name] = dict(capacity=total if capacity is None else capacity, overflow_bins=overflow,
+                         turns_ms=[])
+    for name in ("exact", "half", "zero", "zero", "half", "exact"):
+        out[name]["turns_ms"].append(median_ms(calls[name], 20))
+    for name, call in calls.items():
+        prof = profile_device(call)
+        row = out[name]
+        row.update(ms=float(np.mean(row["turns_ms"])), device_ms=prof.busy, device_ops=prof.ops)
+        log(f"[graphs] scale K7 + K8 XY, {name} capacity ({row['capacity']} pair slots of "
+            f"{total}, {row['overflow_bins']} overflow bins): {row['ms']:.4f} ms (turns "
+            f"{', '.join(f'{t:.4f}' for t in row['turns_ms'])}), device {prof.busy:.4f} ms in "
+            f"{prof.ops:.1f} operations per call  ({smi})")
+    return out
+
+
+def forced_overflow(case, handler):
+    """A graph of ``case`` captured with half its pair total's slots: its
+    replay is bit-equal to the eager step though bins overflow, it reports
+    them (no sync), and the next call captures anew at twice the capacity,
+    which fits and stays."""
+    with nr.eager():
+        want = case.step()
+    rc.reset_launches()
+    case.step()                      # the signature's first call: eager, keeps the total
+    (total,) = graphs.faces_record(case.faces).bin_totals.values()
+    with graphs.forced_capacity(total // 2):
+        got = case.step()            # captures at total // 2 and replays
+    check_against(f"{case.label}: the overflowed replay", got, want)
+    torch.cuda.synchronize()
+    graph = case_graph(case)
+    overflow = graph.overflowed()
+    if not overflow or graph.capacities != [total // 2] or rc.GRAPHS["captures"] != 1:
+        raise AssertionError(f"{case.label}: capacities {graph.capacities} of {total} pairs, "
+                             f"{overflow} overflow bins, {rc.GRAPHS}; want overflow bins")
+    check_against(f"{case.label}: the recapturing call", case.step(), want)
+    recaptured = case_graph(case)
+    check_against(f"{case.label}: after the recapture", case.step(), want)
+    torch.cuda.synchronize()
+    if rc.GRAPHS["overflow_recaptures"] != 1 or rc.GRAPHS["captures"] != 2 or \
+            recaptured.overflowed() or recaptured.capacities[0] < 2 * (total // 2):
+        raise AssertionError(f"{case.label}: {rc.GRAPHS}, capacities {recaptured.capacities}, "
+                             f"{recaptured.overflowed()} overflow bins after the recapture")
+    if not any("overflow bins" in m for m in handler.messages):
+        raise AssertionError(f"{case.label}: no log line names the overflow bins")
+    log(f"[graphs] {case.label}: the replay captured with {total // 2} pair slots of {total} "
+        f"had {overflow} overflow bins, bit-equal images; the next call recaptured at "
+        f"{recaptured.capacities} slots, with no overflow bin")
+    return dict(total=total, capacity=total // 2, overflow_bins=overflow,
+                recaptured_capacity=recaptured.capacities)
+
+
 def graphs_phase(cases, scale, smi):
-    """Phase 20: the compiled core at ``cases`` (bench, atlas, lit), and at
-    bench: int64 faces over 10 steps (one capture, one K4 table), an
-    in-place faces edit (a new capture), a fresh faces tensor each step (no
-    capture), two views under one loss (a graph each), a no_grad
-    render; at ``scale`` =
-    (renderer, vertices, faces): the binned route, run eagerly and logged."""
+    """Phase 20: the compiled core at ``cases`` (bench, atlas, lit: tiled;
+    scale, hires: binned), and at bench: int64 faces over 10 steps (one
+    capture, one K4 table), an in-place faces edit (a new capture), a fresh
+    faces tensor each step (no capture), two views under one loss (a graph
+    each), a no_grad render; at ``scale`` = (renderer, vertices, faces): a
+    forced overflow (:func:`forced_overflow`) and K7 + K8 over overflow
+    bins timed (:func:`overflow_times`)."""
     handler = LogLines()
     logger = logging.getLogger(PKG)
     saved = logger.level
@@ -2504,17 +2581,21 @@ def graphs_phase(cases, scale, smi):
             check_equal("bench no_grad render", got,
                         renderer.render_silhouettes(bench.values[0], bench.faces))
 
+        if any(m.startswith("eager, binned route") for m in handler.messages):
+            raise AssertionError("a binned render ran eagerly for its route")
         r, v, f = scale
-        rc.reset_launches()
-        x = v.clone().requires_grad_(True)
-        pattern_loss(r.render_silhouettes(x, f)).backward()
-        if rc.GRAPHS["captures"] or rc.GRAPHS["forward_replays"] or not rc.LAUNCHES["bin_faces"]:
-            raise AssertionError(f"scale: {rc.GRAPHS}, {rc.LAUNCHES}: want eager, binned")
-        if not any(m.startswith("eager, binned route") for m in handler.messages):
-            raise AssertionError("scale: no log line says it ran eagerly on the binned route")
+        over_faces = f.clone()
+        numbers["scale forced overflow"] = forced_overflow(
+            GraphCase("scale forced overflow", r, over_faces,
+                      lambda x: r.render_silhouettes(x, over_faces), [v]), handler)
+        with torch.no_grad():
+            fvp = gather_face_vertices(r.transform_vertices(v), f)
+        numbers["scale overflow times"] = overflow_times(fvp, r.image_size, smi)
         numbers["checks"] = ("int64 faces: 1 capture, 1 K4 table over 10 steps; an in-place "
                              "edit recaptured; fresh faces each step: eager; two views "
-                             "under one loss: 2 graphs; no_grad equal; scale eager, binned")
+                             "under one loss: 2 graphs; no_grad equal; scale and hires "
+                             "graphed (K7 capped); a forced overflow at scale: exact, "
+                             "counted, recaptured once")
     finally:
         logger.removeHandler(handler)
         logger.setLevel(saved)
@@ -3013,6 +3094,7 @@ def main():
         lights = tuple(cls(color=c, **rest) for (cls, rest), c in zip(fixed, light_colors))
         return lit.renderer.render(x, lit.faces, lit.vt, lit.ft, lit.textures, lights=lights)
 
+    hires_faces = faces6.clone()       # its own faces tensor: one graph over each
     graphs_phase([
         GraphCase("bench", renderer, faces, lambda x: renderer.render_silhouettes(x, faces),
                   [torus_v]),
@@ -3020,6 +3102,10 @@ def main():
                   lambda x, t: atlas.renderer.render(x, atlas.faces, atlas.vt, atlas.ft, t),
                   [atlas.vertices, atlas.textures]),
         GraphCase("lit", lit.renderer, lit.faces, lit_forward, [lit.vertices, *colors]),
+        GraphCase("scale", scale_renderer, faces6,
+                  lambda x: scale_renderer.render_silhouettes(x, faces6), [sphere_v]),
+        GraphCase("hires", hires, hires_faces, lambda x: hires.render_silhouettes(x, hires_faces),
+                  [sphere_v]),
     ], (scale_renderer, sphere_v, faces6), smi)
 
     log("[routes] resolve ms (tiled, binned) and the rule's route: " + json.dumps(

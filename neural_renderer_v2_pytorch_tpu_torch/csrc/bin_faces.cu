@@ -19,7 +19,21 @@
 // batch-major and tile-major.  The order must be ascending: the resolve's
 // accept rule, zp <= depth - 1e-4 applied in id order, is not commutative.
 //
-// Four device operations and one host readback (the wrapper in
+// The capacity.  The pairs go into ids and an unsorted buffer of
+// `capacity` slots each (4 bytes a slot in each).  Eagerly the wrapper reads
+// the pair total back and passes it as the capacity, so every bin fits.  A
+// CUDA graph cannot read anything back: it is captured with a capacity fixed
+// beforehand (ops/graphs.py), and a bin whose pairs end past it in the
+// exclusive scan (offset + cnt > capacity) is an overflow bin: its offset is
+// written as -1, its cnt kept, and the fill and order passes skip it; K8
+// then resolves it over every face, in ascending id order, which gives the
+// exact bin's bits.  The scan's offsets are non-decreasing, so the overflow
+// bins are the bins from the first one whose pairs end past the capacity
+// on, in scan order: which bins overflow depends on the counts alone, never
+// on the order of the atomics.  One control word counts the call's
+// overflow bins.
+//
+// Four device operations, and eagerly one host readback (the wrapper in
 // ops/resolve_cuda.py calls the two entries):
 //   nr_bin_faces_count
 //     1. memset: the per-tile counters [bs * tiles] and the control words.
@@ -29,18 +43,21 @@
 //        each block computes the bounds once into shared memory), and adds
 //        1 to each covered tile's counter (one atomic per warp and tile,
 //        lanes on one tile aggregated); the blocks sum the pair total.
-//   (host: reads the pair total back, to size ids)
+//   (host, eager form only: reads the pair total back, to size ids)
 //   nr_bin_faces
 //     3. scan + fill: the first blocks to start take the counters' chunks
 //        in ticket order and scan them with a decoupled look-back (a block
 //        waits only on chunks whose blocks started before it): cnt,
-//        offsets and each tile's fill cursor in place of its counter.  Once
+//        offsets (-1 for an overflow bin, counted in the overflow word) and
+//        each tile's fill cursor in place of its counter.  Once
 //        every chunk is scanned, one thread per face recomputes its
 //        rectangle and takes one slot per covered tile from the tile's
-//        cursor (one atomic per warp and tile): each bin's ids in the order
-//        the atomics ran.
-//     4. order: one warp per bin, the warps of a block on bins far apart
-//        on the canvas, so that crowded bins spread over blocks.  A bin of
+//        cursor (one atomic per warp and tile) and writes its id there if
+//        the slot lies below the capacity: each bin's ids in the order the
+//        atomics ran.  (Of the overflow bins only the first can own slots
+//        below the capacity, past the last bin that fits.)
+//     4. order: one warp per bin that fits, the warps of a block on bins
+//        far apart on the canvas, so that crowded bins spread over blocks.  A bin of
 //        at most kWarpCap ids is ranked by its warp (ids in a bin are
 //        distinct, so each id's rank is the count of smaller ones), through
 //        shuffles up to 32 ids and shared memory above; a larger one by
@@ -56,8 +73,8 @@
 // scratch is the counters (4 bytes per tile, padded to a scan chunk), 8
 // bytes per chunk and the unsorted pairs (4 bytes each): it grows with
 // tiles + pairs, never with tiles x faces.  What it costs beyond the bound
-// is four dependent device operations, the readback, the scan's wait, and
-// the order pass's one warp (or block) per bin.
+// is four dependent device operations, the eager form's readback, the
+// scan's wait, and the order pass's one warp (or block) per bin.
 
 #include <cuda_runtime.h>
 
@@ -83,8 +100,9 @@ constexpr int kLoads = 8;                         // ids a large bin's thread lo
 // the tiles' bounds in shared memory: 2 floats per tile of each axis
 constexpr int kMaxTableTiles = 48 * 1024 / (2 * sizeof(float));
 // the control words after the padded counters: the scan's ticket, the pair
-// total, the chunks scanned; then one 64-bit state per chunk
-constexpr int kTicket = 0, kTotal = 1, kScanned = 2, kStates = 4;
+// total, the chunks scanned, the overflow bins; then one 64-bit state per
+// chunk
+constexpr int kTicket = 0, kTotal = 1, kScanned = 2, kOverflow = 3, kStates = 4;
 
 struct Geometry {
   int size, row_start, num_rows, tiles_x, tiles_y, n_tiles, draw_backside;
@@ -213,9 +231,10 @@ bin_count_kernel(const float* __restrict__ fvp, int* scratch, Geometry g, int nf
 // its block's local scan, then its prefix from the chunks before it by a
 // decoupled look-back over their 64-bit states (status << 32 | value:
 // 1 = the chunk's own sum, 2 = its inclusive prefix); writes cnt, offsets
-// and the fill cursors in place of the counters.
+// and the fill cursors in place of the counters.  A bin whose pairs end past
+// `capacity` gets offset -1, and adds one to the overflow word.
 __device__ void scan_chunk(int t, int* scratch, int* __restrict__ cnt_out,
-                           int* __restrict__ off_out, int n_bins, int padded) {
+                           int* __restrict__ off_out, int n_bins, int padded, int capacity) {
   __shared__ int sums[32];
   __shared__ int chunk_prefix;
   constexpr int kVecs = kScanPer / 4;
@@ -250,6 +269,7 @@ __device__ void scan_chunk(int t, int* scratch, int* __restrict__ cnt_out,
   }
   __syncthreads();
   run += chunk_prefix;
+  int overflow = 0;
 #pragma unroll
   for (int k = 0; k < kVecs; ++k) {
     const int j = i + 4 * k;
@@ -257,23 +277,30 @@ __device__ void scan_chunk(int t, int* scratch, int* __restrict__ cnt_out,
                              run + v[k].x + v[k].y + v[k].z);
     run = o.w + v[k].w;
     reinterpret_cast<int4*>(scratch + j)[0] = o;
+    const int4 f = make_int4(o.x + v[k].x > capacity ? -1 : o.x,
+                             o.y + v[k].y > capacity ? -1 : o.y,
+                             o.z + v[k].z > capacity ? -1 : o.z, run > capacity ? -1 : o.w);
     if (j + 3 < n_bins) {       // the outputs are 16-byte aligned, exactly n_bins long
       reinterpret_cast<int4*>(cnt_out + j)[0] = v[k];
-      reinterpret_cast<int4*>(off_out + j)[0] = o;
+      reinterpret_cast<int4*>(off_out + j)[0] = f;
+      overflow += (f.x < 0) + (f.y < 0) + (f.z < 0) + (f.w < 0);
     } else {
-      const int c[4] = {v[k].x, v[k].y, v[k].z, v[k].w}, s[4] = {o.x, o.y, o.z, o.w};
+      const int c[4] = {v[k].x, v[k].y, v[k].z, v[k].w}, s[4] = {f.x, f.y, f.z, f.w};
       for (int q = 0; q < 4 && j + q < n_bins; ++q) {
         cnt_out[j + q] = c[q];
         off_out[j + q] = s[q];
+        overflow += s[q] < 0;
       }
     }
   }
+  overflow = __reduce_add_sync(0xffffffffu, overflow);
+  if ((threadIdx.x & 31) == 0 && overflow) atomicAdd(scratch + padded + kOverflow, overflow);
 }
 
 __global__ void __launch_bounds__(kFillThreads)
 bin_fill_kernel(const float* __restrict__ fvp, int* scratch, int* __restrict__ cnt_out,
                 int* __restrict__ off_out, int* __restrict__ unsorted, Geometry g, int nf,
-                int n_bins, int padded) {
+                int n_bins, int padded, int capacity) {
   extern __shared__ float2 bounds[];
   __shared__ int ticket;
   const int chunks = padded / kScanChunk;
@@ -283,7 +310,7 @@ bin_fill_kernel(const float* __restrict__ fvp, int* scratch, int* __restrict__ c
   // the first blocks to start scan the chunks, each waiting only on blocks
   // that started before it; then every block waits for the whole scan
   if (ticket < chunks) {
-    scan_chunk(ticket, scratch, cnt_out, off_out, n_bins, padded);
+    scan_chunk(ticket, scratch, cnt_out, off_out, n_bins, padded, capacity);
     __threadfence();
     __syncthreads();
     if (threadIdx.x == 0) atomicAdd(control + kScanned, 1);
@@ -299,7 +326,8 @@ bin_fill_kernel(const float* __restrict__ fvp, int* scratch, int* __restrict__ c
   int* cur = scratch + b * g.n_tiles;
   for (int ty = r.ty0; ty < r.ty0 + r.wy; ++ty) {
     for (int tx = r.tx0; tx < r.tx0 + r.wx; ++tx) {
-      unsorted[warp_add_one(cur, ty * g.tiles_x + tx)] = f;
+      const int slot = warp_add_one(cur, ty * g.tiles_x + tx);
+      if (slot < capacity) unsorted[slot] = f;
     }
   }
 }
@@ -420,10 +448,13 @@ bin_order_kernel(const int* __restrict__ cnt, const int* __restrict__ off,
   extern __shared__ unsigned bitmap[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  // warp w of block b takes bin b + w * gridDim.x
+  // warp w of block b takes bin b + w * gridDim.x; an overflow bin (offset
+  // -1) has nothing to order (both loads issued at once, the count's not
+  // waiting on the offset)
   const int bin = blockIdx.x + warp * gridDim.x;
-  const int c = bin < n_bins ? cnt[bin] : 0;
+  const int n = bin < n_bins ? cnt[bin] : 0;
   const int o = bin < n_bins ? off[bin] : 0;
+  const int c = o >= 0 ? n : 0;
   if (lane == 0) {
     bin_cnt[warp] = c;
     bin_off[warp] = o;
@@ -451,7 +482,9 @@ int padded_bins(int n_bins) { return (n_bins + kScanChunk - 1) / kScanChunk * kS
 
 // Passes 1 and 2.  fvp: f32 [bs, 3, 3, nf]; scratch: i32
 // [padded + 4 + 2 * padded / kScanChunk], padded = bs * tiles rounded up to
-// kScanChunk (4096).  Afterwards scratch[padded + 1] holds the pair total.
+// kScanChunk (4096).  Afterwards scratch[padded + 1] holds the pair total
+// (and scratch[padded + 3], zeroed here, is the overflow word that
+// bin_faces fills).
 // At most kMaxTableTiles tiles along both axes together.
 int bin_faces_count(void* stream, const float* fvp, int* scratch, int bs, int nf, int size,
                     int row_start, int num_rows, int draw_backside) {
@@ -471,10 +504,11 @@ int bin_faces_count(void* stream, const float* fvp, int* scratch, int bs, int nf
 }
 
 // Passes 3 and 4 (the launch counted as bin_faces).  scratch from passes 1
-// and 2; cnt, off: i32 [bs, tiles] out; unsorted and ids: i32 [pairs].
+// and 2; cnt, off: i32 [bs, tiles] out (off -1 for an overflow bin);
+// unsorted and ids: i32 [capacity], ids defined in the bins that fit.
 int bin_faces(void* stream, const float* fvp, int* scratch, int* cnt, int* off, int* unsorted,
               int* ids, int bs, int nf, int size, int row_start, int num_rows,
-              int draw_backside) {
+              int draw_backside, int capacity) {
   const Geometry g = geometry(size, row_start, num_rows, draw_backside);
   const int n_bins = bs * g.n_tiles;
   if (n_bins == 0) return 0;
@@ -485,7 +519,7 @@ int bin_faces(void* stream, const float* fvp, int* scratch, int* cnt, int* off, 
   const int chunks = padded / kScanChunk;
   const dim3 fill_grid(max((nf + kFillThreads - 1) / kFillThreads, (chunks + bs - 1) / bs), bs);
   bin_fill_kernel<<<fill_grid, kFillThreads, sizeof(float2) * (g.tiles_x + g.tiles_y), s>>>(
-      fvp, scratch, cnt, off, unsorted, g, nf, n_bins, padded);
+      fvp, scratch, cnt, off, unsorted, g, nf, n_bins, padded, capacity);
   // the bitmap for bins above kWarpCap: a window spans at most the nf ids
   const size_t shared = sizeof(unsigned) * max(1, min(kBitmapWords, (nf + 31) / 32));
   bin_order_kernel<<<(n_bins + kOrderWarps - 1) / kOrderWarps, kOrderWarps * 32, shared, s>>>(

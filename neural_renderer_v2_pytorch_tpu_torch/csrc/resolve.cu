@@ -8,6 +8,8 @@
 //     resolve_binned_depth): a CTA of 64 threads per 8x8 bin; the bin holds
 //     the ascending ids of the faces that K7 (bin_faces.cu) found live and
 //     touching the tile, and each entry's nine coordinates are gathered.
+//     An overflow bin (offset -1: its pairs did not fit K7's capacity)
+//     takes every face instead, ids 0 .. nf - 1 in order.
 // Both form the 17 constants and the kill rule themselves
 // (face_constants.cuh, K1's own expressions), so no path launches K1.
 // Latch forms:
@@ -64,6 +66,16 @@
 // (One warp per bin, two pixels a lane, persistent warps walking the bins
 // with the next bin's chain in flight, measured slower on an H100:
 // tools/resolve_designs.cu.)
+//
+// Overflow bins: a loop of their own over the ids 0 .. nf - 1, the same
+// batches.  A face absent from the exact bin misses the tile's pixel
+// centres by K7's strict test, or was killed (bbox 4,-4,4,-4), so every
+// pixel of the tile rejects it at its bbox test, and the pixels accept the
+// same faces in the same order: the exact bin's bits.  A batch none of
+// whose faces' bboxes meets the tile skips its staging and its loop (the
+// first test of the tiled forms), and a bin in which K7 counted no face
+// skips them all, so an overflow bin costs a pass over the face
+// coordinates, not a test of every face at every pixel.
 //
 // The copy form latches only the id during the stream, so its registers
 // and shared memory do not depend on A.  The TPU kernels instead latched
@@ -309,15 +321,64 @@ __device__ __forceinline__ void load_entry(const float* __restrict__ vb, int nf,
   for (int j = 0; j < 9; ++j) v[j] = f >= 0 ? vb[(size_t)j * nf + f] : 0.0f;
 }
 
+// Whether a face's bbox (fminf / fmaxf over its coordinates v: min_nan's and
+// max_nan's values unless a coordinate is NaN, and such a face's det is NaN,
+// so the kill rule drops it anyway) meets the pixel-centre range tile = x_lo,
+// x_hi, y_lo, y_hi.
+__device__ __forceinline__ bool meets_tile(const float* v, const float* tile) {
+  return !(fmaxf(fmaxf(v[0], v[1]), v[2]) < tile[0] || tile[1] < fminf(fminf(v[0], v[1]), v[2]) ||
+           fmaxf(fmaxf(v[3], v[4]), v[5]) < tile[2] || tile[3] < fminf(fminf(v[3], v[4]), v[5]));
+}
+
+constexpr int kBinThreads = kBinEdge * kBinEdge;
+
+// One batch of K8: each thread stages its face f (coordinates v; none for
+// f < 0) into shared memory, then every pixel tests the batch's first
+// `count` faces in order.
+template <int kLatch>
+__device__ __forceinline__ void binned_batch(const Args& a, int f, const float* v, int count,
+                                             float (&s_c)[kConsts][kBinThreads],
+                                             float (&s_x)[kLatch == kXY ? kCoordsXY : 1]
+                                                         [kBinThreads],
+                                             int (&s_id)[kBinThreads], float xp, float yp,
+                                             Pixel& p) {
+  const int t = threadIdx.x;
+  if (f >= 0) {
+    float c[kConsts];
+    nr_face::constants_xy(v[0], v[3], v[1], v[4], v[2], v[5], c);
+    nr_face::kill_invalid(c, a.draw_backside);
+    nr_face::constants_z(v[6], v[7], v[8], c);
+#pragma unroll
+    for (int j = 0; j < kConsts; ++j) s_c[j][t] = c[j];
+    if constexpr (kLatch == kXY) {
+      s_x[0][t] = v[0];
+      s_x[1][t] = v[3];
+      s_x[2][t] = v[1];
+      s_x[3][t] = v[4];
+      s_x[4][t] = v[2];
+      s_x[5][t] = v[5];
+    }
+    s_id[t] = f;
+  }
+  __syncthreads();
+  for (int k = 0; k < count; ++k) {
+    test_face<kLatch, kBinThreads>(&s_c[0][k], &s_x[0][k], &s_id[k], xp, yp, a.z_near, a.z_far,
+                                   p);
+  }
+  __syncthreads();  // the next batch overwrites the staged faces
+}
+
 // K8: a CTA of 64 threads per 8x8 bin, one pixel a thread; the bin's
 // entries staged 64 at a time, the next batch's coordinates and the batch
-// after's ids loading while a batch resolves.
+// after's ids loading while a batch resolves.  An overflow bin (offset -1)
+// takes the faces 0 .. nf - 1 in a loop of its own.
 template <int kLatch>
-__global__ void __launch_bounds__(kBinEdge * kBinEdge) binned_kernel(const Args a) {
-  constexpr int kN = kBinEdge * kBinEdge;
+__global__ void __launch_bounds__(kBinThreads) binned_kernel(const Args a) {
+  constexpr int kN = kBinThreads;
   __shared__ float s_c[kConsts][kN];
   __shared__ float s_x[kLatch == kXY ? kCoordsXY : 1][kN];
   __shared__ int s_id[kN];
+  __shared__ float s_tile[4];   // an overflow bin's pixel-centre range
   const int t = threadIdx.x, nf = a.nf;
   const int g = blockIdx.x;
   const int b = g / a.tiles, tile = g - b * a.tiles;
@@ -327,44 +388,53 @@ __global__ void __launch_bounds__(kBinEdge * kBinEdge) binned_kernel(const Args 
   const float xp = pixel_centre(col, s);
   const float yp = pixel_centre(a.row_start + row, s);
   const float* vb = a.fvp + (size_t)b * 9 * nf;
-  const int n = a.bin_cnt[g];
-  const int* ids = a.bin_ids + a.bin_off[g];
-  int f = t < n ? ids[t] : -1;
-  int f1 = kN + t < n ? ids[kN + t] : -1;
-  float v[9];
-  load_entry(vb, nf, f, v);
+  // the count and the offset load together, whatever the offset says (both
+  // branches read the count): a count loaded only once the offset was known
+  // put one more round trip on the chain count/offset -> ids -> vertices,
+  // which at hires (65,536 bins, most of one batch) cost 11-13% on an H100
+  const int n = a.bin_cnt[g], offset = a.bin_off[g];
   Pixel p = empty_pixel(a.z_far);
-  for (int base = 0; base < n; base += kN) {
-    float v1[9];
-    load_entry(vb, nf, f1, v1);
-    const int f2 = base + 2 * kN + t < n ? ids[base + 2 * kN + t] : -1;
-    if (f >= 0) {
-      float c[kConsts];
-      nr_face::constants_xy(v[0], v[3], v[1], v[4], v[2], v[5], c);
-      nr_face::kill_invalid(c, a.draw_backside);
-      nr_face::constants_z(v[6], v[7], v[8], c);
+  if (offset >= 0) {
+    const int* ids = a.bin_ids + offset;
+    int f = t < n ? ids[t] : -1;
+    int f1 = kN + t < n ? ids[kN + t] : -1;
+    float v[9];
+    load_entry(vb, nf, f, v);
+    for (int base = 0; base < n; base += kN) {
+      float v1[9];
+      load_entry(vb, nf, f1, v1);
+      const int f2 = base + 2 * kN + t < n ? ids[base + 2 * kN + t] : -1;
+      binned_batch<kLatch>(a, f, v, min(kN, n - base), s_c, s_x, s_id, xp, yp, p);
+      f = f1;
+      f1 = f2;
 #pragma unroll
-      for (int j = 0; j < kConsts; ++j) s_c[j][t] = c[j];
-      if constexpr (kLatch == kXY) {
-        s_x[0][t] = v[0];
-        s_x[1][t] = v[3];
-        s_x[2][t] = v[1];
-        s_x[3][t] = v[4];
-        s_x[4][t] = v[2];
-        s_x[5][t] = v[5];
-      }
-      s_id[t] = f;
+      for (int j = 0; j < 9; ++j) v[j] = v1[j];
+    }
+  } else if (n > 0) {
+    // (an overflow bin in which K7 counted no face holds background only)
+    // the pixel-centre range of the tile's valid pixels (thread 0's pixel is
+    // its first); a batch none of whose faces' bboxes meets it is skipped
+    if (t == 0) {
+      s_tile[0] = xp;
+      s_tile[1] = pixel_centre(min(col + kBinEdge, a.size) - 1, s);
+      s_tile[2] = yp;
+      s_tile[3] = pixel_centre(a.row_start + min(row + kBinEdge, a.num_rows) - 1, s);
     }
     __syncthreads();
-    const int count = min(kN, n - base);
-    for (int k = 0; k < count; ++k) {
-      test_face<kLatch, kN>(&s_c[0][k], &s_x[0][k], &s_id[k], xp, yp, a.z_near, a.z_far, p);
-    }
-    __syncthreads();  // the next batch overwrites the staged faces
-    f = f1;
-    f1 = f2;
+    int f = t < nf ? t : -1;
+    float v[9];
+    load_entry(vb, nf, f, v);
+    for (int base = 0; base < nf; base += kN) {
+      const int f1 = base + kN + t < nf ? base + kN + t : -1;
+      float v1[9];
+      load_entry(vb, nf, f1, v1);
+      if (__syncthreads_or(f >= 0 && meets_tile(v, s_tile))) {
+        binned_batch<kLatch>(a, f, v, min(kN, nf - base), s_c, s_x, s_id, xp, yp, p);
+      }
+      f = f1;
 #pragma unroll
-    for (int j = 0; j < 9; ++j) v[j] = v1[j];
+      for (int j = 0; j < 9; ++j) v[j] = v1[j];
+    }
   }
   write_pixel<kLatch>(a, b, row, col, p);
 }
@@ -384,7 +454,7 @@ int launch_binned(Args a, void* stream) {
   if (a.bs == 0 || a.size == 0 || a.num_rows == 0) return 0;
   a.tiles_x = (a.size + kBinEdge - 1) / kBinEdge;
   a.tiles = a.tiles_x * ((a.num_rows + kBinEdge - 1) / kBinEdge);
-  binned_kernel<kLatch><<<a.bs * a.tiles, kBinEdge * kBinEdge, 0,
+  binned_kernel<kLatch><<<a.bs * a.tiles, kBinThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,9 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from .graphs import note_eager
+from .graphs import bin_faces, note_eager
 from .resolve_cuda import (
-    bin_faces,
     gather_faces3,
     gather_rows,
     resolve_binned_depth,
@@ -87,7 +86,8 @@ def gather_winner_planes(per_face, index):
 
 def _binned_inputs(fvp, draw_backside, image_size, row_start, num_rows, mode):
     """K7's bins where the route of this resolve is binned (decided from
-    the shapes), else None.  No route launches K1: K7 and both routes'
+    the shapes), else None: exact, or inside a capture capped
+    (``graphs.bin_faces``).  No route launches K1: K7 and both routes'
     resolve forms compute the face constants themselves."""
     bs, nf = fvp.shape[0], fvp.shape[-1]
     rows = image_size if num_rows is None else num_rows

@@ -4,9 +4,8 @@ counterpart of the JAX package's ``_jitted_core``, ``ops/rasterize.py``
 there, an ``lru_cache`` of ``jax.jit(rasterize_core)`` per hyperparameter
 set).
 
-A render is captured where its step makes no host sync: on the card, on
-the tiled resolve route (``resolve_cuda.resolve_route``, which reads the
-shapes only).  The first call of a signature runs eagerly, so a shape
+A render is captured on the card, on either resolve route.  The first
+call of a signature runs eagerly, so a shape
 seen once (a last partial batch) or a mesh rendered once captures
 nothing; its second call warms the step up on a side stream, captures a
 forward graph and, when an input takes gradients, a backward graph in the
@@ -18,14 +17,28 @@ on an earlier render's backward (two views of one mesh under one loss)
 replays another graph of the signature, captured for it, up to
 ``MAX_INSTANCES``.
 
+The binned route (``resolve_cuda.resolve_route``: large meshes, large
+canvases, many views) sizes K7's bins on the card.  Eagerly K7 reads its
+pair total back to the host; a capture cannot, so it takes K7's capped
+form (:func:`bin_faces`), whose capacity is fixed when the graph is
+captured: twice the total of the same binning's last eager run (the
+warm-up's), rounded up to a power of two.  A bin that does not fit is an
+overflow bin, which K8 resolves over every face to the same bits, only
+slower.  A replay leaves its overflow count on the card; the graph's next
+call reads it where that replay has finished (no sync), and a graph whose
+replay overflowed is dropped, logged and captured anew at twice the
+capacity (``resolve_cuda.GRAPHS["overflow_recaptures"]``).
+
 The rest runs eagerly: the same kernels in the same order, not a
-fallback.  That is the binned route (K7 reads its pair total back to the
-host), the sharded entry (its collectives), ``compute_face_index_map``,
-CPU tensors, :func:`eager` and ``resolve_cuda.plain_versions``.  Inside a
-capture of the caller's own (a whole optimisation step in a
-``torch.cuda.graph``), a render runs its ops straight into that graph, as
-a ``jit`` inside a ``jit`` inlines.  A capture or replay that fails
-raises; nothing reruns eagerly in its place.
+fallback.  That is the sharded entry (its collectives),
+``compute_face_index_map``, CPU tensors, :func:`eager` and
+``resolve_cuda.plain_versions``.  Inside a capture of the caller's own (a
+whole optimisation step in a ``torch.cuda.graph``), a render runs its ops
+straight into that graph, as a ``jit`` inside a ``jit`` inlines; a binned
+render there takes its capacity from the last eager render of the same
+faces tensor, image size and rows (the caller's warm-up), and raises
+without one.  A capture or replay that fails raises; nothing reruns
+eagerly in its place.
 
 Connectivity (``faces``) is a constant of a graph, as in the JAX package,
 whose ``_run`` reads concrete faces: the graphs are kept per faces tensor
@@ -61,6 +74,13 @@ MAX_INSTANCES = 4
 # a module flag and not a ContextVar, as resolve_cuda's routes: autograd
 # runs the backward of CUDA tensors on threads of its own
 _state = {"eager": False}
+# the render being run (its FacesRecord) and, while a graph warms up and is
+# captured, that Graph; set around a render by rendering()
+_render = {"record": None, "graph": None}
+# the fewest pair slots a capped binning gets
+CAPACITY_FLOOR = 4096
+# a capacity that overrides bin_capacity's (tests and chip_smoke.py only)
+_forced = {"capacity": None}
 
 
 @contextlib.contextmanager
@@ -104,14 +124,17 @@ def _stamp(t):
 
 class FacesRecord:
     """What the rasterizer keeps for one faces tensor of a caller: its int32
-    copy.  Every path renders from it, so K4 builds one vertex -> slot
-    table for it, whatever the caller's dtype, and the graphs over it are
-    keyed by it."""
+    copy, and the pair total of each binning of its last eager render on
+    the binned route (``bin_totals``, :func:`bin_faces`).
+    Every path renders from the copy, so K4 builds one vertex -> slot table
+    for it, whatever the caller's dtype, and the graphs over it are keyed
+    by it."""
 
-    __slots__ = ("ref", "stamp", "faces")
+    __slots__ = ("ref", "stamp", "faces", "bin_totals")
 
     def __init__(self, ref, stamp, faces):
         self.ref, self.stamp, self.faces = ref, stamp, faces
+        self.bin_totals = {}
 
 
 # id(faces) -> FacesRecord; a record leaves with its tensor
@@ -175,34 +198,96 @@ def route(vertices, faces, hp):
     """How a render of ``vertices`` [bs, nv, 3] over ``faces`` [nf, 3]
     with the hyperparameters ``hp`` runs: "graph" (replay a captured
     graph), "eager", or "inline" (ops into the caller's capture).  Graphs
-    only on the card, outside :func:`eager` and ``plain_versions``, and
-    where the shapes take the tiled route (:func:`graphable`)."""
+    only on the card, outside :func:`eager` and ``plain_versions``, on
+    either resolve route."""
     if _state["eager"] or not vertices.is_cuda or resolve_cuda._route["plain"]:
         return "eager"
     if capturing():
         return "inline"
-    bs, nf = vertices.shape[0], faces.shape[0]
-    if not graphable(bs, nf, hp):
-        note_eager("binned route (K7 reads its pair total back to the host)", hp,
-                   f"bs={bs} nf={nf}")
-        return "eager"
     return "graph"
 
 
-def graphable(bs, nf, hp):
-    """True where ``resolve_cuda.resolve_route`` sends ``bs`` images of
-    ``hp`` over ``nf`` faces down the tiled route, whose step makes no host
-    sync."""
-    size = hp.image_size * (2 if hp.anti_aliasing else 1)
-    return resolve_cuda.resolve_route(bs, size, size, nf) == "tiled"
+@contextlib.contextmanager
+def rendering(record, graph=None):
+    """Run a render over ``record``'s faces (and warm up or capture
+    ``graph``): what :func:`bin_faces` keeps and reads."""
+    saved = dict(_render)
+    _render.update(record=record, graph=graph)
+    try:
+        yield
+    finally:
+        _render.update(saved)
+
+
+@contextlib.contextmanager
+def forced_capacity(capacity):
+    """Capture every capped binning with ``capacity`` pair slots instead of
+    :func:`bin_capacity`'s (``chip_smoke.py`` and the tests only, to make
+    overflow bins); a graph recaptured after an overflow still gets at
+    least twice its old capacity."""
+    saved = _forced["capacity"]
+    _forced["capacity"] = capacity
+    try:
+        yield
+    finally:
+        _forced["capacity"] = saved
+
+
+def bin_capacity(total):
+    """The pair slots of a capped binning whose last eager run made
+    ``total`` pairs: twice that, rounded up to a power of two, at least
+    :data:`CAPACITY_FLOOR` (8 bytes a slot: K7's ids and its unsorted fill,
+    4 bytes each), so that a mesh that moves a little still fits."""
+    if _forced["capacity"] is not None:
+        return _forced["capacity"]
+    return max(CAPACITY_FLOOR, 1 << (2 * total - 1).bit_length())
+
+
+def bin_faces(fvp, draw_backside, image_size, row_start=0, num_rows=None):
+    """K7's bins (cnt, offsets, ids) for a binned resolve of the render
+    being run (:func:`rendering`).  Outside a capture, the exact form,
+    which reads its pair total back; the total is kept on the render's
+    faces record.  Inside one, the capped form, which reads nothing back,
+    at :func:`bin_capacity` of that total (for a graph of the compiled
+    core, at least its ``min_capacity``), and the graph keeps the overflow
+    word.  Raises inside a capture where no eager run of the same binning
+    was kept: a render outside ``rasterize_*`` (``compute_face_index_map``),
+    or a step captured without its warm-up."""
+    record, graph = _render["record"], _render["graph"]
+    # which binning of a render over one faces tensor: the batch and face
+    # count, the size and rows (the render's AA and row window), the kill rule
+    key = (tuple(fvp.shape), int(image_size), int(row_start), num_rows, bool(draw_backside))
+    if not capturing():
+        bins = resolve_cuda.bin_faces(fvp, draw_backside, image_size, row_start, num_rows)
+        if record is not None:
+            record.bin_totals[key] = bins[2].shape[0]
+        return bins
+    total = None if record is None else record.bin_totals.get(key)
+    if total is None:
+        raise RuntimeError(
+            "rasterize: a render on the binned route inside a CUDA graph capture sizes its "
+            "face bins from an eager run of the same render (faces tensor, batch, image size "
+            "and rows), and none was kept: run the step once before capturing it (the "
+            "warm-up that torch.cuda.graph needs anyway)")
+    capacity = bin_capacity(total)
+    if graph is not None:
+        capacity = max(capacity, graph.min_capacity)
+    *bins, overflow = resolve_cuda.bin_faces(fvp, draw_backside, image_size, row_start,
+                                             num_rows, capacity=capacity)
+    if graph is not None:
+        graph.capacities.append(capacity)
+        graph.overflow_words.append(overflow)
+    return tuple(bins)
 
 
 def cached_graph(record, signature, capture, label=""):
     """The graph to replay for ``signature`` over ``record``'s faces: a
     kept one that no pending backward waits on, else one that
-    ``capture()`` makes.  None where the call runs eagerly instead, logged
-    with ``label``: the signature's first call, or ``MAX_INSTANCES`` kept
-    graphs that all wait on a backward."""
+    ``capture(min_capacity=0)`` makes.  None where the call runs eagerly
+    instead, logged with ``label``: the signature's first call, or
+    ``MAX_INSTANCES`` kept graphs that all wait on a backward.  A kept
+    graph whose finished replay had overflow bins is dropped and captured
+    anew with twice its capacity."""
     key = (record, signature)
     kept = _entries.get(key)
     if kept is None:
@@ -213,9 +298,17 @@ def cached_graph(record, signature, capture, label=""):
                    "over the same tensor captures)", label)
         return None
     _entries.move_to_end(key)
-    for graph in kept:
-        if not graph.pending():
+    for i, graph in enumerate(kept):
+        if graph.pending():
+            continue
+        overflow = graph.overflowed()
+        if not overflow:
             return graph
+        resolve_cuda.GRAPHS["overflow_recaptures"] += 1
+        log.info("%s: its last replay had %d overflow bins at %s pair slots; capturing "
+                 "anew at twice that", label, overflow, max(graph.capacities))
+        kept[i] = capture(min_capacity=2 * max(graph.capacities))
+        return kept[i]
     if len(kept) == MAX_INSTANCES:
         note_eager(f"{MAX_INSTANCES} renders of a signature wait on their backward", label)
         return None
@@ -247,13 +340,19 @@ class Graph:
     keeps its own copies of the others (static buffers, with the callers'
     ``requires_grad``), and keeps ``fn``, which holds what the graph reads
     and nothing else may keep alive (the faces record, and so K4's table).
+    ``fn`` renders over ``record``'s faces (:func:`rendering`); each binned
+    resolve it captures takes K7's capped form with at least
+    ``min_capacity`` pair slots (``capacities``), and its overflow word
+    (``overflow_words``) is copied to the host after each replay.
     ``launches`` counts the kernels each graph holds
     (``resolve_cuda.LAUNCHES`` counted them as they were captured);
     ``seconds`` is the capture's wall time, warm-up included."""
 
-    def __init__(self, fn, inputs, grad, label):
+    def __init__(self, fn, inputs, grad, label, record=None, min_capacity=0):
         dev = next(t for t in inputs if t is not None).device
         self.fn = fn
+        self.min_capacity = min_capacity
+        self.capacities, self.overflow_words = [], []
         self.static = [None if t is None else t.detach().clone().requires_grad_(t.requires_grad)
                        for t in inputs]
         self._targets = [None if t is None else t.detach() for t in self.static]
@@ -271,10 +370,10 @@ class Graph:
         with torch.cuda.device(dev):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), rendering(record, self):
                 # the warm-up builds what the step keeps (K4's table, the
-                # pixel grids, the latch limits, the loaded kernels)
-                # outside capture
+                # pixel grids, the latch limits, the loaded kernels, the
+                # bins' totals) outside capture
                 out = fn(*self.static)
                 if wanted:
                     torch.autograd.grad(out, wanted, torch.ones_like(out), allow_unused=True)
@@ -282,7 +381,7 @@ class Graph:
             del out
             self.forward = torch.cuda.CUDAGraph()
             before = dict(resolve_cuda.LAUNCHES)
-            with torch.cuda.graph(self.forward, stream=side):
+            with torch.cuda.graph(self.forward, stream=side), rendering(record, self):
                 self.output = fn(*self.static)
             self.launches["forward"] = _since(before)
             self.backward, self.grads = None, ()
@@ -294,10 +393,17 @@ class Graph:
                     self.grads = torch.autograd.grad(self.output, wanted, self.grad_output,
                                                      allow_unused=True)
                 self.launches["backward"] = _since(before)
+        # the replays' overflow counts, on the host once a replay has finished
+        self.overflow_host = self.replayed = None
+        if self.overflow_words:
+            self.overflow_host = torch.zeros(len(self.overflow_words), dtype=torch.int32,
+                                             pin_memory=True)
+            self.replayed = torch.cuda.Event()
         self.seconds = time.perf_counter() - t0
         resolve_cuda.GRAPHS["captures"] += 1
-        log.info("captured %s in %.6f s: %s", label, self.seconds,
-                 " ".join(f"{k} {v}" for k, v in self.launches.items()))
+        log.info("captured %s in %.6f s: %s%s", label, self.seconds,
+                 " ".join(f"{k} {v}" for k, v in self.launches.items()),
+                 f"; K7 capped at {self.capacities} pair slots" if self.capacities else "")
 
     @property
     def waiting(self):
@@ -311,6 +417,14 @@ class Graph:
         """True while a replay's saved tensors wait in the graph's buffers
         for a backward that may still run."""
         return self.waiting is not None
+
+    def overflowed(self):
+        """The overflow bins of the last replay where it has finished (an
+        event query and a read of host memory: no sync), else 0.  Its
+        result was exact all the same: an overflow bin is only slower."""
+        if not self.overflow_words or not self.generation or not self.replayed.query():
+            return 0
+        return int(self.overflow_host.sum())
 
     def __call__(self, *inputs):
         """Replay on ``inputs`` (the capture's structure); a fresh output,
@@ -326,6 +440,10 @@ class Graph:
                 if target is not None:
                     target.copy_(t)
         self.forward.replay()
+        if self.overflow_words:
+            for i, word in enumerate(self.overflow_words):
+                self.overflow_host[i:i + 1].copy_(word, non_blocking=True)
+            self.replayed.record()
         resolve_cuda.GRAPHS["forward_replays"] += 1
         self.generation += 1
         return self.generation

@@ -316,12 +316,12 @@ def _label(vertices, faces, hp):
             f"image {hp.image_size} AA {hp.anti_aliasing}")
 
 
-def _capture(record, params, hp, tensors, color, label):
+def _capture(record, params, hp, tensors, color, label, min_capacity=0):
     def render(*inputs):
         v, static_params = _with_inputs(params, inputs, color)
         return rasterize_core(v, record.faces, static_params, hp)
 
-    return graphs.Graph(render, tensors, torch.is_grad_enabled(), label)
+    return graphs.Graph(render, tensors, torch.is_grad_enabled(), label, record, min_capacity)
 
 
 def _run(vertices, faces, params, hp):
@@ -333,10 +333,13 @@ def _run(vertices, faces, params, hp):
         signature, tensors, color = graph_signature(vertices, params, hp)
         label = _label(vertices, faces, hp)
         graph = graphs.cached_graph(
-            record, signature, lambda: _capture(record, params, hp, tensors, color, label),
+            record, signature,
+            lambda min_capacity=0: _capture(record, params, hp, tensors, color, label,
+                                            min_capacity),
             label)
     if graph is None:
-        return rasterize_core(vertices, record.faces, params, hp)
+        with graphs.rendering(record):
+            return rasterize_core(vertices, record.faces, params, hp)
     return graph(*tensors)
 
 

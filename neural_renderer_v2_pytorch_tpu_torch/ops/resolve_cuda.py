@@ -15,7 +15,9 @@ resolve_pallas.py``).
                                     (:func:`vertex_slots`)
   K5 ``gather_faces3``              vertex -> planar face-vertex gather
   K6 ``scatter_rows``               row scatter-add (texture-atlas gradient)
-  K7 ``bin_faces``                  per-tile face bins from the face vertices
+  K7 ``bin_faces``                  per-tile face bins from the face vertices:
+                                    exact (the pair total read back), or
+                                    capped (overflow bins, nothing read back)
   K8 ``resolve_binned_xy``, ``resolve_binned_latch``, ``resolve_binned_depth``
                                     the three resolve forms over K7's bins,
                                     a CTA per bin
@@ -80,11 +82,13 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 # builds of K4's vertex -> slot tables (:func:`vertex_slots`); reset with
 # LAUNCHES
 SLOT_TABLE_BUILDS = 0
-# the compiled core's graphs (``ops/graphs.py``): captures, and replays of
-# forward and backward graphs.  A wrapper counts its launch in LAUNCHES when
-# it runs, at a warm-up or a capture too, and never at a replay: a replay
-# of a graph launches what its capture counted (``Graph.launches``)
-GRAPHS = dict.fromkeys(("captures", "forward_replays", "backward_replays"), 0)
+# the compiled core's graphs (``ops/graphs.py``): captures, replays of
+# forward and backward graphs, and recaptures of a graph whose replay had
+# overflow bins (K7's capped form).  A wrapper counts its launch in LAUNCHES
+# when it runs, at a warm-up or a capture too, and never at a replay: a
+# replay of a graph launches what its capture counted (``Graph.launches``)
+GRAPHS = dict.fromkeys(("captures", "forward_replays", "backward_replays",
+                        "overflow_recaptures"), 0)
 # a module flag and not a ContextVar: autograd runs the backward of CUDA
 # tensors on threads of its own, which do not see the caller's context
 _route = {"plain": False, "mode": None}
@@ -97,6 +101,9 @@ BIN_TILE = (8, 8)
 # K7 pads its per-tile counters to a multiple of this many, the chunk one
 # block scans (kScanChunk in csrc/bin_faces.cu)
 BIN_SCAN_TILE = 4096
+# K7's control words after the padded counters (csrc/bin_faces.cu): the
+# pair total, and the overflow bins of the capped form
+BIN_TOTAL_WORD, BIN_OVERFLOW_WORD = 1, 3
 # K7 keeps the tiles' pixel-centre bounds in 48 KB of shared memory: at most
 # this many tiles along both axes together (kMaxTableTiles)
 BIN_MAX_AXIS_TILES = 6144
@@ -166,7 +173,7 @@ def resolve_route(bs, rows, image_size, nf, mode="auto"):
     pixels over ``nf`` faces: ``mode`` itself when it is "tiled" or
     "binned", else the route :func:`forced_route` set, else the rule.  The
     tiled route streams every face through every 16x16 tile; the binned
-    one pays K7 and a host sync to stream each tile's own bin.  The rule
+    one pays K7 (eagerly, and a host sync) to stream each tile's own bin.  The rule
     reads the shapes only: binned from :data:`BINNED_FROM` products of
     images, tiles and faces on.  (The counterpart of the TPU package's
     windowed/binned pick, ``resolve_pallas.py:1366``, which followed its
@@ -637,7 +644,8 @@ def _tile_centre_ranges(image_size, start, extent, tile):
     return pixel_centres(start + first, image_size), pixel_centres(start + last, image_size)
 
 
-def bin_faces_plain(fvp, draw_backside, image_size, row_start=0, num_rows=None):
+def bin_faces_plain(fvp, draw_backside, image_size, row_start=0, num_rows=None,
+                    capacity=None):
     consts = face_setup_plain(fvp, draw_backside)
     bs, _, nf = consts.shape
     S, r0, rows = _window(image_size, row_start, num_rows)
@@ -664,11 +672,25 @@ def bin_faces_plain(fvp, draw_backside, image_size, row_start=0, num_rows=None):
     ids = (src % nf)[torch.sort(key, stable=True).indices].to(torch.int32)
     cnt = torch.bincount(key, minlength=bs * n_tiles)
     offsets = torch.cumsum(cnt, 0) - cnt
-    return (cnt.reshape(bs, n_tiles).to(torch.int32),
+    bins = (cnt.reshape(bs, n_tiles).to(torch.int32),
             offsets.reshape(bs, n_tiles).to(torch.int32), ids)
+    return bins if capacity is None else _capped(*bins, capacity)
 
 
-def bin_faces(fvp, draw_backside, image_size, row_start=0, num_rows=None):
+def _capped(cnt, offsets, ids, capacity):
+    """Exact bins in K7's capped form: a bin whose pairs end past
+    ``capacity`` in the exclusive scan overflows (offset -1, cnt kept);
+    ``ids`` [capacity] holds the bins that fit, -1 past them; and the
+    overflow bins' count i32 [1]."""
+    over = offsets + cnt > capacity
+    fit = int(cnt[~over].sum())
+    capped = torch.full((capacity,), -1, dtype=torch.int32, device=ids.device)
+    capped[:fit] = ids[:fit]
+    return (cnt, torch.where(over, -1, offsets), capped,
+            over.sum().to(torch.int32).reshape(1))
+
+
+def bin_faces(fvp, draw_backside, image_size, row_start=0, num_rows=None, capacity=None):
     """Per-tile face bins of planar face vertices f32 [bs, 3, 3, nf] over
     the image rows ``row_start .. row_start + num_rows`` (all S by
     default), in tiles of :data:`BIN_TILE` pixels, row-major: (cnt i32
@@ -677,11 +699,23 @@ def bin_faces(fvp, draw_backside, image_size, row_start=0, num_rows=None):
     faces that K1's kill rule (with ``draw_backside``) keeps and whose bbox
     meets its pixel-centre range, in ascending order.
 
+    With ``capacity`` (an int), the capped form, which reads nothing back
+    (what a CUDA graph captures): ``ids`` holds ``capacity`` slots, and a
+    bin whose pairs end past them in the scan of the counts is an overflow
+    bin, with offset -1 and its cnt kept (K8 resolves it over every face,
+    to the same bits); returns (cnt, offsets, ids, overflow), overflow i32
+    [1] the count of overflow bins.  Those are the bins from the first
+    whose pairs end past the capacity on, in (image, tile) order; ``ids``
+    past the last bin that fits is undefined.
+
     On the card: four device operations (``csrc/bin_faces.cu``, which forms
-    each bbox and the kill rule from the coordinates, as K1 would) and one
-    host sync, which reads the pair total back to size ``ids``."""
+    each bbox and the kill rule from the coordinates, as K1 would), and
+    without ``capacity`` one host sync, which reads the pair total back to
+    size ``ids`` (its capacity: no bin overflows)."""
+    if capacity is not None and capacity < 0:
+        raise ValueError(f"bin_faces: capacity must be >= 0, got {capacity}")
     if not _use_kernel(fvp):
-        return bin_faces_plain(fvp, draw_backside, image_size, row_start, num_rows)
+        return bin_faces_plain(fvp, draw_backside, image_size, row_start, num_rows, capacity)
     bs, nf = _check_fvp(fvp)
     S, r0, rows = _window(image_size, row_start, num_rows)
     th, tw = BIN_TILE
@@ -694,7 +728,9 @@ def bin_faces(fvp, draw_backside, image_size, row_start=0, num_rows=None):
     cnt = fvp.new_empty((bs, n_tiles), dtype=torch.int32)
     offsets = torch.empty_like(cnt)
     if n_bins == 0:
-        return cnt, offsets, cnt.new_empty((0,))
+        if capacity is None:
+            return cnt, offsets, cnt.new_empty((0,))
+        return cnt, offsets, cnt.new_empty((capacity,)), cnt.new_zeros((1,))
     padded = -(-n_bins // BIN_SCAN_TILE) * BIN_SCAN_TILE
     # the per-tile counters (then fill cursors), four control words and a
     # 64-bit scan state per chunk
@@ -702,16 +738,20 @@ def bin_faces(fvp, draw_backside, image_size, row_start=0, num_rows=None):
     geometry = (bs, nf, S, r0, rows, int(draw_backside))
     index = fvp.get_device()
     _launch("bin_faces_count", index, fvp.data_ptr(), scratch.data_ptr(), *geometry)
-    total = int(scratch[padded + 1])                                # the host sync
+    slots = capacity
+    if capacity is None:
+        slots = int(scratch[padded + BIN_TOTAL_WORD])                 # the host sync
     # ids, then the fill's unsorted pairs, which the order pass reads
-    pairs = cnt.new_empty((2 * total,))
-    ids = pairs[:total]
+    pairs = cnt.new_empty((2 * slots,))
+    ids = pairs[:slots]
     # K7 is two entries of one wrapper call; LAUNCHES counts the call once,
     # at its scan, fill and order passes (this entry), so that one binning
     # reads as one launch
     _launch("bin_faces", index, fvp.data_ptr(), scratch.data_ptr(), cnt.data_ptr(),
-            offsets.data_ptr(), pairs[total:].data_ptr(), ids.data_ptr(), *geometry)
-    return cnt, offsets, ids
+            offsets.data_ptr(), pairs[slots:].data_ptr(), ids.data_ptr(), *geometry, slots)
+    if capacity is None:
+        return cnt, offsets, ids
+    return cnt, offsets, ids, scratch.narrow(0, padded + BIN_OVERFLOW_WORD, 1)
 
 
 # --- K8: the binned route -------------------------------------------------
@@ -721,11 +761,17 @@ def _binned_fold(fvp, draw_backside, bins, image_size, near, far, row_start, num
     """The z-buffer fold over the bins of the :data:`BIN_TILE` pixel tiles,
     of K1's plain constants of the face vertices, vectorised over tiles:
     step k folds the k-th face of every tile's bin, so every pixel still
-    takes its tile's faces in ascending order.  Returns (index, depth)
-    [bs, rows, S]."""
+    takes its tile's faces in ascending order.  An overflow bin (offset -1,
+    :func:`bin_faces`' capped form) folds every face, its k-th face being
+    face k, unless its count is 0 (no face meets the tile).  Returns (index,
+    depth) [bs, rows, S]."""
     consts = face_setup_plain(fvp, draw_backside)
     cnt, offsets, ids = (t.long() for t in bins)
-    bs = consts.shape[0]
+    bs, nf = consts.shape[0], consts.shape[-1]
+    over = offsets < 0
+    cnt = torch.where(over & (cnt > 0), nf, cnt)
+    if ids.numel() == 0:
+        ids = ids.new_zeros((1,))           # read where no bin has an entry
     S, r0, rows = _window(image_size, row_start, num_rows)
     th, tw = BIN_TILE
     ny, nx = -(-rows // th), -(-S // tw)
@@ -740,7 +786,8 @@ def _binned_fold(fvp, draw_backside, bins, image_size, near, far, row_start, num
     index = torch.full((bs, ny * nx, th, tw), -1, dtype=torch.int32, device=dev)
     for k in range(int(cnt.max()) if cnt.numel() else 0):
         live = cnt > k                                        # [bs, tiles]
-        f = torch.where(live, ids[torch.where(live, offsets + k, 0)], 0)
+        f = torch.where(over, k, ids[torch.where(live & ~over, offsets + k, 0)])
+        f = torch.where(live, f, 0)
         c = torch.gather(consts, 2, f[:, None, :].expand(-1, 17, -1))[..., None, None]
         c = tuple(c[:, j] for j in range(17))                 # each [bs, tiles, 1, 1]
         out, zp = face_candidate(xp, yp, c[:9], c[9:12], c[12], c[13:17], near, far)

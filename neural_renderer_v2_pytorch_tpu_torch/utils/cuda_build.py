@@ -51,7 +51,7 @@ SIGNATURES = {
     "resolve_binned_latch": "PPPPPPPPPiiiiiiiff",
     "resolve_binned_depth": "PPPPPPiiiiiiff",
     "bin_faces_count": "PPiiiiii",
-    "bin_faces": "PPPPPPiiiiii",
+    "bin_faces": "PPPPPPiiiiiii",
     "scatter_pixels_to_faces": "PPPiiii",
     "scatter_faces_to_vertices": "PPPPiii",
     "gather_faces3": "PPPiiii",

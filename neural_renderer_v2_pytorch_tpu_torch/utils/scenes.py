@@ -14,7 +14,10 @@ matrix's three lights.
 
 ``write_example_data`` writes what the examples (``examples/``) read in
 place of the reference's teapot and target images, and ``square`` is the
-two-triangle square of the silhouette convergence fit.
+two-triangle square of the silhouette convergence fit.  ``subdivide`` is
+the JAX package's perf-matrix face-count sweep's midpoint subdivision
+(``benchmarks/scaling.py``), which ``tools/scaling_times.py`` applies to
+``torus(40, 32)``.
 """
 
 from __future__ import annotations
@@ -164,6 +167,27 @@ def icosphere(level, radius=0.5):
         )
     vertices = radius * vertices / np.linalg.norm(vertices, axis=1, keepdims=True)
     return vertices.astype(np.float32), faces.astype(np.int32)
+
+
+def subdivide(vertices, faces):
+    """Midpoint 1:4 subdivision of each triangle, with no vertex shared
+    between faces (the geometry unchanged): (vertices f32 [6 nf, 3], faces
+    i32 [4 nf, 3]).  Each parent's four children (its three corners, then
+    its centre) lie next to each other, and the vertices are numbered in
+    first use, as a mesh pipeline would emit them."""
+    v0, v1, v2 = vertices[faces[:, 0]], vertices[faces[:, 1]], vertices[faces[:, 2]]
+    new = np.concatenate([v0, v1, v2, (v0 + v1) / 2, (v1 + v2) / 2, (v2 + v0) / 2], 0)
+    n = faces.shape[0]
+    i = np.arange(n)
+    a, b, c, ab, bc, ca = i, i + n, i + 2 * n, i + 3 * n, i + 4 * n, i + 5 * n
+    children = np.stack([np.stack([a, ab, ca], 1), np.stack([ab, b, bc], 1),
+                         np.stack([ca, bc, c], 1), np.stack([ab, bc, ca], 1)], 1).reshape(-1, 3)
+    flat = children.reshape(-1)
+    _, first = np.unique(flat, return_index=True)
+    order = flat[np.sort(first)]
+    remap = np.empty(new.shape[0], np.int64)
+    remap[order] = np.arange(order.shape[0])
+    return new[order].astype(np.float32), remap[flat].reshape(-1, 3).astype(np.int32)
 
 
 def square(half, centre=(0.0, 0.0), z=1.0):

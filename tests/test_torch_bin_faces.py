@@ -14,7 +14,10 @@ of ``32 * bitmap_words`` ids.  The kernel's caps are constants
 (:data:`WARP_CAP`, :data:`BITMAP_WORDS`); the emulation also takes lowered
 ones, so that a small mesh reaches the bitmap path in several windows.
 Whatever order the fill took, the bins must be the plain version's, bit
-for bit.  The card holds the kernel itself to the same bins
+for bit.  The capped form (the capacity a CUDA graph fixes) is emulated
+too: the scan flags the bins whose pairs end past the capacity (offset -1,
+counted), the fill writes only slots below it, and the order pass skips
+the flagged bins; held to ``bin_faces_plain(capacity=...)``.  The card holds the kernel itself to the same bins
 (``tests/test_torch_cuda.py``, where a crowded bin of real size takes two
 bitmap windows).
 """
@@ -57,9 +60,11 @@ def _crowded(size, centre_px, radius_px):
 
 
 def _emulated_bins(fvp, draw_backside, size, row_start, num_rows, warp_cap, bitmap_words,
-                   seed):
+                   seed, capacity=None):
     """(cnt, offsets, ids, paths): the kernel's four passes in numpy;
-    ``paths`` counts the bins each order path took and the bitmap windows."""
+    ``paths`` counts the bins each order path took, the bitmap windows and
+    the overflow bins.  ``capacity`` None: the eager form, whose capacity
+    is the pair total read back."""
     # each pass forms the bbox and the kill rule from the coordinates
     c = rc.face_setup_plain(fvp, draw_backside).numpy()
     bs, _, nf = c.shape
@@ -93,22 +98,31 @@ def _emulated_bins(fvp, draw_backside, size, row_start, num_rows, warp_cap, bitm
     counters = np.zeros(padded, np.int64)
     for bin_, _ in pairs:
         counters[bin_] += 1
-    # 2. the pair total, read back; the fill's scan: offsets and cursors
+    # 2. the pair total, read back as the capacity (eager form); the fill's
+    # scan: offsets and cursors, and the flags of the bins whose pairs end
+    # past the capacity
     total = int(counters.sum())
+    assert total == len(pairs)
+    capacity = total if capacity is None else capacity
     offsets = np.cumsum(counters) - counters
     cursors = offsets.copy()
-    assert total == len(pairs)
-    # 3. fill: the atomics' order, here a seeded permutation of every pair
-    unsorted = np.full(total, -1)
+    flagged = offsets + counters > capacity
+    flagged[bs * n_tiles:] = False                  # the padding is no bin
+    # 3. fill: the atomics' order, here a seeded permutation of every pair;
+    # only slots below the capacity are written
+    unsorted = np.full(capacity, -1)
     for i in np.random.RandomState(seed).permutation(total):
         bin_, f = pairs[i]
-        unsorted[cursors[bin_]] = f
+        if cursors[bin_] < capacity:
+            unsorted[cursors[bin_]] = f
         cursors[bin_] += 1
-    # 4. order
-    ids = np.full(total, -1)
-    paths = {"warp": 0, "bitmap": 0, "windows": 0}
+    # 4. order, of the bins that fit
+    ids = np.full(capacity, -1)
+    paths = {"warp": 0, "bitmap": 0, "windows": 0, "overflow": int(flagged.sum())}
     for bin_ in range(bs * n_tiles):
         o, k = offsets[bin_], counters[bin_]
+        if flagged[bin_]:
+            continue
         s = unsorted[o:o + k]
         if k <= warp_cap:
             paths["warp"] += k > 0
@@ -127,19 +141,23 @@ def _emulated_bins(fvp, draw_backside, size, row_start, num_rows, warp_cap, bitm
             ids[o + run:o + run + len(found)] = found
             run += len(found)
             paths["windows"] += 1
-    assert not (ids < 0).any()
+    fit = int(counters[:bs * n_tiles][~flagged[:bs * n_tiles]].sum())
+    assert not (ids[:fit] < 0).any() and (ids[fit:] < 0).all()
     cnt = counters[:bs * n_tiles].reshape(bs, n_tiles)
-    return cnt, offsets[:bs * n_tiles].reshape(bs, n_tiles), ids, paths
+    offsets = np.where(flagged, -1, offsets)[:bs * n_tiles].reshape(bs, n_tiles)
+    return cnt, offsets, ids, paths
 
 
 def _assert_plain_bins(fvp, size, window, warp_cap=WARP_CAP, bitmap_words=BITMAP_WORDS,
-                       seed=0, draw_backside=True):
+                       seed=0, draw_backside=True, capacity=None):
     cnt, offsets, ids, paths = _emulated_bins(fvp, draw_backside, size, *window, warp_cap,
-                                              bitmap_words, seed)
-    want = rc.bin_faces_plain(fvp, draw_backside, size, *window)
+                                              bitmap_words, seed, capacity)
+    want = rc.bin_faces_plain(fvp, draw_backside, size, *window, capacity=capacity)
     np.testing.assert_array_equal(cnt, want[0].numpy())
     np.testing.assert_array_equal(offsets, want[1].numpy())
     np.testing.assert_array_equal(ids, want[2].numpy())
+    if capacity is not None:
+        assert int(want[3]) == paths["overflow"]
     return paths
 
 
@@ -195,3 +213,29 @@ def test_emulated_passes_on_a_crowded_tile(centre, window):
     assert paths["bitmap"] >= 1 and paths["windows"] == 5 * paths["bitmap"]
     paths = _assert_plain_bins(fvp, 128, window, seed=3)
     assert paths["windows"] == paths["bitmap"] >= 1
+
+
+@pytest.mark.parametrize("scene", ["soup", "crowded", "crowded window", "empty"])
+def test_emulated_capped_passes_give_the_plain_flags(scene):
+    """The capped form at capacities 0 (every bin with a face overflows),
+    under the total, half of it and the total (none overflows): the plain
+    version's flags, counts and bins that fit; on a crowded tile (its one
+    large bin through the bitmap) and an empty mesh."""
+    fvp, size, window = {
+        "soup": (_fvp(_soup(4, 2, 90)), 100, (37, 41)),
+        "crowded": (_fvp(_crowded(128, (59.5, 59.5), 1.5)), 128, (0, None)),
+        "crowded window": (_fvp(_crowded(128, (3.5, 60.5), 1.5)), 128, (56, 16)),
+        "empty": (torch.zeros((1, 3, 3, 0)), 64, (0, None)),
+    }[scene]
+    cnt = rc.bin_faces_plain(fvp, True, size, *window)[0].reshape(-1)
+    total = int(cnt.sum())
+    for k, capacity in enumerate(sorted({0, max(total - 1, 0), total // 2, total})):
+        paths = _assert_plain_bins(fvp, size, window, warp_cap=32, bitmap_words=8, seed=k,
+                                   capacity=capacity)
+        # the overflow bins: from the first whose pairs end past the capacity on
+        ends = torch.cumsum(cnt, 0)
+        assert paths["overflow"] == int((ends > capacity).sum())
+        if capacity == 0:
+            assert paths["overflow"] == len(cnt) - int((ends == 0).sum())
+    assert (int(cnt.numpy().max(initial=0)) > 1200) == scene.startswith("crowded")
+    assert (total == 0) == (scene == "empty")

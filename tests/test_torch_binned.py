@@ -12,6 +12,10 @@ against the JAX package.
   depth carries XLA:CPU's multiply-add contraction).  Those JAX kernels compute pixel centres as ``(2i + 1 - S) *
   (1/S)``, the port divides by S, so they are compared at powers of two;
   at S = 100 the port is held to JAX's XLA resolve, which divides.
+- K7's capped form (the capacity a CUDA graph fixes): its flags against a
+  walk of the bins in scan order, and the fold over capped bins, whose
+  overflow bins take every face, bit-equal to the fold over exact bins, to
+  the tiled plain resolve and to the JAX binned kernel.
 - The slice end to end with the binned route forced, against the eager JAX
   pipeline (``jax.disable_jit``), with ``tests/test_torch_rgb.py``'s
   tolerances: index maps equal, images within 1e-6, gradients rtol 1e-5
@@ -146,9 +150,76 @@ def test_binned_forms_at_each_tile_equal_the_tiled_forms(seed, window):
     assert (pairs[0][1][0] >= 0).any()
 
 
+@pytest.mark.parametrize("draw_backside", [True, False])
+@pytest.mark.parametrize("size,window", [(128, (0, None)), (100, (37, 41))])
+@pytest.mark.parametrize("capacity", ["zero", "under", "half", "total", "over"])
+def test_capped_plain_bins_flag_the_bins_past_the_capacity(capacity, size, window,
+                                                           draw_backside):
+    """Walking the bins in scan order (image, then tile), a bin overflows
+    when its pairs end past the capacity: offset -1, its cnt kept, counted;
+    the bins that fit keep their offsets and ids.  Capacity 0 overflows
+    every bin from the first that holds a face on, the total none."""
+    fvp = _planar(_soup(12))
+    cnt, offsets, ids = rc.bin_faces(fvp, draw_backside, size, *window)
+    total = len(ids)
+    c = {"zero": 0, "under": total - 1, "half": total // 2, "total": total,
+         "over": 2 * total}[capacity]
+    got_cnt, got_offsets, got_ids, overflow = rc.bin_faces(fvp, draw_backside, size, *window,
+                                                           capacity=c)
+    assert torch.equal(got_cnt, cnt) and got_ids.shape == (c,)
+    end, flags = 0, []
+    for n in cnt.reshape(-1).tolist():
+        end += n
+        flags.append(end > c)
+    flags = torch.tensor(flags).reshape(cnt.shape)
+    assert torch.equal(got_offsets < 0, flags) and int(overflow) == int(flags.sum())
+    assert torch.equal(got_offsets[~flags], offsets[~flags])
+    fit = int(cnt[~flags].sum())
+    assert torch.equal(got_ids[:fit], ids[:fit])
+    if capacity == "zero":
+        assert flags[cnt > 0].all()
+    elif capacity in ("total", "over"):
+        assert int(overflow) == 0
+    else:
+        assert 0 < int(overflow) < cnt.numel()
+
+
+@pytest.mark.parametrize("draw_backside", [True, False])
+@pytest.mark.parametrize("window", [(0, None), (37, 41)])
+def test_fold_over_capped_bins_is_the_exact_bins_and_tiled_bits(window, draw_backside):
+    """K8's three forms (plain versions) over capped bins, whose overflow
+    bins take every face in id order: the bits over the exact bins, which
+    are the tiled forms', at capacity 0, half the total and just under it."""
+    fvp = _planar(_soup(9, 2, 80))
+    attrs = torch.tensor(np.random.RandomState(7).rand(2, 80, 5).astype(np.float32))
+    args = (100, 0.1, 100.0, *window)
+    exact = rc.bin_faces(fvp, draw_backside, 100, *window)
+    want = [rc.resolve_binned_xy(fvp, draw_backside, exact, *args),
+            rc.resolve_binned_latch(fvp, attrs, draw_backside, exact, *args),
+            rc.resolve_binned_depth(fvp, draw_backside, exact, *args)]
+    tiled = [rc.resolve_xy(fvp, draw_backside, *args),
+             rc.resolve_latch(fvp, attrs, draw_backside, *args),
+             rc.resolve_depth(fvp, draw_backside, *args)]
+    for w, t in zip(want, tiled):
+        assert all(torch.equal(a, b) for a, b in zip(w, t))
+    total = len(exact[2])
+    for capacity in (0, total // 2, total - 1):
+        *bins, overflow = rc.bin_faces(fvp, draw_backside, 100, *window, capacity=capacity)
+        assert int(overflow) > 0
+        got = [rc.resolve_binned_xy(fvp, draw_backside, bins, *args),
+               rc.resolve_binned_latch(fvp, attrs, draw_backside, bins, *args),
+               rc.resolve_binned_depth(fvp, draw_backside, bins, *args)]
+        for g, w in zip(got, want):
+            assert all(torch.equal(a, b) for a, b in zip(g, w))
+    assert (want[0][0] >= 0).any()
+
+
 @pytest.mark.parametrize("latch_z", [False, True])
 @pytest.mark.parametrize("draw_backside", [True, False])
 def test_binned_route_matches_jax_binned_kernel(draw_backside, latch_z):
+    """Through ``resolve_and_gather``'s binned route, and over K7's capped
+    bins at capacity 0 and just under the pair total (overflow bins): the
+    JAX binned kernel's bits."""
     fv = _soup()
     attrs = np.random.RandomState(12).rand(2, 71, 4).astype(np.float32) if latch_z else None
     index, coords, attr_planes = resolve_gather_pallas(
@@ -165,6 +236,21 @@ def test_binned_route_matches_jax_binned_kernel(draw_backside, latch_z):
     if latch_z:
         np.testing.assert_array_equal(got_attrs.numpy(), np.asarray(attr_planes))
     assert (got_index.numpy() >= 0).mean() > 0.3
+    fvp = _planar(fv)
+    total = len(rc.bin_faces(fvp, draw_backside, 128)[2])
+    for capacity in (0, total - 1):
+        *bins, overflow = rc.bin_faces(fvp, draw_backside, 128, capacity=capacity)
+        assert int(overflow) > 0
+        if latch_z:
+            got = rc.resolve_binned_latch(fvp, torch.tensor(attrs), draw_backside, bins, 128,
+                                          0.1, 100.0)
+            want = (index, None, coords, attr_planes)
+        else:
+            got = rc.resolve_binned_xy(fvp, draw_backside, bins, 128, 0.1, 100.0)
+            want = (index, None, coords)
+        for g, w in zip(got, want):
+            if w is not None:
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 @pytest.mark.parametrize("draw_backside", [True, False])

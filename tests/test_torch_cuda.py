@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels against their plain versions, and
-the compiled core (``ops/graphs.py``: each tiled ``rasterize_*`` call
-replays a CUDA graph) against the eager step, on the card.  Marked
+the compiled core (``ops/graphs.py``: each ``rasterize_*`` call replays a
+CUDA graph, on either resolve route) against the eager step, on the card.  Marked
 ``cuda``: each test skips without a CUDA device.  A test that counts one
 step's launches runs it under ``nr.eager()``: a graph's kernels are counted
 when it is captured, not at its replays.  This file imports no JAX, so it
@@ -332,6 +332,44 @@ def test_bin_faces_and_binned_resolve_are_bit_exact(cuda, bs, nf, size, window):
         for g, p, t in zip(got, plain, tiled):
             assert torch.equal(g, p) and torch.equal(g, t)
     assert (forms[0][0][0] >= 0).any()
+
+
+@pytest.mark.parametrize("window", [(0, None), (40, 27)])
+@pytest.mark.parametrize("bs,nf,size", [(2, 37, 64), (1, 300, 100), (3, 5, 17)])
+def test_capped_bins_and_overflow_bins_are_bit_exact(cuda, bs, nf, size, window):
+    """K7's capped form against its plain version at capacities 0, just
+    under the pair total and the total (flags, counts, the overflow word
+    and the bins that fit), and each K8 form over the capped bins, whose
+    overflow bins take every face, bit-equal to the exact bins'."""
+    row_start, num_rows = window
+    if num_rows is not None and row_start + num_rows > size:
+        row_start, num_rows = size // 3, size // 2
+    fvp = _soup_planar(nf + 2, bs, nf, cuda)
+    attrs = torch.randn((bs, nf, 6), device=cuda)
+    w = (row_start, num_rows)
+    exact = rc.bin_faces(fvp, True, size, *w)
+    total = exact[2].shape[0]
+    args = (size, 0.1, 100.0, *w)
+    want = [rc.resolve_binned_xy(fvp, True, exact, *args),
+            rc.resolve_binned_latch(fvp, attrs, True, exact, *args),
+            rc.resolve_binned_depth(fvp, True, exact, *args)]
+    assert total > 0
+    for capacity in (0, total - 1, total):
+        cnt, offsets, ids, overflow = rc.bin_faces(fvp, True, size, *w, capacity=capacity)
+        p_cnt, p_offsets, p_ids, p_overflow = rc.bin_faces_plain(fvp, True, size, *w,
+                                                                 capacity=capacity)
+        assert torch.equal(cnt, p_cnt) and torch.equal(offsets, p_offsets)
+        assert torch.equal(overflow, p_overflow) and ids.shape == (capacity,)
+        fit = int(p_cnt[p_offsets >= 0].sum())
+        assert torch.equal(ids[:fit], p_ids[:fit])
+        assert (int(overflow) > 0) == (capacity < total)
+        bins = (cnt, offsets, ids)
+        got = [rc.resolve_binned_xy(fvp, True, bins, *args),
+               rc.resolve_binned_latch(fvp, attrs, True, bins, *args),
+               rc.resolve_binned_depth(fvp, True, bins, *args)]
+        for g, wt in zip(got, want):
+            for a, b in zip(g, wt):
+                assert torch.equal(a, b)
 
 
 def test_compute_face_index_map_on_card_launches_kernels(cuda):
@@ -701,7 +739,7 @@ def test_binned_step_launches_no_k1(cuda):
     want = r.render_silhouettes(x, faces)
     depth_want = r.render_depth(x, faces)
     rc.reset_launches()
-    with rc.forced_route("binned"):
+    with rc.forced_route("binned"), nr.eager():
         xx = x.clone().requires_grad_(True)
         images = r.render_silhouettes(xx, faces)
         images.sum().backward()
@@ -951,18 +989,69 @@ def test_graphs_kept_stay_within_the_caps(cuda, fresh_cache):
     assert first() is None                     # evicted: its graphs and pool freed
 
 
-def test_binned_route_runs_eagerly_and_says_so(cuda, fresh_cache, caplog):
+@pytest.mark.parametrize("kind", ["bench", "lit"])
+def test_binned_route_replays_graphs(cuda, fresh_cache, kind):
+    """The binned route forced: the second call captures (K7 in its capped
+    form, at twice the warm-up's pair total to a power of two), later calls
+    replay; images equal the eager step's, gradients within 1e-4, the
+    graphs hold the eager step's launches, and no replay overflows."""
+    r, v, faces, step = _graph_scene(kind, cuda)
+    with rc.forced_route("binned"):
+        rc.reset_launches()
+        with nr.eager():
+            want_images, want = step(v)
+        eager_launches = {k: n for k, n in rc.LAUNCHES.items() if n}
+        rc.reset_launches()
+        for call in range(4):
+            images, grads = step(v)
+            assert rc.GRAPHS["captures"] == min(call, 1)
+            assert rc.GRAPHS["forward_replays"] == call
+            assert torch.equal(images, want_images)
+            for name, g in grads.items():
+                torch.testing.assert_close(g, want[name], rtol=0,
+                                           atol=1e-4 * float(want[name].abs().max()))
+    torch.cuda.synchronize()
+    graph = _only_graph(faces)
+    held = collections.Counter(graph.launches["forward"])
+    held.update(graph.launches.get("backward", {}))
+    assert dict(held) == eager_launches and eager_launches["bin_faces"] == 1
+    (total,) = graphs.faces_record(faces).bin_totals.values()
+    assert graph.capacities == [graphs.bin_capacity(total)]
+    assert graph.overflowed() == 0 and rc.GRAPHS["overflow_recaptures"] == 0
+
+
+def test_binned_overflow_replay_is_exact_and_recaptures(cuda, fresh_cache, caplog):
+    """A graph captured with a quarter of the pair total's slots: its replay
+    gives the eager bits over overflow bins and reports them once it has
+    finished; the next call drops it, logs it and captures anew at twice the
+    capacity, which fits."""
     import logging
 
-    r, v, _, step = _graph_scene("bench", cuda)
-    graphs.note_eager.cache_clear()            # each reason is logged once
-    rc.reset_launches()
-    with rc.forced_route("binned"), caplog.at_level(logging.INFO, logger=graphs.__name__):
+    r, v, faces, step = _graph_scene("bench", cuda)
+    with rc.forced_route("binned"):
+        with nr.eager():
+            want_images, want = step(v)
+        rc.reset_launches()
+        step(v)                                        # the first call: eager
+        (total,) = graphs.faces_record(faces).bin_totals.values()
+        with graphs.forced_capacity(total // 4):
+            images, _ = step(v)
+        assert torch.equal(images, want_images)
+        torch.cuda.synchronize()
+        graph = _only_graph(faces)
+        assert graph.capacities == [total // 4] and graph.overflowed() > 0
+        with caplog.at_level(logging.INFO, logger=graphs.__name__):
+            images, grads = step(v)
+        assert torch.equal(images, want_images)
+        torch.testing.assert_close(grads["vertices"], want["vertices"], rtol=0,
+                                   atol=1e-4 * float(want["vertices"].abs().max()))
+        assert rc.GRAPHS["overflow_recaptures"] == 1 and rc.GRAPHS["captures"] == 2
+        assert any("overflow bins" in rec.getMessage() for rec in caplog.records)
+        again = _only_graph(faces)
+        assert again is not graph and again.capacities[0] >= 2 * (total // 4)
         step(v)
-        step(v)
-    assert rc.GRAPHS["captures"] == 0 and rc.GRAPHS["forward_replays"] == 0
-    assert rc.LAUNCHES["bin_faces"] == 2
-    assert any("eager, binned route" in rec.getMessage() for rec in caplog.records)
+        torch.cuda.synchronize()
+        assert again.overflowed() == 0 and rc.GRAPHS["captures"] == 2
 
 
 def test_no_grad_render_is_a_forward_graph(cuda, fresh_cache):
@@ -1019,15 +1108,21 @@ def test_a_second_backward_after_a_later_replay_raises(cuda, fresh_cache):
         first.sum().backward()
 
 
-def test_caller_captures_a_whole_step(cuda, fresh_cache):
+@pytest.mark.parametrize("route", ["tiled", "binned"])
+def test_caller_captures_a_whole_step(cuda, fresh_cache, route):
     """Camera, render, bench.py's loss, backward and update in one graph of
-    the caller's: the render runs straight into it; one replay gives the
-    eager step's images, gradient and update."""
+    the caller's: the render runs straight into it (on the binned route, K7
+    capped at the warm-up's total); one replay gives the eager step's
+    images, gradient and update."""
     r, v, faces, _ = _graph_scene("bench", cuda)
     x = v.clone().requires_grad_(True)
 
+    def render(x):
+        with rc.forced_route(route):
+            return r.render_silhouettes(x, faces)
+
     def step():
-        images = r.render_silhouettes(x, faces)
+        images = render(x)
         loss = torch.sum(images * images) / (torch.sum(images) + 1.0)
         loss.backward()
         with torch.no_grad():
@@ -1036,7 +1131,7 @@ def test_caller_captures_a_whole_step(cuda, fresh_cache):
 
     with nr.eager():
         want_x = v.clone().requires_grad_(True)
-        want_images = r.render_silhouettes(want_x, faces)
+        want_images = render(want_x)
         (torch.sum(want_images * want_images) / (torch.sum(want_images) + 1.0)).backward()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -1050,7 +1145,9 @@ def test_caller_captures_a_whole_step(cuda, fresh_cache):
     rc.reset_launches()
     with torch.cuda.graph(graph):
         images = step()
-    assert rc.GRAPHS["captures"] == 0 and rc.LAUNCHES["resolve_xy"] == 1
+    assert rc.GRAPHS["captures"] == 0
+    kernel = "resolve_xy" if route == "tiled" else "resolve_binned_xy"
+    assert rc.LAUNCHES[kernel] == 1 and rc.LAUNCHES["bin_faces"] == (route == "binned")
     with torch.no_grad():
         x.copy_(v)
     graph.replay()
@@ -1058,3 +1155,16 @@ def test_caller_captures_a_whole_step(cuda, fresh_cache):
     torch.testing.assert_close(x.grad, want_x.grad, rtol=0,
                                atol=1e-4 * float(want_x.grad.abs().max()))
     assert torch.equal(x.detach(), v - 1e-6 * x.grad)
+
+
+def test_caller_capture_of_a_binned_step_without_warm_up_raises(cuda, fresh_cache):
+    """A binned render inside the caller's capture with no eager run of the
+    same render kept raises, and reads nothing back."""
+    r, v, faces, _ = _graph_scene("bench", cuda)
+    x = v.clone().requires_grad_(True)
+    with nr.eager():
+        r.render_silhouettes(x, faces)        # warms the kernels and tables, tiled
+    graph = torch.cuda.CUDAGraph()
+    with rc.forced_route("binned"), pytest.raises(RuntimeError, match="before capturing"):
+        with torch.cuda.graph(graph):
+            r.render_silhouettes(x, faces)

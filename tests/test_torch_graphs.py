@@ -1,13 +1,16 @@
 """The compiled core (``ops/graphs.py``, ``ops/rasterize.py::_run``) on the
 CPU: what keys a render's graph, when a render is captured and when it runs
-eagerly, and that the step a graph would hold makes no host sync and copies
-nothing from the host once its per-faces constants are built.  The CPU
+eagerly, how a binned render sizes K7's capped bins and when a graph whose
+replay overflowed is captured anew, and that the step a graph would hold
+makes no host sync and copies nothing from the host once its per-faces
+constants are built (on either resolve route).  The CPU
 never captures: there the entry points give ``rasterize_core``'s bits,
 which are the JAX package's (checked here against its eager pipeline).
 The card-side checks (capture, replay, fresh outputs, recapture) are in
 ``tests/test_torch_cuda.py``."""
 
 import collections
+import ctypes
 import dataclasses
 import gc
 import inspect
@@ -199,16 +202,25 @@ def test_a_fresh_faces_tensor_at_each_call_captures_nothing(fresh_cache, caplog)
 
 
 class _FakeGraph:
-    """A graph's bookkeeping of its pending backward, without a capture."""
+    """A graph's bookkeeping of its pending backward and of its replays'
+    overflow bins, without a capture."""
 
     _waiting = None
     waiting = graphs.Graph.waiting
     pending = graphs.Graph.pending
 
+    def __init__(self, min_capacity=0):
+        self.min_capacity = min_capacity
+        self.capacities = [max(graphs.CAPACITY_FLOOR, min_capacity)]
+        self.overflow = 0
+
+    def overflowed(self):
+        return self.overflow
+
 
 def _fake_capture(made):
-    def capture():
-        made.append(_FakeGraph())
+    def capture(min_capacity=0):
+        made.append(_FakeGraph(min_capacity))
         return made[-1]
     return capture
 
@@ -255,6 +267,44 @@ def test_cached_graph_captures_another_graph_while_one_waits_on_a_backward(fresh
     gc.collect()
     assert graphs.cached_graph(record, ("a",), capture) is made[0]
     assert len(made) == graphs.MAX_INSTANCES
+
+
+def test_cached_graph_recaptures_a_graph_whose_replay_overflowed(fresh_cache, caplog):
+    """A kept graph whose finished replay had overflow bins is replaced in
+    its place by a capture at twice its capacity, counted and logged; a
+    graph whose replay fitted, or is still running (0 read), is replayed."""
+    record = graphs.faces_record(torch.tensor(torus(8, 6)[1]))
+    made = []
+    capture = _fake_capture(made)
+    rc.reset_launches()
+    graphs.cached_graph(record, ("a",), capture)
+    first = graphs.cached_graph(record, ("a",), capture)
+    assert graphs.cached_graph(record, ("a",), capture) is first
+    first.overflow = 7
+    with caplog.at_level(logging.INFO, logger=graphs.__name__):
+        second = graphs.cached_graph(record, ("a",), capture, "overflowing")
+    assert second is made[1] and second is not first
+    assert second.min_capacity == 2 * first.capacities[0]
+    assert graphs._entries[(record, ("a",))] == [second]
+    assert rc.GRAPHS["overflow_recaptures"] == 1 and rc.GRAPHS["captures"] == 0
+    assert any("7 overflow bins" in r.getMessage() and "overflowing" in r.getMessage()
+               for r in caplog.records)
+    assert graphs.cached_graph(record, ("a",), capture) is second
+    # a pending graph is passed over, overflowed or not
+    token = graphs._Pending()
+    second.waiting, second.overflow = token, 3
+    third = graphs.cached_graph(record, ("a",), capture)
+    assert third is made[2] and third.min_capacity == 0 and second.pending()
+    assert rc.GRAPHS["overflow_recaptures"] == 1
+
+
+@pytest.mark.parametrize("total,want", [(0, 4096), (1, 4096), (2048, 4096), (2049, 8192),
+                                        (100_000, 262_144), (131_072, 262_144)])
+def test_bin_capacity_is_twice_the_total_to_a_power_of_two(total, want):
+    assert graphs.bin_capacity(total) == want
+    with graphs.forced_capacity(5):
+        assert graphs.bin_capacity(total) == 5
+    assert graphs.bin_capacity(total) == want
 
 
 def test_cached_graph_keeps_at_most_max_entries(fresh_cache):
@@ -341,29 +391,38 @@ def test_route_of_a_render(monkeypatch, not_capturing, caplog):
     graphs.note_eager.cache_clear()          # each reason is logged once
     with rc.forced_route("binned"):
         with caplog.at_level(logging.INFO, logger=graphs.__name__):
-            assert graphs.route(_on_card(1), faces, hp) == "eager"
-    assert any("eager, binned route" in r.getMessage() for r in caplog.records)
+            assert graphs.route(_on_card(1), faces, hp) == "graph"
+    assert not any("eager" in r.getMessage() for r in caplog.records)
     monkeypatch.setattr(graphs, "capturing", lambda: True)
     assert graphs.route(_on_card(1), faces, hp) == "inline"
+    with rc.forced_route("binned"):
+        assert graphs.route(_on_card(1), faces, hp) == "inline"
 
 
 @pytest.mark.parametrize("binned_from", [rc.BINNED_FROM, 10_000, 2_000_000])
-def test_graphs_follow_resolve_route_and_binned_from(monkeypatch, not_capturing, binned_from):
-    """Graphed exactly where ``resolve_route`` picks the tiled route from the
-    shapes: at the threshold ``BINNED_FROM`` and around it."""
+def test_graphs_follow_resolve_route_and_binned_from(monkeypatch, not_capturing, binned_from,
+                                                     caplog):
+    """Graphed on both sides of the threshold ``BINNED_FROM``, where
+    ``resolve_route`` picks the tiled or the binned route from the shapes,
+    and nothing logs a render as eager for its route."""
     monkeypatch.setattr(rc, "BINNED_FROM", binned_from)
-    for image_size, aa in ((64, True), (256, True), (512, False), (1024, True)):
-        hp = HP(image_size=image_size, anti_aliasing=aa)
-        S = image_size * (2 if aa else 1)
-        tiles = (-(-S // 16)) ** 2
-        for bs in (1, 3):
-            for nf in (1, binned_from // (bs * tiles), -(-binned_from // (bs * tiles)),
-                       2560, 81920):
-                want = rc.resolve_route(bs, S, S, nf) == "tiled"
-                assert want == (bs * tiles * nf < binned_from)
-                assert graphs.graphable(bs, nf, hp) == want
-                faces = torch.zeros((nf, 3), dtype=torch.int32)
-                assert graphs.route(_on_card(bs), faces, hp) == ("graph" if want else "eager")
+    graphs.note_eager.cache_clear()
+    routes = set()
+    with caplog.at_level(logging.INFO, logger=graphs.__name__):
+        for image_size, aa in ((64, True), (256, True), (512, False), (1024, True)):
+            hp = HP(image_size=image_size, anti_aliasing=aa)
+            S = image_size * (2 if aa else 1)
+            tiles = (-(-S // 16)) ** 2
+            for bs in (1, 3):
+                for nf in (1, binned_from // (bs * tiles), -(-binned_from // (bs * tiles)),
+                           2560, 81920):
+                    tiled = rc.resolve_route(bs, S, S, nf) == "tiled"
+                    assert tiled == (bs * tiles * nf < binned_from)
+                    routes.add(tiled)
+                    faces = torch.zeros((nf, 3), dtype=torch.int32)
+                    assert graphs.route(_on_card(bs), faces, hp) == "graph"
+    assert routes == {True, False}
+    assert not caplog.records
 
 
 # ---------------------------------------------------------------------------
@@ -478,39 +537,42 @@ class _WatchCalls(TorchFunctionMode):
 _paused = [0]
 
 
+def _unwatched(fn):
+    def call(*args, **kwargs):
+        _paused[0] += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _paused[0] -= 1
+    return call
+
+
 @pytest.fixture
 def plain_unwatched(monkeypatch):
     """The kernels' plain versions run unwatched: the card never runs them
-    (their binning and masks size outputs on the host)."""
-    def unwatched(fn):
-        def call(*args, **kwargs):
-            _paused[0] += 1
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                _paused[0] -= 1
-        return call
-
-    wrappers = {name for name in dir(rc) if callable(getattr(rc, name)) and (
-        name in rc.KERNELS or name == "bin_faces")}
-    for module in (gather_resolve, shading):
-        for name in wrappers & set(vars(module)):
-            monkeypatch.setattr(module, name, unwatched(getattr(module, name)))
+    (their binning and masks size outputs on the host).  The wrappers
+    around them, and the choice of K7's form, are watched."""
+    for name in dir(rc):
+        if name.endswith("_plain"):
+            monkeypatch.setattr(rc, name, _unwatched(getattr(rc, name)))
     # K4's table (built once per faces tensor, before a capture)
-    monkeypatch.setattr(shading, "vertex_slots", unwatched(rc.vertex_slots))
+    monkeypatch.setattr(shading, "vertex_slots", _unwatched(rc.vertex_slots))
 
 
 def _steps():
     """name -> a function that makes its scene and returns a full step
     (camera, render, loss, backward) on the CPU over it."""
-    def silhouettes():
-        r, v, f = _scene("plain")[:3]
+    def silhouettes(route="tiled"):
+        def make():
+            r, v, f = _scene("plain")[:3]
 
-        def step():
-            x = v.clone().requires_grad_(True)
-            images = r.render_silhouettes(x, f)
-            (torch.sum(images * images) / (torch.sum(images) + 1.0)).backward()
-        return step
+            def step():
+                x = v.clone().requires_grad_(True)
+                with rc.forced_route(route):
+                    images = r.render_silhouettes(x, f)
+                (torch.sum(images * images) / (torch.sum(images) + 1.0)).backward()
+            return step
+        return make
 
     def textured(kind, method="render", background=False):
         def make():
@@ -545,9 +607,10 @@ def _steps():
             torch.sum(out * out).backward()
         return step
 
-    return {"silhouettes": silhouettes, "atlas": textured("atlas"),
-            "lit": textured("lit"), "texel rgb": textured("plain", "render_rgb", True),
-            "depth": depth, "all with backgrounds": everything}
+    return {"silhouettes": silhouettes(), "silhouettes binned": silhouettes("binned"),
+            "atlas": textured("atlas"), "lit": textured("lit"),
+            "texel rgb": textured("plain", "render_rgb", True), "depth": depth,
+            "all with backgrounds": everything}
 
 
 @pytest.mark.parametrize("name", sorted(_steps()))
@@ -562,6 +625,73 @@ def test_the_step_makes_no_host_sync_and_copies_nothing_from_the_host(name, plai
     with _WatchCalls(seen), _Watch(seen):
         step()
     assert not seen, seen
+
+
+def test_the_binned_step_under_capture_takes_the_capped_bins(monkeypatch):
+    """A binned render as a caller's capture holds it (``capturing``
+    patched true, after an eager warm-up of the same render) bins through
+    K7's capped form at the kept total's capacity and gives the eager bits;
+    at a forced capacity of 0 every bin overflows, to the same bits; a
+    render with no eager run of its binning kept raises instead of reading
+    back."""
+    r, v, f = _scene("plain")[:3]
+    faces = torch.tensor(f)
+    calls = []
+    bin_faces = rc.bin_faces
+    monkeypatch.setattr(rc, "bin_faces", lambda *a, **kw: calls.append(kw.get("capacity"))
+                        or bin_faces(*a, **kw))
+
+    def render(faces=faces):
+        with rc.forced_route("binned"):
+            return r.render_silhouettes(v, faces)
+
+    want = render()
+    (total,) = graphs.faces_record(faces).bin_totals.values()
+    assert calls == [None] and total > 0
+    monkeypatch.setattr(graphs, "capturing", lambda: True)
+    assert torch.equal(render(), want)
+    with graphs.forced_capacity(0):
+        assert torch.equal(render(), want)
+    with graphs.forced_capacity(total - 1):
+        assert torch.equal(render(), want)
+    assert calls == [None, graphs.bin_capacity(total), 0, total - 1]
+    with pytest.raises(RuntimeError, match="run the step once before capturing"):
+        render(faces.clone())
+    with pytest.raises(RuntimeError, match="run the step once before capturing"):
+        with rc.forced_route("binned"):
+            r.render_silhouettes(v.expand(2, -1, -1), faces)          # another batch
+    assert len(calls) == 4
+
+
+def test_capped_k7_wrapper_reads_nothing_back(monkeypatch):
+    """K7's wrapper on the card's path (the launches faked on CPU tensors):
+    the eager form reads the pair total back once; the capped form reads
+    nothing and returns its overflow word, a view of the kernel's scratch."""
+    launched = []
+    # 2 images of 8 x 3 tiles: the counters padded to one scan chunk, four
+    # control words and one chunk's scan state
+    scratch_words = rc.BIN_SCAN_TILE + 4 + 2
+
+    def launch(entry, index, *args):
+        if entry == "bin_faces_count":       # zeroes the scratch: a total of 0
+            ctypes.memset(args[1], 0, 4 * scratch_words)
+        launched.append((entry, args[-1]))
+
+    monkeypatch.setattr(rc, "_on_cuda", lambda *t: True)
+    monkeypatch.setattr(rc, "_launch", launch)
+    fvp = torch.zeros((2, 3, 3, 40))
+    for capacity, syncs in ((None, 1), (4096, 0), (0, 0)):
+        seen = []
+        with _WatchCalls(seen), _Watch(seen):
+            out = rc.bin_faces(fvp, True, 64, 8, 24, capacity=capacity)
+        assert sum("_local_scalar_dense" in x for x in seen) == syncs, seen
+        assert len(out) == (3 if capacity is None else 4)
+        if capacity is not None:
+            cnt, offsets, ids, overflow = out
+            assert ids.shape == (capacity,) and overflow.shape == (1,)
+            assert overflow.dtype == torch.int32
+            assert launched[-1] == ("bin_faces", capacity)
+        assert [e for e, _ in launched[-2:]] == ["bin_faces_count", "bin_faces"]
 
 
 def test_the_watch_sees_what_it_looks_for(plain_unwatched):

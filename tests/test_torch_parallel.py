@@ -45,6 +45,9 @@ CONFIGS = {
     # whose gradient is summed over the ranks like the other inputs'
     "tile2-backgrounds": Config((1, 2, 1), "rgb", 64, True, True),
     "all-axes-lit": Config((2, 2, 2), "rgba", 64, True),
+    # data > 1 with backgrounds: each data cell blends its own images' band
+    # of mirrored background rows (in the 8-rank spawn)
+    "all-axes-backgrounds": Config((2, 2, 2), "rgb", 64, True, True),
     # 66 rows over 4 bands of 18 (even under AA, so that no 2x2 pool
     # straddles two bands): the last has 12, six rows past the bottom
     # cropped; the JAX package splits them as 4 x 17 (tests/test_parallel.py:330)

@@ -22,8 +22,13 @@ the package through its wrappers and entry points only.  Measured:
 - K7 at ``scale``, ``textured-scale``, ``hires`` and ``hires-lit`` at the
   8x8 tiles: event median, device busy time and operations per call,
   its kernels' own device time;
+- K8 over those exact bins at ``scale`` and ``hires`` (XY) and
+  ``hires-lit`` (copy, id/depth): event median, device busy time, its
+  kernel's own device time;
 - the ``bench``, ``scale``, ``textured-scale``, ``hires`` and
-  ``hires-lit`` steps: event median, device busy time and operations.
+  ``hires-lit`` steps, eagerly (``nr.eager()``, which both sides of a
+  parent/change pair have): event median, device busy time and
+  operations.
 
 ``--designs`` builds ``tools/bin_faces_designs.cu`` (``chip_smoke.
 tool_library``) and times K7 as its parent had it (``chip_smoke.
@@ -140,6 +145,14 @@ class Scenes:
         self.hires.viewpoints = nr.get_points_from_angles(2.732, 30, 30.0)
         self.textured = {name: cs.Textured(name, dev) for name in ("textured-scale", "hires-lit")}
 
+    def attrs(self, label):
+        """The face attributes a binned configuration latches (none for the
+        silhouette ones)."""
+        if label in self.textured:
+            return self.textured[label].latch_inputs()[3]
+        fvp = self.faces(label)[0]
+        return fvp.new_empty((fvp.shape[0], fvp.shape[-1], 0))
+
     def faces(self, label):
         """(face vertices, S) of a binned configuration."""
         cs = self.cs
@@ -200,10 +213,26 @@ def checkout_rows(cs, dev, gen):
                 # the parent's K7, three here; one counted launch each call)
                 kernel_device_ms=sum(prof.per_launch.values())
                 * prof.launched.get("bin_faces", 0.0))
+        out["resolve_binned"] = {}
+        for label, form in (("scale", "xy"), ("hires", "xy"), ("hires-lit", "latch"),
+                            ("hires-lit", "depth")):
+            fvp, S = scenes.faces(label)
+            lead = lead_args(rc, fvp, scenes.attrs(label))
+            bins = rc.bin_faces(*lead["bin_faces"], S)
+            kernel = getattr(rc, f"resolve_binned_{form}")
+
+            def call(kernel=kernel, args=lead[f"binned_{form}"](bins), S=S):
+                return kernel(*args, S, 0.1, 100.0)
+
+            prof = cs.profile_kept(call)
+            out["resolve_binned"][f"{label} {form}"] = dict(
+                ms=cs.median_ms(call, 50), device_ms=prof.busy, device_ops=prof.ops,
+                kernel_device_ms=sum(prof.per_launch.values()))
     out["steps"] = {}
     for label, step in scenes.steps().items():
-        ms = cs.median_ms(step, 20, warmup=3)
-        prof = cs.profile_device(step)
+        with cs.nr.eager():
+            ms = cs.median_ms(step, 20, warmup=3)
+            prof = cs.profile_device(step)
         out["steps"][label] = dict(ms=ms, device_busy_ms=prof.busy, device_ops=prof.ops,
                                    every_record_kept=prof.complete)
     return out
