@@ -32,7 +32,10 @@ Builds the hand-written kernels from ``neural_renderer_v2_pytorch_tpu_torch
   route threshold; holds both steps against the plain versions; takes
   five Adam steps of a ``hires`` vertex fit and one ``hires-lit`` step, and
   drives ``compute_face_index_map`` and ``render_depth`` (launch counts
-  read around each: no K1 on any path, ``check_k1``);
+  read around each: no K1 on any path, ``check_k1``), then the same
+  ``compute_face_index_map`` calls through the compiled core (a forward
+  graph each, K2D at ``lit``, K7 capped and K8 at ``hires-lit``; ids and
+  depth bit-equal to the eager entry's);
 - sharded rendering (``parallel``): holds K9 ``gather_rows`` bit-equal to
   its plain version at the face-sharded path's shapes (``scale``, D = 9;
   ``textured-scale``, D = 27) in both layouts, then runs five meshes on
@@ -46,10 +49,18 @@ Builds the hand-written kernels from ``neural_renderer_v2_pytorch_tpu_torch
   step to the single-device step on the card (images and its index band
   equal, cross-shard near-tie pixels counted, gradients within 1e-4 of
   their largest magnitude), takes the collective census (no collective
-  of render-size planes) and the launch counts around it, and times its
-  steps and their collectives (by kind); every rank's gradients must be
-  the same bits as every other rank's.  These times show what a step
-  costs when ranks share a card, not how the path scales;
+  of render-size planes) and the launch counts around it; then takes the
+  same step through the compiled core (the rank's chain of CUDA graphs,
+  one per stretch between two collectives, the collectives run eagerly
+  between the replays): four calls, the second capturing, each held to
+  the eager sharded step (images equal, gradients within 1e-4, the same
+  census), a replayed step launching no kernel eagerly (its eager
+  operations counted and named), and at the face-2 runs K9 and the
+  id/depth resolve held in the replayed chain; and times eager and graphed
+  steps and their collectives (by kind) in turns; every rank's gradients
+  must be the same bits as every other rank's, eager and graphed.  These
+  times show what a step costs when ranks share a card, not how the path
+  scales;
 
 - the user-facing path (``examples``): ``utils.scenes.write_example_data``
   at 256^2 and its torus OBJ through ``load_obj`` (int32 faces on the
@@ -118,7 +129,9 @@ in-place edit of them captured anew, a no_grad render equal, and at
 ``scale`` a graph captured with half its pair total's slots: its replay
 bit-equal with overflow bins, which it reports, and the next call
 captured anew at twice the capacity; K7 + K8 over exact, half-capacity and
-zero-capacity bins timed in turns.  Each five-step
+zero-capacity bins timed in turns; ``compute_face_index_map`` eager and
+graphed in turns at ``lit`` and ``hires-lit``, and the sharded runs'
+eager and graphed per-rank steps.  Each five-step
 fit builds one vertex -> slot table for K4
 (``resolve_cuda.SLOT_TABLE_BUILDS``).
 
@@ -143,6 +156,7 @@ import types
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import neural_renderer_v2_pytorch_tpu_torch as nr
 from neural_renderer_v2_pytorch_tpu_torch import parallel
@@ -1108,6 +1122,53 @@ def check_index_band(label, case, mesh):
     return int(ties.sum())
 
 
+def index_map_graphed(cases, eager_maps):
+    """Phase 15's graphed pass: ``compute_face_index_map`` at each (label,
+    face vertices, size) of ``cases``, whole and over the window of
+    ``eager_maps`` (the eager entry's (index, depth) of each), three calls
+    each through the compiled core: the first eager, the second capturing
+    a forward graph, the third replaying it; every call's ids and depth
+    bit-equal to the eager ones, a replay launching nothing eagerly, the
+    graph holding the route's id/depth form (K7 capped on the binned
+    route).  Returns {label: the route and each window's graph}."""
+    out = {}
+    for (label, fv, S), maps in zip(cases, eager_maps):
+        route = rc.resolve_route(fv.shape[0], S, S, fv.shape[1])
+        form = "resolve_binned_depth" if route == "binned" else "resolve_depth"
+        out[label] = dict(route=route, windows=[])
+        for (row_start, num_rows), want in zip(((0, None), (S // 2, S // 4)), maps):
+            kw = dict(row_start=row_start, num_rows=num_rows, return_depth=True)
+            rc.reset_launches()
+            for call in range(3):
+                launched = dict(rc.LAUNCHES)
+                index, depth = nr.compute_face_index_map(fv, S, **kw)
+                check_equal(f"{label} graphed compute_face_index_map call {call + 1} index",
+                            index, want[0])
+                check_equal(f"{label} graphed compute_face_index_map call {call + 1} depth",
+                            depth, want[1])
+            if rc.LAUNCHES != launched:
+                raise AssertionError(f"{label}: a replayed compute_face_index_map launched "
+                                     f"eagerly: {rc.LAUNCHES} after {launched}")
+            if rc.GRAPHS["captures"] != 1 or rc.GRAPHS["forward_replays"] != 2:
+                raise AssertionError(f"{label} compute_face_index_map: {rc.GRAPHS}, want one "
+                                     f"capture and two replays")
+            graph = [g for (r, _), kept in graphs._entries.items() if r is graphs.INDEX_MAPS
+                     for g in kept][-1]
+            held = graph.launches["forward"]
+            if held.get(form) != 1 or held.get("bin_faces", 0) != (route == "binned"):
+                raise AssertionError(f"{label}: the index-map graph holds {held}, want {form}")
+            out[label]["windows"].append(dict(window=[row_start, num_rows], held=held,
+                                              capture_s=graph.seconds,
+                                              capacities=graph.capacities))
+        log(f"[index map] {label} graphed ({route}): three calls each whole and windowed, the "
+            f"second capturing, ids and depth bit-equal to the eager entry's; graphs hold "
+            f"{json.dumps([w['held'] for w in out[label]['windows']])}, capture s "
+            f"{[round(w['capture_s'], 6) for w in out[label]['windows']]}"
+            + (f", K7 capped at {[w['capacities'] for w in out[label]['windows']]}"
+               if route == "binned" else ""))
+    return out
+
+
 def sharded_census(data, tile, face):
     """(forward, step) counts of ``parallel.COLLECTIVES`` for one sharded
     step on a (data, tile, face) mesh: the face fold's two all-gathers, the
@@ -1118,12 +1179,118 @@ def sharded_census(data, tile, face):
     return forward, dict(forward, halo_exchange=int(tile > 1), grad_all_reduce=1)
 
 
+class EagerOps(TorchDispatchMode):
+    """The operations dispatched while it is on that read or write a
+    tensor on the card, by name: ``ops`` those that do device work,
+    ``views`` those that only alias their input.  In a step whose graphs
+    replay, what stays eager (a replay dispatches nothing)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops, self.views = collections.Counter(), collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        tensors = [t for t in (*args, *(kwargs or {}).values(),
+                               *(out if isinstance(out, (tuple, list)) else (out,)))
+                   if isinstance(t, torch.Tensor)]
+        if any(t.is_cuda for t in tensors):
+            kind = self.views if func.is_view else self.ops
+            kind[func.overloadpacket.__name__] += 1
+        return out
+
+
+def sharded_turn(case, mesh, steps):
+    """``steps`` timed steps of ``case`` over ``mesh`` (each after a barrier
+    and a sync): (step ms, collective ms, {kind: [ms]})."""
+    import torch.distributed as dist
+
+    ms, coll_ms, kind_ms = [], [], collections.defaultdict(list)
+    for _ in range(steps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        parallel.reset_collectives()
+        t0 = time.perf_counter()
+        case.step(mesh)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        coll_ms.append(sum(parallel.COLLECTIVE_SECONDS.values()) * 1e3)
+        for kind, seconds in parallel.COLLECTIVE_SECONDS.items():
+            kind_ms[kind].append(seconds * 1e3)
+    return ms, coll_ms, kind_ms
+
+
+# the sharded turns, in order: the eager step (nr.eager()) and the graphed
+# core's (the rank's chain of graphs replayed, the collectives between)
+SHARDED_TURNS = ("eager", "graphed", "graphed", "eager")
+
+
+def sharded_graphed(label, case, mesh, eager, face):
+    """The graphed core's sharded step at ``case`` on this rank: the first
+    call eager, the second capturing the rank's chain, the third and fourth
+    replaying it; each held to the eager sharded step ``eager`` (images
+    equal, gradients within 1e-4, the same census), the replayed steps
+    launching no kernel eagerly, and at face > 1 the chain holding K9 and
+    the id/depth resolve.  Returns what the parent prints."""
+    want_images, want_grads, _, census = eager
+    rc.reset_launches()
+    graphs.note_eager.cache_clear()
+    out = []
+    for call in range(4):
+        torch.cuda.synchronize()
+        parallel.reset_collectives()
+        before = dict(rc.GRAPHS)
+        counted = EagerOps()
+        launched = dict(rc.LAUNCHES)
+        # the last call's eager operations counted (a replay dispatches none)
+        with counted if call == 3 else contextlib.nullcontext():
+            images, grads, forward = case.step(mesh)
+        torch.cuda.synchronize()
+        launched = {k: n - launched[k] for k, n in rc.LAUNCHES.items() if n > launched[k]}
+        replays = rc.GRAPHS["forward_replays"] - before["forward_replays"]
+        check_equal(f"{label} graphed call {call + 1} images", images, want_images)
+        errs = {k: check_close(f"{label} graphed call {call + 1} {k} grads", grads[k], g)
+                for k, g in want_grads.items()}
+        if (forward, dict(parallel.COLLECTIVES)) != census:
+            raise AssertionError(f"{label}: graphed call {call + 1} census {forward} "
+                                 f"{dict(parallel.COLLECTIVES)}, want {census}")
+        if call == 0 and (replays or rc.GRAPHS["captures"]):
+            raise AssertionError(f"{label}: the first call {rc.GRAPHS}, want it eager")
+        if call >= 1 and replays != 1:
+            raise AssertionError(f"{label}: graphed call {call + 1} replayed {replays} chains")
+        if call >= 2 and launched:
+            raise AssertionError(f"{label}: a replayed step launched {launched} eagerly")
+        out.append(dict(grads=grads, errs=errs, eager_ops=dict(counted.ops),
+                        eager_views=sum(counted.views.values())))
+    (chain,) = graphs.kept_graphs(case.faces)
+    held = collections.Counter(chain.launches["forward"])
+    held.update(chain.launches.get("backward", {}))
+    if face > 1:
+        fv, (_, rows), per = case.band(mesh)
+        depth_form = ("resolve_binned_depth" if rc.resolve_route(fv.shape[0], rows, case.size, per)
+                      == "binned" else "resolve_depth")
+        if not chain.launches["forward"].get("gather_rows") or \
+                not chain.launches["forward"].get(depth_form):
+            raise AssertionError(f"{label}: the replayed chain holds {chain.launches}, want K9 "
+                                 f"and {depth_form}")
+    eager_ops = out[-1]["eager_ops"]
+    return dict(
+        segments={k: [dict(n) for n in v] for k, v in chain.segment_launches.items()},
+        held=dict(held), capture_s=chain.seconds, capacities=chain.capacities,
+        graphs=dict(rc.GRAPHS), errs=out[-1]["errs"], eager_ops=eager_ops,
+        eager_device_ops=sum(eager_ops.values()), eager_views=out[-1]["eager_views"],
+        digests={k: hashlib.sha256(g.cpu().numpy().tobytes()).hexdigest()
+                 for k, g in out[-1]["grads"].items()})
+
+
 def sharded_rank(names):
     """One rank's share of a spawn: each run in ``names`` on its mesh, once
-    with its census and launch counts read around the step and held to the
-    single-device step on the same card (which this rank also runs), then
-    SHARDED_STEPS timed steps.  Raises on any disagreement; returns
-    {name: what the parent prints}."""
+    eagerly (``nr.eager()``) with its census and launch counts read around
+    the step and held to the single-device step on the same card (which
+    this rank also runs), then through the graphed core (the rank's chain
+    of graphs, :func:`sharded_graphed`), then SHARDED_STEPS timed steps in
+    each of SHARDED_TURNS.  Raises on any disagreement; returns {name: what
+    the parent prints}."""
     import torch.distributed as dist
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -1134,12 +1301,14 @@ def sharded_rank(names):
         mesh = parallel.make_mesh(*case.shape)
         data, tile, face = case.shape
         label = f"{name} {case.shape} rank {rank}"
-        want_images, want_grads, _ = case.step()
+        with nr.eager():
+            want_images, want_grads, _ = case.step()
         dist.barrier()
         torch.cuda.synchronize()
         parallel.reset_collectives()
         rc.reset_launches()
-        images, grads, forward = case.step(mesh)
+        with nr.eager():
+            images, grads, forward = case.step(mesh)
         torch.cuda.synchronize()
         launches, step_census = dict(rc.LAUNCHES), dict(parallel.COLLECTIVES)
         check_equal(f"{label} images", images, want_images)
@@ -1148,7 +1317,8 @@ def sharded_rank(names):
             if not torch.isfinite(grads[k]).all() or float(grads[k].abs().max()) == 0.0:
                 raise AssertionError(f"{label}: {k} gradients not finite or all zero")
             errs[k] = check_close(f"{label} {k} grads", grads[k], g)
-        near_ties = check_index_band(label, case, mesh)
+        with nr.eager():
+            near_ties = check_index_band(label, case, mesh)
         if (forward, step_census) != sharded_census(data, tile, face):
             raise AssertionError(f"{label}: census forward {forward} step {step_census}")
         fv, (_, rows), per = case.band(mesh)
@@ -1170,26 +1340,33 @@ def sharded_rank(names):
         check_k1(label, launches)
         if not ok or not all(launches[k] > 0 for k in path):
             raise AssertionError(f"{label}: the step missed a kernel of its path: {launches}")
-        ms, coll_ms, kind_ms = [], [], collections.defaultdict(list)
-        for _ in range(SHARDED_STEPS):
-            dist.barrier()
-            torch.cuda.synchronize()
-            parallel.reset_collectives()
-            t0 = time.perf_counter()
-            case.step(mesh)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-            coll_ms.append(sum(parallel.COLLECTIVE_SECONDS.values()) * 1e3)
-            for kind, seconds in parallel.COLLECTIVE_SECONDS.items():
-                kind_ms[kind].append(seconds * 1e3)
+        graphed = sharded_graphed(label, case, mesh,
+                                  (images, grads, forward, (forward, step_census)), face)
+
+        def eager_turn():
+            with nr.eager():
+                return sharded_turn(case, mesh, SHARDED_STEPS)
+
+        forms = {"eager": eager_turn, "graphed": lambda: sharded_turn(case, mesh, SHARDED_STEPS)}
+        turns = {form: ([], [], collections.defaultdict(list)) for form in forms}
+        for form in SHARDED_TURNS:
+            ms, coll_ms, kind_ms = forms[form]()
+            turns[form][0].extend(ms)
+            turns[form][1].extend(coll_ms)
+            for kind, v in kind_ms.items():
+                turns[form][2][kind].extend(v)
         out[name] = dict(
             coords=mesh.coords, route=route, errs=errs, near_ties=near_ties,
             digests={k: hashlib.sha256(g.cpu().numpy().tobytes()).hexdigest()
                      for k, g in grads.items()},
             max_g={k: float(g.abs().max()) for k, g in want_grads.items()},
             census=step_census, launches={k: v for k, v in launches.items() if v},
-            ms=ms, coll_ms=coll_ms,
-            kind_ms={k: float(np.median(v)) for k, v in kind_ms.items() if any(v)})
+            ms=turns["eager"][0], coll_ms=turns["eager"][1],
+            kind_ms={k: float(np.median(v)) for k, v in turns["eager"][2].items() if any(v)},
+            graphed_ms=turns["graphed"][0], graphed_coll_ms=turns["graphed"][1],
+            graphed_kind_ms={k: float(np.median(v)) for k, v in turns["graphed"][2].items()
+                             if any(v)},
+            graphed=graphed)
     return out
 
 
@@ -1197,8 +1374,9 @@ def sharded_runs(dev, smi):
     """Every SHARDED run: the single-device step alone on the card (median
     of 5), then one spawn of ranks per world size, each rank held to the
     single-device step inside ``sharded_rank`` and here to each other: every
-    rank's gradients the same bits.  Returns ({name: [each
-    rank's results]}, the ranks' launch counts summed)."""
+    rank's gradients the same bits, eager and graphed.  Returns ({name:
+    [each rank's results]}, the ranks' launch counts of the eager step
+    summed)."""
     single_ms = {}
     for name in SHARDED:
         case = ShardedCase(name, dev)
@@ -1219,6 +1397,9 @@ def sharded_runs(dev, smi):
                 launches.update(r["launches"])
                 if r["digests"] != runs[name][0]["digests"]:
                     raise AssertionError(f"{name}: rank {rank}'s gradients are not rank 0's bits")
+                if r["graphed"]["digests"] != runs[name][0]["graphed"]["digests"]:
+                    raise AssertionError(f"{name}: rank {rank}'s graphed gradients are not "
+                                         f"rank 0's bits")
             log(f"[sharded] {name}: every rank's gradients the same bits "
                 f"({len(ranks)} ranks, {len(runs[name][0]['digests'])} leaves)")
     for name, ranks in runs.items():
@@ -1228,13 +1409,31 @@ def sharded_runs(dev, smi):
                 f"{r['near_ties']}), route {r['route']}, grad max abs err {json.dumps(r['errs'])} "
                 f"(max |g| {json.dumps(r['max_g'])}), census {json.dumps(r['census'])}, "
                 f"launches {json.dumps(r['launches'])}")
-        log(f"[time] {name} sharded step {SHARDED[name]}, {len(ranks)} ranks sharing one card: "
-            + "; ".join(f"rank {i} {float(np.median(r['ms'])):.4f} ms (collectives "
-                        f"{float(np.median(r['coll_ms'])):.4f} ms)" for i, r in enumerate(ranks))
-            + f" (medians of {SHARDED_STEPS}); the single-device step alone "
+            g = r["graphed"]
+            log(f"[sharded] {name} rank {rank} graphed: images equal to the eager sharded "
+                f"step's, grad max abs err {json.dumps(g['errs'])}, census unchanged, "
+                f"{json.dumps(g['graphs'])}; the chain holds {json.dumps(g['held'])} in "
+                f"segments {json.dumps(g['segments'])}, capture {g['capture_s']:.6f} s"
+                + (f", K7 capped at {g['capacities']}" if g["capacities"] else "")
+                + f"; a replayed step launches no kernel eagerly; it dispatches "
+                f"{g['eager_device_ops']} operations that work on the card (the inputs' and "
+                f"outputs' copies, the collectives' host staging, the image gather's pad and "
+                f"cat, the gradient buffer's cat, the caller's loss and its backward): "
+                f"{json.dumps(g['eager_ops'])}, and {g['eager_views']} views")
+        log(f"[time] {name} sharded step {SHARDED[name]}, {len(ranks)} ranks sharing one card, "
+            f"turns {'/'.join(SHARDED_TURNS)}: "
+            + "; ".join(f"rank {i} eager {float(np.median(r['ms'])):.4f} ms (collectives "
+                        f"{float(np.median(r['coll_ms'])):.4f} ms), graphed "
+                        f"{float(np.median(r['graphed_ms'])):.4f} ms (collectives "
+                        f"{float(np.median(r['graphed_coll_ms'])):.4f} ms)"
+                        for i, r in enumerate(ranks))
+            + f" (medians of {2 * SHARDED_STEPS} each); the single-device step alone "
             f"{single_ms[name]:.4f} ms  ({smi})")
-        log(f"[time] {name} collectives by kind, ms (medians of {SHARDED_STEPS}): "
-            + "; ".join(f"rank {i} " + ", ".join(f"{k} {v:.4f}" for k, v in r["kind_ms"].items())
+        log(f"[time] {name} collectives by kind, ms (medians): "
+            + "; ".join(f"rank {i} eager " + ", ".join(f"{k} {v:.4f}"
+                                                      for k, v in r["kind_ms"].items())
+                        + " graphed " + ", ".join(f"{k} {v:.4f}"
+                                                  for k, v in r["graphed_kind_ms"].items())
                         for i, r in enumerate(ranks)))
     return runs, launches
 
@@ -2509,14 +2708,70 @@ def forced_overflow(case, handler):
                 recaptured_capacity=recaptured.capacities)
 
 
-def graphs_phase(cases, scale, smi):
+def index_map_forms(cases, smi):
+    """``compute_face_index_map`` at each (label, face vertices, size) of
+    ``cases`` (phase 15's), eager (``nr.eager()``) and graphed in turns
+    (eager, graphed, graphed, eager; CUDA-event medians of GRAPH_STEPS
+    calls after 3), with the device busy time and operations per call."""
+    out = {}
+    for label, fv, S in cases:
+        def graphed():
+            return nr.compute_face_index_map(fv, S, return_depth=True)
+
+        def eager():
+            with nr.eager():
+                return graphed()
+
+        forms = {"eager": eager, "graphed": graphed}
+        turns = {name: [] for name in forms}
+        for name in ("eager", "graphed", "graphed", "eager"):
+            turns[name].append(median_ms(forms[name], GRAPH_STEPS, warmup=3))
+        out[label] = {}
+        for name, fn in forms.items():
+            prof = profile_device(fn)
+            ms = float(np.median(turns[name]))
+            out[label][name] = dict(turns_ms=turns[name], ms=ms, busy_ms=prof.busy, ops=prof.ops)
+            log(f"[graphs] compute_face_index_map {label} {name}: {ms:.4f} ms (turns "
+                f"{', '.join(f'{t:.4f}' for t in turns[name])}), device busy "
+                + (f"{prof.busy:.4f} ms in {prof.ops:.1f} device operations per call"
+                   if prof.busy else "not measured (the profiler saw no device time)")
+                + f"  ({smi})")
+    return out
+
+
+def sharded_forms(runs, smi):
+    """Phase 16's sharded steps in the graphed core's terms: each run's
+    per-rank eager and graphed step ms and collective ms (medians over the
+    turns), its chain's capture seconds and the operations that stay eager
+    in a replayed step."""
+    out = {}
+    for name, ranks in runs.items():
+        out[name] = [dict(eager_ms=float(np.median(r["ms"])),
+                          graphed_ms=float(np.median(r["graphed_ms"])),
+                          eager_collective_ms=float(np.median(r["coll_ms"])),
+                          graphed_collective_ms=float(np.median(r["graphed_coll_ms"])),
+                          capture_s=r["graphed"]["capture_s"],
+                          eager_device_ops=r["graphed"]["eager_device_ops"])
+                     for r in ranks]
+        log(f"[graphs] sharded {name} {SHARDED[name]}, per rank (eager / graphed ms, their "
+            f"collectives' ms; ops left eager in a replayed step): "
+            + "; ".join(f"rank {i} {r['eager_ms']:.4f} / {r['graphed_ms']:.4f} "
+                        f"({r['eager_collective_ms']:.4f} / {r['graphed_collective_ms']:.4f}; "
+                        f"{r['eager_device_ops']})" for i, r in enumerate(out[name]))
+            + f"  ({smi})")
+    return out
+
+
+def graphs_phase(cases, scale, index_cases, sharded, smi):
     """Phase 20: the compiled core at ``cases`` (bench, atlas, lit: tiled;
     scale, hires: binned), and at bench: int64 faces over 10 steps (one
     capture, one K4 table), an in-place faces edit (a new capture), a fresh
     faces tensor each step (no capture), two views under one loss (a graph
     each), a no_grad render; at ``scale`` = (renderer, vertices, faces): a
     forced overflow (:func:`forced_overflow`) and K7 + K8 over overflow
-    bins timed (:func:`overflow_times`)."""
+    bins timed (:func:`overflow_times`); ``compute_face_index_map`` at
+    phase 15's ``index_cases`` (:func:`index_map_forms`) and phase 16's
+    ``sharded`` runs (:func:`sharded_forms`)."""
     handler = LogLines()
     logger = logging.getLogger(PKG)
     saved = logger.level
@@ -2591,6 +2846,8 @@ def graphs_phase(cases, scale, smi):
         with torch.no_grad():
             fvp = gather_face_vertices(r.transform_vertices(v), f)
         numbers["scale overflow times"] = overflow_times(fvp, r.image_size, smi)
+        numbers["compute_face_index_map"] = index_map_forms(index_cases, smi)
+        numbers["sharded"] = sharded_forms(sharded, smi)
         numbers["checks"] = ("int64 faces: 1 capture, 1 K4 table over 10 steps; an in-place "
                              "edit recaptured; fresh faces each step: eager; two views "
                              "under one loss: 2 graphs; no_grad equal; scale and hires "
@@ -2944,9 +3201,15 @@ def main():
     if not all(index_launches[name] > 0 for name in INDEX_MAP_KERNELS):
         raise AssertionError(f"the id/depth entry missed a kernel: {index_launches}")
     check_k1("id/depth entry", index_launches)
+    # the same calls through the compiled core (out of nr.eager() for it)
+    eagerly.__exit__(None, None, None)
+    index_cases = [(cfg.name, fv, cfg.size) for cfg, fv, _ in entry]
+    index_map_graphed(index_cases, maps)
+    eagerly = nr.eager()
+    eagerly.__enter__()
 
     # 16. sharded rendering (parallel/) on ranks that share this card
-    _, sharded_launches = sharded_runs(dev, smi)
+    sharded, sharded_launches = sharded_runs(dev, smi)
 
     # 16b. the user-facing path: OBJ I/O, examples 1-5 and the convergence
     # fit through their entry points
@@ -3106,7 +3369,7 @@ def main():
                   lambda x: scale_renderer.render_silhouettes(x, faces6), [sphere_v]),
         GraphCase("hires", hires, hires_faces, lambda x: hires.render_silhouettes(x, hires_faces),
                   [sphere_v]),
-    ], (scale_renderer, sphere_v, faces6), smi)
+    ], (scale_renderer, sphere_v, faces6), index_cases, sharded, smi)
 
     log("[routes] resolve ms (tiled, binned) and the rule's route: " + json.dumps(
         {label: [route_ms[label]["tiled"], route_ms[label]["binned"], route_rule[label]]

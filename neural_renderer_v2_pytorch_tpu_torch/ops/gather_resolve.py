@@ -12,7 +12,14 @@ from __future__ import annotations
 
 import torch
 
-from .graphs import bin_faces, note_eager
+from .graphs import (
+    INDEX_MAPS,
+    Graph,
+    bin_faces,
+    cached_graph,
+    note_eager,
+    route,
+)
 from .resolve_cuda import (
     gather_faces3,
     gather_rows,
@@ -199,14 +206,59 @@ def compute_face_index_map(faces, image_size, near=0.1, far=100.0, draw_backside
     :func:`resolve_and_gather`): K2D, or K7 and K8's
     ``resolve_binned_depth``.  The JAX signature's ``face_chunk`` tuning
     knob has no counterpart, so the arguments after ``draw_backside`` are
-    keyword-only."""
+    keyword-only.
+
+    On the card it replays a forward graph per :func:`index_map_signature`
+    (``jax.jit`` with these arguments static, in the JAX package),
+    captured at the signature's second call as a render's is
+    (``ops/graphs.py``); on the binned route its K7 is capped at twice the
+    pair total of the signature's last eager call.  Inside a capture, or a
+    graph's warm-up (the sharded entry's face fold), it runs inline: a
+    binned one there takes its capacity from the last eager call of the
+    same binning (kept on the render's faces record, or on
+    ``graphs.INDEX_MAPS`` outside a render)."""
+    static = index_map_static(faces, image_size, near, far, draw_backside, row_start, num_rows,
+                              mode)
+    how = route(faces, None, None)
+    label = (f"compute_face_index_map bs={faces.shape[0]} nf={faces.shape[1]} "
+             f"image {image_size} rows {row_start}+{num_rows}")
+    graph = None
+    if how == "eager":
+        note_eager("compute_face_index_map (CPU tensors, eager() or plain_versions)", label)
+    elif how == "graph":
+        graph = cached_graph(
+            INDEX_MAPS, index_map_signature(faces, static),
+            lambda min_capacity=0: Graph(lambda f: _index_map(f, *static), [faces], False,
+                                         label, INDEX_MAPS, min_capacity),
+            label)
+    index, depth = _index_map(faces, *static) if graph is None else graph(faces)
+    return (index, depth) if return_depth else index
+
+
+def index_map_static(faces, image_size, near, far, draw_backside, row_start, num_rows, mode):
+    """:func:`compute_face_index_map`'s arguments as the graph holds them:
+    (image size, near, far, draw_backside, row_start, num_rows, route),
+    the route the one ``resolve_route`` picks for ``mode`` and the shapes
+    (a forced route among them)."""
+    rows = image_size if num_rows is None else num_rows
+    return (int(image_size), float(near), float(far), bool(draw_backside), int(row_start),
+            None if num_rows is None else int(num_rows),
+            resolve_route(faces.shape[0], rows, image_size, faces.shape[1], mode))
+
+
+def index_map_signature(faces, static):
+    """The key of a :func:`compute_face_index_map` graph: the input's
+    shape, strides, dtype and device and :func:`index_map_static`'s
+    arguments."""
+    return ("compute_face_index_map", tuple(faces.shape), faces.stride(), faces.dtype,
+            faces.device, static)
+
+
+def _index_map(faces, image_size, near, far, draw_backside, row_start, num_rows, mode):
+    """(index, depth) of [bs, nf, 3, 3] face vertices on the route ``mode``."""
     fvp = faces.detach().permute(0, 3, 2, 1).contiguous()
-    note_eager("compute_face_index_map", f"bs={fvp.shape[0]} nf={fvp.shape[-1]} "
-               f"image {image_size} rows {row_start}+{num_rows}")
     args = (image_size, near, far, row_start, num_rows)
     bins = _binned_inputs(fvp, draw_backside, image_size, row_start, num_rows, mode)
     if bins is not None:
-        index, depth = resolve_binned_depth(fvp, draw_backside, bins, *args)
-    else:
-        index, depth = resolve_depth(fvp, draw_backside, *args)
-    return (index, depth) if return_depth else index
+        return resolve_binned_depth(fvp, draw_backside, bins, *args)
+    return resolve_depth(fvp, draw_backside, *args)

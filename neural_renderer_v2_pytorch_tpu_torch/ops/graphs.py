@@ -29,16 +29,25 @@ call reads it where that replay has finished (no sync), and a graph whose
 replay overflowed is dropped, logged and captured anew at twice the
 capacity (``resolve_cuda.GRAPHS["overflow_recaptures"]``).
 
-The rest runs eagerly: the same kernels in the same order, not a
-fallback.  That is the sharded entry (its collectives),
-``compute_face_index_map``, CPU tensors, :func:`eager` and
-``resolve_cuda.plain_versions``.  Inside a capture of the caller's own (a
-whole optimisation step in a ``torch.cuda.graph``), a render runs its ops
-straight into that graph, as a ``jit`` inside a ``jit`` inlines; a binned
-render there takes its capacity from the last eager render of the same
-faces tensor, image size and rows (the caller's warm-up), and raises
-without one.  A capture or replay that fails raises; nothing reruns
-eagerly in its place.
+Two more entries replay graphs.  ``compute_face_index_map`` (the
+JAX package jits it with its sizes, clip planes, rows and ``return_depth``
+static) is a forward graph per signature, its binned capacity from the
+signature's last eager call (kept on :data:`INDEX_MAPS`).  The sharded
+entry (``_jitted_sharded`` there) is a :class:`Chain` per signature and
+mesh: its collectives cannot be captured (gloo's go through the host),
+so each stretch of the rank's work between two of them is a graph of its
+own, and a replay runs the graphs in turn with each collective run
+eagerly between two.
+
+CPU tensors, :func:`eager` and ``resolve_cuda.plain_versions`` run
+eagerly: the same kernels in the same order, not a fallback.  Inside a
+capture of the caller's own (a whole optimisation step in a
+``torch.cuda.graph``), and inside a graph's own warm-up and capture, a
+render runs its ops straight into that graph, as a ``jit`` inside a
+``jit`` inlines; a binned render there takes its capacity from the last
+eager render of the same faces tensor, image size and rows (the caller's
+warm-up), and raises without one.  A capture or replay that fails
+raises; nothing reruns eagerly in its place.
 
 Connectivity (``faces``) is a constant of a graph, as in the JAX package,
 whose ``_run`` reads concrete faces: the graphs are kept per faces tensor
@@ -139,6 +148,10 @@ class FacesRecord:
 
 # id(faces) -> FacesRecord; a record leaves with its tensor
 _records = {}
+# the record of what runs outside a render, so over no faces tensor:
+# compute_face_index_map's graphs (its input is face vertices) and the
+# totals of the binnings that no render runs
+INDEX_MAPS = FacesRecord(None, None, None)
 # (FacesRecord, signature) -> [Graph], least recently used first; a
 # signature's first call makes its entry with no graph
 _entries = collections.OrderedDict()
@@ -196,13 +209,15 @@ def note_eager(reason, *detail):
 
 def route(vertices, faces, hp):
     """How a render of ``vertices`` [bs, nv, 3] over ``faces`` [nf, 3]
-    with the hyperparameters ``hp`` runs: "graph" (replay a captured
-    graph), "eager", or "inline" (ops into the caller's capture).  Graphs
-    only on the card, outside :func:`eager` and ``plain_versions``, on
-    either resolve route."""
+    with the hyperparameters ``hp`` runs (or ``compute_face_index_map`` of
+    face vertices ``vertices``): "graph" (replay a captured graph),
+    "eager", or "inline" (ops into the capture, or the warm-up, that runs
+    it: the caller's, or a graph's of this module).  Graphs only on the
+    card, outside :func:`eager` and ``plain_versions``, on either resolve
+    route."""
     if _state["eager"] or not vertices.is_cuda or resolve_cuda._route["plain"]:
         return "eager"
-    if capturing():
+    if capturing() or _render["graph"] is not None:
         return "inline"
     return "graph"
 
@@ -250,19 +265,18 @@ def bin_faces(fvp, draw_backside, image_size, row_start=0, num_rows=None):
     faces record.  Inside one, the capped form, which reads nothing back,
     at :func:`bin_capacity` of that total (for a graph of the compiled
     core, at least its ``min_capacity``), and the graph keeps the overflow
-    word.  Raises inside a capture where no eager run of the same binning
-    was kept: a render outside ``rasterize_*`` (``compute_face_index_map``),
-    or a step captured without its warm-up."""
-    record, graph = _render["record"], _render["graph"]
+    word.  Outside a render (``compute_face_index_map``) the totals are
+    kept on :data:`INDEX_MAPS`.  Raises inside a capture where no eager run
+    of the same binning was kept: a step captured without its warm-up."""
+    record, graph = _render["record"] or INDEX_MAPS, _render["graph"]
     # which binning of a render over one faces tensor: the batch and face
     # count, the size and rows (the render's AA and row window), the kill rule
     key = (tuple(fvp.shape), int(image_size), int(row_start), num_rows, bool(draw_backside))
     if not capturing():
         bins = resolve_cuda.bin_faces(fvp, draw_backside, image_size, row_start, num_rows)
-        if record is not None:
-            record.bin_totals[key] = bins[2].shape[0]
+        record.bin_totals[key] = bins[2].shape[0]
         return bins
-    total = None if record is None else record.bin_totals.get(key)
+    total = record.bin_totals.get(key)
     if total is None:
         raise RuntimeError(
             "rasterize: a render on the binned route inside a CUDA graph capture sizes its "
@@ -333,10 +347,18 @@ class _Pending:
     """Held by the autograd node of a replay whose backward has not run."""
 
 
+def _fresh(output):
+    """Copies of a graph's output (a tensor or a tuple of them)."""
+    if isinstance(output, tuple):
+        return tuple(t.clone() for t in output)
+    return output.clone()
+
+
 class Graph:
-    """One captured render: ``fn(*inputs)`` -> one tensor, its forward
-    graph and, when ``grad`` and an input requires grad, its backward graph
-    in the same pool.  ``inputs`` may hold None (absent inputs); the graph
+    """One captured render: ``fn(*inputs)`` -> one tensor (a tuple of them
+    where no backward is captured), its forward graph and, when ``grad``
+    and an input requires grad, its backward graph in the same pool.
+    ``inputs`` may hold None (absent inputs); the graph
     keeps its own copies of the others (static buffers, with the callers'
     ``requires_grad``), and keeps ``fn``, which holds what the graph reads
     and nothing else may keep alive (the faces record, and so K4's table).
@@ -362,6 +384,7 @@ class Graph:
         # the _Pending of the replay whose backward is still to run, weakly
         self._waiting = None
         self.launches = {}
+        self.backward, self.grads = None, ()
         wanted = [self.static[i] for i in self.needs]
         t0 = time.perf_counter()
         # the inputs' card current and a stream of its own, also when
@@ -370,29 +393,7 @@ class Graph:
         with torch.cuda.device(dev):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side), rendering(record, self):
-                # the warm-up builds what the step keeps (K4's table, the
-                # pixel grids, the latch limits, the loaded kernels, the
-                # bins' totals) outside capture
-                out = fn(*self.static)
-                if wanted:
-                    torch.autograd.grad(out, wanted, torch.ones_like(out), allow_unused=True)
-            torch.cuda.current_stream().wait_stream(side)
-            del out
-            self.forward = torch.cuda.CUDAGraph()
-            before = dict(resolve_cuda.LAUNCHES)
-            with torch.cuda.graph(self.forward, stream=side), rendering(record, self):
-                self.output = fn(*self.static)
-            self.launches["forward"] = _since(before)
-            self.backward, self.grads = None, ()
-            if wanted:
-                self.grad_output = torch.empty_like(self.output)
-                self.backward = torch.cuda.CUDAGraph()
-                before = dict(resolve_cuda.LAUNCHES)
-                with torch.cuda.graph(self.backward, pool=self.forward.pool(), stream=side):
-                    self.grads = torch.autograd.grad(self.output, wanted, self.grad_output,
-                                                     allow_unused=True)
-                self.launches["backward"] = _since(before)
+            self._capture(side, record, wanted)
         # the replays' overflow counts, on the host once a replay has finished
         self.overflow_host = self.replayed = None
         if self.overflow_words:
@@ -404,6 +405,35 @@ class Graph:
         log.info("captured %s in %.6f s: %s%s", label, self.seconds,
                  " ".join(f"{k} {v}" for k, v in self.launches.items()),
                  f"; K7 capped at {self.capacities} pair slots" if self.capacities else "")
+
+    def _capture(self, side, record, wanted):
+        fn = self.fn
+        with torch.cuda.stream(side), rendering(record, self):
+            # the warm-up builds what the step keeps (K4's table, the
+            # pixel grids, the latch limits, the loaded kernels, the
+            # bins' totals) outside capture
+            out = fn(*self.static)
+            if wanted:
+                torch.autograd.grad(out, wanted, torch.ones_like(out), allow_unused=True)
+        torch.cuda.current_stream().wait_stream(side)
+        del out
+        self.forward = torch.cuda.CUDAGraph()
+        before = dict(resolve_cuda.LAUNCHES)
+        with torch.cuda.graph(self.forward, stream=side), rendering(record, self):
+            self.output = fn(*self.static)
+        self.launches["forward"] = _since(before)
+        if wanted:
+            self.grad_output = torch.empty_like(self.output)
+            self.backward = torch.cuda.CUDAGraph()
+            before = dict(resolve_cuda.LAUNCHES)
+            with torch.cuda.graph(self.backward, pool=self.forward.pool(), stream=side):
+                self.grads = torch.autograd.grad(self.output, wanted, self.grad_output,
+                                                 allow_unused=True)
+            self.launches["backward"] = _since(before)
+
+    def _replay(self, kind):
+        """Replay the forward or the backward graph."""
+        getattr(self, kind).replay()
 
     @property
     def waiting(self):
@@ -431,7 +461,7 @@ class Graph:
         differentiable where the graph has a backward."""
         if self.backward is None:
             self.replay_forward(inputs)
-            return self.output.clone()
+            return _fresh(self.output)
         return _Replay.apply(self, *inputs)
 
     def replay_forward(self, inputs):
@@ -439,7 +469,7 @@ class Graph:
             for target, t in zip(self._targets, inputs):
                 if target is not None:
                     target.copy_(t)
-        self.forward.replay()
+        self._replay("forward")
         if self.overflow_words:
             for i, word in enumerate(self.overflow_words):
                 self.overflow_host[i:i + 1].copy_(word, non_blocking=True)
@@ -458,13 +488,111 @@ class Graph:
         if self.waiting is token:
             self.waiting = None
         self.grad_output.copy_(grad)
-        self.backward.replay()
+        self._replay("backward")
         resolve_cuda.GRAPHS["backward_replays"] += 1
         out = [None] * len(self.static)
         for i, g in zip(self.needs, self.grads):
             # fresh tensors: AccumulateGrad may adopt one as .grad
             out[i] = None if g is None else g.clone()
         return tuple(out)
+
+
+def drive(steps, gather, segment=None):
+    """Run ``steps`` to its end: a generator that yields the all-gathers
+    its work waits on, each time a list of requests (tensor, process group,
+    kind), and is sent their results (``parallel.collectives``).  A list
+    over groups of one rank each gets its results at once (``t[None]``, no
+    collective); any other ends a stretch of the work: ``segment(i)`` (a
+    context, none by default) is entered around stretch i, and
+    ``gather(requests)`` gives the results.  Returns (the generator's
+    value, [(requests, results)] of each collective between two
+    stretches)."""
+    from ..parallel.collectives import crosses
+
+    cuts, results = [], None
+    while True:
+        with segment(len(cuts)) if segment else contextlib.nullcontext():
+            while True:
+                try:
+                    requests = steps.send(results)
+                except StopIteration as stop:
+                    return stop.value, cuts
+                if crosses(requests):
+                    break
+                results = [t[None] for t, _, _ in requests]
+        results = gather(requests)
+        cuts.append((requests, results))
+
+
+class Chain(Graph):
+    """One captured render that collectives cut (a rank's step of the
+    sharded entry, the counterpart of one ``_jitted_sharded`` program).
+    ``fn`` is a plan: ``fn.forward(*inputs)`` is a generator
+    (:func:`drive`) that returns (output, frame), and ``fn.backward(frame,
+    output, grad_output, wanted)`` one that returns the gradients of
+    ``wanted``.  Each stretch of either between two collectives is one
+    CUDA graph (``segments``), all in one memory pool; a replay runs them
+    in turn and each collective eagerly between two, from the earlier
+    graph's buffer into a buffer the later graph reads (``cuts``).
+
+    Its warm-up stands zeros in for what each collective would return: a
+    rank captures on its own (after an overflow, say), and its warm-up
+    must reach no other rank.  The rest is :class:`Graph`'s: one output,
+    copied; a backward captured when an input takes gradients; K7 capped
+    in any segment."""
+
+    def _capture(self, side, record, wanted):
+        from ..parallel.collectives import gathered_buffers, stand_ins
+
+        plan = self.fn
+        with torch.cuda.stream(side), rendering(record, self):
+            (out, frame), _ = drive(plan.forward(*self.static), stand_ins)
+            if wanted:
+                drive(plan.backward(frame, out, torch.ones_like(out), wanted), stand_ins)
+        torch.cuda.current_stream().wait_stream(side)
+        del out, frame
+        self.pool = torch.cuda.graph_pool_handle()
+        self.segments = {"forward": [], "backward": []}
+        self.cuts = {}
+        # the kernels of each segment, in order
+        self.segment_launches = {"forward": [], "backward": []}
+        before = dict(resolve_cuda.LAUNCHES)
+        with rendering(record, self):
+            (self.output, frame), self.cuts["forward"] = drive(
+                plan.forward(*self.static), gathered_buffers, self._segment("forward", side))
+        self.launches["forward"] = _since(before)
+        if wanted:
+            self.grad_output = torch.empty_like(self.output)
+            before = dict(resolve_cuda.LAUNCHES)
+            self.grads, self.cuts["backward"] = drive(
+                plan.backward(frame, self.output, self.grad_output, wanted), gathered_buffers,
+                self._segment("backward", side))
+            self.launches["backward"] = _since(before)
+            self.backward = self.segments["backward"]
+
+    def _segment(self, kind, side):
+        """The context that captures stretch i of ``kind`` into a graph of
+        its own in the pool; it counts the kernels it holds."""
+        @contextlib.contextmanager
+        def segment(i):
+            graph = torch.cuda.CUDAGraph()
+            before = dict(resolve_cuda.LAUNCHES)
+            with torch.cuda.graph(graph, pool=self.pool, stream=side):
+                yield
+            self.segments[kind].append(graph)
+            self.segment_launches[kind].append(_since(before))
+        return segment
+
+    def _replay(self, kind):
+        from ..parallel.collectives import all_gather
+
+        cuts = self.cuts[kind]
+        for i, graph in enumerate(self.segments[kind]):
+            graph.replay()
+            if i < len(cuts):
+                requests, buffers = cuts[i]
+                for (t, group, what), out in zip(requests, buffers):
+                    all_gather(t, group, what, out=out)
 
 
 def _since(before):

@@ -102,6 +102,17 @@ def compute_channel_maps(vertices, faces, params, hp, render_size, row_start=0,
     winners' coordinates and attributes are then gathered from the whole
     face set in one kernel K9 launch (K3 backward); every rank of the
     group returns the same maps."""
+    from ..parallel.collectives import run
+
+    return run(channel_map_steps(vertices, faces, params, hp, render_size, row_start, num_rows,
+                                 face_group))
+
+
+def channel_map_steps(vertices, faces, params, hp, render_size, row_start=0, num_rows=None,
+                      face_group=None):
+    """:func:`compute_channel_maps` as a generator that yields the face
+    fold's all-gathers (``parallel.faces.face_sharded_steps``; none without
+    ``face_group``)."""
     face_vertices = gather_face_vertices(vertices, faces)       # [bs, 3, 3, nf]
     attrs = (face_attributes(vertices, faces, face_vertices, params)
              if hp.draw_rgb else None)
@@ -113,11 +124,11 @@ def compute_channel_maps(vertices, faces, params, hp, render_size, row_start=0,
             row_start, num_rows,
         )
     else:
-        from ..parallel.faces import compute_face_index_map_face_sharded
+        from ..parallel.faces import face_sharded_steps
 
         # [bs, nf, 3 (vertex), 3 (coord)]: column 3 * vertex + coord below
         fv = face_vertices.permute(0, 3, 2, 1)
-        face_index_map = compute_face_index_map_face_sharded(
+        face_index_map = yield from face_sharded_steps(
             fv.detach(), render_size, hp.near, hp.far, hp.draw_backside,
             row_start=row_start, num_rows=num_rows, group=face_group,
         )

@@ -46,9 +46,11 @@ def _host_staged(t, group):
     return staged
 
 
-def all_gather(t, group, kind):
+def all_gather(t, group, kind, out=None):
     """``t`` of every rank of ``group``, stacked in group rank order:
-    [n, *t.shape].  Every rank passes a tensor of the same shape."""
+    [n, *t.shape] (written into ``out`` when given, a buffer of that shape
+    that a compiled core's graph reads).  Every rank passes a tensor of the
+    same shape."""
     if dist.get_world_size(group) == 1:
         return t[None]
     staged = _host_staged(t, group)
@@ -56,12 +58,47 @@ def all_gather(t, group, kind):
     src = t.cpu() if staged else t.contiguous()
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
-    out = torch.stack(parts)
-    if staged:
-        out = out.to(t.device)
+    stacked = torch.stack(parts)
+    if out is not None:
+        out.copy_(stacked)
+    else:
+        out = stacked.to(t.device) if staged else stacked
     COLLECTIVE_SECONDS[kind] += time.perf_counter() - t0
     COLLECTIVES[kind] += 1
     return out
+
+
+def crosses(requests):
+    """Whether any all-gather of ``requests`` [(tensor, group, kind)]
+    reaches another rank."""
+    return any(dist.get_world_size(group) > 1 for _, group, _ in requests)
+
+
+def gather_all(requests):
+    """The all-gathers of ``requests`` [(tensor, group, kind)], in order."""
+    return [all_gather(t, group, kind) for t, group, kind in requests]
+
+
+def run(steps):
+    """The value of ``steps``, a generator that yields the all-gathers its
+    work waits on (``ops.graphs.drive``), each run here as it comes."""
+    from ..ops.graphs import drive
+
+    return drive(steps, gather_all)[0]
+
+
+def gathered_buffers(requests):
+    """Buffers [n, *t.shape] for the results of ``requests``, which a
+    captured graph reads and each replay's all-gather fills."""
+    return [t.new_empty((dist.get_world_size(group),) + tuple(t.shape))
+            for t, group, _ in requests]
+
+
+def stand_ins(requests):
+    """Zeros in the place of the results of ``requests``: a graph's warm-up
+    runs its work without reaching the other ranks."""
+    return [t.new_zeros((dist.get_world_size(group),) + tuple(t.shape))
+            for t, group, _ in requests]
 
 
 def all_reduce_sum(t, group, kind):

@@ -22,7 +22,7 @@ import torch.distributed as dist
 
 from ..ops.gather_resolve import compute_face_index_map
 from ..ops.resolve import DEPTH_MIN_DELTA
-from .collectives import all_gather
+from .collectives import run
 
 
 def ordered_z_combine(depth_index_pairs):
@@ -39,6 +39,26 @@ def ordered_z_combine(depth_index_pairs):
     return d, i
 
 
+def face_sharded_steps(face_vertices, image_size, near=0.1, far=100.0, draw_backside=True, *,
+                       row_start=0, num_rows=None, group=None, return_depth=False):
+    """:func:`compute_face_index_map_face_sharded` as a generator that
+    yields its two all-gathers (``parallel.collectives.run``): the rank's
+    resolve before them, the fold after, so that a compiled core captures
+    each side in a graph of its own."""
+    per = -(-face_vertices.shape[1] // dist.get_world_size(group))
+    start = dist.get_rank(group) * per
+    local = face_vertices.detach()[:, start:start + per]
+    if local.shape[1] < per:
+        local = torch.nn.functional.pad(local, (0, 0, 0, 0, 0, per - local.shape[1]))
+    index, depth = compute_face_index_map(local, image_size, near, far, draw_backside,
+                                          row_start=row_start, num_rows=num_rows,
+                                          return_depth=True)
+    index = torch.where(index >= 0, index + start, -1)
+    depths, indices = yield [(depth, group, "face_all_gather"), (index, group, "face_all_gather")]
+    depth, index = ordered_z_combine((depths, indices))
+    return (index, depth) if return_depth else index
+
+
 def compute_face_index_map_face_sharded(face_vertices, image_size, near=0.1, far=100.0,
                                         draw_backside=True, *, row_start=0, num_rows=None,
                                         group=None, return_depth=False):
@@ -50,20 +70,11 @@ def compute_face_index_map_face_sharded(face_vertices, image_size, near=0.1, far
     resolves its contiguous range of ``ceil(nf / n)`` faces, the last range
     padded with zero faces (degenerate, so the kill rule drops them) as the
     JAX package pads, through :func:`compute_face_index_map` (K2D, or K7
-    and K8's id/depth form).  The ranks' maps are all-gathered and folded
-    with :func:`ordered_z_combine`.  Returns the combined int32 map
-    [bs, num_rows, S] of global face ids, the same on every rank, and with
-    ``return_depth`` its depth too.  Non-differentiable."""
-    per = -(-face_vertices.shape[1] // dist.get_world_size(group))
-    start = dist.get_rank(group) * per
-    local = face_vertices.detach()[:, start:start + per]
-    if local.shape[1] < per:
-        local = torch.nn.functional.pad(local, (0, 0, 0, 0, 0, per - local.shape[1]))
-    index, depth = compute_face_index_map(local, image_size, near, far, draw_backside,
-                                          row_start=row_start, num_rows=num_rows,
-                                          return_depth=True)
-    index = torch.where(index >= 0, index + start, -1)
-    depths = all_gather(depth, group, "face_all_gather")
-    indices = all_gather(index, group, "face_all_gather")
-    depth, index = ordered_z_combine((depths, indices))
-    return (index, depth) if return_depth else index
+    and K8's id/depth form; a graph of its own on the card).  The ranks'
+    maps are all-gathered and folded with :func:`ordered_z_combine`.
+    Returns the combined int32 map [bs, num_rows, S] of global face ids,
+    the same on every rank, and with ``return_depth`` its depth too.
+    Non-differentiable."""
+    return run(face_sharded_steps(face_vertices, image_size, near, far, draw_backside,
+                                  row_start=row_start, num_rows=num_rows, group=group,
+                                  return_depth=return_depth))

@@ -32,6 +32,18 @@ images.  Each rank:
 Every collective goes through ``parallel.collectives`` (gloo staged
 through host memory, or NCCL as it is); a rank whose band is empty still
 joins each one, in the same order as the others.
+
+On the card the entry points replay the rank's compiled core (the
+counterpart of ``_jitted_sharded``, one program per hyperparameters and
+mesh there): a ``graphs.Chain`` per signature, mesh and faces tensor,
+whose plan is :class:`RankStep`.  The collectives cannot be captured
+(gloo's go through the host), so each stretch of the rank's device work
+between two of them is a CUDA graph: the forward up to the face fold's
+all-gathers and after them, the backward up to the halo exchange and
+after it; the gradients' all-reduce and the images' all-gather stay
+around the chain, in :class:`_SumGradients` and :class:`_GatherImages`.
+The first call of a signature, CPU tensors, ``nr.eager()`` and
+``plain_versions`` run eagerly, through the same steps.
 """
 
 from __future__ import annotations
@@ -46,12 +58,16 @@ from ..ops import graphs
 from ..ops.rasterize import (
     RasterizeHyperparam,
     RasterizeParam,
+    _graph_inputs,
+    _label,
+    _with_inputs,
+    channel_map_steps,
     check_inputs,
-    compute_channel_maps,
     finalize_images,
+    graph_signature,
     make_backgrounds,
 )
-from .collectives import all_gather, all_reduce_sum
+from .collectives import all_gather, all_reduce_sum, run
 
 
 class _SumGradients(torch.autograd.Function):
@@ -142,8 +158,8 @@ def _band_edges(images, grad):
     bs, c, rows, w = images.shape
     if not rows:
         return images.new_zeros(bs, 2 * c, 2, w)
-    ends = [0, rows - 1]
-    return torch.cat([images[:, :, ends], grad[:, :, ends]], 1)
+    # by slices: a list of rows would be copied from the host
+    return torch.cat([torch.cat([t[:, :, :1], t[:, :, -1:]], 2) for t in (images, grad)], 1)
 
 
 def _band_grad(images, grad, halo, tile, rows, render_size):
@@ -219,6 +235,68 @@ class _GatherImages(torch.autograd.Function):
         return grad[b0:b0 + bl, :, top:top + n], None, None, None, None
 
 
+def _band_hook(mesh, tile, rows, render_size):
+    """The NMR hook on this rank's band (:class:`_BandDifferentiation`)."""
+    def hook(images, coordinates):
+        return _BandDifferentiation.apply(images, coordinates, mesh.groups["tile"], tile, rows,
+                                          render_size)
+    return hook
+
+
+def _rank_steps(vertices, faces, params, hp, mesh, hook):
+    """A rank's forward from the global inputs to its finished band [bl, C,
+    rows', W] (its batch slice, its rows of the image), as a generator
+    that yields the face fold's all-gathers (``ops.graphs.drive``): the
+    data slice, the band's channel maps (its face range folded across
+    ``face``), the background blend, ``hook`` and the flip and pool."""
+    bs = vertices.shape[0]
+    n_data, n_tile, n_face = (mesh.shape[a] for a in ("data", "tile", "face"))
+    render_size = hp.image_size * 2 if hp.anti_aliasing else hp.image_size
+    rows = band_rows(hp.image_size, hp.anti_aliasing, n_tile)
+    tile = mesh.coords["tile"]
+    row_start, real = tile * rows, _real_rows(render_size, rows, tile)
+    bl = bs // n_data
+    mine = slice(mesh.coords["data"] * bl, (mesh.coords["data"] + 1) * bl)
+    local_vertices, local_params = _map_local_inputs(
+        vertices, params, lambda t: t[mine] if t.ndim and t.shape[0] == bs else t)
+    maps = yield from channel_map_steps(
+        local_vertices, faces, local_params, hp, render_size, row_start=row_start,
+        num_rows=rows, face_group=mesh.groups["face"] if n_face > 1 else None)
+    images, coordinate_map, foreground = (m[:, :, :real] for m in maps)
+    backgrounds = make_backgrounds(params, bs, render_size, vertices.device)
+    if backgrounds is not None:
+        backgrounds = _band_backgrounds(backgrounds[mine], render_size, row_start, real)
+    return finalize_images(images, coordinate_map, foreground, backgrounds, hp, hook)
+
+
+def _check(vertices, faces, params, hp, mesh):
+    check_inputs(vertices, faces, params, hp)
+    if vertices.shape[0] % mesh.shape["data"]:
+        raise ValueError(f"batch {vertices.shape[0]} does not divide over "
+                         f"data={mesh.shape['data']}")
+
+
+def _core(vertices, faces, params, hp, mesh, chain=None):
+    """The sharded render of checked inputs: the gradients' all-reduce
+    around the rank's step, which ``chain`` (a :class:`graphs.Chain` of
+    this call's signature) replays where given, else runs eagerly; then
+    the finished bands' all-gather."""
+    n_data, n_tile, n_face = (mesh.shape[a] for a in ("data", "tile", "face"))
+    if n_data * n_tile * n_face > 1:
+        vertices, params = _sum_gradients_over(vertices, params, mesh.groups["all"],
+                                               mesh.coords["face"] == 0)
+    render_size = hp.image_size * 2 if hp.anti_aliasing else hp.image_size
+    rows = band_rows(hp.image_size, hp.anti_aliasing, n_tile)
+    if chain is None:
+        band = run(_rank_steps(vertices, faces, params, hp, mesh,
+                               _band_hook(mesh, mesh.coords["tile"], rows, render_size)))
+    else:
+        band = chain(*_graph_inputs(vertices, params)[0])
+    pool = 2 if hp.anti_aliasing else 1
+    counts = [_real_rows(render_size, rows, t) // pool for t in range(n_tile)]
+    return _GatherImages.apply(band, mesh.groups["cells"], n_data, counts, mesh.coords)
+
+
 def rasterize_core_sharded(vertices, faces, params, hyperparams, mesh):
     """Sharded ``ops.rasterize.rasterize_core`` over ``mesh``
     (``parallel.mesh.make_mesh``): [bs, C, H, W] images, the same on every
@@ -226,49 +304,94 @@ def rasterize_core_sharded(vertices, faces, params, hyperparams, mesh):
     ``faces`` [nf, 3] int32 and ``params`` are the global inputs, the same
     on every rank; batch-major parameters (texel coordinates, textures,
     backgrounds, light tensors whose first dimension is bs) are sliced over
-    ``data``."""
-    hp = hyperparams
-    check_inputs(vertices, faces, params, hp)
-    bs = vertices.shape[0]
-    n_data, n_tile, n_face = (mesh.shape[a] for a in ("data", "tile", "face"))
-    if bs % n_data:
-        raise ValueError(f"batch {bs} does not divide over data={n_data}")
-    render_size = hp.image_size * 2 if hp.anti_aliasing else hp.image_size
-    rows = band_rows(hp.image_size, hp.anti_aliasing, n_tile)
-    tile = mesh.coords["tile"]
-    row_start, real = tile * rows, _real_rows(render_size, rows, tile)
-    bl = bs // n_data
-    mine = slice(mesh.coords["data"] * bl, (mesh.coords["data"] + 1) * bl)
-    if n_data * n_tile * n_face > 1:
-        vertices, params = _sum_gradients_over(vertices, params, mesh.groups["all"],
-                                               mesh.coords["face"] == 0)
-    local_vertices, local_params = _map_local_inputs(
-        vertices, params, lambda t: t[mine] if t.ndim and t.shape[0] == bs else t)
-    images, coordinate_map, foreground = (m[:, :, :real] for m in compute_channel_maps(
-        local_vertices, faces, local_params, hp, render_size,
-        row_start=row_start, num_rows=rows,
-        face_group=mesh.groups["face"] if n_face > 1 else None,
-    ))
-    backgrounds = make_backgrounds(params, bs, render_size, vertices.device)
-    if backgrounds is not None:
-        backgrounds = _band_backgrounds(backgrounds[mine], render_size, row_start, real)
-    def hook(images, coordinates):
-        return _BandDifferentiation.apply(images, coordinates, mesh.groups["tile"], tile, rows,
-                                          render_size)
+    ``data``.  Runs eagerly (the entry points replay graphs)."""
+    _check(vertices, faces, params, hyperparams, mesh)
+    return _core(vertices, faces, params, hyperparams, mesh)
 
-    band = finalize_images(images, coordinate_map, foreground, backgrounds, hp, hook)
-    pool = 2 if hp.anti_aliasing else 1
-    counts = [_real_rows(render_size, rows, t) // pool for t in range(n_tile)]
-    return _GatherImages.apply(band, mesh.groups["cells"], n_data, counts, mesh.coords)
+
+class RankStep:
+    """A rank's step of the sharded entry as a :class:`graphs.Chain` plan
+    (the counterpart of the program ``_jitted_sharded`` compiles for one
+    device of the mesh).  ``forward(*inputs)`` (``rasterize._graph_inputs``'
+    order) runs :func:`_rank_steps` with the NMR hook cut out: its images
+    and coordinate map are kept in the frame, and the flip and pool start
+    from a detached copy of the images.  ``backward`` takes the band's
+    cotangent through the flip and pool, exchanges the band edges (the
+    halo, over ``tile``), and takes the hook's outputs' cotangents, the
+    coordinate gradient of :func:`_band_grad` among them, to the inputs.
+    Collectives cut the forward at the face fold (face > 1) and the
+    backward at the halo (tile > 1): between them every operation is the
+    rank's own device work."""
+
+    def __init__(self, faces, params, color, hp, mesh):
+        self.faces, self.params, self.color, self.hp, self.mesh = faces, params, color, hp, mesh
+        self.render_size = hp.image_size * 2 if hp.anti_aliasing else hp.image_size
+        self.rows = band_rows(hp.image_size, hp.anti_aliasing, mesh.shape["tile"])
+
+    def forward(self, *inputs):
+        vertices, params = _with_inputs(self.params, inputs, self.color)
+        frame = {}
+
+        def cut(images, coordinates):
+            # the hook's output takes gradients where either input does
+            # (silhouettes: the coordinates alone)
+            wanted = images.requires_grad or coordinates.requires_grad
+            frame.update(images=images, coordinates=coordinates,
+                         hooked=images.detach().requires_grad_(wanted))
+            return frame["hooked"]
+
+        band = yield from _rank_steps(vertices, self.faces, params, self.hp, self.mesh, cut)
+        return band, frame
+
+    def backward(self, frame, band, grad, wanted):
+        images, coordinates, hooked = frame["images"], frame["coordinates"], frame["hooked"]
+        if not hooked.requires_grad:
+            return (None,) * len(wanted)
+        (g,) = torch.autograd.grad(band, hooked, grad)
+        (halo,) = yield [(_band_edges(images, g), self.mesh.groups["tile"], "halo_exchange")]
+        coordinate_grad = _band_grad(images, g, halo, self.mesh.coords["tile"], self.rows,
+                                     self.render_size)
+        outputs = [(t, c) for t, c in ((images, g), (coordinates, coordinate_grad))
+                   if t.requires_grad]
+        return torch.autograd.grad([t for t, _ in outputs], wanted, [c for _, c in outputs],
+                                   allow_unused=True)
+
+
+def sharded_signature(vertices, params, hp, mesh):
+    """The key of a rank's :class:`graphs.Chain` over its faces (the
+    counterpart of ``_jitted_sharded``'s ``lru_cache(hyperparams, mesh)``
+    and what its ``jax.jit`` specialises on): the single-device render's
+    (``rasterize.graph_signature``), the mesh's shape, this rank's
+    coordinates and its process groups.  Also returns the chain's inputs
+    and the background colour as floats."""
+    signature, tensors, color = graph_signature(vertices, params, hp)
+    mesh_key = (tuple(mesh.shape.items()), tuple(mesh.coords.items()),
+                tuple(mesh.groups.items()))
+    return (signature, mesh_key), tensors, color
 
 
 def _run(vertices, faces, params, hp, mesh):
     params = RasterizeParam() if params is None else params
-    # eager: a CUDA graph cannot hold the collectives (gloo's go through the
-    # host); the int32 faces are kept per faces tensor, as the
-    # single-device entry keeps them
-    graphs.note_eager("sharded entry (its collectives)", hp, tuple(mesh.shape.items()))
-    return rasterize_core_sharded(vertices, graphs.faces_record(faces).faces, params, hp, mesh)
+    _check(vertices, faces, params, hp, mesh)
+    how = graphs.route(vertices, faces, hp)
+    # the int32 faces are kept per faces tensor, as the single-device entry
+    # keeps them, and the rank's graphs with them
+    record = graphs.faces_record(faces)
+    chain = None
+    if how == "eager":
+        graphs.note_eager("sharded entry (CPU tensors, eager() or plain_versions)", hp,
+                          tuple(mesh.shape.items()))
+    elif how == "graph":
+        signature, tensors, color = sharded_signature(vertices, params, hp, mesh)
+        label = (f"sharded {_label(vertices, faces, hp)} mesh "
+                 f"{tuple(mesh.shape.values())} at {tuple(mesh.coords.values())}")
+        chain = graphs.cached_graph(
+            record, signature,
+            lambda min_capacity=0: graphs.Chain(
+                RankStep(record.faces, params, color, hp, mesh), tensors,
+                torch.is_grad_enabled(), label, record, min_capacity),
+            label)
+    return _core(vertices, record.faces, params, hp, mesh, chain)
 
 
 def rasterize_silhouettes_sharded(vertices, faces, params=None,

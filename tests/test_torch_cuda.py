@@ -1168,3 +1168,159 @@ def test_caller_capture_of_a_binned_step_without_warm_up_raises(cuda, fresh_cach
     with rc.forced_route("binned"), pytest.raises(RuntimeError, match="before capturing"):
         with torch.cuda.graph(graph):
             r.render_silhouettes(x, faces)
+
+
+# the sharded entry's chains and compute_face_index_map's graphs
+
+
+def _sharded_turns(shape, image_size, scene):
+    """One rank of a ``shape`` mesh on the card: for silhouettes and lit
+    RGBA, the eager sharded step (``nr.eager()``) and four steps through
+    the compiled core (the first eager, the second capturing the chain, the
+    later ones replaying it): each step's images and gradients, the graph
+    counters, and the kernels launched eagerly in the last step."""
+    from neural_renderer_v2_pytorch_tpu_torch import parallel
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = parallel.make_mesh(*shape)
+    ndc, f, vt, ft, tex, lights = scene
+    faces = torch.tensor(f, device=dev)
+    cls = {"ambient": nr.AmbientLight, "directional": nr.DirectionalLight,
+           "specular": nr.SpecularLight}
+    hp = nr.RasterizeHyperparam(image_size=image_size)
+    out = {}
+    for entry in ("silhouettes", "rgba"):
+        def step():
+            x = torch.tensor(ndc, device=dev, requires_grad=True)
+            grads = {"vertices": x}
+            params = None
+            if entry == "rgba":
+                t = torch.tensor(tex, device=dev, requires_grad=True)
+                ls = tuple(cls[k](**{n: torch.tensor(a, device=dev, requires_grad=n == "color")
+                                     for n, a in arrays.items()}) for k, arrays in lights)
+                grads.update(textures=t, **{f"light{i}": l.color for i, l in enumerate(ls)})
+                params = nr.RasterizeParam(vertices_textures=torch.tensor(vt, device=dev),
+                                           faces_textures=torch.tensor(ft, device=dev),
+                                           textures=t, texture_size=2, lights=ls)
+            images = getattr(parallel, f"rasterize_{entry}_sharded")(x, faces, params, hp,
+                                                                     mesh=mesh)
+            torch.sum(images * images).backward()
+            return images.detach().cpu().numpy(), {k: v.grad.cpu().numpy()
+                                                   for k, v in grads.items()}
+
+        with nr.eager():
+            want = step()
+        # each entry from an empty cache: the face fold's own
+        # compute_face_index_map signature is the same for both entries
+        graphs._entries.clear()
+        rc.reset_launches()
+        steps = [step() for _ in range(3)]
+        counted = dict(rc.GRAPHS)
+        rc.reset_launches()
+        steps.append(step())
+        out[entry] = dict(want=want, steps=steps, graphs=counted,
+                          replay_graphs=dict(rc.GRAPHS),
+                          replay_launches={k: n for k, n in rc.LAUNCHES.items() if n})
+    return out
+
+
+@pytest.mark.parametrize("shape,image_size", [((1, 2, 1), 64), ((1, 1, 2), 64),
+                                              ((1, 8, 1), 12)])
+def test_sharded_chain_replays_the_eager_sharded_step(cuda, shape, image_size):
+    """Gloo ranks share the card on a row axis (2 bands; 8 bands of 4 rows
+    at 12^2 AA, the last two empty) or a face axis of 2: the compiled
+    core's chain of graphs (captured at the second call, replayed from
+    then on, the collectives run between the replays) gives the eager
+    sharded step's images, its gradients within 1e-4 of their largest
+    magnitude and the same bits on every rank; a replayed step launches no
+    kernel eagerly."""
+    from neural_renderer_v2_pytorch_tpu_torch import parallel
+
+    v, f, vt, ft, tex = texel_scene(16, 12, 2)
+    r = nr.Renderer("cpu")
+    r.viewpoints = nr.get_points_from_angles(2.732, 30, 20)
+    ndc = r.transform_vertices(torch.tensor(v[None])).detach().numpy()
+    scene = (ndc, f, vt, ft, tex, lit_light_arrays())
+    ranks = parallel.run_ranks(_sharded_turns, int(np.prod(shape)), (shape, image_size, scene),
+                               device="cuda", backend="gloo", timeout=240.0)
+    for entry in ("silhouettes", "rgba"):
+        for rank in ranks:
+            got = rank[entry]
+            want_images, want = got["want"]
+            for step, (images, grads) in enumerate(got["steps"]):
+                assert np.array_equal(images, want_images)
+                for k, g in grads.items():
+                    assert np.abs(want[k]).max() > 0, k
+                    np.testing.assert_allclose(g, want[k], rtol=0,
+                                               atol=1e-4 * np.abs(want[k]).max())
+                    # one all-reduce hands every rank the same bits
+                    assert np.array_equal(g, ranks[0][entry]["steps"][step][1][k])
+            assert got["graphs"]["captures"] == 1, got["graphs"]
+            assert got["graphs"]["forward_replays"] == 2 == got["graphs"]["backward_replays"]
+            assert got["replay_graphs"]["forward_replays"] == 1, got["replay_graphs"]
+            assert got["replay_launches"] == {}, got["replay_launches"]
+
+
+def _index_graphs():
+    return [g for (record, _), kept in graphs._entries.items() if record is graphs.INDEX_MAPS
+            for g in kept]
+
+
+@pytest.mark.parametrize("mode", ["tiled", "binned"])
+def test_index_map_replays_its_graph_to_the_eager_bits(cuda, fresh_cache, mode):
+    """compute_face_index_map on the card: the first call eager, the second
+    captures a forward graph (K2D, or K7 capped and K8's id/depth form),
+    every later call replays it; ids and depth bit-equal to the eager
+    entry's, windows too, and fresh tensors each call."""
+    rng = np.random.RandomState(9)
+    fv = rng.uniform(-1, 1, (2, 300, 3, 3)).astype(np.float32)
+    fv[..., 2] = np.abs(fv[..., 2]) + 0.1
+    x = torch.tensor(fv, device=cuda)
+    for window in ((0, None), (24, 40)):
+        kw = dict(row_start=window[0], num_rows=window[1], return_depth=True, mode=mode)
+        with nr.eager():
+            want = nr.compute_face_index_map(x, 100, **kw)
+        rc.reset_launches()
+        got = [nr.compute_face_index_map(x, 100, **kw) for _ in range(4)]
+        assert rc.GRAPHS["captures"] == 1 and rc.GRAPHS["forward_replays"] == 3, rc.GRAPHS
+        for index, depth in got:
+            assert torch.equal(index, want[0]) and torch.equal(depth, want[1])
+        assert got[2][0].data_ptr() != got[3][0].data_ptr()
+        kernel = "resolve_depth" if mode == "tiled" else "resolve_binned_depth"
+        graph = _index_graphs()[-1]
+        assert graph.launches["forward"].get(kernel) == 1, graph.launches
+        assert graph.launches["forward"].get("bin_faces", 0) == (mode == "binned")
+        moved = nr.compute_face_index_map(x * 1.01, 100, **kw)
+        with nr.eager():
+            assert torch.equal(moved[0], nr.compute_face_index_map(x * 1.01, 100, **kw)[0])
+
+
+def test_index_map_overflow_recaptures(cuda, fresh_cache):
+    """A binned compute_face_index_map graph captured with a quarter of its
+    pair total's slots gives the eager bits over overflow bins, reports them
+    once its replay has finished, and the next call captures anew at twice
+    the capacity."""
+    rng = np.random.RandomState(11)
+    fv = rng.uniform(-1, 1, (1, 400, 3, 3)).astype(np.float32)
+    fv[..., 2] = np.abs(fv[..., 2]) + 0.1
+    x = torch.tensor(fv, device=cuda)
+    kw = dict(return_depth=True, mode="binned")
+    with nr.eager():
+        want = nr.compute_face_index_map(x, 128, **kw)
+    rc.reset_launches()
+    nr.compute_face_index_map(x, 128, **kw)                     # eager, keeps the total
+    total = graphs.INDEX_MAPS.bin_totals[((1, 3, 3, 400), 128, 0, None, True)]
+    with graphs.forced_capacity(total // 4):
+        got = nr.compute_face_index_map(x, 128, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    torch.cuda.synchronize()
+    (graph,) = _index_graphs()
+    assert graph.capacities == [total // 4] and graph.overflowed() > 0
+    got = nr.compute_face_index_map(x, 128, **kw)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert rc.GRAPHS["overflow_recaptures"] == 1 and rc.GRAPHS["captures"] == 2
+    (again,) = _index_graphs()
+    assert again is not graph and again.capacities[0] >= 2 * (total // 4)
+    nr.compute_face_index_map(x, 128, **kw)
+    torch.cuda.synchronize()
+    assert again.overflowed() == 0

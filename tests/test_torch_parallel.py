@@ -200,7 +200,134 @@ def _rank_body(jobs):
         out[name] = dict(
             image=images.detach().numpy(), grads={k: v.grad.numpy() for k, v in t.items()},
             forward=forward, step=dict(parallel.COLLECTIVES), launches=dict(rc.LAUNCHES),
-            coords=mesh.coords, index=_band_index_map(arrays, cfg, mesh).numpy(), nmr=seen)
+            coords=mesh.coords, index=_band_index_map(arrays, cfg, mesh).numpy(), nmr=seen,
+            segmented=_segmented_runs(cfg, arrays, mesh))
+    return out
+
+
+# --- the rank's step as its compiled core holds it ------------------------
+
+
+ENTRY_FLAGS = {"silhouettes": (False, True, False), "rgba": (True, True, False),
+               "rgb": (True, False, False), "depth": (False, False, True)}
+
+
+class _SegmentedReplay(torch.autograd.Function):
+    """A stand-in for a rank's ``graphs.Chain`` on the CPU: the same plan
+    (``parallel.render.RankStep``) on copies of the inputs, each stretch
+    between two collectives entered through ``segment`` (the chain's
+    capture, here the host watch), the collectives run between, and the
+    backward joined to the forward as a replay joins them."""
+
+    @staticmethod
+    def forward(ctx, plan, segment, *inputs):
+        from neural_renderer_v2_pytorch_tpu_torch.ops import graphs
+        from neural_renderer_v2_pytorch_tpu_torch.parallel.collectives import gather_all
+
+        ctx.static = [None if t is None else t.detach().clone().requires_grad_(t.requires_grad)
+                      for t in inputs]
+        ctx.plan, ctx.segment, ctx.segments = plan, segment, {}
+        with torch.enable_grad():
+            (ctx.band, ctx.frame), cuts = graphs.drive(plan.forward(*ctx.static), gather_all,
+                                                       segment)
+        ctx.segments["forward"] = len(cuts) + 1
+        plan.segments = ctx.segments
+        return ctx.band.detach().clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        from neural_renderer_v2_pytorch_tpu_torch.ops import graphs
+        from neural_renderer_v2_pytorch_tpu_torch.parallel.collectives import gather_all
+
+        wanted = [t for t in ctx.static if t is not None and t.requires_grad]
+        grads, cuts = graphs.drive(ctx.plan.backward(ctx.frame, ctx.band, grad, wanted),
+                                   gather_all, ctx.segment)
+        ctx.segments["backward"] = len(cuts) + 1
+        grads = iter(grads)
+        return (None, None, *(next(grads) if t is not None and t.requires_grad else None
+                              for t in ctx.static))
+
+
+def _segmented_step(cfg, arrays, mesh, faces, segment):
+    """(images, {leaf: gradient}, the step's collectives, the segments of
+    each direction) of the sharded entry's step over ``faces`` with its
+    rank's work run through :class:`_SegmentedReplay`, as
+    ``parallel.render._run`` runs it through a chain on the card."""
+    from neural_renderer_v2_pytorch_tpu_torch.ops import graphs
+    from neural_renderer_v2_pytorch_tpu_torch.parallel import render
+
+    t, x, _, params = _port_inputs(arrays, cfg)
+    params = tnr.RasterizeParam() if params is None else params
+    rgb, silhouettes, depth = ENTRY_FLAGS[cfg.entry]
+    hp = tnr.RasterizeHyperparam(image_size=cfg.image_size, anti_aliasing=cfg.anti_aliasing,
+                                 draw_rgb=rgb, draw_silhouettes=silhouettes, draw_depth=depth)
+    record = graphs.faces_record(faces)
+    _, _, color = render.sharded_signature(x, params, hp, mesh)
+    plan = render.RankStep(record.faces, params, color, hp, mesh)
+
+    def chain(*inputs):
+        with graphs.rendering(record):
+            return _SegmentedReplay.apply(plan, segment, *inputs)
+
+    parallel.reset_collectives()
+    images = render._core(x, record.faces, params, hp, mesh, chain)
+    if cfg.entry in ("silhouettes", "depth"):
+        images = images[:, 0]
+    _weighted_sum(images, arrays["weight"]).backward()
+    return (images.detach().numpy(), {k: v.grad.numpy() for k, v in t.items()},
+            dict(parallel.COLLECTIVES), plan.segments)
+
+
+@contextlib.contextmanager
+def _capturing():
+    """``graphs.capturing`` true: the step's host numbers filled on the
+    device and K7 in its capped form, as in a capture."""
+    from neural_renderer_v2_pytorch_tpu_torch.ops import graphs
+
+    saved = graphs.capturing
+    graphs.capturing = lambda: True
+    try:
+        yield
+    finally:
+        graphs.capturing = saved
+
+
+def _segmented_runs(cfg, arrays, mesh):
+    """The segmented step once to warm up (the per-faces constants, the
+    binnings' totals), then as a capture holds it, each segment under the
+    host watch; with a face axis, again on the binned route, K7's capped
+    capacities taken from the warm-up recorded.  Returns what the parent
+    checks."""
+    import torch_host_watch as watch
+
+    from neural_renderer_v2_pytorch_tpu_torch.ops import graphs
+
+    faces, seen = torch.tensor(arrays["faces"]), []
+    with watch.plain_unwatched():
+        _segmented_step(cfg, arrays, mesh, faces, None)
+        with _capturing():
+            image, grads, census, segments = _segmented_step(
+                cfg, arrays, mesh, faces, lambda i: watch.watching(seen))
+    out = dict(image=image, grads=grads, census=census, segments=segments, seen=seen)
+    if mesh.shape["face"] > 1:
+        capacities = []
+        bin_faces = rc.bin_faces
+
+        def spy(*args, **kw):
+            if kw.get("capacity") is not None:
+                capacities.append(kw["capacity"])
+            return bin_faces(*args, **kw)
+
+        rc.bin_faces = spy
+        try:
+            with rc.forced_route("binned"):
+                _segmented_step(cfg, arrays, mesh, faces, None)
+                with _capturing():
+                    binned = _segmented_step(cfg, arrays, mesh, faces, None)[0]
+        finally:
+            rc.bin_faces = bin_faces
+        totals = graphs.faces_record(faces).bin_totals
+        out.update(binned=binned, capacities=capacities, totals=totals)
     return out
 
 
@@ -427,6 +554,63 @@ def test_sharded_path_runs_its_kernels_plain_versions(spawned, name):
     on the face path (the winner gather) or off it."""
     for r in _ranks(spawned, name):
         assert all(n == 0 for n in r["launches"].values()), r["launches"]
+
+
+FACE_CONFIGS = sorted(n for n, c in CONFIGS.items() if c.shape[2] > 1)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_segmented_step_matches_the_eager_step(spawned, name):
+    """The rank's step cut at its collectives into the segments that its
+    compiled core captures (``parallel.render.RankStep`` driven segment by
+    segment, as a capture holds it): the eager sharded step's images, its
+    gradients within 1e-5 of their largest magnitude, the same bits on
+    every rank, the same collectives; the forward cut once at the face
+    fold (face > 1), the backward once at the halo (tile > 1)."""
+    _, tile, face = CONFIGS[name].shape
+    ranks = _ranks(spawned, name)
+    for r in ranks:
+        seg = r["segmented"]
+        np.testing.assert_array_equal(seg["image"], r["image"])
+        for k, g in r["grads"].items():
+            _close(seg["grads"][k], g, 1e-5)
+            np.testing.assert_array_equal(seg["grads"][k], ranks[0]["segmented"]["grads"][k])
+        assert seg["census"] == r["step"]
+        assert seg["segments"] == {"forward": 1 + (face > 1), "backward": 1 + (tile > 1)}
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_each_segment_makes_no_host_sync_and_copies_nothing_from_the_host(spawned, name):
+    """Under ``tests/test_torch_graphs.py``'s watch, with ``capturing``
+    patched true: nothing a segment holds reads the card back or copies
+    from the host (the collectives run between the segments)."""
+    for r in _ranks(spawned, name):
+        assert r["segmented"]["seen"] == [], r["segmented"]["seen"]
+
+
+@pytest.mark.parametrize("name", FACE_CONFIGS)
+def test_face_range_binning_takes_its_capacity_from_the_warm_up(spawned, scenes, name):
+    """On the binned route each rank's face range (ceil(nf / face) faces,
+    the last range padded) bins with K7's capped form in the capture, at
+    twice the pair total of the warm-up's eager binning of the same range
+    and rows, kept on the faces record; its images are the tiled route's."""
+    from neural_renderer_v2_pytorch_tpu_torch.ops.graphs import bin_capacity
+
+    cfg = CONFIGS[name]
+    data, tile, face = cfg.shape
+    per = -(-len(_arrays(scenes, name)["faces"]) // face)
+    rows = parallel.band_rows(cfg.image_size, cfg.anti_aliasing, tile)
+    totals = []
+    for r in _ranks(spawned, name):
+        seg = r["segmented"]
+        np.testing.assert_array_equal(seg["binned"], r["image"])
+        ((key, total),) = seg["totals"].items()
+        shape, size, row_start, num_rows, _ = key
+        assert shape == (2 // data, 3, 3, per) and size == _arrays_size(name)
+        assert (row_start, num_rows) == (r["coords"]["tile"] * rows, rows)
+        assert seg["capacities"] == [bin_capacity(total)]
+        totals.append(total)
+    assert max(totals) > 0          # a band that no face of a range meets bins none
 
 
 def test_face_sharded_cross_shard_tie(spawned):

@@ -15,7 +15,8 @@ checkout builds its kernels into its own ``build/``.
 The last line of the output is one JSON object: the card's name and power
 limit and, for each sharded run, its mesh and each rank's step and
 collective ms (medians of the run's timed steps, and every step; by kind
-where the checkout's ``chip_smoke`` records them); the
+where the checkout's ``chip_smoke`` records them; the eager step's, and
+the graphed core's where the checkout has one, timed in turns); the
 single-device steps' ms are in the ``[time]`` lines above it.  It is also written to FILE when given.  Without CUDA the
 script fails.
 """
@@ -56,9 +57,17 @@ def main():
     runs, _ = cs.sharded_runs(torch.device("cuda:0"), smi)
     out = {"root": os.path.relpath(root, HERE), "card": smi, "runs": {
         name: {"mesh": list(cs.SHARDED[name]), "ranks": [
-            {"step_ms": float(np.median(r["ms"])), "collective_ms": float(np.median(r["coll_ms"])),
-             "steps_ms": r["ms"], "collectives_ms": r["coll_ms"],
-             "collective_ms_by_kind": r.get("kind_ms")} for r in ranks]}
+            dict({"step_ms": float(np.median(r["ms"])),
+                  "collective_ms": float(np.median(r["coll_ms"])),
+                  "steps_ms": r["ms"], "collectives_ms": r["coll_ms"],
+                  "collective_ms_by_kind": r.get("kind_ms")},
+                 **({} if "graphed_ms" not in r else {
+                     "graphed_step_ms": float(np.median(r["graphed_ms"])),
+                     "graphed_collective_ms": float(np.median(r["graphed_coll_ms"])),
+                     "graphed_steps_ms": r["graphed_ms"],
+                     "graphed_collectives_ms": r["graphed_coll_ms"],
+                     "graphed_collective_ms_by_kind": r["graphed_kind_ms"]}))
+            for r in ranks]}
         for name, ranks in runs.items()}}
     line = json.dumps(out)
     if args.out:
