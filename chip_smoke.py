@@ -133,7 +133,14 @@ zero-capacity bins timed in turns; ``compute_face_index_map`` eager and
 graphed in turns at ``lit`` and ``hires-lit``, and the sharded runs'
 eager and graphed per-rank steps.  Each five-step
 fit builds one vertex -> slot table for K4
-(``resolve_cuda.SLOT_TABLE_BUILDS``).
+(``resolve_cuda.SLOT_TABLE_BUILDS``).  Then the measurement modules
+(``neural_renderer_v2_pytorch_tpu_torch/benchmarks/``, whose ``steps`` and
+``roofline`` also hold this script's step forms, profiler reading and
+bounds): ``bench`` at 20 chained iterations and 2 cycles (its chained step
+held to the eager step: images equal, gradients within 1e-4),
+``measure_time`` over 4 azimuths, ``scaling --quick``, ``kernel_census``
+and ``roofline`` at ``bench`` and ``hires``, each module's JSON line
+printed and checked; and the whole run's seconds.
 
 Any failure raises and the script exits non-zero without its last line.  On
 success the last line is
@@ -148,7 +155,6 @@ import hashlib
 import json
 import logging
 import os
-import re
 import subprocess
 import sys
 import time
@@ -156,10 +162,41 @@ import types
 
 import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import neural_renderer_v2_pytorch_tpu_torch as nr
 from neural_renderer_v2_pytorch_tpu_torch import parallel
+from neural_renderer_v2_pytorch_tpu_torch.benchmarks import (
+    bench,
+    kernel_census,
+    measure_time,
+    roofline,
+    scaling,
+)
+from neural_renderer_v2_pytorch_tpu_torch.benchmarks.roofline import (
+    HBM_BYTES_PER_S,
+    bound,
+    gather_faces3_work,
+    gather_rows_work,
+    resolve_bound,
+    scatter_pixels_work,
+    scatter_vertices_work,
+)
+from neural_renderer_v2_pytorch_tpu_torch.benchmarks.steps import (
+    UPDATE,
+    CallerGraph,
+    EagerOps,
+    GraphCase,
+    bench_loss,
+    call_device_ms,
+    case_graph,
+    check_against,
+    check_close,
+    check_equal,
+    kernel_device_ms,
+    median_ms,
+    profile_device,
+    time_forms,
+)
 from neural_renderer_v2_pytorch_tpu_torch.ops import graphs
 from neural_renderer_v2_pytorch_tpu_torch.ops import resolve_cuda as rc
 from neural_renderer_v2_pytorch_tpu_torch.ops import shading
@@ -170,7 +207,6 @@ from neural_renderer_v2_pytorch_tpu_torch.ops.gather_resolve import (
 from neural_renderer_v2_pytorch_tpu_torch.ops.rasterize import face_attributes
 from neural_renderer_v2_pytorch_tpu_torch.ops.resolve import (
     DEPTH_MIN_DELTA,
-    pixel_centres,
     weight_planes_from_gathered,
 )
 from neural_renderer_v2_pytorch_tpu_torch.utils import cuda_build
@@ -220,7 +256,6 @@ INDEX_MAP_KERNELS = ("resolve_depth", "bin_faces", "resolve_binned_depth",
 # matrix's 9K row), 19,888, 26,000, 32,480, 39,680 (its 39K row), 50,400
 # and 62,000 faces
 SWEEP_TORI = ((80, 62), (113, 88), (130, 100), (145, 112), (160, 124), (180, 140), (200, 155))
-SCATTER_RTOL = 1e-4   # K3/K6's atomics sum in run-dependent order; the JAX backward's bound
 GOLDEN_IMAGE_ATOL = 1e-5   # CUDA's pow and the card's sums against XLA:CPU
 # name -> (scene, texture_size, lit, image_size, anti_aliasing): rows of the
 # JAX package's perf matrix (README.md:119-136, benchmarks/scaling.py:154-247),
@@ -250,14 +285,6 @@ SHARDED = {
 SHARDED_TIMEOUT = 300.0   # seconds for one spawn of ranks, every collective included
 SHARDED_STEPS = 5         # timed steps of each sharded run on each rank
 LATCH_FORMS = ("resolve_xy", "resolve_latch", "resolve_binned_xy", "resolve_binned_latch")
-# H100 SXM peaks from NVIDIA's data sheet: HBM bytes/s, float32
-# operations/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# float operations of one (pixel, face) test of the resolve: face_candidate's
-# bbox compares, three affine weights, two sign products, the depth
-# quotient, the near/far and accept compares
-TEST_OPS = 30
 
 
 def log(msg):
@@ -271,79 +298,11 @@ def check_k1(label, launches):
         raise AssertionError(f"{label}: {launches['face_setup']} K1 launches: {launches}")
 
 
-def check_close(name, got, want, rtol=SCATTER_RTOL):
-    err = float((got - want).abs().max())
-    bound = rtol * float(want.abs().max())
-    if not err <= bound:
-        raise AssertionError(f"{name}: max abs err {err} > {bound} ({rtol} of max)")
-    return err
-
-
-def check_equal(name, got, want):
-    if not torch.equal(got, want):
-        n = int((got != want).sum())
-        raise AssertionError(f"{name}: {n} of {got.numel()} elements differ")
-    return 0.0
-
-
-def median_ms(fn, reps, warmup=2):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        events.append((a, b))
-    torch.cuda.synchronize()
-    return float(np.median([a.elapsed_time(b) for a, b in events]))
-
-
 # one kernel at one configuration: its call, its plain version's (None where
 # that would take minutes), the least time the card could take for the same
 # work as (ms, "bytes" | "operations"), and the one PyTorch call that
 # computes the same function, where there is one
 Call = collections.namedtuple("Call", "kernel plain bound library", defaults=(None,))
-
-
-def bound(nbytes, ops):
-    """(ms, what bounds it): the larger of moving ``nbytes`` at the HBM rate
-    and ``ops`` float32 operations at the peak rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def pixel_face_tests(consts, size, row_start=0, rows=None):
-    """The (pixel, face) tests this run's data needs: for each face, the
-    pixels of the window whose centre lies in its bbox (none for a killed
-    face), summed."""
-    rows = size if rows is None else rows
-    dev = consts.device
-    xc = pixel_centres(torch.arange(size), size).to(dev)
-    yc = pixel_centres(torch.arange(row_start, row_start + rows), size).to(dev)
-
-    def inside(centres, lo, hi):
-        return (torch.searchsorted(centres, hi.contiguous(), right=True)
-                - torch.searchsorted(centres, lo.contiguous())).clamp(min=0)
-
-    nx = inside(xc, consts[:, 13], consts[:, 14])
-    ny = inside(yc, consts[:, 15], consts[:, 16])
-    return int((nx * ny).sum())
-
-
-def resolve_bound(consts, size, out_planes, face_bytes, extra_bytes=0, row_start=0,
-                  rows=None):
-    """Bound of a resolve form: ``face_bytes`` of every face's inputs read
-    once (the face vertices, 36 bytes, + 4 A of attributes; the binned
-    forms also read their bins, ``extra_bytes``),
-    ``out_planes`` 4-byte planes written once, and TEST_OPS per (pixel,
-    face) test of K1's constants ``consts``."""
-    bs, _, nf = consts.shape
-    rows = size if rows is None else rows
-    nbytes = bs * nf * face_bytes + 4 * out_planes * bs * rows * size
-    return bound(nbytes + extra_bytes, TEST_OPS * pixel_face_tests(consts, size, row_start, rows))
 
 
 def index_add_call(out, dim, index, source):
@@ -352,110 +311,14 @@ def index_add_call(out, dim, index, source):
     return lambda: out.index_add_(dim, index, source)
 
 
-
-
-def port_kernel_pattern():
-    """A regex that matches the profiler names of the port's kernels: the
-    ``__global__`` functions of ``csrc/*.cu``, each in an anonymous
-    namespace."""
-    csrc = cuda_build.CSRC_DIR
-    names = set()
-    for source in sorted(os.listdir(csrc)):
-        if source.endswith(".cu"):
-            with open(os.path.join(csrc, source)) as fh:
-                names.update(re.findall(r"__global__\s+void\s+__launch_bounds__\([^)]*\)\s*(\w+)",
-                                        fh.read()))
-    if not names:
-        raise AssertionError(f"no __global__ kernels found under {csrc}")
-    return re.compile(r"^(void )?\(anonymous namespace\)::(" + "|".join(sorted(names)) + r")\b")
-
-
-PORT_KERNEL = port_kernel_pattern()
-
-
-Profile = collections.namedtuple(
-    "Profile",
-    "wall busy complete dropped port_records port_launches per_launch top launched ops "
-    "records")
-
-
-def profile_device(step, n=10, launched=None):
-    """Profile ``n`` calls of ``step`` once under torch.profiler.
-
-    The profiler sometimes drops device records (once half of a long
-    kernel's in a run of this script, while CUDA events and the host clock
-    agreed), so what it returns says what was measured:
-
-    - ``busy``: the kept records' device ms per call, a lower bound of the
-      device's busy time, and equal to it when ``complete``: every kernel
-      name holds a multiple of ``n`` records (every call launches the same
-      ops) and the port's kernels hold as many as ``resolve_cuda.LAUNCHES``
-      counted (``port_launches``, all three of K7's kernels);
-    - ``per_launch``: each port kernel name's mean record, in ms;
-    - ``launched``: the wrappers' launches per call, counted by LAUNCHES,
-      or as given (a replayed graph's: ``Graph.launches``, which LAUNCHES
-      counted at its capture and does not count at a replay);
-    - ``top``: the six longest kernel names' kept ms per call;
-    - ``ops``: the kept device records (kernels, fills, copies) per call;
-    - ``dropped``: (name, count, kept ms per call) of each name whose count
-      is not a multiple of n;
-    - ``records``: each device name's (kept records per call, mean record
-      ms)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    step()
-    torch.cuda.synchronize()
-    before = dict(rc.LAUNCHES)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / n * 1e3
-    if launched is None:
-        launched = {k: (rc.LAUNCHES[k] - before[k]) / n for k in before
-                    if rc.LAUNCHES[k] > before[k]}
-    # device-side events only (kernels, copies, fills): a CPU op's entry
-    # also carries the device time of what it launched
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    kept = {e.key: e.self_device_time_total / n / 1e3 for e in events}
-    per_launch, port_records = {}, 0
-    for e in events:
-        m = PORT_KERNEL.match(e.key)
-        if m:
-            per_launch[e.key] = e.self_device_time_total / e.count / 1e3
-            port_records += e.count
-    # K7's one counted launch runs three kernels (count + scan, fill, order)
-    port_launches = sum(launched.values()) + 2 * launched.get("bin_faces", 0.0)
-    dropped = [(e.key[:50], e.count, round(kept[e.key], 6)) for e in events if e.count % n]
-    complete = bool(events) and not dropped and port_records == round(port_launches * n)
-    top = sorted(kept.items(), key=lambda kv: -kv[1])[:6]
-    return Profile(wall, sum(kept.values()), complete, dropped, port_records / n,
-                   port_launches, per_launch, [(k[:60], t) for k, t in top], launched,
-                   sum(e.count for e in events) / n,
-                   {e.key: (e.count / n, e.self_device_time_total / e.count / 1e3)
-                    for e in events})
-
-
-def kernel_device_ms(prof, name):
-    """The device ms per call of wrapper ``name``'s own kernel(s) in a
-    profile of calls to it: each of its kernel names' mean record times
-    its launches per call as LAUNCHES counted them (K7 has three names, its
-    count, fill and order passes, and one count); None when a name has no
-    record at all."""
-    expected = 3 if name == "bin_faces" else 1
-    if len(prof.per_launch) != expected or name not in prof.launched:
-        return None
-    return sum(prof.per_launch.values()) * prof.launched[name]
-
-
-def call_device_ms(prof):
-    """The device ms per call of every record a profiled call leaves (its
-    kernels, fills and copies): each record name's mean record times its
-    records per call rounded (at least 1), so that a dropped record does not
-    count as time saved."""
-    return sum(ms * max(1, round(per_call)) for per_call, ms in prof.records.values())
+def covered_index_add(out, dim, index, source):
+    """:func:`index_add_call` over the covered entries only: those of the
+    flat ``index`` that are >= 0, with their slices of ``source`` along
+    ``dim`` taken out beforehand, as the scatter kernels add no background
+    pixel."""
+    keep = (index >= 0).nonzero()[:, 0]
+    return index_add_call(out, dim, index[keep].long(),
+                          source.index_select(dim, keep).contiguous())
 
 
 def scatter_check(label, index, nf, D, gen):
@@ -466,16 +329,12 @@ def scatter_check(label, index, nf, D, gen):
     err = check_close(f"{label} scatter_pixels_to_faces D={D}",
                       rc.scatter_pixels_to_faces(g, index, nf),
                       rc.scatter_pixels_to_faces_plain(g, index, nf))
-    # the kernel reads the index map, and the D planes of covered pixels only
-    P, covered = index.numel(), int((index >= 0).sum())
     return err, Call(
         lambda: rc.scatter_pixels_to_faces(g, index, nf),
         lambda: rc.scatter_pixels_to_faces_plain(g, index, nf),
-        bound(4 * P + 4 * D * covered + 4 * D * nf, D * covered),
-        # background pixels add into a spare column
-        index_add_call(torch.zeros((D, nf + 1), device=index.device), 1,
-                       torch.where(index >= 0, index, nf).reshape(-1).long(),
-                       g.reshape(D, -1)),
+        bound(*scatter_pixels_work(index, D, nf)),
+        covered_index_add(torch.zeros((D, nf), device=index.device), 1, index.reshape(-1),
+                          g.reshape(D, -1)),
     )
 
 
@@ -500,7 +359,7 @@ def kernels_vs_plain(label, ndc, faces, size, gen):
                                         rc.gather_faces3_plain(table, faces))
     calls["gather_faces3"] = Call(lambda: rc.gather_faces3(table, faces),
                                   lambda: rc.gather_faces3_plain(table, faces),
-                                  bound(12 * nv + 12 * nf + 36 * nf, 0),
+                                  bound(*gather_faces3_work(1, nv, nf)),
                                   lambda: table[:, faces_long])
 
     for backside in (True, False):
@@ -545,7 +404,7 @@ def kernels_vs_plain(label, ndc, faces, size, gen):
     calls["scatter_faces_to_vertices"] = Call(
         lambda: rc.scatter_faces_to_vertices(g9, faces, nv),
         lambda: rc.scatter_faces_to_vertices_plain(g9, faces, nv),
-        bound(36 * nf + 12 * nf + 12 * nv, 9 * nf),
+        bound(*scatter_vertices_work(1, nv, nf)),
         index_add_call(torch.zeros((1, nv, 3), device=dev), 1, faces_long.reshape(-1),
                        g9.permute(0, 3, 2, 1).reshape(1, nf * 3, 3).contiguous()),
     )
@@ -693,7 +552,7 @@ def binned_vs_plain_resolve(label, ndc, faces, size, gen):
 def routes_agree(label, step, fim, resolve, shape, smi):
     """One step (``step()`` -> (images, {name: gradient})) and the index
     map (``fim()``) through each route: images and index maps equal,
-    gradients within SCATTER_RTOL of their largest magnitude.  Times the
+    gradients within GRAD_RTOL of their largest magnitude.  Times the
     resolve (``resolve(route)``: the tiled form alone, or K7 and K8) on
     each route.
     Returns ({route: ms}, the rule's route)."""
@@ -715,12 +574,6 @@ def routes_agree(label, step, fim, resolve, shape, smi):
         f"{ms['binned']:.4f}; the rule picks {rule}, measured faster "
         f"{min(ms, key=ms.get)}  ({smi})")
     return ms, rule
-
-
-def bench_loss(images):
-    """The headline bench's IoU-style scalar (bench.py), so the full NMR
-    backward runs."""
-    return torch.sum(images * images) / (torch.sum(images) + 1.0)
 
 
 def pattern_loss(images):
@@ -755,7 +608,7 @@ def index_map(renderer, vertices, faces, latch_z):
 def steps_vs_plain(label, step, fim):
     """``step()`` -> (images, {name: gradient}) with the kernels and with
     their plain versions: images and index map (``fim()``) bit-equal,
-    gradients within SCATTER_RTOL of their largest magnitude."""
+    gradients within GRAD_RTOL of their largest magnitude."""
     out = []
     for ctx in (contextlib.nullcontext(), rc.plain_versions()):
         with ctx:
@@ -874,7 +727,7 @@ def textured_kernels_vs_plain(cfg, gen):
     nv, faces_long = ndc.shape[1], cfg.faces.long()
     calls["gather_faces3"] = Call(lambda: rc.gather_faces3(ndc, cfg.faces),
                                   lambda: rc.gather_faces3_plain(ndc, cfg.faces),
-                                  bound(12 * nv + 12 * nf + 36 * nf, 0),
+                                  bound(*gather_faces3_work(1, nv, nf)),
                                   lambda: ndc[:, faces_long])
 
     got = rc.resolve_latch(fvp, attrs, True, S, 0.1, 100.0)
@@ -922,10 +775,8 @@ def textured_kernels_vs_plain(cfg, gen):
             # the ids, the 12 planes of covered pixels, the table written once
             bound(4 * S * S + 48 * int((anchors >= 0).sum()) + 48 * T,
                   12 * int((anchors >= 0).sum())),
-            # background pixels (-1) add into a spare row
-            index_add_call(torch.zeros((T + 1, 12), device=dev), 0,
-                           torch.where(anchors[0] >= 0, anchors[0], T).long(),
-                           g12[0].t().contiguous()),
+            covered_index_add(torch.zeros((T, 12), device=dev), 0, anchors[0],
+                              g12[0].t()),
         )
     torch.cuda.synchronize()
     log(f"[{cfg.name}] kernels vs plain: nf={nf} A={A} canvas={S}^2 coverage="
@@ -937,7 +788,7 @@ def textured_kernels_vs_plain(cfg, gen):
 def rgb_golden(dev):
     """The JAX package's RGB golden (stored NDC: the camera is bypassed):
     index map equal, images within GOLDEN_IMAGE_ATOL, gradients within
-    SCATTER_RTOL of their largest magnitude."""
+    GRAD_RTOL of their largest magnitude."""
     gold = np.load(RGB_GOLDEN)
     faces = torch.tensor(gold["faces"], device=dev)
     hp = nr.RasterizeHyperparam(image_size=64)
@@ -996,8 +847,7 @@ def gather_rows_check(label, table, index):
     gather_index = ids.clamp(min=0).long()[..., None].expand(bs, P, D)
     return Call(lambda: rc.gather_rows(table, ids, True),
                 lambda: rc.gather_rows_plain(table, ids, True),
-                # the ids, the output and the rows they name, each once
-                bound(4 * P + 4 * P * D + 4 * D * named, 0),
+                bound(*gather_rows_work(ids, D)),
                 lambda: torch.gather(table, 1, gather_index))
 
 
@@ -1177,27 +1027,6 @@ def sharded_census(data, tile, face):
     forward = {"face_all_gather": 2 * (face > 1), "image_all_gather": int(data * tile > 1),
                "halo_exchange": 0, "grad_all_reduce": 0}
     return forward, dict(forward, halo_exchange=int(tile > 1), grad_all_reduce=1)
-
-
-class EagerOps(TorchDispatchMode):
-    """The operations dispatched while it is on that read or write a
-    tensor on the card, by name: ``ops`` those that do device work,
-    ``views`` those that only alias their input.  In a step whose graphs
-    replay, what stays eager (a replay dispatches nothing)."""
-
-    def __init__(self):
-        super().__init__()
-        self.ops, self.views = collections.Counter(), collections.Counter()
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        tensors = [t for t in (*args, *(kwargs or {}).values(),
-                               *(out if isinstance(out, (tuple, list)) else (out,)))
-                   if isinstance(t, torch.Tensor)]
-        if any(t.is_cuda for t in tensors):
-            kind = self.views if func.is_view else self.ops
-            kind[func.overloadpacket.__name__] += 1
-        return out
 
 
 def sharded_turn(case, mesh, steps):
@@ -1484,11 +1313,11 @@ def face_vertex_rows(faces, nv, bs, gen):
         ("gather_faces3", lambda: rc.gather_faces3(table, faces),
          lambda: table[:, faces_long], lambda got: torch.equal(
              got, rc.gather_faces3_plain(table, faces)),
-         4 * bs * nv * 3 + 12 * nf + 36 * bs * nf),
+         gather_faces3_work(bs, nv, nf)[0]),
         ("scatter_faces_to_vertices", lambda: rc.scatter_faces_to_vertices(g9, faces, nv),
          index_add_call(buffer, 1, faces_long.reshape(-1), source), lambda got: torch.equal(
              got.cpu(), rc.scatter_faces_to_vertices_plain(g9.cpu(), faces.cpu(), nv)),
-         36 * bs * nf + 12 * nf + 12 * bs * nv),
+         scatter_vertices_work(bs, nv, nf)[0]),
     )
     rows = []
     for name, kernel, library, exact, nbytes in cases:
@@ -1956,9 +1785,9 @@ def tile_order(t, tile_w=32, tile_h=8):
 def scatter_designs(cases, parent, gen, smi):
     """K3 in turns with a 32 x 8-pixel block (maps with rows: K3 over
     :func:`tile_order`'s re-laid map and planes, made before the timing),
-    its parent design and ``index_add_`` (background pixels into a spare
-    column), on random gradients over ``cases``: label -> (index map i32
-    [1, H, W], nf, D).  Each design within SCATTER_RTOL of the plain
+    its parent design and ``index_add_`` (over the covered pixels), on
+    random gradients over ``cases``: label -> (index map i32
+    [1, H, W], nf, D).  Each design within GRAD_RTOL of the plain
     version; the shipped one at most two device operations a call (the
     zero fill and the kernel; the profiler may drop a record, never add
     one).  Returns {label: row}."""
@@ -1974,11 +1803,10 @@ def scatter_designs(cases, parent, gen, smi):
         want = rc.scatter_pixels_to_faces_plain(g, index, nf)
         errs = {name: check_close(f"{label} K3 {name} D={D}", call(), want)
                 for name, call in calls.items()}
-        calls["index_add_"] = index_add_call(
-            torch.zeros((D, nf + 1), device=index.device), 1,
-            torch.where(index >= 0, index, nf).reshape(-1).long(), g.reshape(D, -1))
+        calls["index_add_"] = covered_index_add(
+            torch.zeros((D, nf), device=index.device), 1, index.reshape(-1), g.reshape(D, -1))
         P, covered = index.numel(), int((index >= 0).sum())
-        row = design_row(calls, bound(4 * P + 4 * D * covered + 4 * D * nf, D * covered))
+        row = design_row(calls, bound(*scatter_pixels_work(index, D, nf)))
         if row["device_ops"]["shipped"] > 2:
             raise AssertionError(f"{label} K3: {row['device_ops']['shipped']} device operations")
         row.update(D=D, nf=nf, P=P, covered=covered, max_abs_err=errs)
@@ -2428,73 +2256,7 @@ def examples_phase(dev, smi):
 # render replays its graph; camera, loss and backward's rest eager) and the
 # whole step captured by its caller
 GRAPH_STEPS = 20
-GRAPH_TURNS = ("eager", "core", "whole", "whole", "core", "eager")
-UPDATE = 1e-6          # bench.py's update: vertices - 1e-6 * grad
 TWO_VIEWS_AZIMUTH = 90.0
-
-
-class GraphCase:
-    """One configuration of the graphs phase: ``forward(*leaves)`` -> images
-    through the user's entry point over ``faces``, for leaves made from
-    ``values`` (the tensors that take gradients), under bench.py's loss."""
-
-    def __init__(self, label, renderer, faces, forward, values):
-        self.label, self.renderer, self.faces = label, renderer, faces
-        self.forward, self.values = forward, values
-
-    def step(self, values=None):
-        """Camera + render + loss + backward of fresh leaves: (images,
-        [gradient of each value])."""
-        leaves = [v.clone().requires_grad_(True) for v in (values or self.values)]
-        images = self.forward(*leaves)
-        bench_loss(images).backward()
-        return images.detach(), [t.grad for t in leaves]
-
-
-class CallerGraph:
-    """A GraphCase's whole step captured by its caller in one
-    torch.cuda.graph (the counterpart of bench.py's jitted step): camera,
-    render (its ops straight into this graph), loss, backward and bench.py's
-    update of each leaf.  ``launches``: the kernels it holds."""
-
-    def __init__(self, case):
-        self.case = case
-        self.leaves = [v.clone().requires_grad_(True) for v in case.values]
-
-        def step():
-            images = case.forward(*self.leaves)
-            bench_loss(images).backward()
-            with torch.no_grad():
-                for t in self.leaves:
-                    t.sub_(UPDATE * t.grad)
-            return images
-
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        # warm-up: builds what the step keeps per faces tensor, eagerly (no
-        # graph of the core that the whole step would not use)
-        with torch.cuda.stream(side), nr.eager():
-            for _ in range(2):
-                for t in self.leaves:
-                    t.grad = None
-                step()
-        torch.cuda.current_stream().wait_stream(side)
-        for t in self.leaves:
-            t.grad = None
-        self.graph = torch.cuda.CUDAGraph()
-        before = dict(rc.LAUNCHES)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph):
-            self.images = step()
-        self.seconds = time.perf_counter() - t0
-        self.launches = {k: n - before[k] for k, n in rc.LAUNCHES.items() if n > before[k]}
-
-    def __call__(self, values=None):
-        with torch.no_grad():
-            for t, v in zip(self.leaves, values or self.case.values):
-                t.copy_(v)
-        self.graph.replay()
-        return self.images, [t.grad for t in self.leaves]
 
 
 class LogLines(logging.Handler):
@@ -2508,24 +2270,6 @@ class LogLines(logging.Handler):
     def emit(self, record):
         self.messages.append(record.getMessage())
         log(f"[graphs] log: {self.messages[-1]}")
-
-
-def case_graph(case):
-    """The one graph kept over ``case.faces``."""
-    kept = graphs.kept_graphs(case.faces)
-    if len(kept) != 1:
-        raise AssertionError(f"{case.label}: {len(kept)} graphs over its faces, want 1")
-    return kept[0]
-
-
-def check_against(label, got, want):
-    """Images bit-equal, each gradient within SCATTER_RTOL of the largest
-    magnitude of its eager counterpart; returns the largest error."""
-    (images, grads), (want_images, want_grads) = got, want
-    check_equal(f"{label} images", images, want_images)
-    errs = [check_close(f"{label} gradient {i}", g, w)
-            for i, (g, w) in enumerate(zip(grads, want_grads))]
-    return max(errs)
 
 
 def graph_case(case, smi):
@@ -2592,28 +2336,16 @@ def graph_case(case, smi):
         raise AssertionError(f"{case.label}: the caller's graph holds {whole.launches}, "
                              f"the eager step launches {eager_launches}")
 
-    def eager_step():
-        with nr.eager():
-            return case.step()
-
-    forms = {"eager": (eager_step, None), "core": (case.step, dict(held)),
-             "whole": (whole, whole.launches)}
-    turns = {name: [] for name in forms}
-    for name in GRAPH_TURNS:
-        turns[name].append(median_ms(forms[name][0], GRAPH_STEPS, warmup=3))
     out = dict(capture_s=graph.seconds, capturing_call_s=first_s, caller_capture_s=whole.seconds,
                launches=dict(held), max_abs_err=errs)
-    for name, (fn, launched) in forms.items():
-        prof = profile_device(fn, launched=launched)
-        ms = float(np.median(turns[name]))
-        rel = "=" if prof.complete else ">="
-        out[name] = dict(turns_ms=turns[name], ms=ms, busy_ms=prof.busy,
-                         busy_share=prof.busy / ms if prof.busy else None, ops=prof.ops,
-                         complete=prof.complete)
+    for name, form in time_forms(case, whole, GRAPH_STEPS).items():
+        out[name] = form
+        ms, busy = form["ms"], form["busy_ms"]
+        rel = "=" if form["complete"] else ">="
         log(f"[graphs] {case.label} {name}: {ms:.4f} ms (median of the turns' medians of "
-            f"{GRAPH_STEPS}: {', '.join(f'{t:.4f}' for t in turns[name])}), device busy "
-            + (f"{rel} {prof.busy:.4f} ms ({rel} {100 * prof.busy / ms:.1f}%) in {rel} "
-               f"{prof.ops:.1f} device operations per step" if prof.busy else
+            f"{GRAPH_STEPS}: {', '.join(f'{t:.4f}' for t in form['turns_ms'])}), device busy "
+            + (f"{rel} {busy:.4f} ms ({rel} {100 * busy / ms:.1f}%) in {rel} "
+               f"{form['ops']:.1f} device operations per step" if busy else
                "not measured (the profiler saw no device time)")
             + f"  ({smi})")
     log(f"[graphs] {case.label}: capture {graph.seconds:.6f} s (the capturing call "
@@ -2860,6 +2592,65 @@ def graphs_phase(cases, scale, index_cases, sharded, smi):
     return numbers
 
 
+# phase 21: the measurement modules (neural_renderer_v2_pytorch_tpu_torch/
+# benchmarks/) through their run() functions, at short lengths
+BENCH_ITERS, BENCH_CYCLES = 20, 2
+MEASURE_AZIMUTHS = 4
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "device", "power_limit", "forms",
+              "faces")
+
+
+def check_positive(label, values):
+    """Each of ``values`` a finite number above 0."""
+    bad = {k: v for k, v in values.items() if not (isinstance(v, float) and 0 < v < np.inf)}
+    if bad:
+        raise AssertionError(f"{label}: not a finite positive number: {bad}")
+
+
+def benchmarks_phase(dev, smi):
+    """Phase 21: ``benchmarks.bench`` (BENCH_ITERS, BENCH_CYCLES cycles; its
+    chained step held to the eager step inside), ``measure_time`` over
+    MEASURE_AZIMUTHS azimuths, ``scaling --quick``, ``kernel_census`` and
+    ``roofline`` (bench and hires, K9); each module's JSON line printed and
+    its numbers checked.  Returns the seconds it took."""
+    t0 = time.perf_counter()
+    name, power_limit = (part.strip() for part in smi.rsplit(",", 1))
+    out = {"bench": bench.run(dev, iters=BENCH_ITERS, cycles=BENCH_CYCLES)}
+    b = out["bench"]
+    log(json.dumps(b))
+    if tuple(b) != BENCH_KEYS or b["unit"] != "pixels/s" or \
+            (b["device"], b["power_limit"]) != (name, power_limit):
+        raise AssertionError(f"bench: malformed line {b}")
+    check_positive("bench", {k: b["forms"][k] for k in ("eager_ms", "core_ms", "whole_ms")}
+                   | {"value": b["value"]})
+    out["measure_time"] = m = measure_time.run(dev, iters=MEASURE_AZIMUTHS)
+    log(json.dumps(m))
+    check_positive("measure_time", m["ms"])
+    out["scaling"] = sc = scaling.run(dev, quick=True)
+    log(json.dumps(sc))
+    quick = [r.label for r in scaling.ROWS if r.label in scaling.QUICK]
+    if [r["label"] for r in sc["rows"]] != quick:
+        raise AssertionError(f"scaling --quick: rows {[r['label'] for r in sc['rows']]}")
+    for r in sc["rows"]:
+        check_positive(f"scaling {r['label']}", {f: r[f]["ms"] for f in ("eager", "core", "whole")})
+    out["kernel_census"] = c = kernel_census.run(dev)
+    log(json.dumps(c))
+    for form in ("eager", "core", "whole"):
+        if c["forms"][form]["launches"] != c["forms"]["eager"]["launches"] or not all(
+                c["forms"][form]["launches"].get(k) for k in SILHOUETTE_KERNELS):
+            raise AssertionError(f"kernel_census: {form} launches {c['forms'][form]['launches']}")
+    out["roofline"] = rf = roofline.run(dev)
+    log(json.dumps(rf))
+    if len(rf["rows"]) != 2 * len(roofline.FUNCTIONS) + 1:
+        raise AssertionError(f"roofline: {len(rf['rows'])} rows")
+    check_positive("roofline bounds", {f"{r['config']} {r['function']}": r["bound_ms"]
+                                       for r in rf["rows"]})
+    seconds = time.perf_counter() - t0
+    log(f"[benchmarks] bench, measure_time, scaling --quick, kernel_census and roofline: "
+        f"{seconds:.1f} s")
+    return seconds
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -2867,6 +2658,7 @@ def main():
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    started = time.perf_counter()
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -3371,6 +3163,9 @@ def main():
                   [sphere_v]),
     ], (scale_renderer, sphere_v, faces6), index_cases, sharded, smi)
 
+    # 21. the measurement modules
+    benchmarks_phase(dev, smi)
+
     log("[routes] resolve ms (tiled, binned) and the rule's route: " + json.dumps(
         {label: [route_ms[label]["tiled"], route_ms[label]["binned"], route_rule[label]]
          for label in route_ms}))
@@ -3381,6 +3176,7 @@ def main():
     for path in (sil_launches, tex_launches, hires_launches, hl_launches, index_launches,
                  sharded_launches, *example_launches.values()):
         launches.update(path)
+    log(f"[run] {time.perf_counter() - started:.1f} s, the build included")
     log(smi)
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

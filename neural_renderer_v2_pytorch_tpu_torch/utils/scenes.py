@@ -16,8 +16,8 @@ matrix's three lights.
 place of the reference's teapot and target images, and ``square`` is the
 two-triangle square of the silhouette convergence fit.  ``subdivide`` is
 the JAX package's perf-matrix face-count sweep's midpoint subdivision
-(``benchmarks/scaling.py``), which ``tools/scaling_times.py`` applies to
-``torus(40, 32)``.
+(``benchmarks/scaling.py``), which the port's ``benchmarks.scaling``
+applies to ``torus(40, 32)``.
 """
 
 from __future__ import annotations

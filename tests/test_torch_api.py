@@ -1,8 +1,9 @@
 """The port's public API against the JAX package's, and its independence
 from JAX: every name the JAX package's ``__init__`` imports is exported by
 the port, with the same ``__version__``; no module of the port and nothing
-in ``chip_smoke.py`` imports ``jax`` or the JAX package (read with ``ast``,
-so a function-level import counts too)."""
+in ``chip_smoke.py`` imports ``jax`` or the JAX package, and no module of
+``benchmarks/`` imports ``chip_smoke`` (read with ``ast``, so a
+function-level import counts too)."""
 
 import ast
 import pathlib
@@ -58,6 +59,15 @@ def _is_jax(name):
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import(path):
     bad = [m for m in _imported_modules(path) if _is_jax(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", sorted((PORT / "benchmarks").glob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_benchmarks_import_no_chip_smoke(path):
+    """The measurement modules stand alone: ``chip_smoke.py`` imports them,
+    never the other way."""
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] == "chip_smoke"]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 

@@ -11,6 +11,7 @@ also runs on a machine without it:
 
 import collections
 import gc
+import json
 import weakref
 
 import numpy as np
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 import neural_renderer_v2_pytorch_tpu_torch as nr
+from neural_renderer_v2_pytorch_tpu_torch.benchmarks import bench, steps
 from neural_renderer_v2_pytorch_tpu_torch.ops import graphs
 from neural_renderer_v2_pytorch_tpu_torch.ops import resolve_cuda as rc
 from neural_renderer_v2_pytorch_tpu_torch.utils.scenes import (
@@ -1324,3 +1326,42 @@ def test_index_map_overflow_recaptures(cuda, fresh_cache):
     nr.compute_face_index_map(x, 128, **kw)
     torch.cuda.synchronize()
     assert again.overflowed() == 0
+
+
+def test_bench_chained_step_equals_eager(cuda, fresh_cache):
+    """The bench's whole step captured by its caller: a replay gives the
+    eager step's images and gradients within 1e-4, and three chained
+    replays (each on the last one's update) the vertices of three eager
+    steps, within 1e-4 of how far they moved and their float32 rounding."""
+    case = bench.scene(cuda).case("bench")
+    with nr.eager():
+        want = case.step()
+    whole = steps.CallerGraph(case)
+    steps.check_against("bench chained step", whole(), want)
+    assert whole.launches == {"gather_faces3": 1, "resolve_xy": 1,
+                              "scatter_pixels_to_faces": 1, "scatter_faces_to_vertices": 1}
+    whole.reset()
+    for _ in range(3):
+        whole.graph.replay()
+    with nr.eager():
+        (chained,), _, _ = steps.run_chain(case, 3)
+    start = case.values[0]
+    assert not torch.equal(whole.leaves[0].detach(), start)
+    moved = float((chained - start).abs().max())
+    # each update rounds to the vertices' float32 spacing
+    spacing = 3 * torch.finfo(torch.float32).eps * float(start.abs().max())
+    assert float((whole.leaves[0].detach() - chained).abs().max()) <= 1e-4 * moved + spacing
+
+
+def test_bench_prints_its_json_line(cuda, fresh_cache, monkeypatch, capsys):
+    monkeypatch.setenv("NR_BENCH_ITERS", "5")
+    assert bench.main() == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(line) == ["metric", "value", "unit", "vs_baseline", "device", "power_limit",
+                          "forms", "faces"]
+    assert line["unit"] == "pixels/s" and line["value"] > 0 and line["faces"] == 2560
+    assert line["device"] and line["power_limit"].endswith("W")
+    assert line["vs_baseline"] is None or line["vs_baseline"] > 0
+    forms = line["forms"]
+    assert len(forms["whole_cycles_ms"]) == bench.CYCLES and forms["iters"] == 5
+    assert 0 < forms["whole_ms"] < forms["eager_ms"]

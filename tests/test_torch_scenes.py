@@ -1,8 +1,8 @@
 """The port's procedural scenes against the JAX package's perf-matrix
 tooling: ``scenes.subdivide`` is ``benchmarks/scaling.py``'s midpoint
-subdivision, which builds the face-count sweep that
-``tools/scaling_times.py`` times (2,560 faces of ``torus(40, 32)`` to
-655,360), bit for bit."""
+subdivision, which builds the face-count sweep that the port's
+``neural_renderer_v2_pytorch_tpu_torch.benchmarks.scaling`` times (2,560
+faces of ``torus(40, 32)`` to 655,360), bit for bit."""
 
 import importlib.util
 import os

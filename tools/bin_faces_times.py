@@ -11,7 +11,10 @@ that holds this script), so that a change and its parent, unpacked under
 ``tmp/``, can be timed in turns on one card, each in a process of its own
 (parent, change, change, parent).  It loads this checkout's
 ``chip_smoke.py`` as a module for its scenes and measurements, and calls
-the package through its wrappers and entry points only.  Measured:
+the package through its wrappers and entry points only; that checkout's
+package must have the ``benchmarks`` subpackage (``steps``: the event
+median, the profiler's reading, the loss; ``roofline``: the memory rate).
+Measured:
 
 - the host µs per call of every kernel wrapper at tiny shapes (so that the
   device keeps up and the host's launch path is what is timed; K7's
@@ -165,12 +168,14 @@ class Scenes:
             return fvp, r.image_size * (2 if r.anti_aliasing else 1)
 
     def steps(self):
+        from neural_renderer_v2_pytorch_tpu_torch.benchmarks.steps import bench_loss
+
         cs = self.cs
         return {
-            "bench": cs.sil_step(self.bench, self.torus_v, self.torus_f, cs.bench_loss),
+            "bench": cs.sil_step(self.bench, self.torus_v, self.torus_f, bench_loss),
             "scale": cs.sil_step(self.scale, self.sphere_v, self.sphere_f, cs.pattern_loss),
             "textured-scale": self.textured["textured-scale"].step,
-            "hires": cs.sil_step(self.hires, self.sphere_v, self.sphere_f, cs.bench_loss),
+            "hires": cs.sil_step(self.hires, self.sphere_v, self.sphere_f, bench_loss),
             "hires-lit": self.textured["hires-lit"].step,
         }
 
@@ -179,6 +184,9 @@ BINNED = ("scale", "textured-scale", "hires", "hires-lit")
 
 
 def checkout_rows(cs, dev, gen):
+    from neural_renderer_v2_pytorch_tpu_torch.benchmarks.roofline import HBM_BYTES_PER_S
+    from neural_renderer_v2_pytorch_tpu_torch.benchmarks.steps import median_ms, profile_device
+
     rc = cs.rc
     out = {"wrapper_host_us": {name: cs.per_call_us(call)
                                for name, call in tiny_calls(cs, dev).items()}}
@@ -194,7 +202,7 @@ def checkout_rows(cs, dev, gen):
                        "scale", fvp.permute(0, 3, 2, 1).reshape(1, -1, 9).contiguous(), scale_map),
                    "textured-scale": cs.gather_rows_check("textured-scale", ts_table, ts.fim())}
         out["gather_rows"] = {label: cs.turns_row(call.kernel, call.library,
-                                                  call.bound[0] * cs.HBM_BYTES_PER_S / 1e3)
+                                                  call.bound[0] * HBM_BYTES_PER_S / 1e3)
                               for label, call in gathers.items()}
         out["bin_faces"] = {}
         for label in BINNED:
@@ -206,7 +214,7 @@ def checkout_rows(cs, dev, gen):
 
             prof = cs.profile_kept(call)
             out["bin_faces"][label] = dict(
-                tile=list(rc.BIN_TILE), ms=cs.median_ms(call, 50),
+                tile=list(rc.BIN_TILE), ms=median_ms(call, 50),
                 device_ms=prof.busy,
                 device_ops=prof.ops,
                 # its kernels' mean records times the calls (two kernels in
@@ -226,13 +234,13 @@ def checkout_rows(cs, dev, gen):
 
             prof = cs.profile_kept(call)
             out["resolve_binned"][f"{label} {form}"] = dict(
-                ms=cs.median_ms(call, 50), device_ms=prof.busy, device_ops=prof.ops,
+                ms=median_ms(call, 50), device_ms=prof.busy, device_ops=prof.ops,
                 kernel_device_ms=sum(prof.per_launch.values()))
     out["steps"] = {}
     for label, step in scenes.steps().items():
         with cs.nr.eager():
-            ms = cs.median_ms(step, 20, warmup=3)
-            prof = cs.profile_device(step)
+            ms = median_ms(step, 20, warmup=3)
+            prof = profile_device(step)
         out["steps"][label] = dict(ms=ms, device_busy_ms=prof.busy, device_ops=prof.ops,
                                    every_record_kept=prof.complete)
     return out
@@ -281,6 +289,8 @@ def radix_design(cs):
 
 
 def design_rows(cs, dev):
+    from neural_renderer_v2_pytorch_tpu_torch.benchmarks.steps import median_ms
+
     rc = cs.rc
     designs = {"parent": cs.parent_bin_design(), "radix": radix_design(cs)}
     scenes = Scenes(cs, dev)
@@ -304,7 +314,7 @@ def design_rows(cs, dev):
                 prof = cs.profile_kept(calls[name])
                 device_ms[name].append(prof.busy)
                 ops[name], top[name] = prof.ops, prof.top
-                event_ms[name].append(cs.median_ms(calls[name], 20))
+                event_ms[name].append(median_ms(calls[name], 20))
             rows.append(dict(config=label, tile=list(rc.BIN_TILE), nf=consts.shape[-1],
                              pairs=len(want[2]), largest_bin=int(want[0].max()),
                              bit_equal=exact, device_ops=ops, top=top,

@@ -9,7 +9,9 @@ beside other designs of it.
 
 ``--root`` names the checkout whose package is imported (default: the one
 that holds this script), so that a change and its parent, unpacked under
-``tmp/``, can be timed in turns on one card, each in a process of its own.
+``tmp/``, can be timed in turns on one card, each in a process of its own;
+that checkout's package must have the ``benchmarks`` subpackage, whose
+``steps`` holds the event median, the profiler's reading and the loss.
 Measured on the card:
 
 - ``chip_smoke.face_vertex_rows`` at ``chip_smoke.face_vertex_meshes``,
@@ -88,9 +90,15 @@ def steps(cs, dev):
     """The ``bench`` and ``scale`` silhouette steps with the faces as a kept
     tensor and as a numpy array: {"<config> <form>": {ms, device_busy_ms,
     device_ops, every_record_kept}}."""
+    from neural_renderer_v2_pytorch_tpu_torch.benchmarks.steps import (
+        bench_loss,
+        median_ms,
+        profile_device,
+    )
+
     nr, out = cs.nr, {}
     for label, (v, f), size, aa, azimuth, loss in (
-            ("bench", cs.torus(40, 32), 256, True, 0.0, cs.bench_loss),
+            ("bench", cs.torus(40, 32), 256, True, 0.0, bench_loss),
             ("scale", cs.icosphere(6), 512, False, 30.0, cs.pattern_loss)):
         r = nr.Renderer(dev)
         r.image_size, r.anti_aliasing = size, aa
@@ -98,8 +106,8 @@ def steps(cs, dev):
         vertices = torch.tensor(v[None], device=dev)
         for form, faces in (("tensor", torch.tensor(f, device=dev)), ("numpy", f)):
             step = cs.sil_step(r, vertices, faces, loss)
-            ms = cs.median_ms(step, 20, warmup=3)
-            prof = cs.profile_device(step)
+            ms = median_ms(step, 20, warmup=3)
+            prof = profile_device(step)
             out[f"{label} {form}"] = dict(ms=ms, device_busy_ms=prof.busy, device_ops=prof.ops,
                                           every_record_kept=prof.complete)
     return out
@@ -119,6 +127,8 @@ def build_designs(cuda_build):
 def design_rows(cs, dev, gen):
     """Device ms per call of the checkout's K5 and of each design at every
     mesh, batch 1 and 8, D = 3, each held bit-equal to the plain version."""
+    from neural_renderer_v2_pytorch_tpu_torch.benchmarks.steps import profile_device
+
     rc = cs.rc
     lib = ctypes.CDLL(build_designs(cs.cuda_build))
     entries = {}
@@ -148,7 +158,7 @@ def design_rows(cs, dev, gen):
             order = list(calls)
             device_ms = {name: [] for name in order}
             for name in order + order[::-1]:
-                device_ms[name].append(cs.profile_device(calls[name], 50).busy)
+                device_ms[name].append(profile_device(calls[name], 50).busy)
             rows.append(dict(config=label, bs=bs, nf=nf, nv=nv, bit_equal=exact,
                              device_ms={k: float(np.mean(v)) for k, v in device_ms.items()},
                              device_ms_turns=device_ms))
