@@ -14,7 +14,8 @@ Builds the hand-written kernels from ``neural_renderer_v2_pytorch_tpu_torch
   plain versions and against a golden made by the JAX package, takes five
   Adam steps of a vertex fit (launch counts read around it: no path
   launches K1), and repeats the checks on an 81,920-face mesh;
-- textured: checks K5, K2L, K3 and K6 against their plain versions at the
+- textured: checks K5, K2L, K3 and K6 (at ``atlas``, over the anchors its
+  step scatters to) against their plain versions at the
   ``atlas``, ``lit`` and ``textured-scale`` configurations, the ``atlas``
   and ``lit`` steps through ``Renderer.render`` (and depth and
   ``rasterize_all`` at ``atlas``) against the plain versions, the RGB
@@ -94,7 +95,12 @@ Builds the hand-written kernels from ``neural_renderer_v2_pytorch_tpu_torch
   (``tools/resolve_scatter_parents.cu``), its 32 x 8-pixel block and
   ``index_add_`` at ``bench`` (D = 6), ``atlas`` (15), ``lit`` (36) and
   K9's transpose at ``textured-scale`` (27), each within 1e-4 of the plain
-  version and K3 in at most two device operations; the tiled forms (every
+  version and K3 in at most two device operations; K6 at ``atlas`` in turns
+  with its designs (``tools/atlas_taps_designs.cu``: float atomics only,
+  warp aggregation of equal anchors with and without float2 pairs), the
+  parent's K6 with its three folds and copy, and ``index_add_`` over the
+  four taps after a zero fill, each within 1e-4 of the plain version and
+  K6 in at most two device operations; the tiled forms (every
   CTA loading every face, the next batch into registers) in turns with the
   parent's forms (the same feed) and with the designs of ``TILED_DESIGNS``
   (``tools/resolve_designs.cu``: the face stream multicast by bulk copies
@@ -139,7 +145,8 @@ fit builds one vertex -> slot table for K4
 bounds): ``bench`` at 20 chained iterations and 2 cycles (its chained step
 held to the eager step: images equal, gradients within 1e-4),
 ``measure_time`` over 4 azimuths, ``scaling --quick``, ``kernel_census``
-and ``roofline`` at ``bench`` and ``hires``, each module's JSON line
+and ``roofline`` at ``bench`` and ``hires`` (K9, and K6 in the atlas's
+gradient step), each module's JSON line
 printed and checked; and the whole run's seconds.
 
 Any failure raises and the script exits non-zero without its last line.  On
@@ -174,6 +181,9 @@ from neural_renderer_v2_pytorch_tpu_torch.benchmarks import (
 )
 from neural_renderer_v2_pytorch_tpu_torch.benchmarks.roofline import (
     HBM_BYTES_PER_S,
+    atlas_taps_inputs,
+    atlas_taps_library,
+    atlas_taps_work,
     bound,
     gather_faces3_work,
     gather_rows_work,
@@ -199,16 +209,12 @@ from neural_renderer_v2_pytorch_tpu_torch.benchmarks.steps import (
 )
 from neural_renderer_v2_pytorch_tpu_torch.ops import graphs
 from neural_renderer_v2_pytorch_tpu_torch.ops import resolve_cuda as rc
-from neural_renderer_v2_pytorch_tpu_torch.ops import shading
 from neural_renderer_v2_pytorch_tpu_torch.ops.gather_resolve import (
     gather_face_vertices,
     resolve_and_gather,
 )
 from neural_renderer_v2_pytorch_tpu_torch.ops.rasterize import face_attributes
-from neural_renderer_v2_pytorch_tpu_torch.ops.resolve import (
-    DEPTH_MIN_DELTA,
-    weight_planes_from_gathered,
-)
+from neural_renderer_v2_pytorch_tpu_torch.ops.resolve import DEPTH_MIN_DELTA
 from neural_renderer_v2_pytorch_tpu_torch.utils import cuda_build
 from neural_renderer_v2_pytorch_tpu_torch.utils.scenes import (
     atlas_scene,
@@ -233,7 +239,7 @@ KERNELS = {
     "scatter_pixels_to_faces": (f"{PKG}/csrc/scatter_pixels_to_faces.cu", f"{TPU_KERNELS}:1512", "bench"),
     "scatter_faces_to_vertices": (f"{PKG}/csrc/scatter_faces_to_vertices.cu", f"{TPU_KERNELS}:2741", "bench"),
     "gather_faces3": (f"{PKG}/csrc/gather_rows.cu", f"{TPU_KERNELS}:2605", "atlas"),
-    "scatter_rows": (f"{PKG}/csrc/scatter_rows.cu", f"{TPU_KERNELS}:2090", "atlas"),
+    "atlas_taps_grad": (f"{PKG}/csrc/atlas_taps_grad.cu", f"{TPU_KERNELS}:2090", "atlas"),
     "bin_faces": (f"{PKG}/csrc/bin_faces.cu", f"{TPU_KERNELS}:1020", "hires"),
     "resolve_binned_xy": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:858", "hires"),
     "resolve_binned_latch": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:858", "hires-lit"),
@@ -245,7 +251,7 @@ KERNELS = {
 SILHOUETTE_KERNELS = ("resolve_xy", "scatter_pixels_to_faces", "scatter_faces_to_vertices",
                       "gather_faces3")
 TEXTURED_KERNELS = ("resolve_latch", "scatter_pixels_to_faces", "scatter_faces_to_vertices",
-                    "gather_faces3", "scatter_rows")
+                    "gather_faces3", "atlas_taps_grad")
 HIRES_KERNELS = ("bin_faces", "resolve_binned_xy", "scatter_pixels_to_faces",
                  "scatter_faces_to_vertices", "gather_faces3")
 HIRES_LIT_KERNELS = ("bin_faces", "resolve_binned_latch", "scatter_pixels_to_faces",
@@ -714,11 +720,23 @@ class Textured:
         return ndc, fvp, rc.face_setup(fvp, True), attrs.contiguous()
 
 
+def atlas_grad_inputs(cfg, gen):
+    """K6's inputs at an atlas configuration: random gradients g12 f32
+    [1, 12, P] over the anchors its step scatters to (read from the graph
+    of one render, ``roofline.atlas_taps_inputs``); (g12, anchors, tw,
+    T)."""
+    tex = cfg.textures.clone().requires_grad_(True)
+    with torch.enable_grad():
+        anchors, tw, T = atlas_taps_inputs(
+            cfg.renderer.render(cfg.vertices, cfg.faces, cfg.vt, cfg.ft, tex))
+    g12 = torch.randn((1, 12, anchors.shape[1]), generator=gen, device=anchors.device)
+    return g12, anchors, tw, T
+
+
 def textured_kernels_vs_plain(cfg, gen):
     """K5, K2L, K3 (D = 9 + A) and, for ``atlas``, K6 against their plain
     versions at a configuration's shapes.  Returns ({name: max_abs_err},
     {name: Call}, ms of the one plain resolve call)."""
-    dev = cfg.vertices.device
     ndc, fvp, consts, attrs = cfg.latch_inputs()
     S, nf, A = cfg.size, fvp.shape[-1], attrs.shape[-1]
     errs, calls = {}, {}
@@ -739,7 +757,7 @@ def textured_kernels_vs_plain(cfg, gen):
     for part, g, w in zip(("index", "depth", "coords", "attrs"), got, want):
         check_equal(f"{cfg.name} resolve_latch {part}", g, w)
     errs["resolve_latch"] = 0.0
-    index, _, coords, attr_planes = got
+    index = got[0]
     calls["resolve_latch"] = Call(
         lambda: rc.resolve_latch(fvp, attrs, True, S, 0.1, 100.0),
         lambda: rc.resolve_latch_plain(fvp, attrs, True, S, 0.1, 100.0),
@@ -750,33 +768,15 @@ def textured_kernels_vs_plain(cfg, gen):
         cfg.name, index, nf, 9 + A, gen)
 
     if cfg.renderer.texture_size is None:
-        # the quad anchors the atlas sampler scatters its gradient to
-        # (shading._AtlasTaps)
-        th, tw = cfg.textures.shape[2:]
-        w = weight_planes_from_gathered(coords, index, S)
-        x, y = shading._uv_coords(
-            (coords[:, 2], coords[:, 5], coords[:, 8]),
-            (attr_planes[:, 0], attr_planes[:, 2], attr_planes[:, 4]),
-            (attr_planes[:, 1], attr_planes[:, 3], attr_planes[:, 5]),
-            (w[:, 0], w[:, 1], w[:, 2]), index >= 0, 1e-5,
-        )
-        x0, y0, _ = shading._bilinear_taps(x, y)
-        T = th * tw
-        anchors = torch.where(index >= 0, torch.clamp(y0 * tw + x0, 0, T - tw - 2), -1)
-        anchors = anchors.reshape(1, S * S).contiguous()       # -1: background
-        g12 = torch.randn((1, 12, S * S), generator=gen, device=dev)
-        errs["scatter_rows"] = check_close(
-            f"{cfg.name} scatter_rows",
-            rc.scatter_rows(g12, anchors, T), rc.scatter_rows_plain(g12, anchors, T),
-        )
-        calls["scatter_rows"] = Call(
-            lambda: rc.scatter_rows(g12, anchors, T),
-            lambda: rc.scatter_rows_plain(g12, anchors, T),
-            # the ids, the 12 planes of covered pixels, the table written once
-            bound(4 * S * S + 48 * int((anchors >= 0).sum()) + 48 * T,
-                  12 * int((anchors >= 0).sum())),
-            covered_index_add(torch.zeros((T, 12), device=dev), 0, anchors[0],
-                              g12[0].t()),
+        g12, anchors, tw, T = atlas_grad_inputs(cfg, gen)
+        errs["atlas_taps_grad"] = check_close(
+            f"{cfg.name} atlas_taps_grad", rc.atlas_taps_grad(g12, anchors, tw, T),
+            rc.atlas_taps_grad_plain(g12, anchors, tw, T))
+        calls["atlas_taps_grad"] = Call(
+            lambda: rc.atlas_taps_grad(g12, anchors, tw, T),
+            lambda: rc.atlas_taps_grad_plain(g12, anchors, tw, T),
+            bound(*atlas_taps_work(anchors, T)),
+            atlas_taps_library(g12, anchors, tw, T),
         )
     torch.cuda.synchronize()
     log(f"[{cfg.name}] kernels vs plain: nf={nf} A={A} canvas={S}^2 coverage="
@@ -1816,6 +1816,49 @@ def scatter_designs(cases, parent, gen, smi):
     return rows
 
 
+def atlas_grad_designs(g12, anchors, tw, T, smi):
+    """K6 in turns with its designs (``tools/atlas_taps_designs.cu``: float
+    atomics only; warp aggregation of equal anchors before the atomics,
+    with and without float2 pairs), the parent's K6 with what followed it
+    (the [1, T, 12] table, the three folds and autograd's copy into the
+    atlas's layout) and the library call (``roofline.atlas_taps_library``),
+    on ``g12`` [1, 12, P] over ``anchors`` [1, P]; each within GRAD_RTOL of
+    the plain version, the shipped one at most two device operations a call
+    (the zero fill and the kernel).  Returns the row."""
+    lib = tool_library("atlas_taps_designs")
+    design = typed_entry(lib, "design_atlas_taps_grad", (I_, I_, P_, P_, P_, I_, I_, I_, I_))
+    parent_k6 = typed_entry(lib, "parent_scatter_rows", (P_, P_, P_, I_, I_, I_, I_))
+    P = anchors.shape[1]
+
+    def designed(pair, match):
+        out = torch.zeros((1, 3, T), device=g12.device)
+        design(pair, match, g12.data_ptr(), anchors.data_ptr(), out.data_ptr(), 1, P, tw, T)
+        return out
+
+    def parent():
+        quad = torch.zeros((1, T, 12), device=g12.device)
+        parent_k6(g12.data_ptr(), anchors.data_ptr(), quad.data_ptr(), 1, 12, P, T)
+        return rc.fold_taps(quad, tw)
+
+    calls = {"shipped": lambda: rc.atlas_taps_grad(g12, anchors, tw, T),
+             "scalar": lambda: designed(0, 0),
+             "match": lambda: designed(0, 1),
+             "match + pair": lambda: designed(1, 1),
+             "parent + folds": parent}
+    want = rc.atlas_taps_grad_plain(g12, anchors, tw, T)
+    errs = {name: check_close(f"atlas K6 {name}", call(), want) for name, call in calls.items()}
+    calls["zeros + index_add_"] = atlas_taps_library(g12, anchors, tw, T)
+    row = design_row(calls, bound(*atlas_taps_work(anchors, T)))
+    if row["device_ops"]["shipped"] > 2:
+        raise AssertionError(f"atlas K6: {row['device_ops']['shipped']} device operations")
+    covered = int((anchors >= 0).sum())
+    even = int(((anchors >= 0) & (anchors % 2 == 0)).sum())
+    row.update(P=P, T=T, tw=tw, covered=covered, even_anchors=even, max_abs_err=errs)
+    log_design_row("atlas", f"K6 (P={P}, covered {covered}, {even} at even texels, T={T})",
+                   row, f"max abs err vs plain {json.dumps(errs)}", smi)
+    return row
+
+
 def tiled_designs(cases, parent, designs, smi):
     """The tiled forms (every CTA loading every face itself, the next batch
     into registers) in turns with the parent's forms (the same feed, in the
@@ -2611,7 +2654,7 @@ def benchmarks_phase(dev, smi):
     """Phase 21: ``benchmarks.bench`` (BENCH_ITERS, BENCH_CYCLES cycles; its
     chained step held to the eager step inside), ``measure_time`` over
     MEASURE_AZIMUTHS azimuths, ``scaling --quick``, ``kernel_census`` and
-    ``roofline`` (bench and hires, K9); each module's JSON line printed and
+    ``roofline`` (bench and hires, K9, K6); each module's JSON line printed and
     its numbers checked.  Returns the seconds it took."""
     t0 = time.perf_counter()
     name, power_limit = (part.strip() for part in smi.rsplit(",", 1))
@@ -2641,7 +2684,7 @@ def benchmarks_phase(dev, smi):
             raise AssertionError(f"kernel_census: {form} launches {c['forms'][form]['launches']}")
     out["roofline"] = rf = roofline.run(dev)
     log(json.dumps(rf))
-    if len(rf["rows"]) != 2 * len(roofline.FUNCTIONS) + 1:
+    if len(rf["rows"]) != 2 * len(roofline.FUNCTIONS) + 2:
         raise AssertionError(f"roofline: {len(rf['rows'])} rows")
     check_positive("roofline bounds", {f"{r['config']} {r['function']}": r["bound_ms"]
                                        for r in rf["rows"]})
@@ -3024,8 +3067,8 @@ def main():
             k_ms = median_ms(call.kernel, 50)
             prof = profile_device(call.kernel, 20)
             k_dev = kernel_device_ms(prof, name)
-            if name == "scatter_rows":
-                # its bound counts the table written once, which is the
+            if name == "atlas_taps_grad":
+                # its bound counts the gradient written once, which is the
                 # wrapper's zero fill: its device time counts every record
                 # of the call, the fill's too
                 k_dev = call_device_ms(prof)
@@ -3108,6 +3151,9 @@ def main():
             "textured-scale K9 transpose": (ts.fim().reshape(1, 1, -1).contiguous(),
                                             ts.faces.shape[0], 27),
         }, parent_scatter, gen, smi)
+        # K6 in turns with its designs, its parent and the library call
+        redesigned["atlas_taps_grad"] = atlas_grad_designs(
+            *atlas_grad_inputs(cfgs["atlas"], gen), smi)
         bench_fvp = rc.gather_faces3(ndc.detach().contiguous(), faces)
         no_attrs = bench_fvp.new_empty((1, faces.shape[0], 0))
         redesigned["tiled_resolve"] = tiled_designs({

@@ -5,24 +5,30 @@ counterpart of the JAX package's ``benchmarks/prof.py``, with
     python -m neural_renderer_v2_pytorch_tpu_torch.benchmarks.prof \
         [--batch 1 8 30] [--levels 0 1 2 3 4]
 
-The step is ``bench``'s (``bench.py``'s silhouette step on its mesh), or,
-with ``--batch``, ``torus(40, 32)`` at 256^2 with anti-aliasing over that
-many views (azimuths spread over 360 degrees), or, with ``--levels``,
-``torus(40, 32)`` subdivided that many times at 512^2 without
-anti-aliasing.  It is captured whole by its caller (``steps.CallerGraph``)
-under :class:`Stages`, which names the stage each operation belongs to
-from the function that dispatches it and, at every change of stage, puts
-a marker kernel (``torch.cuda._sleep(0)``) into the graph.  Ten replays
-run under the profiler; the device records between two markers are the
-stage's:
+The steps are ``bench``'s (``bench.py``'s silhouette step on its mesh) and
+the atlas's gradient step (``scaling``'s row "atlas 3x1190x1920 256^2 AA,
+atlas gradients"), and, with ``--batch``, ``torus(40, 32)`` at 256^2 with
+anti-aliasing over that many views (azimuths spread over 360 degrees), or,
+with ``--levels``, ``torus(40, 32)`` subdivided that many times at 512^2
+without anti-aliasing.  Each is captured whole by its caller
+(``steps.CallerGraph``) under :class:`Stages`, which names the stage each
+operation belongs to from the function that dispatches it and, at every
+change of stage, puts a marker kernel (``torch.cuda._sleep(0)``) into the
+graph.  Ten replays run under the profiler; the device records between two
+markers are the stage's:
 
 - forward: camera, face-vertex gather (K5), resolve (K2, or K7 + K8),
   weight planes + NMR forward, flip/pool, loss;
 - backward: loss VJP, pool VJP, NMR coordinate gradients, pixel -> face
-  scatter (K3), vertex gradient sum (K4), camera VJP; then the update.
+  scatter (K3), vertex gradient sum (K4), camera VJP; the atlas's
+  gradient (K6: everything ``shading._AtlasTaps.backward`` dispatches,
+  and the operations of PyTorch's own that follow it into the atlas's
+  ``grad``); then the update.
 
-It prints each stage's device ms and records per step, and the markers'
-own time, which the stages leave out.  The last line is one JSON object.
+The atlas's step has no stage of its own for its sampler, whose operations
+fall into the stages around it.  It prints each stage's device ms and
+records per step, and the markers' own time, which the stages leave out.
+The last line is one JSON object.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ BACKWARD = {
     "_Differentiation.backward": "NMR coordinate gradients",
     "_ResolveAndGather.backward": "pixel -> face scatter (K3)",
     "_GatherFaceVertices.backward": "vertex gradient sum (K4)",
+    "_AtlasTaps.backward": "atlas gradient (K6)",
 }
 # a backward operation of PyTorch's own (no function of the package on the
 # stack) belongs to its node's stage where the node is named here (the flip
@@ -63,6 +70,8 @@ BACKWARD = {
 # ones (the loss's) and those after K4 (the camera's)
 BUILTIN_BACKWARD = {"FlipBackward0": "pool VJP"}
 LOSS_VJP, CAMERA_VJP = "loss VJP", "camera VJP"
+ATLAS_ROW = "atlas 3x1190x1920 256^2 AA, atlas gradients"
+ATLAS_STAGE = BACKWARD["_AtlasTaps.backward"]
 MARKER = "spin_kernel"
 LEVEL_SIZE, BATCH_SIZE = 512, 256
 REPLAYS = 10
@@ -140,8 +149,9 @@ def stage_ops(case):
 
 def stage_times(case, n):
     """The whole step of ``case`` captured under :class:`Stages` and ``n``
-    replays profiled: {stage: {ms, records}} per step, the markers' ms per
-    step, and whether every marker kept its record."""
+    replays profiled: {stage: {ms, records, kernels: {record name: ms}}}
+    per step, the markers' ms per step, and whether every marker kept its
+    record."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -158,22 +168,29 @@ def stage_times(case, n):
     records = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
     ms, count = collections.Counter(), collections.Counter()
+    kernels = collections.defaultdict(collections.Counter)
     markers, marker_us, k = 0, 0.0, -1
     for e in records:
         us = e.time_range.end - e.time_range.start
         if MARKER in e.name:
             markers, marker_us, k = markers + 1, marker_us + us, k + 1
         elif k >= 0:
-            ms[labels[k % len(labels)]] += us / 1e3 / n
-            count[labels[k % len(labels)]] += 1 / n
-    stages = {s: dict(ms=ms[s], records=count[s]) for s in dict.fromkeys(labels)}
+            stage = labels[k % len(labels)]
+            ms[stage] += us / 1e3 / n
+            count[stage] += 1 / n
+            kernels[stage][e.name] += us / 1e3 / n
+    stages = {s: dict(ms=ms[s], records=count[s], kernels=dict(kernels[s]))
+              for s in dict.fromkeys(labels)}
     return dict(stages=stages, total_ms=sum(ms.values()), marker_ms=marker_us / 1e3 / n,
                 every_marker_kept=markers == n * len(labels), launches=whole.launches)
 
 
 def cases(device, batches=(), levels=()):
-    """label -> GraphCase: bench's step, then each batch and each level."""
-    out = {"bench": bench.scene(device).case("bench")}
+    """label -> GraphCase: bench's step, the atlas's gradient step, then
+    each batch and each level."""
+    out = {"bench": bench.scene(device).case("bench"),
+           ATLAS_ROW: scaling.case(next(r for r in scaling.ROWS if r.label == ATLAS_ROW),
+                                   device)}
     for bs in batches:
         scene = steps.Silhouettes(*scaling.mesh(0), BATCH_SIZE, batch=bs,
                                   azimuths=np.linspace(0, 360, bs, endpoint=False), device=device)

@@ -27,7 +27,14 @@ kernels' device time (K7's three passes and K8 on the binned route).  K9,
 which the face-sharded path runs and these steps do not, gets a row of its
 own at that path's shapes (``textured-scale``: 158,720 faces at 512^2, 27
 planes) against ``torch.gather``, each in a replayed graph over copies of
-its inputs that do not fit in L2 together.  A share above 100% is flagged
+its inputs that do not fit in L2 together.  K6, which the atlas's
+gradient step runs (``scaling``'s row "atlas 3x1190x1920 256^2 AA, atlas
+gradients"), gets a row at that step: its function's bound from the
+anchors the step scatters to (:func:`atlas_taps_work`), the device time of
+``prof``'s stage "atlas gradient (K6)" in the replayed whole step (the
+zero fill, the kernel and whatever else the stage dispatches) and the
+kernel's own, and the library call's (:func:`atlas_taps_library`) in a
+replayed graph of its own.  A share above 100% is flagged
 (``above_bound``) as no valid reading.  The last line is one JSON
 object."""
 
@@ -39,11 +46,12 @@ import sys
 
 import torch
 
+from ..ops import graphs
 from ..ops import resolve_cuda as rc
 from ..ops.gather_resolve import compute_face_index_map
 from ..ops.resolve import pixel_centres
 from ..utils.scenes import icosphere, torus
-from . import steps
+from . import prof, scaling, steps
 
 # H100 SXM peaks from NVIDIA's data sheet: HBM bytes/s, float32
 # operations/s outside the tensor cores
@@ -73,6 +81,8 @@ K9_SCENE, K9_SIZE, K9_PLANES = (320, 248), 512, 27
 K9_COPIES = 4
 # replays profiled for each device time
 REPLAYS = 10
+# profiles of the atlas's step taken at most, until one keeps every marker
+STAGE_ATTEMPTS = 3
 
 
 def bound(nbytes, ops):
@@ -145,6 +155,50 @@ def gather_rows_work(ids, planes):
     each once."""
     named = int(torch.unique(ids[ids >= 0]).numel())
     return 4 * ids.numel() + 4 * ids.numel() * planes + 4 * planes * named, 0
+
+
+def atlas_taps_work(anchors, num_texels):
+    """K6 over ``anchors`` [bs, P] into [bs, 3, T] (T = ``num_texels``):
+    the anchors and the 12 gradient planes of the covered pixels (anchors
+    in [0, T)) read, the gradient written once; one add per covered pixel
+    and plane."""
+    covered = int(((anchors >= 0) & (anchors < num_texels)).sum())
+    return (4 * anchors.numel() + 48 * covered + 12 * anchors.shape[0] * num_texels,
+            12 * covered)
+
+
+def atlas_taps_inputs(images):
+    """(anchors i32 [bs, P], tw, T) that the atlas sampler's backward
+    scatters to, read from the ``shading._AtlasTaps`` node in the autograd
+    graph of ``images``."""
+    todo, seen = [images.grad_fn], set()
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if type(node).__name__ == "_AtlasTapsBackward":
+            return node.saved_tensors[0], node.tw, node.num_texels
+        todo.extend(next_node for next_node, _ in node.next_functions)
+    raise ValueError("no atlas sampler in the graph of these images")
+
+
+def atlas_taps_library(grad, anchors, tw, num_texels):
+    """K6's function as one PyTorch call, for one image: a zero [3, T] and
+    one ``index_add_`` of the four taps of the covered pixels, their texels
+    (a tap past T dropped, as K6 drops it) and gradients gathered here,
+    outside the call.  Returns the call."""
+    if anchors.shape[0] != 1:
+        raise ValueError(f"one image, got {anchors.shape[0]}")
+    T = num_texels
+    keep = ((anchors[0] >= 0) & (anchors[0] < T)).nonzero()[:, 0]
+    a = anchors[0, keep].long()
+    texels = torch.cat([a + k for k in (0, 1, tw, tw + 1)])
+    # grad [1, 12, P], tap i's channel c on plane 3 i + c -> [3, 4 covered]
+    source = grad[0][:, keep].reshape(4, 3, -1).transpose(0, 1).reshape(3, -1)
+    inside = (texels < T).nonzero()[:, 0]
+    texels, source = texels[inside], source[:, inside].contiguous()
+    return lambda: torch.zeros((3, T), device=grad.device).index_add_(1, texels, source)
 
 
 def step_work(ndc, faces, size, near=0.1, far=100.0, draw_backside=True):
@@ -313,8 +367,47 @@ def k9_row(device, n, gen):
                 library_device_ms=library)
 
 
+def k6_row(device, n, gen):
+    """K6 in the atlas's gradient step (``prof.ATLAS_ROW``): the bound of its
+    function over the anchors the step scatters to; the device time of
+    ``prof``'s stage "atlas gradient (K6)" in ``n`` replays of the whole
+    step captured by its caller (profiled again, up to STAGE_ATTEMPTS
+    times, until every marker kept its record; else not measured), and the
+    kernel's own record in it; the library call's device time in a
+    replayed graph of its own, on random gradients over the same anchors
+    (K6 held to its plain version on them)."""
+    case = scaling.case(next(r for r in scaling.ROWS if r.label == prof.ATLAS_ROW), device)
+    with graphs.eager():
+        images = case.forward(*(v.clone().requires_grad_(True) for v in case.values))
+    anchors, tw, T = atlas_taps_inputs(images)
+    del images
+    grad = torch.randn((anchors.shape[0], 12, anchors.shape[1]), generator=gen, device=device)
+    steps.check_close("K6 at atlas", rc.atlas_taps_grad(grad, anchors, tw, T),
+                      rc.atlas_taps_grad_plain(grad, anchors, tw, T))
+    nbytes, ops = atlas_taps_work(anchors, T)
+    ms, by = bound(nbytes, ops)
+    # a dropped marker record shifts every later record into the wrong
+    # stage: profile again (the profiler drops records now and then)
+    for attempt in range(1, STAGE_ATTEMPTS + 1):
+        times = prof.stage_times(case, n)
+        if times["every_marker_kept"]:
+            break
+    stage = times["stages"][prof.ATLAS_STAGE]
+    pattern = steps.port_kernel_pattern()
+    kernels = {m.group(2): t for k, t in stage["kernels"].items() if (m := pattern.match(k))}
+    dev = stage["ms"] if times["every_marker_kept"] else None
+    library = graph_device_ms([atlas_taps_library(grad, anchors, tw, T)], n)
+    return dict(config="atlas", function=prof.ATLAS_STAGE, bytes=nbytes, operations=ops,
+                bound_ms=ms, bound_by=by, device_ms=dev, share=ms / dev if dev else None,
+                kernels_ms=kernels if dev else None,
+                stage_records=stage["records"], library="zeros + index_add_",
+                library_device_ms=library, launches=times["launches"],
+                every_marker_kept=times["every_marker_kept"], profiles=attempt)
+
+
 def run(device, n=REPLAYS):
-    """Every row: bench and hires, then K9; each printed as it comes."""
+    """Every row: bench and hires, then K9 and K6; each printed as it
+    comes."""
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     name, power_limit = steps.card()
@@ -322,6 +415,7 @@ def run(device, n=REPLAYS):
     for label, scene in configs(device).items():
         out += rows(label, scene, n, gen)
     out.append(k9_row(device, n, gen))
+    out.append(k6_row(device, n, gen))
 
     def ms(v):
         return "not measured" if v is None else f"{v:.6f} ms"

@@ -14,7 +14,8 @@ resolve_pallas.py``).
                                     vertex over its own slots
                                     (:func:`vertex_slots`)
   K5 ``gather_faces3``              vertex -> planar face-vertex gather
-  K6 ``scatter_rows``               row scatter-add (texture-atlas gradient)
+  K6 ``atlas_taps_grad``            texture-atlas gradient: the four bilinear
+                                    taps scattered at their texels
   K7 ``bin_faces``                  per-tile face bins from the face vertices:
                                     exact (the pair total read back), or
                                     capped (overflow bins, nothing read back)
@@ -71,7 +72,7 @@ KERNELS = (
     "scatter_pixels_to_faces",
     "scatter_faces_to_vertices",
     "gather_faces3",
-    "scatter_rows",
+    "atlas_taps_grad",
     "bin_faces",
     "resolve_binned_xy",
     "resolve_binned_latch",
@@ -610,6 +611,10 @@ def _shared_ids_stride(ids, bs, P):
 
 
 def scatter_rows_plain(grad, ids, num_rows):
+    """``out[b, ids[b, p], d] += grad[b, d, p]``: grad f32 [bs, D, P], ids
+    i32 [bs, P] (negative adds nothing) -> f32 [bs, num_rows, D].  The
+    function of the JAX package's ``scatter_rows_pallas``; here the first
+    half of :func:`atlas_taps_grad_plain`."""
     bs, D, _ = grad.shape
     mask = ids >= 0
     rows = (ids.long() + num_rows * torch.arange(bs, device=ids.device)[:, None])[mask]
@@ -618,17 +623,40 @@ def scatter_rows_plain(grad, ids, num_rows):
     return out.reshape(bs, num_rows, D)
 
 
-def scatter_rows(grad, ids, num_rows):
-    """``out[b, ids[b, p], d] += grad[b, d, p]``: grad f32 [bs, D, P], ids
-    i32 [bs, P] (negative adds nothing) -> f32 [bs, num_rows, D]."""
-    if not _use_kernel(grad, ids):
-        return scatter_rows_plain(grad, ids, num_rows)
-    bs, D, P = grad.shape
-    _check(grad, "grad", torch.float32, (bs, D, P))
-    _check(ids, "ids", torch.int32, (bs, P))
-    out = torch.zeros((bs, num_rows, D), dtype=torch.float32, device=grad.device)
-    _launch("scatter_rows", grad.get_device(), grad.data_ptr(), ids.data_ptr(),
-            out.data_ptr(), bs, D, P, num_rows)
+def fold_taps(quad, tw):
+    """The JAX package's fold of the four taps' channels, scattered at their
+    anchor (``quad`` f32 [bs, T, 12]), onto the taps' texels: anchor t
+    contributed to texels t, t+1, t+tw, t+tw+1, each texel summed as q0 +
+    q1 + q_tw + q_tw1 (in place on one buffer); a tap past T is dropped.
+    -> f32 [bs, 3, T], contiguous."""
+    T = quad.shape[1]
+    g = quad[..., 0:3].clone()
+    g[:, 1:] += quad[:, : T - 1, 3:6]
+    g[:, tw:] += quad[:, : T - tw, 6:9]
+    g[:, tw + 1:] += quad[:, : T - tw - 1, 9:12]
+    return g.transpose(1, 2).contiguous()
+
+
+def atlas_taps_grad_plain(grad, anchors, tw, num_texels):
+    ok = (anchors >= 0) & (anchors < num_texels)
+    return fold_taps(scatter_rows_plain(grad, torch.where(ok, anchors, -1), num_texels), tw)
+
+
+def atlas_taps_grad(grad, anchors, tw, num_texels):
+    """The gradient of a flattened atlas [bs, 3, T] (T = ``num_texels``)
+    from its four bilinear taps at each pixel: ``out[b, c, a + k_i] +=
+    grad[b, 3 i + c, p]`` for k = (0, 1, tw, tw + 1), where ``a =
+    anchors[b, p]`` lies in [0, T) (others add nothing) and each tap only
+    where ``a + k_i < T``: grad f32 [bs, 12, P], anchors i32 [bs, P] ->
+    f32 [bs, 3, T], contiguous (the backward of ``shading._AtlasTaps``)."""
+    if not _use_kernel(grad, anchors):
+        return atlas_taps_grad_plain(grad, anchors, tw, num_texels)
+    bs, _, P = grad.shape
+    _check(grad, "grad", torch.float32, (bs, 12, P))
+    _check(anchors, "anchors", torch.int32, (bs, P))
+    out = torch.zeros((bs, 3, num_texels), dtype=torch.float32, device=grad.device)
+    _launch("atlas_taps_grad", grad.get_device(), grad.data_ptr(), anchors.data_ptr(),
+            out.data_ptr(), bs, P, tw, num_texels)
     return out
 
 

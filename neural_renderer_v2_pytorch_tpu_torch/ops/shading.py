@@ -7,7 +7,7 @@ planar ones.
 
 Plain PyTorch, as the JAX package leaves this layer to XLA, except the
 texture-atlas gradient, which is kernel K6 (:func:`resolve_cuda.
-scatter_rows`).  Every expression is the JAX package's, in the same order
+atlas_taps_grad`).  Every expression is the JAX package's, in the same order
 and association, so on the CPU the two agree to the last bit where each op
 is correctly rounded (division by tensors only, sums of three written out).
 """
@@ -18,7 +18,7 @@ import torch
 
 from ..models import lights as light_lib
 from .maps import cross, mask_foreground, to_map
-from .resolve_cuda import scatter_rows, vertex_slots
+from .resolve_cuda import atlas_taps_grad, vertex_slots
 
 
 def coordinate_planes(fvm_planar, weight_planes):
@@ -85,13 +85,14 @@ class _AtlasTaps(torch.autograd.Function):
     The anchor is clamped to [0, T - tw - 2] as a unit, so all four taps
     stay in the atlas (texel coordinates must lie in [0, tw-1] x [0, th-1]).
 
-    The backward scatters all four taps' gradients as 12 channels at the
-    anchor (kernel K6), then folds the quad channels onto their texels
-    with three shifted adds, in the JAX package's order.  A negative
-    ``idx00`` marks a pixel whose gradient is 0 (background): it reads the
-    anchor 0 and scatters nothing.  (The JAX package adds its zeros at
-    texel 0; with atomics, hundreds of thousands of them there serialise
-    on one address.)"""
+    The backward adds each tap's three gradient channels at its own texel,
+    straight into the planar [bs, 3, T] gradient (kernel K6; its plain
+    version scatters the 12 channels at the anchor and folds them with
+    three shifted adds, in the JAX package's order).  A negative ``idx00``
+    marks a pixel whose gradient is 0 (background): it reads the anchor 0
+    and scatters nothing.  (The JAX package adds its zeros at texel 0; with
+    atomics, hundreds of thousands of them there serialise on one
+    address.)"""
 
     @staticmethod
     def forward(ctx, flat, idx00, tw):
@@ -108,17 +109,11 @@ class _AtlasTaps(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         (anchors,) = ctx.saved_tensors            # -1: scatter nothing
-        tw, T = ctx.tw, ctx.num_texels
         bs, P = anchors.shape
-        quad = scatter_rows(grad.reshape(bs, 12, P).contiguous(),
-                            anchors.to(torch.int32).contiguous(), T)   # [bs, T, 12]
-        # anchor t contributed to texels t, t+1, t+tw, t+tw+1; in place on
-        # one buffer, each texel summed as q0 + q1 + q_tw + q_tw1
-        g = quad[..., 0:3].clone()
-        g[:, 1:] += quad[:, : T - 1, 3:6]
-        g[:, tw:] += quad[:, : T - tw, 6:9]
-        g[:, tw + 1:] += quad[:, : T - tw - 1, 9:12]
-        return g.transpose(1, 2), None, None
+        # contiguous [bs, 3, T]: the atlas's own layout, so autograd keeps it
+        return atlas_taps_grad(grad.reshape(bs, 12, P).contiguous(),
+                               anchors.to(torch.int32).contiguous(), ctx.tw,
+                               ctx.num_texels), None, None
 
 
 def sample_textures_atlas_planes(fvm_planar, uv_planes, textures, face_index_map,

@@ -56,7 +56,7 @@ SIGNATURES = {
     "scatter_faces_to_vertices": "PPPPiii",
     "gather_faces3": "PPPiiii",
     "gather_rows": "PPPiiiiqi",
-    "scatter_rows": "PPPiiii",
+    "atlas_taps_grad": "PPPiiii",
 }
 # entry -> the struct that packs the card and the arguments into a block
 PACKERS = {name: struct.Struct("<q" + "".join("d" if c == "f" else "q" for c in sig))

@@ -15,9 +15,11 @@ time nothing:
 - ``scaling``'s thirteen rows, their face counts and routes, and a step of
   each kind of row at a small size;
 - ``roofline``'s counts: exact on a one-triangle scene, and the same
-  whichever route or kernel flag is forced;
+  whichever route or kernel flag is forced; K6's over the atlas's step,
+  and its library call against the plain version;
 - ``kernel_census``'s operations of one eager step, the same over two runs,
-  and ``prof``'s stages of one step, in order;
+  and ``prof``'s stages of one step, in order, and K6's in the atlas's
+  gradient step;
 - each module's ``main()`` without a card: status 2 and one line.
 """
 
@@ -44,7 +46,7 @@ from neural_renderer_v2_pytorch_tpu_torch.benchmarks import (
 )
 from neural_renderer_v2_pytorch_tpu_torch.ops import resolve_cuda as rc
 from neural_renderer_v2_pytorch_tpu_torch.ops.gather_resolve import compute_face_index_map
-from neural_renderer_v2_pytorch_tpu_torch.utils.scenes import torus
+from neural_renderer_v2_pytorch_tpu_torch.utils.scenes import atlas_scene, torus
 
 SIZE = 32
 CHAIN_STEPS = 3
@@ -242,6 +244,40 @@ def test_prof_names_every_stage_in_order(mesh):
     no_aa = prof.stage_ops(steps.Silhouettes(v, f, SIZE, anti_aliasing=False,
                                              device="cpu").case("level"))
     assert "pool VJP" in no_aa and None not in no_aa
+
+
+def test_prof_names_the_atlas_gradient_stage():
+    """The atlas's gradient step (its row cut to 16^2): everything
+    ``_AtlasTaps.backward`` dispatches is K6's stage, the last before the
+    update; prof runs that step beside bench's."""
+    assert list(prof.cases("cpu")) == ["bench", prof.ATLAS_ROW]
+    row = next(r for r in scaling.ROWS if r.label == prof.ATLAS_ROW)
+    ops = prof.stage_ops(scaling.case(row._replace(image_size=16), "cpu"))
+    assert list(ops)[-2:] == [prof.ATLAS_STAGE, "update"] and ops[prof.ATLAS_STAGE] > 0
+    assert prof.ATLAS_STAGE == "atlas gradient (K6)"
+
+
+def test_roofline_counts_the_atlas_gradient():
+    """K6's bytes and adds over anchors -1, 0, 5, T - 1 and T (T = 10):
+    three covered pixels; and, on the atlas's gradient step at 32^2, the
+    anchors read from its graph (one per covered pixel, -1 elsewhere) and
+    the library call, which equals the plain version there."""
+    anchors = torch.tensor([[-1, 0, 5, 9, 10]], dtype=torch.int32)
+    assert roofline.atlas_taps_work(anchors, 10) == (4 * 5 + 48 * 3 + 12 * 10, 12 * 3)
+    row = next(r for r in scaling.ROWS if r.label == prof.ATLAS_ROW)
+    case = scaling.case(row._replace(image_size=32), "cpu")
+    images = case.forward(*(v.clone().requires_grad_(True) for v in case.values))
+    anchors, tw, T = roofline.atlas_taps_inputs(images)
+    assert (tw, T) == (1920, 1190 * 1920) and anchors.shape == (1, 64 * 64)
+    ndc = case.renderer.transform_vertices(torch.tensor(atlas_scene(*scaling.TORUS)[0][None]))
+    index = compute_face_index_map(ndc[:, case.faces.long()], 64)
+    assert torch.equal(anchors >= 0, index.reshape(1, -1) >= 0)
+    assert roofline.atlas_taps_work(anchors, T) == (
+        4 * 64 * 64 + 48 * int((index >= 0).sum()) + 12 * T, 12 * int((index >= 0).sum()))
+    grad = torch.tensor(np.random.RandomState(0).randn(1, 12, 64 * 64).astype(np.float32))
+    want = rc.atlas_taps_grad_plain(grad, anchors, tw, T)
+    got = roofline.atlas_taps_library(grad, anchors, tw, T)()
+    torch.testing.assert_close(got, want[0], rtol=0, atol=1e-6 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("module", [bench, measure_time, scaling, prof, kernel_census, roofline],

@@ -254,11 +254,17 @@ def test_gather_and_row_scatter_match_plain_versions(cuda):
     for D in (3, 12):
         table = torch.randn((2, len(v), D), generator=gen, device=cuda)
         assert torch.equal(rc.gather_faces3(table, f), rc.gather_faces3_plain(table, f))
-    T = 5000
-    g = torch.randn((2, 12, 4096), generator=gen, device=cuda)
-    ids = torch.randint(-1, T, (2, 4096), generator=gen, device=cuda, dtype=torch.int32)
-    got, want = rc.scatter_rows(g, ids, T), rc.scatter_rows_plain(g, ids, T)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+    # K6 on random anchors (-1, and past T - tw - 2 and T), at atlas's
+    # shapes (a 1190 x 1920 atlas, 512^2 pixels) and on an odd atlas width
+    # and texel count (float2 pairs unaligned in every other plane)
+    P = 512 * 512
+    g = torch.randn((2, 12, P), generator=gen, device=cuda)
+    for th, tw in ((1190, 1920), (23, 37)):
+        T = th * tw
+        ids = torch.randint(-1, T + 4, (2, P), generator=gen, device=cuda, dtype=torch.int32)
+        got, want = rc.atlas_taps_grad(g, ids, tw, T), rc.atlas_taps_grad_plain(g, ids, tw, T)
+        assert got.shape == (2, 3, T) and got.is_contiguous()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("scene", ["atlas", "lit"])
@@ -297,7 +303,7 @@ def test_textured_slice_on_card_matches_cpu(cuda, scene):
                 "gather_faces3")
     assert all(rc.LAUNCHES[n] == 1 for n in textured), rc.LAUNCHES
     assert rc.LAUNCHES["face_setup"] == 0 and rc.LAUNCHES["bin_faces"] == 0, rc.LAUNCHES
-    assert rc.LAUNCHES["scatter_rows"] == (1 if scene == "atlas" else 0)
+    assert rc.LAUNCHES["atlas_taps_grad"] == (1 if scene == "atlas" else 0)
     torch.testing.assert_close(out[1][0], out[0][0], rtol=0, atol=1e-5)
     for i in (1, 2):
         torch.testing.assert_close(out[1][i], out[0][i], rtol=0,

@@ -1,11 +1,12 @@
 """The plain versions of the port's kernels K2L (resolve with coordinate
-and attribute latch), K5 (planar face gather) and K6 (row scatter) against
-the JAX package's Pallas kernels in interpret mode; the latching resolve's
-autograd Function against the JAX VJP; and the kernel-routing switch.
+and attribute latch) and K5 (planar face gather), and the row scatter that
+K6's plain version starts from, against the JAX package's Pallas kernels
+in interpret mode; the latching resolve's autograd Function against the
+JAX VJP; and the kernel-routing switch.
 
-K2L and K5 are copies and must be bit-equal.  K6 is held to 1e-5 of the
-largest magnitude: the Pallas kernel splits gradients into bf16 halves
-(~2^-17 relative)."""
+K2L and K5 are copies and must be bit-equal.  The row scatter is held to
+1e-5 of the largest magnitude: the Pallas kernel splits gradients into
+bf16 halves (~2^-17 relative)."""
 
 import ctypes
 
@@ -83,7 +84,7 @@ def test_scatter_rows_plain_matches_pallas():
         jnp.asarray(g), jnp.asarray(ids), T, strip=512, chunk=128,
         part_bytes=128 * 128 * 4 * D, interpret=True,
     ))
-    got = rc.scatter_rows(torch.tensor(g), torch.tensor(ids), T).numpy()
+    got = rc.scatter_rows_plain(torch.tensor(g), torch.tensor(ids), T).numpy()
     assert got.shape == (bs, T, D)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
 
@@ -147,7 +148,7 @@ def _kernel_args():
         "scatter_pixels_to_faces": ((torch.ones(1, 6, 8, 8), fim, 9), {}),
         "scatter_faces_to_vertices": ((torch.ones(1, 3, 3, 20), faces, 12), {}),
         "gather_faces3": ((torch.ones(1, 12, 3), faces), {}),
-        "scatter_rows": ((torch.ones(1, 12, 64), fim.reshape(1, 64), 9), {}),
+        "atlas_taps_grad": ((torch.ones(1, 12, 64), fim.reshape(1, 64), 3, 9), {}),
         "bin_faces": ((fvp, True, 40), {}),
         "resolve_binned_xy": ((fvp, True, bins, 40, 0.1, 100.0), {}),
         "resolve_binned_latch": ((fvp, torch.ones(1, 9, 4), False, bins, 40, 0.1, 100.0), {}),

@@ -114,7 +114,7 @@ def tiny_calls(cs, dev):
         "scatter_pixels_to_faces": lambda: rc.scatter_pixels_to_faces(g6, fim, 9),
         "scatter_faces_to_vertices": lambda: rc.scatter_faces_to_vertices(g9, faces, 12),
         "gather_faces3": lambda: rc.gather_faces3(table3, faces),
-        "scatter_rows": lambda: rc.scatter_rows(g12, ids, 9),
+        "atlas_taps_grad": lambda: rc.atlas_taps_grad(g12, ids, 3, 9),
         "bin_faces": lambda: rc.bin_faces(*lead["bin_faces"], 16),
         "resolve_binned_xy": lambda: rc.resolve_binned_xy(*lead["binned_xy"](bins), 16, 0.1,
                                                           100.0),
