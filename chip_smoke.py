@@ -147,7 +147,16 @@ held to the eager step: images equal, gradients within 1e-4),
 ``measure_time`` over 4 azimuths, ``scaling --quick``, ``kernel_census``
 and ``roofline`` at ``bench`` and ``hires`` (K9, and K6 in the atlas's
 gradient step), each module's JSON line
-printed and checked; and the whole run's seconds.
+printed and checked.  Last, the JAX package's pipeline edge cases
+(``utils.scenes.edge_scenes``, its tests/test_pipeline_edge.py at 32^2: a
+face off screen, a face clipped by the near plane, one face, a batch of an
+empty and a full slot with and without anti-aliasing, three random soups of
+duplicate and degenerate faces, their RGBA over a ``create_textures`` atlas
+and over a loaded one) on the tiled and the binned route, eager and
+graphed: images, index maps, ``to_map`` rows and gradients held to the plain
+versions on the card, and the mixed batch's whole step captured by its
+caller on each route; every kernel but K1 launched in that phase; and the
+whole run's seconds.
 
 Any failure raises and the script exits non-zero without its last line.  On
 success the last line is
@@ -217,7 +226,10 @@ from neural_renderer_v2_pytorch_tpu_torch.ops.rasterize import face_attributes
 from neural_renderer_v2_pytorch_tpu_torch.ops.resolve import DEPTH_MIN_DELTA
 from neural_renderer_v2_pytorch_tpu_torch.utils import cuda_build
 from neural_renderer_v2_pytorch_tpu_torch.utils.scenes import (
+    EDGE_SIZE,
+    EDGE_TEXTURE_SIZE,
     atlas_scene,
+    edge_scenes,
     icosphere,
     lit_light_arrays,
     texel_scene,
@@ -1763,9 +1775,12 @@ def design_row(calls, bound_):
 
 
 def log_design_row(label, name, row, checked, smi):
+    def device(ms):
+        return "not measured" if ms is None else f"{ms:.5f} ms"
+
     log(f"[redesign] {label} {name}: " + "; ".join(
         f"{n} {row['ms'][n]:.4f} ms (turns {', '.join(f'{t:.4f}' for t in row['ms_turns'][n])}), "
-        f"device {row['device_ms'][n]:.5f} ms in {row['device_ops'][n]:.2f} operations"
+        f"device {device(row['device_ms'][n])} in {row['device_ops'][n]:.2f} operations"
         for n in row["ms"]) + f"; bound {row['bound_ms']:.6f} ms by {row['bound_by']}; "
         f"{checked}  ({smi})")
 
@@ -2694,6 +2709,154 @@ def benchmarks_phase(dev, smi):
     return seconds
 
 
+# phase 22: the JAX package's pipeline edge cases (utils.scenes.edge_scenes)
+# on both routes; each graphed step is called this many times: the first
+# runs eagerly, the second captures, every call from the second replays
+EDGE_GRAPH_CALLS = 3
+EDGE_KERNELS = tuple(name for name in rc.KERNELS if name != "face_setup")
+
+
+def _silhouettes_forward(faces, hp):
+    return lambda x: nr.rasterize_silhouettes(x, faces, None, hp)
+
+
+def _rgba_forward(faces, params, hp):
+    return lambda x, t: nr.rasterize_rgba(x, faces, params.replace(textures=t), hp)
+
+
+def edge_cases(dev):
+    """The edge phase's steps, on tensors made anew (so that no graph kept
+    over another route's faces tensor replays): [(GraphCase, the index
+    map's face vertices [bs, nf, 3, 3], its size)], each scene's silhouettes
+    and, for the soups, its RGBA with the ``create_textures`` atlas
+    (``texture_size`` 2) and as a loaded atlas (``texture_size`` None: K6
+    in the backward), the atlas taking gradients."""
+    out = []
+    for name, scene in edge_scenes().items():
+        x = torch.tensor(scene["vertices"], device=dev)
+        faces = torch.tensor(scene["faces"], device=dev)
+        size = EDGE_SIZE * (2 if scene["anti_aliasing"] else 1)
+        fv = x[:, faces.long()]
+        hp = nr.RasterizeHyperparam(image_size=EDGE_SIZE, anti_aliasing=scene["anti_aliasing"])
+        out.append((GraphCase(name, None, faces, _silhouettes_forward(faces, hp), [x]), fv, size))
+        if "textures" not in scene:
+            continue
+        vt, ft, tex = (torch.tensor(scene[k], device=dev)
+                       for k in ("vertices_t", "faces_t", "textures"))
+        for form, ts in (("texel", EDGE_TEXTURE_SIZE), ("atlas", None)):
+            params = nr.RasterizeParam(vertices_textures=vt, faces_textures=ft, texture_size=ts)
+            out.append((GraphCase(f"{name} rgba {form}", None, faces,
+                                  _rgba_forward(faces, params, hp), [x, tex]), fv, size))
+    return out
+
+
+def edge_step(case):
+    """``case``'s forward and backward under the JAX edge tests' loss,
+    sum(images^2) (on a binary silhouette bench_loss's NMR gradients
+    cancel): (images, [gradient of each value])."""
+    leaves = [v.clone().requires_grad_(True) for v in case.values]
+    images = case.forward(*leaves)
+    torch.sum(images ** 2).backward()
+    return images.detach(), [t.grad for t in leaves]
+
+
+def edge_case_forms(case, fv, size, route):
+    """One edge step (:func:`edge_step`) on ``route``: eager
+    (``nr.eager()``) and graphed (EDGE_GRAPH_CALLS calls: one capture,
+    replays from the second), its index map eager and graphed, and the
+    winners' face vertices through ``to_map`` (K9), each held to the plain
+    versions on the card: images, index maps and rows equal, gradients
+    within GRAD_RTOL of their largest magnitude and finite; the plain
+    gradients all zero where nothing is drawn, none all zero elsewhere.
+    Returns ({form: largest gradient error}, each plain gradient's largest
+    magnitude, the coverage)."""
+    label = f"[edge] {route} {case.label}"
+    rows = fv.reshape(fv.shape[0], fv.shape[1], 9)
+    with rc.forced_route(route):
+        with nr.eager(), rc.plain_versions():
+            want = edge_step(case)
+            want_fim = nr.compute_face_index_map(fv, size)
+            want_rows = nr.to_map(rows, want_fim)
+        with nr.eager():
+            got = {"eager": edge_step(case)}
+            fims = [nr.compute_face_index_map(fv, size)]
+            check_equal(f"{label} to_map", nr.to_map(rows, fims[0]), want_rows)
+        before = dict(rc.GRAPHS)
+        for call in range(EDGE_GRAPH_CALLS):
+            got[f"graphed {call}"] = edge_step(case)
+        graphed = {k: rc.GRAPHS[k] - before[k] for k in before}
+        want_graphed = dict(captures=1, forward_replays=EDGE_GRAPH_CALLS - 1,
+                            backward_replays=EDGE_GRAPH_CALLS - 1)
+        if {k: graphed[k] for k in want_graphed} != want_graphed:
+            raise AssertionError(f"{label}: graphed calls {graphed}")
+        before = rc.GRAPHS["forward_replays"]
+        fims += [nr.compute_face_index_map(fv, size) for _ in range(EDGE_GRAPH_CALLS)]
+        if rc.GRAPHS["forward_replays"] - before < EDGE_GRAPH_CALLS - 1:
+            raise AssertionError(f"{label}: index map replays {rc.GRAPHS}")
+    for i, fim in enumerate(fims):
+        check_equal(f"{label} index map {i}", fim, want_fim)
+    largest = [float(g.abs().max()) for g in want[1]]
+    drawn = bool((want_fim >= 0).any())
+    if drawn != all(largest) or drawn != bool(want[0].any()):
+        raise AssertionError(f"{label}: coverage {drawn}, largest plain gradients {largest}")
+    errs = {}
+    for form, (images, grads) in got.items():
+        for g in grads:
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"{label} {form}: gradients not finite")
+        errs[form] = check_against(f"{label} {form}", (images, grads), want)
+    return errs, largest, float((want_fim >= 0).float().mean())
+
+
+def edge_whole_step(case, route):
+    """``case``'s whole step (render, bench_loss, backward, update) captured
+    by its caller in one ``torch.cuda.graph`` on ``route`` (the binned one
+    capped at the warm-up's pair total), replayed once and held to the
+    plain versions: images equal, gradients within GRAD_RTOL.  Returns the
+    largest gradient error and the kernels the graph holds."""
+    with rc.forced_route(route):
+        whole = CallerGraph(case)
+        with nr.eager(), rc.plain_versions():
+            want = case.step()
+    images, grads = whole()
+    err = check_against(f"[edge] {route} {case.label} whole step", (images, grads), want)
+    resolve = "resolve_xy" if route == "tiled" else "resolve_binned_xy"
+    if whole.launches.get(resolve) != 1 or whole.launches.get("bin_faces", 0) != (
+            route == "binned"):
+        raise AssertionError(f"[edge] {route} {case.label} whole step holds {whole.launches}")
+    return err, whole.launches
+
+
+def edge_phase(dev, smi):
+    """Phase 22: every edge case on the tiled and the binned route (forced
+    through ``resolve_cuda.forced_route``), eager and graphed, against the
+    plain versions on the card (:func:`edge_case_forms`), and the mixed
+    batch's whole step captured by its caller on each route. The
+    launches are counted from 0 over the phase: every kernel but K1.
+    Returns (the launches, the seconds)."""
+    t0 = time.perf_counter()
+    rc.reset_launches()
+    for route in rc.ROUTES:
+        for case, fv, size in edge_cases(dev):
+            errs, largest, coverage = edge_case_forms(case, fv, size, route)
+            log(f"[edge] {route} {case.label}: images, index maps and to_map rows equal to "
+                f"the plain versions; grad max abs err {json.dumps(errs)} (largest plain |g| "
+                f"{json.dumps(largest)}), coverage {coverage:.4f}  ({smi})")
+        mixed = next(case for case, _, _ in edge_cases(dev) if case.label == "mixed")
+        err, held = edge_whole_step(mixed, route)
+        log(f"[edge] {route} mixed whole step captured by its caller: images equal, grad max "
+            f"abs err {err}; the graph holds {json.dumps(held)}  ({smi})")
+    torch.cuda.synchronize()
+    launches = dict(rc.LAUNCHES)
+    seconds = time.perf_counter() - t0
+    log(f"[edge] {seconds:.1f} s, launches {json.dumps(launches)}  ({smi})")
+    missed = [name for name in EDGE_KERNELS if not launches[name]]
+    if missed:
+        raise AssertionError(f"[edge] kernels never launched: {missed}")
+    check_k1("edge phase", launches)
+    return launches, seconds
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -3065,7 +3228,7 @@ def main():
     for label, calls in all_calls:
         for name, call in calls.items():
             k_ms = median_ms(call.kernel, 50)
-            prof = profile_device(call.kernel, 20)
+            prof = profile_kept(call.kernel)
             k_dev = kernel_device_ms(prof, name)
             if name == "atlas_taps_grad":
                 # its bound counts the gradient written once, which is the
@@ -3212,6 +3375,9 @@ def main():
     # 21. the measurement modules
     benchmarks_phase(dev, smi)
 
+    # 22. the JAX package's pipeline edge cases on both routes
+    edge_launches, _ = edge_phase(dev, smi)
+
     log("[routes] resolve ms (tiled, binned) and the rule's route: " + json.dumps(
         {label: [route_ms[label]["tiled"], route_ms[label]["binned"], route_rule[label]]
          for label in route_ms}))
@@ -3220,7 +3386,7 @@ def main():
 
     launches = collections.Counter()
     for path in (sil_launches, tex_launches, hires_launches, hl_launches, index_launches,
-                 sharded_launches, *example_launches.values()):
+                 sharded_launches, *example_launches.values(), edge_launches):
         launches.update(path)
     log(f"[run] {time.perf_counter() - started:.1f} s, the build included")
     log(smi)

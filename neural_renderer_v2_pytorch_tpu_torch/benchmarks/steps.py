@@ -367,7 +367,10 @@ def call_device_ms(prof):
     """The device ms per call of every record a profiled call leaves (its
     kernels, fills and copies): each record name's mean record times its
     records per call rounded (at least 1), so that a dropped record does not
-    count as time saved."""
+    count as time saved; None (not measured) when the profile kept no
+    record at all."""
+    if not prof.records:
+        return None
     return sum(ms * max(1, round(per_call)) for per_call, ms in prof.records.values())
 
 

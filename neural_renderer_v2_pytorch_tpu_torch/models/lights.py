@@ -15,15 +15,21 @@ class Light:
     """Base class of the light sources (reference lights.py:4-8)."""
 
 
+class _Replace:
+    def replace(self, **kw):
+        """A copy with the fields ``kw`` replaced, as ``flax.struct``'s."""
+        return dataclasses.replace(self, **kw)
+
+
 @dataclasses.dataclass
-class AmbientLight(Light):
+class AmbientLight(Light, _Replace):
     """Flat per-batch colour added to the colour-weight map."""
 
     color: torch.Tensor                     # [bs, 3]
 
 
 @dataclasses.dataclass
-class DirectionalLight(Light):
+class DirectionalLight(Light, _Replace):
     """Lambertian light: intensity = relu(-direction . normal), or its
     absolute value when ``backside``."""
 
@@ -33,7 +39,7 @@ class DirectionalLight(Light):
 
 
 @dataclasses.dataclass
-class SpecularLight(Light):
+class SpecularLight(Light, _Replace):
     """View-aligned specular: intensity = ((0, 0, 1) . -normal) ** alpha."""
 
     color: torch.Tensor                     # [bs, 3]

@@ -90,15 +90,16 @@ class Renderer(nn.Module):
         if not self._on_device(t):
             raise ValueError(f"input on {t.device}, renderer on {self.device}")
 
-    def transform_vertices(self, vertices):
-        """Viewpoint + perspective transform (reference renderer.py:24-35)."""
+    def transform_vertices(self, vertices, lights=None):
+        """Viewpoint + perspective transform (reference renderer.py:24-35).
+        Any ``camera_mode`` but ``"look_at"`` and ``"look"`` applies no
+        viewpoint transform (camera-space vertices), and ``lights`` is not
+        read, as in the JAX package."""
         self._check_device(vertices)
         if self.camera_mode == "look_at":
             vertices = look_at(vertices, self.viewpoints)
         elif self.camera_mode == "look":
             vertices = look(vertices, self.viewpoints, self.camera_direction)
-        else:
-            raise ValueError(f"unknown camera_mode {self.camera_mode!r}")
         if self.perspective:
             vertices = perspective(vertices, angle=self.viewing_angle)
         return vertices
@@ -145,7 +146,7 @@ class Renderer(nn.Module):
     def render_rgb(self, vertices, faces, vertices_t, faces_t, textures, backgrounds=None,
                    lights=None):
         """RGB [bs, 3, H, W]; arguments as :meth:`render`."""
-        vertices = self.transform_vertices(vertices)
+        vertices = self.transform_vertices(vertices, lights)
         faces = self.faces_on_device(faces)
         params = self._textured_params(vertices_t, faces_t, textures, backgrounds, lights)
         return rasterize_rgb(vertices, faces, params, self._hyperparams())

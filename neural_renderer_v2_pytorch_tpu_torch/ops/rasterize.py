@@ -70,6 +70,9 @@ class RasterizeParam:
     backgrounds: Optional[torch.Tensor] = None          # [bs, 3, H, W]
     lights: Optional[Tuple[Any, ...]] = None            # models.lights
 
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
 
 def face_attributes(vertices, faces, face_vertices, params):
     """The per-face attributes the RGB path latches, [bs, nf, A]: the

@@ -63,9 +63,12 @@ def lights_from_jax(lights, device):
 
 
 def params_from_jax(fields, device):
-    """A :class:`RasterizeParam` on ``device`` from the JAX package's, given
-    as a mapping of its fields (arrays as numpy).  Drops its TPU occupancy
-    lists by name; raises on any other field the port does not know."""
+    """A :class:`RasterizeParam` on ``device`` from the JAX package's: the
+    object itself, or a mapping of its fields (arrays as anything numpy can
+    read).  Drops its TPU occupancy lists by name; raises on any other
+    field the port does not know."""
+    if dataclasses.is_dataclass(fields):
+        fields = {f.name: getattr(fields, f.name) for f in dataclasses.fields(fields)}
     known = {f.name for f in dataclasses.fields(RasterizeParam)}
     kept = {k: v for k, v in fields.items() if k not in _TPU_PARAMS}
     unknown = sorted(set(kept) - known)

@@ -17,7 +17,10 @@ place of the reference's teapot and target images, and ``square`` is the
 two-triangle square of the silhouette convergence fit.  ``subdivide`` is
 the JAX package's perf-matrix face-count sweep's midpoint subdivision
 (``benchmarks/scaling.py``), which the port's ``benchmarks.scaling``
-applies to ``torus(40, 32)``.
+applies to ``torus(40, 32)``.  ``edge_scenes`` are the JAX package's
+pipeline edge cases (an empty image, every face clipped, a batch mixing an
+empty slot with a full one, random soups of duplicate and degenerate
+faces).
 """
 
 from __future__ import annotations
@@ -205,6 +208,62 @@ def square(half, centre=(0.0, 0.0), z=1.0):
 # silhouette stands in for the reference's gradient.png, which the
 # repository does not ship (the fit starts at square(0.1))
 CONVERGENCE_TARGET = dict(half=0.3, centre=(0.2, -0.15))
+
+# the pipeline edge cases of the JAX package's tests/test_pipeline_edge.py:
+# their image size (anti-aliasing off but in "mixed-aa"), the fuzz test's
+# seed and trials, and the texel size of its textured soups
+EDGE_SIZE = 32
+EDGE_SEED = 77
+EDGE_SOUP_TRIALS = 3
+EDGE_TEXTURE_SIZE = 2
+
+
+def edge_scenes():
+    """The JAX package's pipeline edge cases (tests/test_pipeline_edge.py:
+    39-126) as NDC scenes, name -> dict(vertices f32 [bs, nv, 3], faces i32
+    [nf, 3], anti_aliasing), the soups also with (vertices_t f32 [1, nf*3,
+    2], faces_t i32 [nf, 3], textures f32 [1, 3, th, tw]): a
+    ``create_textures(nf, EDGE_TEXTURE_SIZE)`` atlas of random texels.
+
+    - ``empty``: one face wholly off screen;
+    - ``near``: one face in front of the near plane (z = 0.01 < 0.1);
+    - ``single``: one visible face;
+    - ``mixed``: a batch of that face moved off screen (slot 0) and the
+      face (slot 1); ``mixed-aa`` the same with anti-aliasing;
+    - ``soup0``-``soup2``: the fuzz test's random soups, drawn in its order
+      from ``RandomState(EDGE_SEED)``: 5 or 33 faces of vertices of their
+      own, face 1 a duplicate of face 0 and vertex 7 of vertex 6 (a
+      degenerate edge)."""
+    from .helpers import create_textures
+
+    one = np.array([[0, 1, 2]], np.int32)
+    tri = np.array([[-0.5, -0.5, 1.0], [0.5, -0.5, 1.0], [0.0, 0.5, 1.0]], np.float32)
+    mixed = np.stack([tri * 0 + 9.0, tri])
+    out = {
+        "empty": dict(vertices=np.array([[[5.0, 5.0, 1.0], [5.2, 5.0, 1.0], [5.0, 5.2, 1.0]]],
+                                        np.float32), faces=one, anti_aliasing=False),
+        "near": dict(vertices=np.array([[[-0.5, -0.5, 0.01], [0.5, -0.5, 0.01],
+                                         [0.0, 0.5, 0.01]]], np.float32),
+                     faces=one, anti_aliasing=False),
+        "single": dict(vertices=tri[None], faces=one, anti_aliasing=False),
+        "mixed": dict(vertices=mixed, faces=one, anti_aliasing=False),
+        "mixed-aa": dict(vertices=mixed, faces=one, anti_aliasing=True),
+    }
+    rng = np.random.RandomState(EDGE_SEED)
+    for trial in range(EDGE_SOUP_TRIALS):
+        nf = int(rng.choice([5, 33]))
+        fv = rng.uniform(-1.2, 1.2, (1, nf * 3, 3)).astype(np.float32)
+        fv[..., 2] = np.abs(fv[..., 2]) + rng.uniform(0.05, 0.5)
+        if nf > 4:
+            fv[0, 3:6] = fv[0, 0:3]          # duplicate face
+            fv[0, 7] = fv[0, 6]              # degenerate edge
+        vt, ft, tex = (t.numpy() for t in create_textures(nf, EDGE_TEXTURE_SIZE, device="cpu"))
+        out[f"soup{trial}"] = dict(
+            vertices=fv, faces=np.arange(nf * 3, dtype=np.int32).reshape(nf, 3),
+            anti_aliasing=False, vertices_t=vt[None], faces_t=ft,
+            textures=rng.rand(*tex.shape).astype(np.float32)[None])
+    return out
+
 
 # the examples' cameras, here alone: distance, elevation and azimuth of
 # example 2's view, example 3's evaluation view (both examples import them)

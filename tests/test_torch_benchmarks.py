@@ -20,6 +20,7 @@ time nothing:
 - ``kernel_census``'s operations of one eager step, the same over two runs,
   and ``prof``'s stages of one step, in order, and K6's in the atlas's
   gradient step;
+- a profile that kept no device record reads "not measured" (None), not 0;
 - each module's ``main()`` without a card: status 2 and one line.
 """
 
@@ -278,6 +279,38 @@ def test_roofline_counts_the_atlas_gradient():
     want = rc.atlas_taps_grad_plain(grad, anchors, tw, T)
     got = roofline.atlas_taps_library(grad, anchors, tw, T)()
     torch.testing.assert_close(got, want[0], rtol=0, atol=1e-6 * float(want.abs().max()))
+
+
+def _profile(records):
+    """A ``steps.Profile`` with these ``records`` (name -> (records per
+    call, mean record ms)) and nothing else kept."""
+    fields = dict.fromkeys(steps.Profile._fields)
+    fields.update(records=records, ops=sum(n for n, _ in records.values()))
+    return steps.Profile(**fields)
+
+
+def test_a_profile_that_kept_no_record_is_not_measured(monkeypatch):
+    """``call_device_ms``: None for a profile that kept no record, never 0;
+    else each name's mean record times its records per call rounded (at
+    least 1).  ``roofline.graph_device_ms`` profiles again while nothing
+    was kept, up to STAGE_ATTEMPTS times, then reads None."""
+    assert steps.call_device_ms(_profile({})) is None
+    assert steps.call_device_ms(_profile({"k": (2.0, 0.25), "fill": (0.4, 0.5)})) == 1.0
+    taken = []
+
+    def profiles(kept):
+        def profile_device(step, n):
+            taken.append(n)
+            return _profile({"k": (1.0, 0.5)} if len(taken) == kept else {})
+        return profile_device
+
+    monkeypatch.setattr(roofline, "graphed", lambda calls: lambda: None)
+    monkeypatch.setattr(steps, "profile_device", profiles(2))
+    assert roofline.graph_device_ms([None, None], 5) == 0.25 and taken == [5, 5]
+    taken.clear()
+    monkeypatch.setattr(steps, "profile_device", profiles(0))
+    assert roofline.graph_device_ms([None], 5) is None
+    assert len(taken) == roofline.STAGE_ATTEMPTS
 
 
 @pytest.mark.parametrize("module", [bench, measure_time, scaling, prof, kernel_census, roofline],

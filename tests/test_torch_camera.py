@@ -83,7 +83,9 @@ def test_camera_gradient_matches_jax():
 
 def test_renderer_rejects_unported_and_misplaced_inputs():
     """``camera_mode="look"`` renders (it is ported); an unknown camera
-    mode and inputs on another device than the renderer's raise."""
+    mode applies no viewpoint transform, only the perspective, as the JAX
+    Renderer does (equal to its ``transform_vertices`` on the same
+    inputs); inputs on another device than the renderer's raise."""
     v, f = torus(16, 12)
     r = tnr.Renderer("cpu")
     r.image_size = 16
@@ -92,8 +94,16 @@ def test_renderer_rejects_unported_and_misplaced_inputs():
     images = r.render_silhouettes(torch.tensor(v[None]), f)
     assert images.shape == (1, 16, 16) and 0.05 < float(images.mean()) < 0.95
     r.camera_mode = "orbit"
-    with pytest.raises(ValueError):
-        r.transform_vertices(torch.zeros(1, 3, 3))
+    jr = jnr.Renderer()
+    jr.camera_mode = "orbit"
+    x = _vertices()
+    x[..., 2] = np.abs(x[..., 2]) + 1.0
+    for perspective in (True, False):
+        r.perspective = jr.perspective = perspective
+        want = np.asarray(jr.transform_vertices(jnp.asarray(x), lights=None))
+        np.testing.assert_allclose(r.transform_vertices(torch.tensor(x), lights=None).numpy(),
+                                   want, **TOL)
+    np.testing.assert_array_equal(want, x)
     r = tnr.Renderer("meta")
     with pytest.raises(ValueError):
         r.transform_vertices(torch.zeros(1, 3, 3))

@@ -23,7 +23,9 @@ from neural_renderer_v2_pytorch_tpu_torch.benchmarks import bench, steps
 from neural_renderer_v2_pytorch_tpu_torch.ops import graphs
 from neural_renderer_v2_pytorch_tpu_torch.ops import resolve_cuda as rc
 from neural_renderer_v2_pytorch_tpu_torch.utils.scenes import (
+    EDGE_SIZE,
     atlas_scene,
+    edge_scenes,
     icosphere,
     lit_light_arrays,
     texel_scene,
@@ -1163,6 +1165,53 @@ def test_caller_captures_a_whole_step(cuda, fresh_cache, route):
     torch.testing.assert_close(x.grad, want_x.grad, rtol=0,
                                atol=1e-4 * float(want_x.grad.abs().max()))
     assert torch.equal(x.detach(), v - 1e-6 * x.grad)
+
+
+@pytest.mark.parametrize("route", ["tiled", "binned"])
+def test_mixed_batch_on_each_route_matches_the_plain_versions(cuda, fresh_cache, route):
+    """The JAX package's mixed batch (``edge_scenes()["mixed"]``: an
+    off-screen slot and a one-face slot at 32^2) on ``route``, eager and
+    graphed (the second call captures, later calls replay): images and
+    index maps equal to the plain versions', the vertex gradient of
+    sum(images^2) within 1e-4 of its largest magnitude and zero in the
+    empty slot."""
+    scene = edge_scenes()["mixed"]
+    x = torch.tensor(scene["vertices"], device=cuda)
+    faces = torch.tensor(scene["faces"], device=cuda)
+    hp = nr.RasterizeHyperparam(image_size=EDGE_SIZE, anti_aliasing=False)
+
+    def step():
+        v = x.clone().requires_grad_(True)
+        images = nr.rasterize_silhouettes(v, faces, None, hp)
+        torch.sum(images ** 2).backward()
+        return images.detach(), v.grad
+
+    def index_map():
+        return nr.compute_face_index_map(x[:, faces.long()], EDGE_SIZE)
+
+    with rc.forced_route(route):
+        with nr.eager(), rc.plain_versions():
+            want_images, want = step()
+            want_fim = index_map()
+        rc.reset_launches()
+        with nr.eager():
+            got = [step()]
+            fims = [index_map()]
+        kernel = "resolve_xy" if route == "tiled" else "resolve_binned_xy"
+        assert rc.LAUNCHES[kernel] == 1 and rc.LAUNCHES["bin_faces"] == 2 * (route == "binned")
+        rc.reset_launches()
+        got += [step() for _ in range(3)]
+        assert rc.GRAPHS["captures"] == 1, rc.GRAPHS
+        assert rc.GRAPHS["forward_replays"] == rc.GRAPHS["backward_replays"] == 2, rc.GRAPHS
+        fims += [index_map() for _ in range(3)]
+    assert want_images[0].sum() == 0 and want_images[1].sum() > 0
+    assert float(want[0].abs().max()) == 0 and float(want[1].abs().max()) > 0
+    for images, g in got:
+        assert torch.equal(images, want_images)
+        torch.testing.assert_close(g, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+        assert float(g[0].abs().max()) == 0
+    for fim in fims:
+        assert torch.equal(fim, want_fim)
 
 
 def test_caller_capture_of_a_binned_step_without_warm_up_raises(cuda, fresh_cache):
