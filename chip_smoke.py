@@ -155,8 +155,18 @@ duplicate and degenerate faces, their RGBA over a ``create_textures`` atlas
 and over a loaded one) on the tiled and the binned route, eager and
 graphed: images, index maps, ``to_map`` rows and gradients held to the plain
 versions on the card, and the mixed batch's whole step captured by its
-caller on each route; every kernel but K1 launched in that phase; and the
-whole run's seconds.
+caller on each route; every kernel but K1 launched in that phase.  Last,
+on a machine with two cards or more, the sharded entry with one rank per
+card over NCCL (phase 23): the runs above that fit the cards (and the lit
+two-view scene at (1, 2, 2) and (2, 2, 1) in the place of (2, 2, 2)),
+each rank held to the single-device step (images and index band equal,
+gradients within 1e-5 of their largest magnitude, every rank's the same
+bits), eagerly and through its chain, which must be one forward and one
+backward CUDA graph holding the eager step's collectives; every rank
+again while the last one forgets its chain and captures alone; each
+rank's eager and graphed step ms in turns, the NCCL device ms by kind,
+and ``scale`` at 512^2 over 1, 2 and 4 cards (Mpx/s, efficiency); on one
+card it logs that it did not run.  And the whole run's seconds.
 
 Any failure raises and the script exits non-zero without its last line.  On
 success the last line is
@@ -201,6 +211,7 @@ from neural_renderer_v2_pytorch_tpu_torch.benchmarks.roofline import (
     scatter_vertices_work,
 )
 from neural_renderer_v2_pytorch_tpu_torch.benchmarks.steps import (
+    GRAD_RTOL,
     UPDATE,
     CallerGraph,
     EagerOps,
@@ -870,8 +881,8 @@ class ShardedCase:
     renders through and its loss (scale's, bench's, or the perf matrix's
     sum(rgba^2))."""
 
-    def __init__(self, name, dev):
-        self.name, self.shape = name, SHARDED[name]
+    def __init__(self, name, dev, shape=None):
+        self.name, self.shape = name, SHARDED[name] if shape is None else shape
         tex, lights, self.texture_size = None, (), 2
         if name == "scale-face2":
             v, f = icosphere(6)
@@ -1066,13 +1077,14 @@ def sharded_turn(case, mesh, steps):
 SHARDED_TURNS = ("eager", "graphed", "graphed", "eager")
 
 
-def sharded_graphed(label, case, mesh, eager, face):
+def sharded_graphed(label, case, mesh, eager, face, rtol=GRAD_RTOL):
     """The graphed core's sharded step at ``case`` on this rank: the first
     call eager, the second capturing the rank's chain, the third and fourth
     replaying it; each held to the eager sharded step ``eager`` (images
-    equal, gradients within 1e-4, the same census), the replayed steps
-    launching no kernel eagerly, and at face > 1 the chain holding K9 and
-    the id/depth resolve.  Returns what the parent prints."""
+    equal, gradients within ``rtol`` of their largest magnitude, the same
+    census), the replayed steps launching no kernel eagerly, and at face >
+    1 the chain holding K9 and the id/depth resolve.  Returns what the
+    parent prints."""
     want_images, want_grads, _, census = eager
     rc.reset_launches()
     graphs.note_eager.cache_clear()
@@ -1090,7 +1102,7 @@ def sharded_graphed(label, case, mesh, eager, face):
         launched = {k: n - launched[k] for k, n in rc.LAUNCHES.items() if n > launched[k]}
         replays = rc.GRAPHS["forward_replays"] - before["forward_replays"]
         check_equal(f"{label} graphed call {call + 1} images", images, want_images)
-        errs = {k: check_close(f"{label} graphed call {call + 1} {k} grads", grads[k], g)
+        errs = {k: check_close(f"{label} graphed call {call + 1} {k} grads", grads[k], g, rtol)
                 for k, g in want_grads.items()}
         if (forward, dict(parallel.COLLECTIVES)) != census:
             raise AssertionError(f"{label}: graphed call {call + 1} census {forward} "
@@ -1117,6 +1129,7 @@ def sharded_graphed(label, case, mesh, eager, face):
     eager_ops = out[-1]["eager_ops"]
     return dict(
         segments={k: [dict(n) for n in v] for k, v in chain.segment_launches.items()},
+        inline=chain.inline,
         held=dict(held), capture_s=chain.seconds, capacities=chain.capacities,
         graphs=dict(rc.GRAPHS), errs=out[-1]["errs"], eager_ops=eager_ops,
         eager_device_ops=sum(eager_ops.values()), eager_views=out[-1]["eager_views"],
@@ -2857,6 +2870,253 @@ def edge_phase(dev, smi):
     return launches, seconds
 
 
+# phase 23: the sharded entry across cards, one rank per card over NCCL
+# (parallel.run_ranks with no backend named), each rank's step replayed as
+# one forward and one backward CUDA graph with its collectives inside.  It
+# runs only where the machine has two cards or more; a run that needs more
+# ranks than there are cards is left out.  name -> (ShardedCase scene, mesh):
+# SHARDED's runs on 2 cards, and in the place of all-axes (2, 2, 2), which
+# needs 8, its lit two-view scene at (1, 2, 2) and (2, 2, 1) on 4
+CARDS = {
+    "scale-face2": ("scale-face2", (1, 1, 2)),
+    "textured-scale-face2": ("textured-scale-face2", (1, 1, 2)),
+    "bench-tile2": ("bench-tile2", (1, 2, 1)),
+    "atlas-tile2-backgrounds": ("atlas-tile2-backgrounds", (1, 2, 1)),
+    "lit-tile2-face2": ("all-axes", (1, 2, 2)),
+    "lit-data2-tile2": ("all-axes", (2, 2, 1)),
+}
+# the scaling run: scale's 81,920-face mesh at 512^2 over tile on each count
+# of cards (one card: the single-device entry point)
+SCALING_CARDS = (1, 2, 4)
+CARDS_RTOL = 1e-5          # tests/test_torch_parallel.py's bound
+CARDS_TIMEOUT = 300.0      # seconds for one spawn of ranks, every collective included
+
+
+def nccl_kind_ms(step, order, steps=SHARDED_STEPS):
+    """{kind: device ms per step} of the NCCL kernels of ``steps`` graphed
+    steps under torch.profiler: the records in time order, the i-th of a
+    step taken as the i-th collective the chain holds (``order``, its kinds
+    forward then backward); None where the records are not ``steps`` times
+    ``order`` (a record dropped: not measured)."""
+    from torch.autograd import DeviceType
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    records = sorted((e.time_range.start, e.time_range.end - e.time_range.start)
+                     for e in prof.events()
+                     if e.device_type == DeviceType.CUDA and "nccl" in e.name.lower())
+    if len(records) != steps * len(order):
+        return None
+    out = collections.defaultdict(float)
+    for i, (_, us) in enumerate(records):
+        out[order[i % len(order)]] += us / 1e3 / steps
+    return dict(out)
+
+
+def cards_turns(case, mesh):
+    """SHARDED_STEPS steps of ``case`` in each of SHARDED_TURNS (eager under
+    ``nr.eager()`` with CUDA events around each collective, graphed), then
+    the graphed step's NCCL kernels profiled.  Returns {form: [step ms]},
+    the eager collectives' device ms by kind and the graphed ones'."""
+    ms = collections.defaultdict(list)
+    eager_kind = collections.defaultdict(list)
+    for form in SHARDED_TURNS:
+        with nr.eager() if form == "eager" else contextlib.nullcontext():
+            with parallel.collectives.device_timing() as records:
+                ms[form].extend(sharded_turn(case, mesh, SHARDED_STEPS)[0])
+        if form == "eager":
+            per = parallel.collectives.device_ms(records)
+            for kind, v in per.items():
+                if v:
+                    eager_kind[kind].append(v / SHARDED_STEPS)
+    (chain,) = graphs.kept_graphs(case.faces)
+    order = chain.inline["forward"] + chain.inline["backward"]
+    return dict(ms), {k: float(np.mean(v)) for k, v in eager_kind.items()}, \
+        nccl_kind_ms(lambda: case.step(mesh), order)
+
+
+def capture_alone(label, case, mesh, want):
+    """The last rank forgets its chain: its next call runs eagerly and the
+    one after captures while every other rank replays; each of three calls
+    on every rank equal to the eager sharded step ``want`` (images equal,
+    gradients within CARDS_RTOL).  Returns whether this rank's chain is a
+    new one (the last rank's only)."""
+    import torch.distributed as dist
+
+    alone = dist.get_rank() == dist.get_world_size() - 1
+    (before,) = graphs.kept_graphs(case.faces)
+    if alone:
+        graphs._drop(graphs.faces_record(case.faces))
+    for call in range(3):
+        images, grads, _ = case.step(mesh)
+        check_equal(f"{label} call {call + 1} beside a rank that captures alone, images",
+                    images, want[0])
+        for k, g in want[1].items():
+            check_close(f"{label} call {call + 1} beside a rank that captures alone, {k} grads",
+                        grads[k], g, CARDS_RTOL)
+    (after,) = graphs.kept_graphs(case.faces)
+    if (after is not before) != alone:
+        raise AssertionError(f"{label}: the chain {'kept' if alone else 'captured anew'} beside "
+                             f"a rank that captures alone")
+    return alone
+
+
+def cards_rank(runs):
+    """One rank's share of a spawn of phase 23: each (name, scene, shape) of
+    ``runs``, on this rank's card, held to the single-device step on the
+    same card (images and the index band equal, gradients within
+    CARDS_RTOL), eager (launches and census read around it) and through the
+    graphed core (:func:`sharded_graphed`: its chain one forward and one
+    backward graph holding every collective), then timed in turns
+    (:func:`cards_turns`) and run beside a rank that captures alone.
+    Raises on any disagreement; returns {name: what the parent prints}."""
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank()
+    out = {}
+    t0 = time.perf_counter()
+
+    def progress(what):
+        print(f"[cards] rank {rank} {name}: {what} at {time.perf_counter() - t0:.1f} s",
+              file=sys.stderr, flush=True)
+
+    for name, scene, shape in runs:
+        progress("start")
+        case = ShardedCase(scene, dev, shape)
+        mesh = parallel.make_mesh(*shape)
+        label = f"{name} {shape} rank {rank} ({torch.cuda.get_device_name(dev)} cuda:{dev.index})"
+        with nr.eager():
+            want_images, want_grads, _ = case.step()
+        dist.barrier()
+        torch.cuda.synchronize()
+        parallel.reset_collectives()
+        rc.reset_launches()
+        with nr.eager():
+            images, grads, forward = case.step(mesh)
+        torch.cuda.synchronize()
+        launches, census = dict(rc.LAUNCHES), dict(parallel.COLLECTIVES)
+        check_equal(f"{label} images", images, want_images)
+        errs = {k: check_close(f"{label} {k} grads", grads[k], g, CARDS_RTOL)
+                for k, g in want_grads.items()}
+        if not all(float(g.abs().max()) > 0 for g in grads.values()):
+            raise AssertionError(f"{label}: a gradient is all zero")
+        with nr.eager():
+            near_ties = check_index_band(label, case, mesh)
+        if (forward, census) != sharded_census(*shape):
+            raise AssertionError(f"{label}: census forward {forward} step {census}")
+        check_k1(label, launches)
+        progress("eager step checked")
+        graphed = sharded_graphed(label, case, mesh, (images, grads, forward, (forward, census)),
+                                  shape[2], CARDS_RTOL)
+        progress("graphed steps checked")
+        if [len(graphed["segments"][k]) for k in ("forward", "backward")] != [1, 1]:
+            raise AssertionError(f"{label}: the chain has segments {graphed['segments']}, "
+                                 f"want one forward and one backward graph")
+        ms, eager_kind, graphed_kind = cards_turns(case, mesh)
+        progress("timed")
+        alone = capture_alone(label, case, mesh, (images, grads))
+        progress("beside a rank that captures alone")
+        out[name] = dict(
+            coords=mesh.coords, errs=errs, near_ties=near_ties, census=census,
+            launches={k: v for k, v in launches.items() if v}, graphed=graphed, ms=ms,
+            eager_kind=eager_kind, graphed_kind=graphed_kind, alone=alone,
+            digests={k: hashlib.sha256(g.cpu().numpy().tobytes()).hexdigest()
+                     for k, g in grads.items()})
+    return out
+
+
+def cards_phase(dev, smi):
+    """Phase 23 on every run of CARDS and SCALING_CARDS that the cards
+    hold: one spawn per world size, one rank per card over NCCL
+    (:func:`cards_rank`), every rank's gradients then held to rank 0's
+    bits, eager and graphed; each run's per-rank step ms (eager and graphed
+    in turns) and NCCL device ms by kind, and the scaling run's Mpx/s and
+    efficiency against one card, logged with the cards' name, power limit
+    and count.  Returns the ranks' launch counts of the eager steps
+    summed (empty on one card, where it logs that it did not run)."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"[cards] {cards} card: NCCL phase not run")
+        return collections.Counter()
+    where = f"{smi}, {cards} cards"
+    torch.cuda.empty_cache()          # the ranks share card 0 with this process
+    spawns = collections.defaultdict(list)
+    for name, (scene, shape) in CARDS.items():
+        if int(np.prod(shape)) <= cards:
+            spawns[int(np.prod(shape))].append((name, scene, shape))
+    for n in SCALING_CARDS[1:]:
+        if n <= cards:
+            spawns[n].append((f"scale-tile{n}", "scale-face2", (1, n, 1)))
+    launches, runs = collections.Counter(), {}
+    for world, names in spawns.items():
+        t0 = time.perf_counter()
+        ranks = parallel.run_ranks(cards_rank, world, (names,), device="cuda",
+                                   timeout=CARDS_TIMEOUT)
+        log(f"[cards] {world} ranks, one per card (nccl): {[n for n, _, _ in names]} in "
+            f"{time.perf_counter() - t0:.1f} s, rank start-up included")
+        for name, _, shape in names:
+            runs[name] = shape, [r[name] for r in ranks]
+            first = runs[name][1][0]
+            for rank, r in enumerate(runs[name][1]):
+                launches.update(r["launches"])
+                if r["digests"] != first["digests"] or \
+                        r["graphed"]["digests"] != first["graphed"]["digests"]:
+                    raise AssertionError(f"{name}: rank {rank}'s gradients are not rank 0's "
+                                         f"bits")
+    for name, (shape, ranks) in runs.items():
+        for rank, r in enumerate(ranks):
+            g = r["graphed"]
+            log(f"[cards] {name} mesh {shape} rank {rank} {r['coords']}: images and index "
+                f"band equal to the single-device step's (cross-shard near-tie pixels "
+                f"{r['near_ties']}), grad max abs err {json.dumps(r['errs'])} (bound "
+                f"{CARDS_RTOL} of max), census {json.dumps(r['census'])} eager and graphed, "
+                f"every rank's gradients the same bits eager and graphed; the chain holds "
+                f"{json.dumps(g['held'])} in one forward and one backward graph with its "
+                f"collectives {json.dumps(g['inline'])} inside, capture {g['capture_s']:.6f} s; "
+                f"beside a rank that captures alone: equal"
+                + (" (this rank captured alone)" if r["alone"] else "") + f"  ({where})")
+        log(f"[cards] {name} step {shape} on {len(ranks)} cards, ms, turns "
+            f"{'/'.join(SHARDED_TURNS)}: "
+            + "; ".join(f"rank {i} eager {float(np.median(r['ms']['eager'])):.4f}, graphed "
+                        f"{float(np.median(r['ms']['graphed'])):.4f}" for i, r in enumerate(ranks))
+            + f" (medians of {2 * SHARDED_STEPS} each)  ({where})")
+        log(f"[cards] {name} NCCL device ms per step by kind: "
+            + "; ".join(f"rank {i} eager (CUDA events) "
+                        + json.dumps({k: round(v, 4) for k, v in r["eager_kind"].items()})
+                        + ", graphed (profiler) "
+                        + (json.dumps({k: round(v, 4) for k, v in r["graphed_kind"].items()})
+                           if r["graphed_kind"] is not None else "not measured")
+                        for i, r in enumerate(ranks)) + f"  ({where})")
+    # the scaling run on one card: the single-device graphed step, timed as
+    # sharded_turn times a rank's (the host's clock around a synchronised step)
+    case = ShardedCase("scale-face2", dev, (1, 1, 1))
+    for _ in range(3):
+        case.step()
+    ms = []
+    for _ in range(2 * SHARDED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        case.step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    one = float(np.median(ms))
+    scaling = {1: one}
+    for n in SCALING_CARDS[1:]:
+        if f"scale-tile{n}" in runs:
+            scaling[n] = max(float(np.median(r["ms"]["graphed"]))
+                             for r in runs[f"scale-tile{n}"][1])
+    pixels = case.image_size ** 2
+    log("[cards] scaling, scale's 81,920 faces at 512^2 over tile, graphed step (slowest "
+        "rank's median): " + "; ".join(
+            f"{n} card{'s' * (n > 1)} {t:.4f} ms = {pixels / t / 1e3:.3f} Mpx/s, efficiency "
+            f"{one / (n * t):.3f}" for n, t in scaling.items()) + f"  ({where})")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -3025,7 +3285,7 @@ def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    ).stdout.strip().splitlines()[0]
 
     # 11. high resolution: K7 and K8 against K2/K2L/K2D and their plain
     # versions at full size, and against the plain resolve at bench and S=100
@@ -3378,6 +3638,9 @@ def main():
     # 22. the JAX package's pipeline edge cases on both routes
     edge_launches, _ = edge_phase(dev, smi)
 
+    # 23. the sharded entry across cards, one rank per card over NCCL
+    cards_launches = cards_phase(dev, smi)
+
     log("[routes] resolve ms (tiled, binned) and the rule's route: " + json.dumps(
         {label: [route_ms[label]["tiled"], route_ms[label]["binned"], route_rule[label]]
          for label in route_ms}))
@@ -3386,7 +3649,7 @@ def main():
 
     launches = collections.Counter()
     for path in (sil_launches, tex_launches, hires_launches, hl_launches, index_launches,
-                 sharded_launches, *example_launches.values(), edge_launches):
+                 sharded_launches, *example_launches.values(), edge_launches, cards_launches):
         launches.update(path)
     log(f"[run] {time.perf_counter() - started:.1f} s, the build included")
     log(smi)

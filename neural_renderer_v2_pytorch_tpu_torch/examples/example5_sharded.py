@@ -21,7 +21,6 @@ import torch
 import neural_renderer_v2_pytorch_tpu_torch as nr
 from neural_renderer_v2_pytorch_tpu_torch import parallel
 from neural_renderer_v2_pytorch_tpu_torch.ops import resolve_cuda
-from neural_renderer_v2_pytorch_tpu_torch.utils import cuda_build
 
 # seconds the ranks may take, start-up and every collective included
 TIMEOUT = 600.0
@@ -117,8 +116,6 @@ def fit(args, vs_plain=False):
     """Run :func:`fit_rank` on ``args.ranks`` ranks (``vs_plain`` as there);
     returns each rank's result.  Raises when a rank's fitted vertices are not
     rank 0's bits."""
-    if args.device == "cuda":
-        cuda_build.load()      # built once here; the ranks only load it
     # NCCL takes one rank per card
     gloo = args.device == "cpu" or args.ranks > torch.cuda.device_count()
     backend = "gloo" if gloo else "nccl"

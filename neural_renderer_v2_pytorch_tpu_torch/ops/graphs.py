@@ -34,10 +34,13 @@ JAX package jits it with its sizes, clip planes, rows and ``return_depth``
 static) is a forward graph per signature, its binned capacity from the
 signature's last eager call (kept on :data:`INDEX_MAPS`).  The sharded
 entry (``_jitted_sharded`` there) is a :class:`Chain` per signature and
-mesh: its collectives cannot be captured (gloo's go through the host),
-so each stretch of the rank's work between two of them is a graph of its
-own, and a replay runs the graphs in turn with each collective run
-eagerly between two.
+mesh.  With one rank per card (NCCL) its collectives are captured with
+the rest: a rank's step is one forward and one backward graph, the
+counterpart of one ``_jitted_sharded`` program.  gloo's go through the
+host and cannot be captured (ranks that share a card), so there each
+stretch of the rank's work between two of them is a graph of its own,
+and a replay runs the graphs in turn with each collective run eagerly
+between two.
 
 CPU tensors, :func:`eager` and ``resolve_cuda.plain_versions`` run
 eagerly: the same kernels in the same order, not a fallback.  Inside a
@@ -497,17 +500,18 @@ class Graph:
         return tuple(out)
 
 
-def drive(steps, gather, segment=None):
-    """Run ``steps`` to its end: a generator that yields the all-gathers
+def drive(steps, gather, segment=None, inline=None):
+    """Run ``steps`` to its end: a generator that yields the collectives
     its work waits on, each time a list of requests (tensor, process group,
     kind), and is sent their results (``parallel.collectives``).  A list
-    over groups of one rank each gets its results at once (``t[None]``, no
-    collective); any other ends a stretch of the work: ``segment(i)`` (a
-    context, none by default) is entered around stretch i, and
-    ``gather(requests)`` gives the results.  Returns (the generator's
-    value, [(requests, results)] of each collective between two
-    stretches)."""
-    from ..parallel.collectives import crosses
+    over groups of one rank each gets its results at once
+    (``collectives.local``, no collective); a list that ``inline(requests)``
+    accepts gets ``gather(requests)`` within the stretch of work (a capture
+    holds it); any other ends a stretch: ``segment(i)`` (a context, none by
+    default) is entered around stretch i, and ``gather(requests)`` gives the
+    results between two.  Returns (the generator's value, [(requests,
+    results)] of each collective between two stretches)."""
+    from ..parallel.collectives import crosses, local
 
     cuts, results = [], None
     while True:
@@ -517,32 +521,41 @@ def drive(steps, gather, segment=None):
                     requests = steps.send(results)
                 except StopIteration as stop:
                     return stop.value, cuts
-                if crosses(requests):
+                if not crosses(requests):
+                    results = [local(r) for r in requests]
+                elif inline is not None and inline(requests):
+                    results = gather(requests)
+                else:
                     break
-                results = [t[None] for t, _, _ in requests]
         results = gather(requests)
         cuts.append((requests, results))
 
 
 class Chain(Graph):
-    """One captured render that collectives cut (a rank's step of the
-    sharded entry, the counterpart of one ``_jitted_sharded`` program).
-    ``fn`` is a plan: ``fn.forward(*inputs)`` is a generator
+    """One captured render whose work waits on collectives (a rank's step
+    of the sharded entry, the counterpart of one ``_jitted_sharded``
+    program).  ``fn`` is a plan: ``fn.forward(*inputs)`` is a generator
     (:func:`drive`) that returns (output, frame), and ``fn.backward(frame,
     output, grad_output, wanted)`` one that returns the gradients of
-    ``wanted``.  Each stretch of either between two collectives is one
-    CUDA graph (``segments``), all in one memory pool; a replay runs them
-    in turn and each collective eagerly between two, from the earlier
-    graph's buffer into a buffer the later graph reads (``cuts``).
+    ``wanted``.  The collectives that ``collectives.capturable`` accepts
+    (NCCL, one rank per card) are captured where they come (``inline``:
+    the kinds each direction holds, counted at each replay), so such a plan
+    is one forward and one backward graph.  Any other collective (gloo,
+    ranks that share a card) cuts its direction: each stretch between two
+    is one CUDA graph (``segments``), all in one memory pool, and a replay
+    runs them in turn and each collective eagerly between two, from the
+    earlier graph's buffer into a buffer the later graph reads (``cuts``).
 
     Its warm-up stands zeros in for what each collective would return: a
     rank captures on its own (after an overflow, say), and its warm-up
-    must reach no other rank.  The rest is :class:`Graph`'s: one output,
-    copied; a backward captured when an input takes gradients; K7 capped
-    in any segment."""
+    must reach no other rank; its capture issues the captured collectives
+    without running them, so it reaches none either, and the replay that
+    follows runs them as the other ranks' replays do.  The rest is
+    :class:`Graph`'s: one output, copied; a backward captured when an input
+    takes gradients; K7 capped in any segment."""
 
     def _capture(self, side, record, wanted):
-        from ..parallel.collectives import gathered_buffers, stand_ins
+        from ..parallel.collectives import capturable, stand_ins
 
         plan = self.fn
         with torch.cuda.stream(side), rendering(record, self):
@@ -553,22 +566,36 @@ class Chain(Graph):
         del out, frame
         self.pool = torch.cuda.graph_pool_handle()
         self.segments = {"forward": [], "backward": []}
-        self.cuts = {}
+        self.cuts, self.inline = {}, {"forward": [], "backward": []}
         # the kernels of each segment, in order
         self.segment_launches = {"forward": [], "backward": []}
         before = dict(resolve_cuda.LAUNCHES)
         with rendering(record, self):
             (self.output, frame), self.cuts["forward"] = drive(
-                plan.forward(*self.static), gathered_buffers, self._segment("forward", side))
+                plan.forward(*self.static), self._collectives("forward"),
+                self._segment("forward", side), capturable)
         self.launches["forward"] = _since(before)
         if wanted:
             self.grad_output = torch.empty_like(self.output)
             before = dict(resolve_cuda.LAUNCHES)
             self.grads, self.cuts["backward"] = drive(
-                plan.backward(frame, self.output, self.grad_output, wanted), gathered_buffers,
-                self._segment("backward", side))
+                plan.backward(frame, self.output, self.grad_output, wanted),
+                self._collectives("backward"), self._segment("backward", side), capturable)
             self.launches["backward"] = _since(before)
             self.backward = self.segments["backward"]
+
+    def _collectives(self, kind):
+        """What :func:`drive` gathers with while ``kind`` is captured: the
+        collectives issued into the capture where it holds them, else the
+        buffers that a replay's eager collectives fill."""
+        from ..parallel.collectives import capturable, captured, gathered_buffers
+
+        def gather(requests):
+            if not capturable(requests):
+                return gathered_buffers(requests)
+            self.inline[kind] += [k for _, _, k in requests]
+            return captured(requests)
+        return gather
 
     def _segment(self, kind, side):
         """The context that captures stretch i of ``kind`` into a graph of
@@ -584,7 +611,7 @@ class Chain(Graph):
         return segment
 
     def _replay(self, kind):
-        from ..parallel.collectives import all_gather
+        from ..parallel.collectives import all_gather, count
 
         cuts = self.cuts[kind]
         for i, graph in enumerate(self.segments[kind]):
@@ -593,6 +620,7 @@ class Chain(Graph):
                 requests, buffers = cuts[i]
                 for (t, group, what), out in zip(requests, buffers):
                     all_gather(t, group, what, out=out)
+        count(self.inline[kind])
 
 
 def _since(before):

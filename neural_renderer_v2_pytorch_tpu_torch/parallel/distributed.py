@@ -11,6 +11,11 @@ Backends: NCCL when each rank has a card of its own; gloo for ranks on the
 CPU, and gloo when the caller names it, which is the only way to put
 several ranks on one card (NCCL refuses two ranks on one device; the
 collectives then go through host memory, see ``parallel.collectives``).
+An NCCL rank is bound to its card before the group comes up
+(``device_id``), so that the default group's communicator is made at once
+and the mesh's groups are split from it; a CUDA graph then holds its
+collectives (``ops.graphs.Chain``).  An NCCL group that does not come up
+raises: nothing falls back to gloo.
 """
 
 from __future__ import annotations
@@ -26,25 +31,27 @@ _CLUSTER_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
 
 
 def _backend(device, backend, world_size, rank):
-    """The backend for this rank, after taking its device: the CUDA device
-    ``LOCAL_RANK`` (else ``rank``) modulo the cards, or the CPU."""
+    """(backend, card) for this rank: the card is ``LOCAL_RANK`` (else
+    ``rank``) modulo the cards, None on the CPU.  Without a named backend,
+    NCCL, which takes one rank per card: more ranks on a host
+    (``LOCAL_WORLD_SIZE``, else ``world_size``) than cards raise."""
     if device == "cpu":
         if backend not in (None, "gloo"):
             raise ValueError(f"ranks on the CPU take the gloo backend, not {backend!r}")
-        return "gloo"
+        return "gloo", None
     if device != "cuda":
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to run the ranks on the CPU")
     cards = torch.cuda.device_count()
-    torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)) % cards)
+    card = int(os.environ.get("LOCAL_RANK", rank)) % cards
     if backend is None:
         local_ranks = int(os.environ.get("LOCAL_WORLD_SIZE", world_size))
         if local_ranks > cards:
             raise ValueError(f"{local_ranks} ranks share {cards} card(s): NCCL takes one rank "
                              f"per card; pass backend='gloo' to share them")
         backend = "nccl"
-    return backend
+    return backend, card
 
 
 def initialize(init_method=None, world_size=None, rank=None, backend=None, *, device="cuda",
@@ -53,10 +60,10 @@ def initialize(init_method=None, world_size=None, rank=None, backend=None, *, de
 
     With no arguments the call is best-effort: it reads the cluster from the
     environment (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``,
-    as torchrun sets them) and returns False where there is none or the
-    group does not come up.  With explicit arguments a failure raises:
-    rendering on one rank when a cluster was asked for would give wrong
-    results with no signal.
+    as torchrun sets them) and returns False where there is none or a gloo
+    group does not come up.  With explicit arguments, or on NCCL, a failure
+    raises: rendering on one rank when a cluster was asked for would give
+    wrong results with no signal.
 
     ``device``: "cuda" (each rank takes its card, see the module note; no
     CUDA raises) or "cpu".  ``timeout`` bounds each collective's wait."""
@@ -67,12 +74,17 @@ def initialize(init_method=None, world_size=None, rank=None, backend=None, *, de
         return False
     world_size = int(os.environ["WORLD_SIZE"]) if world_size is None else world_size
     rank = int(os.environ["RANK"]) if rank is None else rank
-    backend = _backend(device, backend, world_size, rank)
+    backend, card = _backend(device, backend, world_size, rank)
+    bound = {}
+    if card is not None:
+        torch.cuda.set_device(card)
+        if backend == "nccl":
+            bound["device_id"] = torch.device("cuda", card)
     try:
         dist.init_process_group(backend, init_method=init_method or "env://",
-                                world_size=world_size, rank=rank, timeout=timeout)
+                                world_size=world_size, rank=rank, timeout=timeout, **bound)
     except (RuntimeError, ValueError):
-        if explicit:
+        if explicit or backend == "nccl":
             raise
         return False
     return True

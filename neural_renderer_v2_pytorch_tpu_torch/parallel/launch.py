@@ -5,10 +5,13 @@
 Each rank is a process started with ``multiprocessing``'s "spawn" method
 (so ``fn`` must be importable: a module-level function), with the default
 process group up (``distributed.initialize`` over a file store in a
-temporary directory, so concurrent runs never share a port).  The parent
-waits for them with a deadline; when one fails or the deadline passes it
-kills the others and raises, so a rank stuck in a collective cannot hang
-the caller.
+temporary directory, so concurrent runs never share a port).  With
+``device="cuda"`` each rank takes its own card over NCCL while there are
+no more ranks than cards (more share them only with ``backend="gloo"``),
+and the parent builds the kernels before it starts them, so that each
+rank only loads the library.  The parent waits for them with a deadline;
+when one fails or the deadline passes it kills the others and raises, so
+a rank stuck in a collective cannot hang the caller.
 """
 
 from __future__ import annotations
@@ -42,8 +45,12 @@ def _rank_main(fn, rank, world_size, workdir, device, backend, timeout):
         with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as fh:
             pickle.dump(result, fh)
     except BaseException:
-        with open(os.path.join(workdir, f"rank{rank}.err"), "w") as fh:
+        # whole or not at all: the parent reads it while this rank may
+        # still be leaving its group (an NCCL group may never let it go)
+        err = os.path.join(workdir, f"rank{rank}.err")
+        with open(err + ".part", "w") as fh:
             fh.write(traceback.format_exc())
+        os.replace(err + ".part", err)
         raise
     finally:
         if dist.is_initialized():
@@ -53,7 +60,8 @@ def _rank_main(fn, rank, world_size, workdir, device, backend, timeout):
 def _failures(procs, workdir):
     """Each failed rank's exit code and traceback.  A rank that wrote its
     traceback counts as failed while it is still exiting: the rank that
-    failed first may be the last to exit."""
+    failed first may be the last to exit, and a rank whose NCCL group
+    waits on a peer may not exit at all."""
     out = []
     for rank, p in enumerate(procs):
         err = os.path.join(workdir, f"rank{rank}.err")
@@ -69,12 +77,16 @@ def _failures(procs, workdir):
 def run_ranks(fn, world_size, args=(), *, device="cuda", backend=None, timeout=300.0):
     """``fn(*args)`` on ranks 0 .. world_size - 1; returns their results in
     rank order.  ``device`` and ``backend`` as for
-    :func:`distributed.initialize` (several ranks on one card need
-    ``backend="gloo"``).  Raises RuntimeError, with the rank's traceback, when
-    a rank fails, and TimeoutError when the ranks are not done within
-    ``timeout`` seconds (also the limit of each collective of the default
-    group)."""
+    :func:`distributed.initialize` (one rank per card takes NCCL; several
+    ranks on one card need ``backend="gloo"``).  Raises RuntimeError, with
+    the rank's traceback, when a rank fails, and TimeoutError when the
+    ranks are not done within ``timeout`` seconds (also the limit of each
+    collective of the default group)."""
     ctx = multiprocessing.get_context("spawn")
+    if device == "cuda":
+        from ..utils import cuda_build
+
+        cuda_build.build()
     with tempfile.TemporaryDirectory() as workdir:
         # the arguments go through a file: through each rank's start-up pipe,
         # a large one would start the ranks one after another
@@ -93,9 +105,10 @@ def run_ranks(fn, world_size, args=(), *, device="cuda", backend=None, timeout=3
                 if left <= 0:
                     raise TimeoutError(f"{len(pending)} of {world_size} ranks not done "
                                        f"within {timeout} s")
-                multiprocessing.connection.wait([p.sentinel for p in pending], left)
+                # each second: a rank that failed may not exit
+                multiprocessing.connection.wait([p.sentinel for p in pending], min(left, 1.0))
                 pending = [p for p in pending if p.exitcode is None]
-                if any(p.exitcode for p in procs):
+                if _failures(procs, workdir):
                     # the others fail in turn in the collective the failed rank
                     # left: give them a moment to say so, then report every one
                     multiprocessing.connection.wait([p.sentinel for p in pending], 1.0)

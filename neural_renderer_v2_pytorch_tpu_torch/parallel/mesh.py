@@ -15,6 +15,14 @@ holds the ranks at this rank's face coordinate, one per (data, tile) cell:
 the sharded entry gathers its finished images over it.
 ``Mesh.groups["all"]`` holds every rank: the sharded entry sums its
 gradients over it.
+
+On NCCL a group's communicator may be made at its first collective, and
+none can be made inside a CUDA graph capture.  The invariant: a group's
+first collective runs eagerly, never in a capture.  The first call of a
+sharded signature runs eagerly and issues every collective of the rank's
+step, on every group that crosses ranks, before the second call captures
+them; ``collectives.captured`` checks it and raises on a group that has
+run none.
 """
 
 from __future__ import annotations

@@ -36,14 +36,20 @@ joins each one, in the same order as the others.
 On the card the entry points replay the rank's compiled core (the
 counterpart of ``_jitted_sharded``, one program per hyperparameters and
 mesh there): a ``graphs.Chain`` per signature, mesh and faces tensor,
-whose plan is :class:`RankStep`.  The collectives cannot be captured
-(gloo's go through the host), so each stretch of the rank's device work
-between two of them is a CUDA graph: the forward up to the face fold's
-all-gathers and after them, the backward up to the halo exchange and
-after it; the gradients' all-reduce and the images' all-gather stay
-around the chain, in :class:`_SumGradients` and :class:`_GatherImages`.
-The first call of a signature, CPU tensors, ``nr.eager()`` and
-``plain_versions`` run eagerly, through the same steps.
+whose plan is :class:`RankStep`.  With one rank per card (NCCL) the plan
+is the whole step, the images' all-gather and the gradients' all-reduce
+included, and the chain captures every collective inline: one forward and
+one backward graph.  Where ranks share a card (gloo, through the host)
+the collectives cannot be captured: each stretch of the rank's device
+work between two of them is a CUDA graph (the forward up to the face
+fold's all-gathers and after them, the backward up to the halo exchange
+and after it), and the gradients' all-reduce and the images' all-gather
+stay around the chain, in :class:`_SumGradients` and
+:class:`_GatherImages`.  The first call of a signature, CPU tensors,
+``nr.eager()`` and ``plain_versions`` run eagerly, through the same steps
+and the same collectives in the same order (``collectives.run``,
+:class:`_SumGradients`, :class:`_GatherImages`), so a rank may run
+eagerly or capture while the others replay.
 """
 
 from __future__ import annotations
@@ -67,7 +73,20 @@ from ..ops.rasterize import (
     graph_signature,
     make_backgrounds,
 )
+from . import collectives
 from .collectives import all_gather, all_reduce_sum, run
+
+
+def _gradient_buffer(grads, contributes):
+    """``grads`` in one flat buffer, the all-reduce's; zeros where
+    ``contributes`` is false."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    return flat if contributes else torch.zeros_like(flat)
+
+
+def _split_gradients(flat, like):
+    """The summed buffer ``flat`` as gradients shaped as ``like``."""
+    return tuple(part.view_as(g) for part, g in zip(flat.split([g.numel() for g in like]), like))
 
 
 class _SumGradients(torch.autograd.Function):
@@ -82,12 +101,9 @@ class _SumGradients(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        if not ctx.contributes:
-            flat = torch.zeros_like(flat)
-        flat = all_reduce_sum(flat, ctx.group, "grad_all_reduce")
-        return (None, None, *(part.view_as(g) for part, g in
-                        zip(flat.split([g.numel() for g in grads]), grads)))
+        flat = all_reduce_sum(_gradient_buffer(grads, ctx.contributes), ctx.group,
+                              "grad_all_reduce")
+        return (None, None, *_split_gradients(flat, grads))
 
 
 def _light_tensors(light):
@@ -216,6 +232,21 @@ def _band_top(counts, tile):
     return sum(counts[tile + 1:])
 
 
+def _padded(band, counts):
+    """The finished band [bl, C, n, W] padded to the longest band's rows,
+    as the images' all-gather takes it."""
+    return F.pad(band, (0, 0, 0, max(counts) - band.shape[2]))
+
+
+def _cotangent_band(grad, band_shape, counts, coords):
+    """This rank's band of the images' cotangent ``grad`` [bs, C, H, W]:
+    its batch slice and the rows that its band (``band_shape`` [bl, C, n,
+    W]) lands on."""
+    bl, _, n, _ = band_shape
+    b0, top = coords["data"] * bl, _band_top(counts, coords["tile"])
+    return grad[b0:b0 + bl, :, top:top + n]
+
+
 class _GatherImages(torch.autograd.Function):
     """Every (data, tile) cell's finished band [bl, C, counts[tile], W]
     -> the images [bs, C, H, W] on every rank (:func:`_assemble`); the
@@ -223,16 +254,14 @@ class _GatherImages(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, band, group, n_data, counts, coords):
-        bl, _, n, w = band.shape
-        padded = F.pad(band, (0, 0, 0, max(counts) - n))
+        padded = _padded(band, counts)
         cells = all_gather(padded, group, "image_all_gather")    # [data*tile, bl, C, rows, W]
-        ctx.cell = coords["data"] * bl, bl, _band_top(counts, coords["tile"]), n
+        ctx.cell = band.shape, counts, coords
         return _assemble(cells.reshape(n_data, len(counts), *padded.shape), counts)
 
     @staticmethod
     def backward(ctx, grad):
-        b0, bl, top, n = ctx.cell
-        return grad[b0:b0 + bl, :, top:top + n], None, None, None, None
+        return _cotangent_band(grad, *ctx.cell), None, None, None, None
 
 
 def _band_hook(mesh, tile, rows, render_size):
@@ -276,11 +305,22 @@ def _check(vertices, faces, params, hp, mesh):
                          f"data={mesh.shape['data']}")
 
 
-def _core(vertices, faces, params, hp, mesh, chain=None):
-    """The sharded render of checked inputs: the gradients' all-reduce
-    around the rank's step, which ``chain`` (a :class:`graphs.Chain` of
-    this call's signature) replays where given, else runs eagerly; then
-    the finished bands' all-gather."""
+def _band_counts(hp, n_tile):
+    """The finished rows of each tile's band."""
+    render_size = hp.image_size * 2 if hp.anti_aliasing else hp.image_size
+    rows = band_rows(hp.image_size, hp.anti_aliasing, n_tile)
+    pool = 2 if hp.anti_aliasing else 1
+    return [_real_rows(render_size, rows, t) // pool for t in range(n_tile)]
+
+
+def _core(vertices, faces, params, hp, mesh, chain=None, whole=False):
+    """The sharded render of checked inputs.  ``chain``, where given, is a
+    :class:`graphs.Chain` of this call's signature; with ``whole`` its plan
+    is the whole step, and its replay is the render.  Else the gradients'
+    all-reduce around the rank's step, which ``chain`` replays where given,
+    else runs eagerly; then the finished bands' all-gather."""
+    if whole:
+        return chain(*_graph_inputs(vertices, params)[0])
     n_data, n_tile, n_face = (mesh.shape[a] for a in ("data", "tile", "face"))
     if n_data * n_tile * n_face > 1:
         vertices, params = _sum_gradients_over(vertices, params, mesh.groups["all"],
@@ -292,9 +332,8 @@ def _core(vertices, faces, params, hp, mesh, chain=None):
                                _band_hook(mesh, mesh.coords["tile"], rows, render_size)))
     else:
         band = chain(*_graph_inputs(vertices, params)[0])
-    pool = 2 if hp.anti_aliasing else 1
-    counts = [_real_rows(render_size, rows, t) // pool for t in range(n_tile)]
-    return _GatherImages.apply(band, mesh.groups["cells"], n_data, counts, mesh.coords)
+    return _GatherImages.apply(band, mesh.groups["cells"], n_data, _band_counts(hp, n_tile),
+                               mesh.coords)
 
 
 def rasterize_core_sharded(vertices, faces, params, hyperparams, mesh):
@@ -319,14 +358,21 @@ class RankStep:
     cotangent through the flip and pool, exchanges the band edges (the
     halo, over ``tile``), and takes the hook's outputs' cotangents, the
     coordinate gradient of :func:`_band_grad` among them, to the inputs.
-    Collectives cut the forward at the face fold (face > 1) and the
-    backward at the halo (tile > 1): between them every operation is the
-    rank's own device work."""
 
-    def __init__(self, faces, params, color, hp, mesh):
+    With ``whole`` the plan is the whole step: the forward also gathers
+    the finished bands into the images (over ``cells``), and the backward
+    starts from this rank's band of their cotangent and ends in the
+    gradients' one all-reduce (over every rank, zeros from a rank off face
+    coordinate 0), as :class:`_GatherImages` and :class:`_SumGradients`
+    do around a chain whose plan is not whole.  Between two collectives
+    every operation is the rank's own device work."""
+
+    def __init__(self, faces, params, color, hp, mesh, whole=False):
         self.faces, self.params, self.color, self.hp, self.mesh = faces, params, color, hp, mesh
+        self.whole = whole
         self.render_size = hp.image_size * 2 if hp.anti_aliasing else hp.image_size
         self.rows = band_rows(hp.image_size, hp.anti_aliasing, mesh.shape["tile"])
+        self.counts = _band_counts(hp, mesh.shape["tile"])
 
     def forward(self, *inputs):
         vertices, params = _with_inputs(self.params, inputs, self.color)
@@ -341,9 +387,28 @@ class RankStep:
             return frame["hooked"]
 
         band = yield from _rank_steps(vertices, self.faces, params, self.hp, self.mesh, cut)
-        return band, frame
+        if not self.whole:
+            return band, frame
+        frame["band"] = band
+        padded = _padded(band, self.counts)
+        (cells,) = yield [(padded, self.mesh.groups["cells"], "image_all_gather")]
+        n_data, n_tile = self.mesh.shape["data"], self.mesh.shape["tile"]
+        return _assemble(cells.reshape(n_data, n_tile, *padded.shape), self.counts), frame
 
-    def backward(self, frame, band, grad, wanted):
+    def backward(self, frame, output, grad, wanted):
+        if not self.whole:
+            return (yield from self._band_backward(frame, output, grad, wanted))
+        band = frame["band"]
+        grads = yield from self._band_backward(
+            frame, band, _cotangent_band(grad, band.shape, self.counts, self.mesh.coords),
+            wanted)
+        flat = _gradient_buffer([torch.zeros_like(w) if g is None else g
+                                 for g, w in zip(grads, wanted)],
+                                self.mesh.coords["face"] == 0)
+        (flat,) = yield [(flat, self.mesh.groups["all"], "grad_all_reduce")]
+        return _split_gradients(flat, wanted)
+
+    def _band_backward(self, frame, band, grad, wanted):
         images, coordinates, hooked = frame["images"], frame["coordinates"], frame["hooked"]
         if not hooked.requires_grad:
             return (None,) * len(wanted)
@@ -377,7 +442,7 @@ def _run(vertices, faces, params, hp, mesh):
     # the int32 faces are kept per faces tensor, as the single-device entry
     # keeps them, and the rank's graphs with them
     record = graphs.faces_record(faces)
-    chain = None
+    chain, whole = None, False
     if how == "eager":
         graphs.note_eager("sharded entry (CPU tensors, eager() or plain_versions)", hp,
                           tuple(mesh.shape.items()))
@@ -385,13 +450,17 @@ def _run(vertices, faces, params, hp, mesh):
         signature, tensors, color = sharded_signature(vertices, params, hp, mesh)
         label = (f"sharded {_label(vertices, faces, hp)} mesh "
                  f"{tuple(mesh.shape.values())} at {tuple(mesh.coords.values())}")
+        # the whole step in the chain where a graph can hold every
+        # collective of the mesh (NCCL)
+        whole = collectives.capturable([(vertices, group, None)
+                                        for group in mesh.groups.values()])
         chain = graphs.cached_graph(
             record, signature,
             lambda min_capacity=0: graphs.Chain(
-                RankStep(record.faces, params, color, hp, mesh), tensors,
+                RankStep(record.faces, params, color, hp, mesh, whole), tensors,
                 torch.is_grad_enabled(), label, record, min_capacity),
             label)
-    return _core(vertices, record.faces, params, hp, mesh, chain)
+    return _core(vertices, record.faces, params, hp, mesh, chain, whole and chain is not None)
 
 
 def rasterize_silhouettes_sharded(vertices, faces, params=None,

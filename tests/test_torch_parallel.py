@@ -29,7 +29,7 @@ from neural_renderer_v2_pytorch_tpu_torch.ops import differentiation as nmr
 from neural_renderer_v2_pytorch_tpu_torch.ops import resolve_cuda as rc
 from neural_renderer_v2_pytorch_tpu_torch.utils.scenes import texel_scene
 
-SPAWN_TIMEOUT = 120.0       # seconds for one spawn of ranks, each collective included
+SPAWN_TIMEOUT = 240.0       # seconds for one spawn of ranks, each collective included
 LIGHTS = ("directional", "ambient", "specular")
 
 Config = collections.namedtuple("Config", "shape entry image_size anti_aliasing backgrounds",
@@ -56,6 +56,11 @@ CONFIGS = {
     # bottom and are empty, yet join every collective
     "tile8-empty": Config((1, 8, 1), "silhouettes", 12, True),
 }
+
+
+# where ranks run the step in different forms at once (one config of each
+# spawn): the even ranks eagerly, the odd ones warming up and capturing
+MIXED = ("face2-lit", "tile2-backgrounds", "tile4-face2-uneven", "all-axes-lit")
 
 
 def _spawn_of(name):
@@ -179,6 +184,9 @@ def _rank_body(jobs):
         return meshes[shape]
 
     for name, arrays in jobs:
+        if name == "forms":
+            out[name] = _collective_forms()
+            continue
         if name == "tie":
             mesh = mesh_of((1, 1, 2))
             x, f = (torch.tensor(a) for a in arrays)
@@ -193,15 +201,18 @@ def _rank_body(jobs):
         rc.reset_launches()
         t, x, f, params = _port_inputs(arrays, cfg)
         hp = tnr.RasterizeHyperparam(image_size=cfg.image_size, anti_aliasing=cfg.anti_aliasing)
-        images = getattr(parallel, f"rasterize_{cfg.entry}_sharded")(x, f, params, hp, mesh=mesh)
-        forward = dict(parallel.COLLECTIVES)
-        with _nmr_inputs_seen() as seen:
-            _weighted_sum(images, arrays["weight"]).backward()
+        with _recording() as issued:
+            images = getattr(parallel, f"rasterize_{cfg.entry}_sharded")(x, f, params, hp,
+                                                                         mesh=mesh)
+            forward = dict(parallel.COLLECTIVES)
+            with _nmr_inputs_seen() as seen:
+                _weighted_sum(images, arrays["weight"]).backward()
         out[name] = dict(
             image=images.detach().numpy(), grads={k: v.grad.numpy() for k, v in t.items()},
             forward=forward, step=dict(parallel.COLLECTIVES), launches=dict(rc.LAUNCHES),
             coords=mesh.coords, index=_band_index_map(arrays, cfg, mesh).numpy(), nmr=seen,
-            segmented=_segmented_runs(cfg, arrays, mesh))
+            issued=issued, segmented=_segmented_runs(cfg, arrays, mesh),
+            whole=_whole_runs(cfg, arrays, mesh, name in MIXED))
     return out
 
 
@@ -248,11 +259,12 @@ class _SegmentedReplay(torch.autograd.Function):
                               for t in ctx.static))
 
 
-def _segmented_step(cfg, arrays, mesh, faces, segment):
-    """(images, {leaf: gradient}, the step's collectives, the segments of
-    each direction) of the sharded entry's step over ``faces`` with its
-    rank's work run through :class:`_SegmentedReplay`, as
-    ``parallel.render._run`` runs it through a chain on the card."""
+def _plan_step(cfg, arrays, mesh, faces, replay, whole=False):
+    """(images, {leaf: gradient}, the step's collectives, the plan) of the
+    sharded entry's step over ``faces`` with its rank's work, the plan
+    (``parallel.render.RankStep``, the whole step with ``whole``), run
+    through ``replay(plan, *inputs)``, as ``parallel.render._run`` runs it
+    through a chain on the card."""
     from neural_renderer_v2_pytorch_tpu_torch.ops import graphs
     from neural_renderer_v2_pytorch_tpu_torch.parallel import render
 
@@ -263,19 +275,27 @@ def _segmented_step(cfg, arrays, mesh, faces, segment):
                                  draw_rgb=rgb, draw_silhouettes=silhouettes, draw_depth=depth)
     record = graphs.faces_record(faces)
     _, _, color = render.sharded_signature(x, params, hp, mesh)
-    plan = render.RankStep(record.faces, params, color, hp, mesh)
+    plan = render.RankStep(record.faces, params, color, hp, mesh, whole)
 
     def chain(*inputs):
         with graphs.rendering(record):
-            return _SegmentedReplay.apply(plan, segment, *inputs)
+            return replay(plan, *inputs)
 
     parallel.reset_collectives()
-    images = render._core(x, record.faces, params, hp, mesh, chain)
+    images = render._core(x, record.faces, params, hp, mesh, chain, whole)
     if cfg.entry in ("silhouettes", "depth"):
         images = images[:, 0]
     _weighted_sum(images, arrays["weight"]).backward()
     return (images.detach().numpy(), {k: v.grad.numpy() for k, v in t.items()},
-            dict(parallel.COLLECTIVES), plan.segments)
+            dict(parallel.COLLECTIVES), plan)
+
+
+def _segmented_step(cfg, arrays, mesh, faces, segment):
+    """:func:`_plan_step` through :class:`_SegmentedReplay`; the segments
+    of each direction last."""
+    *out, plan = _plan_step(cfg, arrays, mesh, faces,
+                            lambda plan, *inputs: _SegmentedReplay.apply(plan, segment, *inputs))
+    return (*out, plan.segments)
 
 
 @contextlib.contextmanager
@@ -329,6 +349,189 @@ def _segmented_runs(cfg, arrays, mesh):
         totals = graphs.faces_record(faces).bin_totals
         out.update(binned=binned, capacities=capacities, totals=totals)
     return out
+
+
+# --- the rank's step as one graph each way, its collectives inside --------
+
+
+class _WholeReplay(torch.autograd.Function):
+    """A stand-in for a rank's ``graphs.Chain`` over the whole step on the
+    CPU, with ``parallel.collectives.capturable`` patched true (on the card:
+    NCCL): the chain's warm-up (zeros stood in for every collective), then
+    its capture, each direction one stretch (``segment`` around it) with
+    every collective issued where it comes through
+    ``collectives.captured``, as a capture issues it, and counted as a
+    replay counts the collectives its graph holds.  What the rank issues
+    to ``torch.distributed`` in each part is kept on the plan
+    (``plan.issued``), with the stretches and the kinds each direction
+    holds."""
+
+    @staticmethod
+    def forward(ctx, plan, segment, *inputs):
+        from neural_renderer_v2_pytorch_tpu_torch.ops import graphs
+        from neural_renderer_v2_pytorch_tpu_torch.parallel import collectives
+
+        ctx.static = [None if t is None else t.detach().clone().requires_grad_(t.requires_grad)
+                      for t in inputs]
+        ctx.wanted = [t for t in ctx.static if t is not None and t.requires_grad]
+        ctx.plan, ctx.segment = plan, segment
+        plan.issued, plan.segments, plan.held = {}, {}, {"forward": [], "backward": []}
+        with torch.enable_grad():
+            with _recording() as plan.issued["warm-up"]:
+                (out, frame), _ = graphs.drive(plan.forward(*ctx.static), collectives.stand_ins)
+                graphs.drive(plan.backward(frame, out, torch.ones_like(out), ctx.wanted),
+                             collectives.stand_ins)
+            with _recording() as plan.issued["capture"]:
+                (ctx.out, ctx.frame), cuts = graphs.drive(
+                    plan.forward(*ctx.static), _issue(plan.held["forward"]), segment,
+                    collectives.capturable)
+        plan.segments["forward"] = len(cuts) + 1
+        collectives.count(plan.held["forward"])
+        return ctx.out.detach().clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        from neural_renderer_v2_pytorch_tpu_torch.ops import graphs
+        from neural_renderer_v2_pytorch_tpu_torch.parallel import collectives
+
+        plan = ctx.plan
+        with _recording() as issued:
+            grads, cuts = graphs.drive(plan.backward(ctx.frame, ctx.out, grad, ctx.wanted),
+                                       _issue(plan.held["backward"]), ctx.segment,
+                                       collectives.capturable)
+        plan.issued["capture"] += issued
+        plan.segments["backward"] = len(cuts) + 1
+        collectives.count(plan.held["backward"])
+        grads = iter(grads)
+        return (None, None, *(next(grads) if t is not None and t.requires_grad else None
+                              for t in ctx.static))
+
+
+def _issue(held):
+    """What a capture gathers with: each collective issued through
+    ``collectives.captured``, its kind appended to ``held``."""
+    from neural_renderer_v2_pytorch_tpu_torch.parallel import collectives
+
+    def gather(requests):
+        held.extend(kind for _, _, kind in requests)
+        return collectives.captured(requests)
+    return gather
+
+
+@contextlib.contextmanager
+def _recording():
+    """Every collective this rank issues to ``torch.distributed`` in the
+    block, in order, in a list: (function, shape, dtype, the group's
+    ranks)."""
+    import torch.distributed as dist
+
+    issued, saved = [], {}
+
+    def spy(name, fn, at):
+        def call(*args, group=None, **kw):
+            t = args[at]
+            issued.append((name, tuple(t.shape), str(t.dtype),
+                           tuple(dist.get_process_group_ranks(group or dist.group.WORLD))))
+            return fn(*args, group=group, **kw)
+        return call
+
+    for name, at in (("all_gather", 1), ("all_gather_single", 1),
+                     ("all_gather_into_tensor", 1), ("all_reduce", 0)):
+        if hasattr(dist, name):
+            saved[name] = getattr(dist, name)
+            setattr(dist, name, spy(name, saved[name], at))
+    try:
+        yield issued
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+@contextlib.contextmanager
+def _nccl_seam():
+    """``collectives.capturable`` true for gloo's CPU tensors, as it is on
+    the card for NCCL's."""
+    from neural_renderer_v2_pytorch_tpu_torch.parallel import collectives
+
+    saved = collectives.capturable
+    collectives.capturable = lambda requests: True
+    try:
+        yield
+    finally:
+        collectives.capturable = saved
+
+
+def _whole_runs(cfg, arrays, mesh, mixed):
+    """The whole step (:class:`_WholeReplay`, the seam on) as a capture
+    holds it (``graphs.capturing`` true, each direction under the host
+    watch); then, with ``mixed``, the sharded entry with the ranks split
+    between the forms: the even ranks run it eagerly while the odd ones
+    warm up and capture the whole step (as a rank that recaptures alone
+    does while the others replay).  Returns what the parent checks."""
+    import torch_host_watch as watch
+
+    faces, seen = torch.tensor(arrays["faces"]), []
+
+    def whole(plan, *inputs):
+        return _WholeReplay.apply(plan, segment, *inputs)
+
+    segment = lambda i: watch.watching(seen)                                 # noqa: E731
+    with watch.plain_unwatched(), _nccl_seam():
+        with _capturing():
+            image, grads, census, plan = _plan_step(cfg, arrays, mesh, faces, whole, True)
+        segment = None
+        if mixed and torch.distributed.get_rank() % 2:
+            mixed = _plan_step(cfg, arrays, mesh, faces, whole, True)[:2]
+        elif mixed:
+            mixed = _port_render(cfg, arrays, mesh)
+    return dict(image=image, grads=grads, census=census, segments=plan.segments,
+                held=plan.held, issued=plan.issued, seen=seen, mixed=mixed)
+
+
+def _collective_forms():
+    """On a two-rank group: what ``collectives.captured`` issues (one flat
+    all-gather into a buffer, the all-reduce in place) against
+    ``all_gather`` and ``all_reduce_sum`` and the list form of
+    ``torch.distributed.all_gather``; and its refusal of a group that has
+    run no collective yet."""
+    import torch.distributed as dist
+
+    from neural_renderer_v2_pytorch_tpu_torch.parallel import collectives
+
+    collectives.reset_collectives()
+    rank, group = dist.get_rank(), dist.new_group([0, 1])
+    fresh = dist.new_group([0, 1])
+    gen = torch.Generator().manual_seed(rank)
+    own = dict(depth=torch.rand((2, 5, 7), generator=gen),
+               index=torch.randint(-1, 99, (2, 5, 7), generator=gen, dtype=torch.int32),
+               grads=torch.randn(33, generator=gen) * 1e3)
+    out = {"gathered": collectives.all_gather(own["depth"], group, "face_all_gather"),
+           "summed": collectives.all_reduce_sum(own["grads"], group, "grad_all_reduce")}
+    for k in ("depth", "index"):
+        parts = [torch.empty_like(own[k]) for _ in range(2)]
+        dist.all_gather(parts, own[k], group=group)
+        out[f"listed_{k}"] = torch.stack(parts)
+    buf = own["grads"].clone()
+    held = collectives.captured([(own["depth"], group, "face_all_gather"),
+                                 (own["index"], group, "face_all_gather"),
+                                 (buf, group, "grad_all_reduce")])
+    out.update(captured=held, in_place=held[2] is buf, census=dict(collectives.COLLECTIVES),
+               own=own)
+    try:
+        collectives.captured([(own["depth"], fresh, "halo_exchange")])
+        out["refused"] = None
+    except RuntimeError as e:
+        out["refused"] = str(e)
+    return _numpy(out)
+
+
+def _numpy(tree):
+    """``tree`` with its tensors as numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_numpy(v) for v in tree]
+    return tree.numpy() if isinstance(tree, torch.Tensor) else tree
 
 
 @contextlib.contextmanager
@@ -428,7 +631,7 @@ def spawned(scenes):
         if spawn not in cache:
             jobs = [(n, _arrays(scenes, n)) for n in CONFIGS if _spawn_of(n) == spawn]
             if spawn == (1, 1, 2):
-                jobs.append(("tie", _tie_arrays()))
+                jobs += [("tie", _tie_arrays()), ("forms", None)]
             world = spawn if isinstance(spawn, int) else int(np.prod(spawn))
             cache[spawn] = parallel.run_ranks(_rank_body, world, (jobs,), device="cpu",
                                               timeout=SPAWN_TIMEOUT)
@@ -613,6 +816,85 @@ def test_face_range_binning_takes_its_capacity_from_the_warm_up(spawned, scenes,
     assert max(totals) > 0          # a band that no face of a range meets bins none
 
 
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_whole_step_matches_the_segmented_step(spawned, name):
+    """The rank's step as one stretch each way with every collective
+    inline, as a chain on NCCL captures it (the forward ending in the
+    images' all-gather, the backward in the gradients' all-reduce;
+    ``collectives.capturable`` true through the seam): the segmented
+    step's images and gradients to the bit (the eager step's images, its
+    gradients within 1e-5), the same collectives by kind, each direction
+    holding its step's collectives in order, and nothing in either
+    stretch that syncs with or copies from the host."""
+    data, tile, face = CONFIGS[name].shape
+    held = {"forward": ["face_all_gather"] * 2 * (face > 1)
+            + ["image_all_gather"] * (data * tile > 1),
+            "backward": ["halo_exchange"] * (tile > 1) + ["grad_all_reduce"]}
+    for r in _ranks(spawned, name):
+        whole, seg = r["whole"], r["segmented"]
+        np.testing.assert_array_equal(whole["image"], r["image"])
+        np.testing.assert_array_equal(whole["image"], seg["image"])
+        for k, g in r["grads"].items():
+            np.testing.assert_array_equal(whole["grads"][k], seg["grads"][k])
+            _close(whole["grads"][k], g, 1e-5)
+        assert whole["census"] == r["step"]
+        assert whole["segments"] == {"forward": 1, "backward": 1}
+        assert whole["held"] == held
+        assert whole["seen"] == [], whole["seen"]
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_every_form_issues_the_same_collectives(spawned, name):
+    """Each rank issues the same ordered collectives to
+    ``torch.distributed`` (function, shape, dtype, group) whether it runs
+    the step eagerly or warms up and captures the whole step: the warm-up
+    issues none, the capture the eager step's, and a replay runs what the
+    capture holds."""
+    for r in _ranks(spawned, name):
+        issued = r["whole"]["issued"]
+        assert r["issued"] and issued["warm-up"] == []
+        assert issued["capture"] == r["issued"]
+
+
+@pytest.mark.parametrize("name", MIXED)
+def test_ranks_in_different_forms_agree(spawned, name):
+    """With the even ranks running the step eagerly and the odd ones
+    warming up and capturing the whole step alone (as after an overflow),
+    every rank gets the eager step's images, its gradients within 1e-5 and
+    the same bits as every other rank."""
+    ranks = _ranks(spawned, name)
+    for r in ranks:
+        image, grads = r["whole"]["mixed"]
+        np.testing.assert_array_equal(image, r["image"])
+        for k, g in r["grads"].items():
+            _close(grads[k], g, 1e-5)
+            np.testing.assert_array_equal(grads[k], ranks[0]["whole"]["mixed"][1][k])
+
+
+def test_captured_collectives_equal_the_eager_forms(spawned):
+    """What a capture issues on a two-rank group: one all-gather straight
+    into a buffer through its flat view, equal to ``all_gather`` and to
+    ``torch.distributed.all_gather``'s list of parts stacked; the
+    all-reduce in place, equal to ``all_reduce_sum``'s bits; nothing
+    counted (a replay counts); and a group that has run no collective
+    refused."""
+    ranks = [r["forms"] for r in spawned((1, 1, 2))]
+    for r in ranks:
+        depths = np.stack([q["own"]["depth"] for q in ranks])
+        np.testing.assert_array_equal(r["gathered"], depths)
+        np.testing.assert_array_equal(r["listed_depth"], depths)
+        np.testing.assert_array_equal(r["captured"][0], depths)
+        np.testing.assert_array_equal(r["captured"][1], r["listed_index"])
+        np.testing.assert_array_equal(r["listed_index"],
+                                      np.stack([q["own"]["index"] for q in ranks]))
+        np.testing.assert_array_equal(r["captured"][2], r["summed"])
+        np.testing.assert_array_equal(r["summed"], ranks[0]["summed"])
+        assert r["in_place"]
+        assert r["census"] == {"face_all_gather": 1, "image_all_gather": 0,
+                               "halo_exchange": 0, "grad_all_reduce": 1}
+        assert "has run no collective" in r["refused"]
+
+
 def test_face_sharded_cross_shard_tie(spawned):
     x, f = _tie_arrays()
     hp = tnr.RasterizeHyperparam(image_size=32, anti_aliasing=False)
@@ -680,6 +962,52 @@ def test_initialize_contract(monkeypatch):
         parallel.make_mesh(1, 1, 1)
 
 
+def test_backend_takes_one_rank_per_card(monkeypatch):
+    """NCCL while a host's ranks are no more than its cards, each rank on
+    card LOCAL_RANK (else its rank) modulo the cards; more ranks raise
+    unless gloo is named; the CPU takes gloo and no card."""
+    from neural_renderer_v2_pytorch_tpu_torch.parallel.distributed import _backend
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    for k in ("LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    assert _backend("cuda", None, 4, 2) == ("nccl", 2)
+    assert _backend("cuda", None, 2, 1) == ("nccl", 1)
+    with pytest.raises(ValueError, match="backend='gloo'"):
+        _backend("cuda", None, 8, 0)
+    assert _backend("cuda", "gloo", 8, 5) == ("gloo", 1)
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
+    assert _backend("cuda", None, 16, 11) == ("nccl", 3)
+    assert _backend("cpu", None, 8, 3) == ("gloo", None)
+
+
+def test_a_failed_nccl_group_raises(monkeypatch):
+    """From the environment's cluster: an NCCL group that does not come up
+    raises (nothing falls back to gloo), bound to the rank's card; a gloo
+    group that does not come up returns False."""
+    for k, v in dict(MASTER_ADDR="localhost", MASTER_PORT="1", WORLD_SIZE="2",
+                     RANK="1").items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device", lambda card: None)
+    asked = []
+
+    def refuse(backend, **kw):
+        asked.append((backend, kw.get("device_id")))
+        raise RuntimeError("the group did not come up")
+
+    monkeypatch.setattr(torch.distributed, "init_process_group", refuse)
+    with pytest.raises(RuntimeError, match="did not come up"):
+        parallel.distributed.initialize()
+    assert parallel.distributed.initialize(device="cpu") is False
+    assert asked == [("nccl", torch.device("cuda", 1)), ("gloo", None)]
+
+
 def _fail_on_rank_one():
     import torch.distributed as dist
 
@@ -702,6 +1030,20 @@ def _fail_on_rank_one_and_exit_last():
     dist.barrier()
 
 
+def _fail_on_rank_one_and_linger():
+    import threading
+    import time
+
+    import torch.distributed as dist
+
+    if dist.get_rank() == 1:
+        # a rank that cannot leave (as one whose NCCL group waits on a
+        # peer): its process outlives the deadline
+        threading.Thread(target=time.sleep, args=(40,)).start()
+        raise ValueError("rank one fails")
+    time.sleep(40)
+
+
 def _hang():
     import time
 
@@ -720,6 +1062,17 @@ def test_run_ranks_reports_a_failed_rank_that_exits_last():
     exits before it."""
     with pytest.raises(RuntimeError, match="rank one fails"):
         parallel.run_ranks(_fail_on_rank_one_and_exit_last, 2, device="cpu", timeout=30.0)
+
+
+def test_run_ranks_reports_a_failed_rank_that_does_not_exit():
+    """A rank that wrote its traceback fails the spawn at once, though its
+    process (and the others') would outlive the deadline."""
+    import time
+
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="rank one fails"):
+        parallel.run_ranks(_fail_on_rank_one_and_linger, 2, device="cpu", timeout=30.0)
+    assert time.monotonic() - t0 < 25.0
 
 
 def test_mesh_shape_from_jax_fills_the_face_axis():

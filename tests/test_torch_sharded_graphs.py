@@ -142,6 +142,46 @@ def test_drive_cuts_the_work_at_each_collective_that_reaches_another_rank(monkey
     assert [float(v) for v in value] == [8.0, 8.0]
 
 
+def test_drive_keeps_the_collectives_a_capture_holds_inside_the_stretch(monkeypatch):
+    """Where ``inline`` accepts a list (NCCL: a capture holds it) the
+    collectives are gathered where they come, inside the one stretch: no
+    cut, the same value."""
+    monkeypatch.setattr(collectives, "crosses",
+                        lambda requests: any(g == "two ranks" for _, g, _ in requests))
+    log, gathered = [], []
+
+    @contextlib.contextmanager
+    def segment(i):
+        log.append(("segment", i))
+        yield
+        log.append(("end", i))
+
+    def gather(requests):
+        gathered.append([kind for _, _, kind in requests])
+        log.append("gathered")
+        return [torch.stack([t, t]) for t, _, _ in requests]
+
+    value, cuts = graphs.drive(_work(log), gather, segment, inline=lambda requests: True)
+    assert [float(v) for v in value] == [8.0, 8.0] and cuts == []
+    assert gathered == [["halo_exchange"], ["face_all_gather", "face_all_gather"]]
+    assert log == [("segment", 0), "a", ("got", (1, 2)), "gathered", ("got", (2, 2)),
+                   "gathered", ("end", 0)]
+
+
+def test_the_all_reduce_request_keeps_its_shape(monkeypatch):
+    """The gradients' all-reduce (``collectives.REDUCE``) returns a tensor of
+    its request's shape, where an all-gather stacks one per rank: over one
+    rank, in a warm-up's stand-in and in a capture's buffer."""
+    monkeypatch.setattr(collectives.dist, "get_world_size", lambda group: 3)
+    t = torch.arange(5.0)
+    request = (t, None, collectives.REDUCE)
+    assert collectives.local(request) is t
+    assert collectives.local((t, None, "halo_exchange")).shape == (1, 5)
+    (zeros,) = collectives.stand_ins([request])
+    (buffer,) = collectives.gathered_buffers([request])
+    assert zeros.shape == buffer.shape == (5,) and not zeros.any()
+
+
 def test_chain_warm_up_stands_zeros_in_for_the_collectives(monkeypatch):
     """A rank's warm-up reaches no other rank (it captures, or recaptures
     after an overflow, on its own): the results are zeros of the gathered
