@@ -134,7 +134,9 @@ logged; int64 faces over 10 steps in one capture and one K4 table, an
 in-place edit of them captured anew, a no_grad render equal, and at
 ``scale`` a graph captured with half its pair total's slots: its replay
 bit-equal with overflow bins, which it reports, and the next call
-captured anew at twice the capacity; K7 + K8 over exact, half-capacity and
+captured anew at twice the capacity; the same capacity in a whole step
+captured by its caller: bit-equal replays, each adding its overflow word
+to K7's counts (``graphs.bin_counters``); K7 + K8 over exact, half-capacity and
 zero-capacity bins timed in turns; ``compute_face_index_map`` eager and
 graphed in turns at ``lit`` and ``hires-lit``, and the sharded runs'
 eager and graphed per-rank steps.  Each five-step
@@ -2511,6 +2513,52 @@ def forced_overflow(case, handler):
                 recaptured_capacity=recaptured.capacities)
 
 
+def caller_overflow(case):
+    """A whole step of ``case`` (binned) captured by its caller with half
+    its pair total's slots (``graphs.forced_capacity``): each replay is
+    bit-equal to the eager step though bins overflow, and K7's counts
+    (``graphs.bin_counters``, which K7 adds into on the card) grow at each
+    replay by one binning, the pair total, the slots and exactly the
+    overflow words that K7 wrote in that replay, which the port keeps for
+    its own graphs only."""
+    with nr.eager():
+        want = case.step()
+    words, bin_faces = [], rc.bin_faces
+
+    def keep_words(*args, capacity=None, **kwargs):
+        out = bin_faces(*args, capacity=capacity, **kwargs)
+        if capacity is not None:
+            words.append(out[3])
+        return out
+
+    (total,) = graphs.faces_record(case.faces).bin_totals.values()
+    rc.bin_faces = keep_words
+    try:
+        with graphs.forced_capacity(total // 2):
+            whole = CallerGraph(case)
+    finally:
+        rc.bin_faces = bin_faces
+    if len(words) != 1:
+        raise AssertionError(f"{case.label}: {len(words)} capped binnings captured, want 1")
+    counts = graphs.bin_counters()
+    for replay in range(3):
+        check_against(f"{case.label}: the caller's overflowed replay {replay + 1}", whole(), want)
+        torch.cuda.synchronize()
+        overflow = sum(int(w) for w in words)
+        now = graphs.bin_counters()
+        added = {k: now[k] - counts[k] for k in now}
+        counts = now
+        if overflow <= 0 or added != dict(binnings=1, pairs=total, slots=total // 2,
+                                          overflow_bins=overflow):
+            raise AssertionError(f"{case.label}: replay {replay + 1} added {added} to K7's "
+                                 f"counts; its overflow word reads {overflow}, the total "
+                                 f"{total}, the slots {total // 2}")
+    log(f"[graphs] {case.label}: a caller's graph captured with {total // 2} pair slots of "
+        f"{total}: each replay bit-equal, {overflow} overflow bins, counted by K7's counts "
+        f"as its overflow word reads")
+    return dict(total=total, capacity=total // 2, overflow_bins=overflow)
+
+
 def index_map_forms(cases, smi):
     """``compute_face_index_map`` at each (label, face vertices, size) of
     ``cases`` (phase 15's), eager (``nr.eager()``) and graphed in turns
@@ -2571,8 +2619,9 @@ def graphs_phase(cases, scale, index_cases, sharded, smi):
     capture, one K4 table), an in-place faces edit (a new capture), a fresh
     faces tensor each step (no capture), two views under one loss (a graph
     each), a no_grad render; at ``scale`` = (renderer, vertices, faces): a
-    forced overflow (:func:`forced_overflow`) and K7 + K8 over overflow
-    bins timed (:func:`overflow_times`); ``compute_face_index_map`` at
+    forced overflow (:func:`forced_overflow`), one in a caller's graph
+    (:func:`caller_overflow`) and K7 + K8 over overflow bins timed
+    (:func:`overflow_times`); ``compute_face_index_map`` at
     phase 15's ``index_cases`` (:func:`index_map_forms`) and phase 16's
     ``sharded`` runs (:func:`sharded_forms`)."""
     handler = LogLines()
@@ -2646,6 +2695,10 @@ def graphs_phase(cases, scale, index_cases, sharded, smi):
         numbers["scale forced overflow"] = forced_overflow(
             GraphCase("scale forced overflow", r, over_faces,
                       lambda x: r.render_silhouettes(x, over_faces), [v]), handler)
+        caller_faces = f.clone()
+        numbers["scale caller overflow"] = caller_overflow(
+            GraphCase("scale caller overflow", r, caller_faces,
+                      lambda x: r.render_silhouettes(x, caller_faces), [v]))
         with torch.no_grad():
             fvp = gather_face_vertices(r.transform_vertices(v), f)
         numbers["scale overflow times"] = overflow_times(fvp, r.image_size, smi)
@@ -2655,7 +2708,8 @@ def graphs_phase(cases, scale, index_cases, sharded, smi):
                              "edit recaptured; fresh faces each step: eager; two views "
                              "under one loss: 2 graphs; no_grad equal; scale and hires "
                              "graphed (K7 capped); a forced overflow at scale: exact, "
-                             "counted, recaptured once")
+                             "counted, recaptured once; in a caller's graph: exact, each "
+                             "replay's overflow word added to K7's counts")
     finally:
         logger.removeHandler(handler)
         logger.setLevel(saved)

@@ -10,7 +10,8 @@
   over azimuths, in the graphed-core form.
 - ``scaling``: the thirteen rows of the JAX package's perf matrix on
   in-repo meshes, each in the eager, graphed-core and whole-step forms.
-- ``prof``: the device time of each stage of a replayed whole step.
+- ``prof``: the device time of each stage of a replayed whole step, a
+  stage being one of the port's spans (``utils/trace.py``).
 - ``kernel_census``: one step's device operations and kernel launches in
   each form.
 - ``roofline``: each kernel's bytes and operations, its bound and its

@@ -31,10 +31,10 @@ its inputs that do not fit in L2 together.  K6, which the atlas's
 gradient step runs (``scaling``'s row "atlas 3x1190x1920 256^2 AA, atlas
 gradients"), gets a row at that step: its function's bound from the
 anchors the step scatters to (:func:`atlas_taps_work`), the device time of
-``prof``'s stage "atlas gradient (K6)" in the replayed whole step (the
-zero fill, the kernel and whatever else the stage dispatches) and the
-kernel's own, and the library call's (:func:`atlas_taps_library`) in a
-replayed graph of its own.  A share above 100% is flagged
+``prof``'s stage ``atlas.vjp`` in the replayed whole step (the port's
+span around the zero fill and the kernel) and the kernel's own, and the
+library call's (:func:`atlas_taps_library`) in a replayed graph of its
+own.  A share above 100% is flagged
 (``above_bound``) as no valid reading.  The last line is one JSON
 object."""
 
@@ -81,8 +81,8 @@ K9_SCENE, K9_SIZE, K9_PLANES = (320, 248), 512, 27
 K9_COPIES = 4
 # replays profiled for each device time
 REPLAYS = 10
-# profiles taken at most, until one keeps every marker (the atlas's step)
-# or any record (a graph of one function)
+# profiles taken at most, until one keeps any record (a graph of one
+# function)
 STAGE_ATTEMPTS = 3
 
 
@@ -376,13 +376,13 @@ def k9_row(device, n, gen):
 
 def k6_row(device, n, gen):
     """K6 in the atlas's gradient step (``prof.ATLAS_ROW``): the bound of its
-    function over the anchors the step scatters to; the device time of
-    ``prof``'s stage "atlas gradient (K6)" in ``n`` replays of the whole
-    step captured by its caller (profiled again, up to STAGE_ATTEMPTS
-    times, until every marker kept its record; else not measured), and the
-    kernel's own record in it; the library call's device time in a
-    replayed graph of its own, on random gradients over the same anchors
-    (K6 held to its plain version on them)."""
+    function over the anchors the step scatters to; the device ms of
+    ``prof``'s stage ``atlas.vjp`` (the port's span around K6 and its zero
+    fill) in ``n`` replays of the whole step captured by its caller (not
+    measured unless every replay's spans were read), and the kernel's own
+    records in that profile; the library call's device time in a replayed
+    graph of its own, on random gradients over the same anchors (K6 held to
+    its plain version on them)."""
     case = scaling.case(next(r for r in scaling.ROWS if r.label == prof.ATLAS_ROW), device)
     with graphs.eager():
         images = case.forward(*(v.clone().requires_grad_(True) for v in case.values))
@@ -393,23 +393,17 @@ def k6_row(device, n, gen):
                       rc.atlas_taps_grad_plain(grad, anchors, tw, T))
     nbytes, ops = atlas_taps_work(anchors, T)
     ms, by = bound(nbytes, ops)
-    # a dropped marker record shifts every later record into the wrong
-    # stage: profile again (the profiler drops records now and then)
-    for attempt in range(1, STAGE_ATTEMPTS + 1):
-        times = prof.stage_times(case, n)
-        if times["every_marker_kept"]:
-            break
-    stage = times["stages"][prof.ATLAS_STAGE]
+    times = prof.stage_times(case, n)
     pattern = steps.port_kernel_pattern()
-    kernels = {m.group(2): t for k, t in stage["kernels"].items() if (m := pattern.match(k))}
-    dev = stage["ms"] if times["every_marker_kept"] else None
+    kernels = {m.group(2): t for k, t in times["kernels"].items()
+               if (m := pattern.match(k)) and m.group(2) == "atlas_taps_grad_kernel"}
+    dev = times["stages"].get(prof.ATLAS_STAGE) if times["every_span_read"] else None
     library = graph_device_ms([atlas_taps_library(grad, anchors, tw, T)], n)
     return dict(config="atlas", function=prof.ATLAS_STAGE, bytes=nbytes, operations=ops,
                 bound_ms=ms, bound_by=by, device_ms=dev, share=ms / dev if dev else None,
-                kernels_ms=kernels if dev else None,
-                stage_records=stage["records"], library="zeros + index_add_",
+                kernels_ms=kernels if dev else None, library="zeros + index_add_",
                 library_device_ms=library, launches=times["launches"],
-                every_marker_kept=times["every_marker_kept"], profiles=attempt)
+                every_span_read=times["every_span_read"])
 
 
 def run(device, n=REPLAYS):

@@ -41,7 +41,7 @@ from ..ops import graphs
 from ..ops import resolve_cuda as rc
 from ..ops.camera import look_at, perspective
 from ..ops.rasterize import RasterizeHyperparam, rasterize_silhouettes
-from ..utils import cuda_build
+from ..utils import cuda_build, trace
 from ..utils.helpers import get_points_from_angles
 from ..utils.obj_io import load_obj
 from ..utils.scenes import write_torus_obj
@@ -63,12 +63,15 @@ VIEWING_ANGLE = 30.0
 def bench_loss(images):
     """The headline bench's IoU-style scalar (bench.py), so the full NMR
     backward runs."""
-    return torch.sum(images * images) / (torch.sum(images) + 1.0)
+    with trace.span("loss", images):
+        loss = torch.sum(images * images) / (torch.sum(images) + 1.0)
+    trace.vjp("loss.vjp", loss, images)
+    return loss
 
 
 def update(leaves):
     """bench.py's update of each leaf, in place: ``t -= UPDATE * t.grad``."""
-    with torch.no_grad():
+    with torch.no_grad(), trace.span("update"):
         for t in leaves:
             t.sub_(UPDATE * t.grad)
 

@@ -31,7 +31,10 @@
 // bins are the bins from the first one whose pairs end past the capacity
 // on, in scan order: which bins overflow depends on the counts alone, never
 // on the order of the atomics.  One control word counts the call's
-// overflow bins.
+// overflow bins.  A capped call may also be given the device's counts
+// (ops/resolve_cuda.py, BIN_COUNTS: 64-bit binnings, pairs, slots, overflow
+// bins), which it adds into with atomics, so that a CUDA graph holding it,
+// a caller's included, counts at every replay with no operation more.
 //
 // Four device operations, and eagerly one host readback (the wrapper in
 // ops/resolve_cuda.py calls the two entries):
@@ -232,9 +235,11 @@ bin_count_kernel(const float* __restrict__ fvp, int* scratch, Geometry g, int nf
 // decoupled look-back over their 64-bit states (status << 32 | value:
 // 1 = the chunk's own sum, 2 = its inclusive prefix); writes cnt, offsets
 // and the fill cursors in place of the counters.  A bin whose pairs end past
-// `capacity` gets offset -1, and adds one to the overflow word.
+// `capacity` gets offset -1, and adds one to the overflow word (and to
+// counts[3] where counts are given).
 __device__ void scan_chunk(int t, int* scratch, int* __restrict__ cnt_out,
-                           int* __restrict__ off_out, int n_bins, int padded, int capacity) {
+                           int* __restrict__ off_out, int n_bins, int padded, int capacity,
+                           unsigned long long* counts) {
   __shared__ int sums[32];
   __shared__ int chunk_prefix;
   constexpr int kVecs = kScanPer / 4;
@@ -294,23 +299,33 @@ __device__ void scan_chunk(int t, int* scratch, int* __restrict__ cnt_out,
     }
   }
   overflow = __reduce_add_sync(0xffffffffu, overflow);
-  if ((threadIdx.x & 31) == 0 && overflow) atomicAdd(scratch + padded + kOverflow, overflow);
+  if ((threadIdx.x & 31) == 0 && overflow) {
+    atomicAdd(scratch + padded + kOverflow, overflow);
+    if (counts) atomicAdd(counts + 3, static_cast<unsigned long long>(overflow));
+  }
 }
 
 __global__ void __launch_bounds__(kFillThreads)
 bin_fill_kernel(const float* __restrict__ fvp, int* scratch, int* __restrict__ cnt_out,
                 int* __restrict__ off_out, int* __restrict__ unsorted, Geometry g, int nf,
-                int n_bins, int padded, int capacity) {
+                int n_bins, int padded, int capacity, unsigned long long* counts) {
   extern __shared__ float2 bounds[];
   __shared__ int ticket;
   const int chunks = padded / kScanChunk;
   int* control = scratch + padded;
   if (threadIdx.x == 0) ticket = atomicAdd(control + kTicket, 1);
+  // the first block to start counts the binning, its pairs (the count pass's
+  // total) and its slots
+  if (threadIdx.x == 0 && ticket == 0 && counts) {
+    atomicAdd(counts, 1ull);
+    atomicAdd(counts + 1, static_cast<unsigned long long>(control[kTotal]));
+    atomicAdd(counts + 2, static_cast<unsigned long long>(capacity));
+  }
   tile_bounds(bounds, g);
   // the first blocks to start scan the chunks, each waiting only on blocks
   // that started before it; then every block waits for the whole scan
   if (ticket < chunks) {
-    scan_chunk(ticket, scratch, cnt_out, off_out, n_bins, padded, capacity);
+    scan_chunk(ticket, scratch, cnt_out, off_out, n_bins, padded, capacity, counts);
     __threadfence();
     __syncthreads();
     if (threadIdx.x == 0) atomicAdd(control + kScanned, 1);
@@ -505,10 +520,11 @@ int bin_faces_count(void* stream, const float* fvp, int* scratch, int bs, int nf
 
 // Passes 3 and 4 (the launch counted as bin_faces).  scratch from passes 1
 // and 2; cnt, off: i32 [bs, tiles] out (off -1 for an overflow bin);
-// unsorted and ids: i32 [capacity], ids defined in the bins that fit.
+// unsorted and ids: i32 [capacity], ids defined in the bins that fit;
+// counts: the device's counts of capped binnings, or null.
 int bin_faces(void* stream, const float* fvp, int* scratch, int* cnt, int* off, int* unsorted,
               int* ids, int bs, int nf, int size, int row_start, int num_rows,
-              int draw_backside, int capacity) {
+              int draw_backside, int capacity, long long* counts) {
   const Geometry g = geometry(size, row_start, num_rows, draw_backside);
   const int n_bins = bs * g.n_tiles;
   if (n_bins == 0) return 0;
@@ -519,7 +535,8 @@ int bin_faces(void* stream, const float* fvp, int* scratch, int* cnt, int* off, 
   const int chunks = padded / kScanChunk;
   const dim3 fill_grid(max((nf + kFillThreads - 1) / kFillThreads, (chunks + bs - 1) / bs), bs);
   bin_fill_kernel<<<fill_grid, kFillThreads, sizeof(float2) * (g.tiles_x + g.tiles_y), s>>>(
-      fvp, scratch, cnt, off, unsorted, g, nf, n_bins, padded, capacity);
+      fvp, scratch, cnt, off, unsorted, g, nf, n_bins, padded, capacity,
+      reinterpret_cast<unsigned long long*>(counts));
   // the bitmap for bins above kWarpCap: a window spans at most the nf ids
   const size_t shared = sizeof(unsigned) * max(1, min(kBitmapWords, (nf + 31) / 32));
   bin_order_kernel<<<(n_bins + kOrderWarps - 1) / kOrderWarps, kOrderWarps * 32, shared, s>>>(

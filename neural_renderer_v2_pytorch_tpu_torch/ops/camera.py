@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from . import graphs
 
 
@@ -64,15 +65,18 @@ def look_at(vertices, viewpoints, at=None, up=None):
     if up is None:
         up = (0.0, 1.0, 0.0)
 
-    viewpoints = _as_batched(viewpoints, batch_size, device)
-    at = _as_batched(at, batch_size, device)
-    up = _as_batched(up, batch_size, device)
+    with trace.span("camera", vertices):
+        viewpoints = _as_batched(viewpoints, batch_size, device)
+        at = _as_batched(at, batch_size, device)
+        up = _as_batched(up, batch_size, device)
 
-    z_axis = _normalize(at - viewpoints)                        # [bs, 3]
-    x_axis = _normalize(torch.cross(up, z_axis, dim=-1))
-    y_axis = _normalize(torch.cross(z_axis, x_axis, dim=-1))
-    r = torch.stack((x_axis, y_axis, z_axis), dim=1)            # [bs, 3, 3]
-    return _rotate(vertices - viewpoints[:, None, :], r)
+        z_axis = _normalize(at - viewpoints)                    # [bs, 3]
+        x_axis = _normalize(torch.cross(up, z_axis, dim=-1))
+        y_axis = _normalize(torch.cross(z_axis, x_axis, dim=-1))
+        r = torch.stack((x_axis, y_axis, z_axis), dim=1)        # [bs, 3, 3]
+        out = _rotate(vertices - viewpoints[:, None, :], r)
+    trace.vjp("camera.vjp", out, [vertices, viewpoints, at, up])
+    return out
 
 
 def look(vertices, viewpoints, direction=None, up=None):
@@ -90,15 +94,18 @@ def look(vertices, viewpoints, direction=None, up=None):
     if up is None:
         up = (0.0, 1.0, 0.0)
 
-    viewpoints = _as_batched(viewpoints, batch_size, device)
-    direction = _as_batched(direction, batch_size, device)
-    up = _as_batched(up, batch_size, device)
+    with trace.span("camera", vertices):
+        viewpoints = _as_batched(viewpoints, batch_size, device)
+        direction = _as_batched(direction, batch_size, device)
+        up = _as_batched(up, batch_size, device)
 
-    z_axis = _normalize(direction)
-    x_axis = _normalize(torch.cross(up, z_axis, dim=-1))
-    y_axis = _normalize(torch.cross(z_axis, x_axis, dim=-1))
-    r = torch.stack((x_axis, y_axis, z_axis), dim=1)            # [bs, 3, 3]
-    return _rotate(vertices - viewpoints[:, None, :], r)
+        z_axis = _normalize(direction)
+        x_axis = _normalize(torch.cross(up, z_axis, dim=-1))
+        y_axis = _normalize(torch.cross(z_axis, x_axis, dim=-1))
+        r = torch.stack((x_axis, y_axis, z_axis), dim=1)        # [bs, 3, 3]
+        out = _rotate(vertices - viewpoints[:, None, :], r)
+    trace.vjp("camera.vjp", out, [vertices, viewpoints, direction, up])
+    return out
 
 
 def perspective(vertices, angle=30.0):
@@ -106,12 +113,14 @@ def perspective(vertices, angle=30.0):
     keeping z; ``angle`` in degrees, a python scalar or a [bs] tensor."""
     if vertices.ndim != 3:
         raise ValueError(f"vertices must be [bs, nv, 3], got {tuple(vertices.shape)}")
-    angle = _on_device(angle, vertices.device)
-    # the reference's literal 3.1416 (not pi): golden renders depend on it
-    angle = angle / 180.0 * 3.1416
-    width = torch.tan(angle)
-    width = torch.atleast_1d(width)[:, None].expand(vertices.shape[:2])
-    z = vertices[:, :, 2]
-    x = vertices[:, :, 0] / z / width
-    y = vertices[:, :, 1] / z / width
-    return torch.stack((x, y, z), dim=2)
+    with trace.span("camera", vertices):
+        angle = _on_device(angle, vertices.device)
+        # the reference's literal 3.1416 (not pi): golden renders depend on it
+        width = torch.tan(angle / 180.0 * 3.1416)
+        width = torch.atleast_1d(width)[:, None].expand(vertices.shape[:2])
+        z = vertices[:, :, 2]
+        x = vertices[:, :, 0] / z / width
+        y = vertices[:, :, 1] / z / width
+        out = torch.stack((x, y, z), dim=2)
+    trace.vjp("camera.vjp", out, [vertices, angle])
+    return out

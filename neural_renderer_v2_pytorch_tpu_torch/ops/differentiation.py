@@ -20,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import trace
+
 
 def maximum(data_right, data_left, eps=1e-4):
     """0 where max(r, l) <= 0 or |r - l| < eps, else -r if r > l, else l."""
@@ -49,29 +51,33 @@ def band_coordinate_grad(images, grad_output, above, below, render_size):
     None at the image's top or bottom edge, where the whole image's pair
     terms pad with zeros.  Returns [bs, 2, rows, W] (x on channel 0, y on
     channel 1): the same bits as those rows of the whole image's."""
-    # a tensor divisor: on CUDA, dividing by a Python scalar multiplies by
-    # its reciprocal, which is inexact unless the image size is a power of 2.
-    # Filled on the device (a captured step copies nothing from the host),
-    # the same double rounded to the same float32 as torch.tensor
-    step = torch.full((), 2.0 / render_size, dtype=images.dtype, device=images.device)
-    I, G = images, grad_output
-    if above is not None:
-        I, G = torch.cat([above[0], I], 2), torch.cat([above[1], G], 2)
-    if below is not None:
-        I, G = torch.cat([I, below[0]], 2), torch.cat([G, below[1]], 2)
+    with trace.span("nmr.grad", images):
+        # a tensor divisor: on CUDA, dividing by a Python scalar multiplies
+        # by its reciprocal, which is inexact unless the image size is a
+        # power of 2.  Filled on the device (a captured step copies nothing
+        # from the host), the same double rounded to the same float32 as
+        # torch.tensor
+        step = torch.full((), 2.0 / render_size, dtype=images.dtype, device=images.device)
+        with trace.span("nmr.grad.y", images):
+            I, G = images, grad_output
+            if above is not None:
+                I, G = torch.cat([above[0], I], 2), torch.cat([above[1], G], 2)
+            if below is not None:
+                I, G = torch.cat([I, below[0]], 2), torch.cat([G, below[1]], 2)
 
-    # y (rows): entry k of the padded pair terms joins band rows k - 1 and
-    # k; a pair past the image edge is the zero pad
-    gyr, gyl = (F.pad(g, (0, 0, int(above is None), int(below is None)))
-                for g in _pair_terms(I, G, 2, step))
-    grad_y = maximum(gyr[:, 1:] + gyr[:, :-1], gyl[:, :-1] + gyl[:, 1:])
+            # y (rows): entry k of the padded pair terms joins band rows k - 1
+            # and k; a pair past the image edge is the zero pad
+            gyr, gyl = (F.pad(g, (0, 0, int(above is None), int(below is None)))
+                        for g in _pair_terms(I, G, 2, step))
+            grad_y = maximum(gyr[:, 1:] + gyr[:, :-1], gyl[:, :-1] + gyl[:, 1:])
 
-    # x (columns): row-local
-    gxr, gxl = _pair_terms(images, grad_output, 3, step)
-    grad_x = maximum(F.pad(gxr, (0, 1)) + F.pad(gxr, (1, 0)),
-                     F.pad(gxl, (1, 0)) + F.pad(gxl, (0, 1)))
+        # x (columns): row-local
+        with trace.span("nmr.grad.x", images):
+            gxr, gxl = _pair_terms(images, grad_output, 3, step)
+            grad_x = maximum(F.pad(gxr, (0, 1)) + F.pad(gxr, (1, 0)),
+                             F.pad(gxl, (1, 0)) + F.pad(gxl, (0, 1)))
 
-    return torch.stack((grad_x, grad_y), dim=1)
+        return torch.stack((grad_x, grad_y), dim=1)
 
 
 def _coordinate_grad(images, grad_output):

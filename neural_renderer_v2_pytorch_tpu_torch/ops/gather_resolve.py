@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from .graphs import (
     INDEX_MAPS,
     Graph,
@@ -44,7 +45,8 @@ class _GatherFaceVertices(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         (faces,) = ctx.saved_tensors
-        g = scatter_faces_to_vertices(grad.contiguous(), faces, ctx.num_vertices)
+        with trace.span("gather.vjp", grad):
+            g = scatter_faces_to_vertices(grad.contiguous(), faces, ctx.num_vertices)
         return g, None
 
 
@@ -52,7 +54,8 @@ def gather_face_vertices(vertices, faces):
     """``vertices[:, faces]`` in the planar layout: [bs, nv, 3] float32 and
     [nf, 3] int32 -> [bs, 3, 3, nf].  The forward is kernel K5 (the JAX
     package's ``gather_faces3_pallas``), the backward kernel K4."""
-    return _GatherFaceVertices.apply(vertices, faces)
+    with trace.span("gather", vertices):
+        return _GatherFaceVertices.apply(vertices, faces)
 
 
 class _GatherRows(torch.autograd.Function):
@@ -144,23 +147,24 @@ class _ResolveAndGather(torch.autograd.Function):
         (index,) = ctx.saved_tensors
         nf = ctx.num_faces
         bs = index.shape[0]
-        if not ctx.latch_z:
-            # the z planes are constant zeros in the forward: drop their
-            # cotangents, scatter the six XY planes, and pad z back
-            # the XY planes of the 9-plane map (plane = 3 * vertex + coord),
-            # by slices: an index tuple would be copied from the host
-            g6 = torch.cat([grad_fvm[:, 0:2], grad_fvm[:, 3:5], grad_fvm[:, 6:8]], 1)
-            per_face = scatter_pixels_to_faces(g6, index, nf)     # [bs, 6, nf]
-            gk = torch.nn.functional.pad(
-                per_face.reshape(bs, 3, 2, nf), (0, 0, 0, 1)
-            )                                                     # [bs, k, coord, nf]
-            return (gk.permute(0, 2, 1, 3),) + (None,) * 9
-        # one scatter over coordinates and attributes: D = 9 + A
-        g_all = torch.cat([grad_fvm, grad_attrs], 1) if ctx.has_attrs else grad_fvm
-        per_face = scatter_pixels_to_faces(g_all.contiguous(), index, nf)
-        g_faces = per_face[:, :9].reshape(bs, 3, 3, nf).permute(0, 2, 1, 3)
-        g_attrs = per_face[:, 9:].permute(0, 2, 1) if ctx.has_attrs else None
-        return (g_faces, g_attrs) + (None,) * 8
+        with trace.span("resolve.vjp", grad_fvm):
+            if not ctx.latch_z:
+                # the z planes are constant zeros in the forward: drop their
+                # cotangents, scatter the six XY planes, and pad z back
+                # the XY planes of the 9-plane map (plane = 3 * vertex + coord),
+                # by slices: an index tuple would be copied from the host
+                g6 = torch.cat([grad_fvm[:, 0:2], grad_fvm[:, 3:5], grad_fvm[:, 6:8]], 1)
+                per_face = scatter_pixels_to_faces(g6, index, nf)     # [bs, 6, nf]
+                gk = torch.nn.functional.pad(
+                    per_face.reshape(bs, 3, 2, nf), (0, 0, 0, 1)
+                )                                                     # [bs, k, coord, nf]
+                return (gk.permute(0, 2, 1, 3),) + (None,) * 9
+            # one scatter over coordinates and attributes: D = 9 + A
+            g_all = torch.cat([grad_fvm, grad_attrs], 1) if ctx.has_attrs else grad_fvm
+            per_face = scatter_pixels_to_faces(g_all.contiguous(), index, nf)
+            g_faces = per_face[:, :9].reshape(bs, 3, 3, nf).permute(0, 2, 1, 3)
+            g_attrs = per_face[:, 9:].permute(0, 2, 1) if ctx.has_attrs else None
+            return (g_faces, g_attrs) + (None,) * 8
 
 
 def resolve_and_gather(face_vertices, image_size, near, far, draw_backside,
@@ -187,10 +191,11 @@ def resolve_and_gather(face_vertices, image_size, near, far, draw_backside,
     back into the face vertices and ``face_attrs`` through one kernel K3
     call.
     """
-    index, fvm, attr_planes = _ResolveAndGather.apply(
-        face_vertices, face_attrs, image_size, near, far, draw_backside, latch_z,
-        row_start, num_rows, mode,
-    )
+    with trace.span("resolve", face_vertices):
+        index, fvm, attr_planes = _ResolveAndGather.apply(
+            face_vertices, face_attrs, image_size, near, far, draw_backside, latch_z,
+            row_start, num_rows, mode,
+        )
     return index, fvm, (attr_planes if face_attrs is not None else None)
 
 

@@ -268,7 +268,8 @@ def bin_faces(fvp, draw_backside, image_size, row_start=0, num_rows=None):
     faces record.  Inside one, the capped form, which reads nothing back,
     at :func:`bin_capacity` of that total (for a graph of the compiled
     core, at least its ``min_capacity``), and the graph keeps the overflow
-    word.  Outside a render (``compute_face_index_map``) the totals are
+    word; in a caller's capture K7 still adds its overflow bins to
+    :func:`bin_counters`.  Outside a render (``compute_face_index_map``) the totals are
     kept on :data:`INDEX_MAPS`.  Raises inside a capture where no eager run
     of the same binning was kept: a step captured without its warm-up."""
     record, graph = _render["record"] or INDEX_MAPS, _render["graph"]
@@ -295,6 +296,25 @@ def bin_faces(fvp, draw_backside, image_size, row_start=0, num_rows=None):
         graph.capacities.append(capacity)
         graph.overflow_words.append(overflow)
     return tuple(bins)
+
+
+def bin_counters():
+    """K7's capped binnings since the start (or ``resolve_cuda.
+    reset_launches``), summed over the devices: dict(binnings, pairs (the
+    pair totals), slots (the capacities), overflow_bins).  Counted on the
+    card by K7 itself at every replay of a graph that holds one, the
+    port's graphs and a caller's capture alike, with no sync; this read
+    copies the counts to the host once a device: read it after a fit, not
+    each step.  Overflow bins > 0 mean a graph's bins outgrew the capacity
+    it was captured with: its images stay exact, and K8 resolves each
+    overflow bin over every face, slower.  The port recaptures its own
+    graphs then; a caller's graph keeps overflowing until the caller
+    captures it anew."""
+    totals = dict.fromkeys(resolve_cuda.BIN_COUNT_FIELDS, 0)
+    for counts in resolve_cuda.BIN_COUNTS.values():
+        for field, n in zip(resolve_cuda.BIN_COUNT_FIELDS, counts.tolist()):
+            totals[field] += n
+    return totals
 
 
 def cached_graph(record, signature, capture, label=""):

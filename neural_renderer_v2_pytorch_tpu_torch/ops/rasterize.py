@@ -23,6 +23,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from ..utils import trace
 from . import graphs, shading
 from .differentiation import differentiation
 from .gather_resolve import gather_face_vertices, gather_winner_planes, resolve_and_gather
@@ -140,6 +141,16 @@ def channel_map_steps(vertices, faces, params, hp, render_size, row_start=0, num
             per_face = torch.cat([per_face, attrs], -1)
         planes = gather_winner_planes(per_face, face_index_map)
         fvm_planar, attr_planes = planes[:, :9], planes[:, 9:]
+    with trace.span("planes", fvm_planar):
+        images, coordinate_map, foreground = _maps(fvm_planar, attr_planes, face_index_map,
+                                                   params, hp, render_size, row_start)
+    trace.vjp("planes.vjp", [images, coordinate_map], fvm_planar)
+    return images, coordinate_map, foreground
+
+
+def _maps(fvm_planar, attr_planes, face_index_map, params, hp, render_size, row_start):
+    """The maps of :func:`channel_map_steps` from the resolve's winner
+    planes: (images, coordinate_map, foreground)."""
     weight_planes = weight_planes_from_gathered(fvm_planar, face_index_map, render_size,
                                                 row_start=row_start)
     coordinate_map = shading.coordinate_planes(fvm_planar, weight_planes)
@@ -206,13 +217,14 @@ def finalize_images(images, coordinate_map, foreground, backgrounds, hp, hook=di
     ``backgrounds`` are then the rows that the flip brings onto the band,
     and ``hook`` the NMR hook on a band, which takes its neighbours' rows in
     the backward."""
-    if backgrounds is not None and hp.draw_rgb:
-        rgb = shading.blend_background_planes(foreground, images[:, :3], backgrounds)
-        images = torch.cat([rgb, images[:, 3:]], dim=1)
-    images = hook(images, coordinate_map)
-    if hp.anti_aliasing:
-        return _flip_pool(images)
-    return images.flip(2, 3)
+    with trace.span("pool", images):
+        if backgrounds is not None and hp.draw_rgb:
+            rgb = shading.blend_background_planes(foreground, images[:, :3], backgrounds)
+            images = torch.cat([rgb, images[:, 3:]], dim=1)
+        images = hook(images, coordinate_map)
+        out = _flip_pool(images) if hp.anti_aliasing else images.flip(2, 3)
+    trace.vjp("pool.vjp", out, images)
+    return out
 
 
 def make_backgrounds(params, batch_size, render_size, device):

@@ -90,6 +90,13 @@ SLOT_TABLE_BUILDS = 0
 # replay of a graph launches what its capture counted (``Graph.launches``)
 GRAPHS = dict.fromkeys(("captures", "forward_replays", "backward_replays",
                         "overflow_recaptures"), 0)
+# K7's capped binnings on each device (:func:`bin_faces` with a capacity):
+# an int64 tensor there of BIN_COUNT_FIELDS, which K7 adds into itself, so
+# a binning in a graph counts at every replay, in a caller's capture too.
+# Made by the first binning on the device (an eager one, outside any
+# capture); read by ``graphs.bin_counters``; zeroed with LAUNCHES
+BIN_COUNT_FIELDS = ("binnings", "pairs", "slots", "overflow_bins")
+BIN_COUNTS = {}
 # a module flag and not a ContextVar: autograd runs the backward of CUDA
 # tensors on threads of its own, which do not see the caller's context
 _route = {"plain": False, "mode": None}
@@ -124,6 +131,8 @@ def reset_launches():
         LAUNCHES[name] = 0
     for name in GRAPHS:
         GRAPHS[name] = 0
+    for counts in BIN_COUNTS.values():
+        counts.zero_()
     SLOT_TABLE_BUILDS = 0
 
 
@@ -702,7 +711,27 @@ def bin_faces_plain(fvp, draw_backside, image_size, row_start=0, num_rows=None,
     offsets = torch.cumsum(cnt, 0) - cnt
     bins = (cnt.reshape(bs, n_tiles).to(torch.int32),
             offsets.reshape(bs, n_tiles).to(torch.int32), ids)
-    return bins if capacity is None else _capped(*bins, capacity)
+    if capacity is None:
+        return bins
+    capped = _capped(*bins, capacity)
+    bin_counts(dev).add_(torch.tensor([1, len(ids), capacity, int(capped[3])], device=dev))
+    return capped
+
+
+def bin_counts(device):
+    """The int64 [len(BIN_COUNT_FIELDS)] counts of K7's capped binnings on
+    ``device`` (:data:`BIN_COUNTS`), made there at the first call: outside
+    a capture, which would hold its zero fill."""
+    key = torch.device(device)
+    counts = BIN_COUNTS.get(key)
+    if counts is None:
+        if key.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "bin_faces: K7's counts on this card are made by its first binning there, "
+                "outside a CUDA graph capture: run the binning once before capturing it")
+        counts = BIN_COUNTS[key] = torch.zeros(len(BIN_COUNT_FIELDS), dtype=torch.int64,
+                                               device=key)
+    return counts
 
 
 def _capped(cnt, offsets, ids, capacity):
@@ -734,7 +763,10 @@ def bin_faces(fvp, draw_backside, image_size, row_start=0, num_rows=None, capaci
     to the same bits); returns (cnt, offsets, ids, overflow), overflow i32
     [1] the count of overflow bins.  Those are the bins from the first
     whose pairs end past the capacity on, in (image, tile) order; ``ids``
-    past the last bin that fits is undefined.
+    past the last bin that fits is undefined.  The capped form also adds
+    the binning, its pair total, its capacity and its overflow bins into
+    the device's :func:`bin_counts` (on the card K7's own atomics, so a
+    graph that holds it counts at every replay).
 
     On the card: four device operations (``csrc/bin_faces.cu``, which forms
     each bbox and the kill rule from the coordinates, as K1 would), and
@@ -759,6 +791,7 @@ def bin_faces(fvp, draw_backside, image_size, row_start=0, num_rows=None, capaci
         if capacity is None:
             return cnt, offsets, cnt.new_empty((0,))
         return cnt, offsets, cnt.new_empty((capacity,)), cnt.new_zeros((1,))
+    counts = bin_counts(fvp.device)
     padded = -(-n_bins // BIN_SCAN_TILE) * BIN_SCAN_TILE
     # the per-tile counters (then fill cursors), four control words and a
     # 64-bit scan state per chunk
@@ -775,8 +808,11 @@ def bin_faces(fvp, draw_backside, image_size, row_start=0, num_rows=None, capaci
     # K7 is two entries of one wrapper call; LAUNCHES counts the call once,
     # at its scan, fill and order passes (this entry), so that one binning
     # reads as one launch
+    # the capped form adds its binning, pairs, slots and overflow bins into
+    # the device's counts
     _launch("bin_faces", index, fvp.data_ptr(), scratch.data_ptr(), cnt.data_ptr(),
-            offsets.data_ptr(), pairs[slots:].data_ptr(), ids.data_ptr(), *geometry, slots)
+            offsets.data_ptr(), pairs[slots:].data_ptr(), ids.data_ptr(), *geometry, slots,
+            0 if capacity is None else counts.data_ptr())
     if capacity is None:
         return cnt, offsets, ids
     return cnt, offsets, ids, scratch.narrow(0, padded + BIN_OVERFLOW_WORD, 1)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..models import lights as light_lib
+from ..utils import trace
 from .maps import cross, mask_foreground, to_map
 from .resolve_cuda import atlas_taps_grad, vertex_slots
 
@@ -111,9 +112,10 @@ class _AtlasTaps(torch.autograd.Function):
         (anchors,) = ctx.saved_tensors            # -1: scatter nothing
         bs, P = anchors.shape
         # contiguous [bs, 3, T]: the atlas's own layout, so autograd keeps it
-        return atlas_taps_grad(grad.reshape(bs, 12, P).contiguous(),
-                               anchors.to(torch.int32).contiguous(), ctx.tw,
-                               ctx.num_texels), None, None
+        with trace.span("atlas.vjp", grad):
+            out = atlas_taps_grad(grad.reshape(bs, 12, P).contiguous(),
+                                  anchors.to(torch.int32).contiguous(), ctx.tw, ctx.num_texels)
+        return out, None, None
 
 
 def sample_textures_atlas_planes(fvm_planar, uv_planes, textures, face_index_map,

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from . import trace
+
 
 class Adam(torch.optim.Optimizer):
     """``Adam(params, lr=0.001, beta1=0.9, beta2=0.999, eps=1e-8)``.
@@ -39,27 +41,28 @@ class Adam(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        self.state["count"] += 1
-        for group in self.param_groups:
-            b1, b2, eps, lr = group["beta1"], group["beta2"], group["eps"], group["lr"]
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                g = p.grad
-                state = self.state[p]
-                if not state:
-                    state["m"] = torch.zeros_like(p)
-                    state["v"] = torch.zeros_like(p)
-                t = torch.tensor(float(self.state["count"]), dtype=torch.float32,
-                                 device=p.device)
-                m = b1 * state["m"] + (1 - b1) * g
-                v = torch.clamp(b2 * state["v"] + (1 - b2) * g * g, min=0.0)
-                state["m"], state["v"] = m, v
-                if lr == 0:
-                    continue
-                bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=p.device), t)
-                bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=p.device), t)
-                p.add_(-lr * (m / bc1) / (torch.sqrt(v / bc2) + eps))
+        with trace.span("update", step=self.state["count"]):
+            self.state["count"] += 1
+            for group in self.param_groups:
+                b1, b2, eps, lr = group["beta1"], group["beta2"], group["eps"], group["lr"]
+                for p in group["params"]:
+                    if p.grad is None:
+                        continue
+                    g = p.grad
+                    state = self.state[p]
+                    if not state:
+                        state["m"] = torch.zeros_like(p)
+                        state["v"] = torch.zeros_like(p)
+                    t = torch.tensor(float(self.state["count"]), dtype=torch.float32,
+                                     device=p.device)
+                    m = b1 * state["m"] + (1 - b1) * g
+                    v = torch.clamp(b2 * state["v"] + (1 - b2) * g * g, min=0.0)
+                    state["m"], state["v"] = m, v
+                    if lr == 0:
+                        continue
+                    bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=p.device), t)
+                    bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=p.device), t)
+                    p.add_(-lr * (m / bc1) / (torch.sqrt(v / bc2) + eps))
         return loss
 
 

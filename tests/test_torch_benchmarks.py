@@ -236,26 +236,27 @@ def test_prof_names_every_stage_in_order(mesh):
     v, f = mesh
     ops = prof.stage_ops(steps.Silhouettes(v, f, SIZE, device="cpu").case("bench"))
     assert list(ops) == [
-        "camera", "face-vertex gather (K5)", "resolve (K2, or K7 + K8)",
-        "weight planes + NMR forward", "flip/pool", "loss", "loss VJP", "pool VJP",
-        "NMR coordinate gradients", "pixel -> face scatter (K3)", "vertex gradient sum (K4)",
-        "camera VJP", "update"]
-    assert all(n > 0 for n in ops.values())
-    # without anti-aliasing the flip's own VJP is the pool stage's
+        "camera", "gather", "resolve", "planes", "pool", "loss", "loss.vjp", "pool.vjp",
+        "nmr.grad", "nmr.grad.y", "nmr.grad.x", "planes.vjp", "resolve.vjp", "gather.vjp",
+        "camera.vjp", "update"]
+    # look_at and perspective each hold a camera span, forward and backward
+    assert ops["camera"] == ops["camera.vjp"] == 2
+    assert all(n == 1 for s, n in ops.items() if not s.startswith("camera"))
+    # without anti-aliasing the flip's own VJP is the pool's span
     no_aa = prof.stage_ops(steps.Silhouettes(v, f, SIZE, anti_aliasing=False,
                                              device="cpu").case("level"))
-    assert "pool VJP" in no_aa and None not in no_aa
+    assert list(no_aa) == list(ops)
 
 
 def test_prof_names_the_atlas_gradient_stage():
-    """The atlas's gradient step (its row cut to 16^2): everything
-    ``_AtlasTaps.backward`` dispatches is K6's stage, the last before the
-    update; prof runs that step beside bench's."""
+    """The atlas's gradient step (its row cut to 16^2): K6's span
+    (``_AtlasTaps.backward``) is the last before the update; prof runs that
+    step beside bench's."""
     assert list(prof.cases("cpu")) == ["bench", prof.ATLAS_ROW]
     row = next(r for r in scaling.ROWS if r.label == prof.ATLAS_ROW)
     ops = prof.stage_ops(scaling.case(row._replace(image_size=16), "cpu"))
     assert list(ops)[-2:] == [prof.ATLAS_STAGE, "update"] and ops[prof.ATLAS_STAGE] > 0
-    assert prof.ATLAS_STAGE == "atlas gradient (K6)"
+    assert prof.ATLAS_STAGE == "atlas.vjp"
 
 
 def test_roofline_counts_the_atlas_gradient():

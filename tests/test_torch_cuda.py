@@ -13,6 +13,7 @@ import collections
 import gc
 import json
 import weakref
+from unittest.mock import patch as _patch
 
 import numpy as np
 import pytest
@@ -1062,6 +1063,151 @@ def test_binned_overflow_replay_is_exact_and_recaptures(cuda, fresh_cache, caplo
         step(v)
         torch.cuda.synchronize()
         assert again.overflowed() == 0 and rc.GRAPHS["captures"] == 2
+
+
+def _whole_step_graph(step, v):
+    """``step`` (a ``_graph_scene`` step) captured whole by its caller after
+    two eager warm-up steps: (graph, images, {name: gradient}, the kernels
+    it holds)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), nr.eager():
+        for _ in range(2):
+            step(v)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(rc.LAUNCHES)
+    with torch.cuda.graph(graph):
+        images, grads = step(v)
+    held = {k: n - before[k] for k, n in rc.LAUNCHES.items() if n > before[k]}
+    return graph, images, grads, held
+
+
+@pytest.mark.parametrize("route", ["tiled", "binned"])
+def test_port_spans_in_a_callers_graph(cuda, fresh_cache, route):
+    """A whole step captured by its caller with the port's spans on holds the
+    same kernels as with them off (a span marks the stream with external
+    events, no kernel), as many device records a replay under the
+    profiler, and the same bits; after a replay ``trace.sample`` reads
+    each stage's device ms from the span's own marks, and the outermost
+    spans fit inside the replay's time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from neural_renderer_v2_pytorch_tpu_torch.utils import trace
+
+    r, v, faces, step = _graph_scene("bench", cuda)
+    forms = {}
+    with rc.forced_route(route):
+        for on in (False, True):
+            if on:
+                trace.enable()
+            try:
+                graph, images, grads, held = _whole_step_graph(step, v)
+                trace.clear()
+                graph.replay()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    graph.replay()
+                    torch.cuda.synchronize()
+                records = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                graph.replay()
+                end.record()
+                torch.cuda.synchronize()
+                read = len(trace.sample())
+                stages = trace.device_ms()
+                outer = trace.device_ms(outermost=True)
+            finally:
+                trace.disable()
+            forms[on] = dict(held=held, records=len(records), images=images.clone(),
+                             grad=grads["vertices"].clone(), read=read, stages=stages,
+                             outer=outer, ms=start.elapsed_time(end))
+    off, on = forms[False], forms[True]
+    assert on["held"] == off["held"] and on["records"] == off["records"]
+    assert torch.equal(on["images"], off["images"])
+    assert off["read"] == 0 and not off["stages"]
+    assert on["read"] > 0
+    for name in ("camera", "gather", "resolve", "planes", "pool", "pool.vjp", "nmr.grad",
+                 "nmr.grad.y", "nmr.grad.x", "planes.vjp", "resolve.vjp", "gather.vjp",
+                 "camera.vjp"):
+        assert on["stages"][name] > 0, (name, on["stages"])
+    assert on["stages"]["nmr.grad.y"] + on["stages"]["nmr.grad.x"] <= on["stages"]["nmr.grad"]
+    assert "nmr.grad.y" not in on["outer"] and sum(on["outer"].values()) <= on["ms"]
+
+
+def test_sample_reads_each_replayed_graph_once(cuda, fresh_cache):
+    """With the port's spans on, ``trace.sample`` after each step reads the
+    spans of the graph that step replayed, once: after an overflow the
+    dropped graph's spans are not read beside its recapture's, and of two
+    callers' graphs replayed in turn each is read after its own replay
+    and not again."""
+    from neural_renderer_v2_pytorch_tpu_torch.utils import trace
+
+    r, v, faces, step = _graph_scene("bench", cuda)
+    trace.enable()
+    try:
+        with rc.forced_route("binned"):
+            rc.reset_launches()
+            step(v)                                    # the first call: eager
+            (total,) = graphs.faces_record(faces).bin_totals.values()
+            with graphs.forced_capacity(total // 4):
+                step(v)
+            dropped = _only_graph(faces)
+            first = collections.Counter(s["name"] for s in trace.sample())
+            steps = []
+            for _ in range(3):
+                step(v)
+                steps.append(collections.Counter(s["name"] for s in trace.sample()))
+            assert _only_graph(faces) is not dropped
+            assert rc.GRAPHS["overflow_recaptures"] == 1
+            callers = [_whole_step_graph(step, v)[0] for _ in range(2)]
+            read = []
+            for graph in callers:
+                graph.replay()
+                read.append(collections.Counter(s["name"] for s in trace.sample()))
+                read.append(trace.sample())
+    finally:
+        trace.disable()
+        trace.clear()
+    assert first["resolve"] == 1 and steps == [first] * 3
+    assert read[0]["resolve"] == 1 and read[2] == read[0] and read[1] == read[3] == []
+
+
+def test_callers_graph_overflow_is_counted(cuda, fresh_cache):
+    """A binned whole step captured by its caller with a quarter of its pair
+    total's slots: each replay gives the eager bits, and K7's counts
+    (``graphs.bin_counters``) grow by one binning, the pair total, the
+    slots and exactly the overflow word that K7 wrote in that replay."""
+    r, v, faces, step = _graph_scene("bench", cuda)
+    words, bin_faces = [], rc.bin_faces
+
+    def keep_words(*args, capacity=None, **kwargs):
+        out = bin_faces(*args, capacity=capacity, **kwargs)
+        if capacity is not None:
+            words.append(out[3])
+        return out
+
+    with rc.forced_route("binned"):
+        with nr.eager():
+            want_images, want = step(v)
+        (total,) = graphs.faces_record(faces).bin_totals.values()
+        with graphs.forced_capacity(total // 4), _patch.object(rc, "bin_faces", keep_words):
+            graph, images, grads, _ = _whole_step_graph(step, v)
+        assert len(words) == 1
+        counts = graphs.bin_counters()
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(images, want_images)
+            now = graphs.bin_counters()
+            overflow = int(words[0])
+            assert overflow > 0
+            assert {k: now[k] - counts[k] for k in now} == dict(
+                binnings=1, pairs=total, slots=total // 4, overflow_bins=overflow)
+            counts = now
 
 
 def test_no_grad_render_is_a_forward_graph(cuda, fresh_cache):

@@ -599,7 +599,9 @@ def test_the_binned_step_under_capture_takes_the_capped_bins(monkeypatch):
 def test_capped_k7_wrapper_reads_nothing_back(monkeypatch):
     """K7's wrapper on the card's path (the launches faked on CPU tensors):
     the eager form reads the pair total back once; the capped form reads
-    nothing and returns its overflow word, a view of the kernel's scratch."""
+    nothing and returns its overflow word, a view of the kernel's scratch,
+    and hands K7 the device's counts of capped binnings (the eager form a
+    null pointer)."""
     launched = []
     # 2 images of 8 x 3 tiles: the counters padded to one scan chunk, four
     # control words and one chunk's scan state
@@ -608,7 +610,7 @@ def test_capped_k7_wrapper_reads_nothing_back(monkeypatch):
     def launch(entry, index, *args):
         if entry == "bin_faces_count":       # zeroes the scratch: a total of 0
             ctypes.memset(args[1], 0, 4 * scratch_words)
-        launched.append((entry, args[-1]))
+        launched.append((entry, args[-2], args[-1]))
 
     monkeypatch.setattr(rc, "_on_cuda", lambda *t: True)
     monkeypatch.setattr(rc, "_launch", launch)
@@ -623,8 +625,11 @@ def test_capped_k7_wrapper_reads_nothing_back(monkeypatch):
             cnt, offsets, ids, overflow = out
             assert ids.shape == (capacity,) and overflow.shape == (1,)
             assert overflow.dtype == torch.int32
-            assert launched[-1] == ("bin_faces", capacity)
-        assert [e for e, _ in launched[-2:]] == ["bin_faces_count", "bin_faces"]
+            counts = rc.BIN_COUNTS[torch.device("cpu")]
+            assert launched[-1] == ("bin_faces", capacity, counts.data_ptr())
+        else:
+            assert launched[-1][2] == 0
+        assert [e for e, *_ in launched[-2:]] == ["bin_faces_count", "bin_faces"]
 
 
 def test_the_watch_sees_what_it_looks_for(plain_unwatched):

@@ -15,13 +15,9 @@ that holds this script), so that a change and its parent, unpacked under
   and "silhouette 512^2 level 3": each step's three forms in turns
   (``scaling.time_row``: ms, busy share, device operations);
 - ``prof``'s stages of the atlas's gradient step, captured whole by its
-  caller and replayed under the profiler, with the stage "atlas gradient
-  (K6)" (everything ``shading._AtlasTaps.backward`` dispatches and the
-  operations of PyTorch's own that follow it into the atlas's ``grad``;
-  added to ``prof.BACKWARD`` where the checkout's prof lacks it): its
-  device ms and records, and the operations it dispatches in one eager
-  step on the card (``prof.Stages``), which show a copy into the atlas's
-  layout where there is one;
+  caller and replayed under the profiler, named by the port's spans
+  (``utils/trace.py``): K6's is the span ``atlas.vjp`` (K6 and its zero
+  fill), its device ms;
 - the device ms per step of each of the port's kernels in that step
   replayed under the profiler (``roofline.kernels_device_ms``): K6's own
   time.
@@ -31,7 +27,6 @@ given.  Without CUDA the script fails.
 """
 
 import argparse
-import collections
 import json
 import os
 import subprocess
@@ -43,26 +38,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATLAS_ROW = "atlas 3x1190x1920 256^2 AA, atlas gradients"
 ROWS = (ATLAS_ROW, "atlas 3x1190x1920 256^2 AA", "silhouette 256^2 AA bs=1",
         "silhouette 512^2 level 3")
-STAGE = "atlas gradient (K6)"
 REPLAYS = 10
-
-
-def stage_ops(prof, steps, case):
-    """{stage: [operation names]} dispatched in one eager whole step of
-    ``case`` on the card."""
-    ops = collections.defaultdict(list)
-
-    class Named(prof.Stages):
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = super().__torch_dispatch__(func, types, args, kwargs)
-            ops[self.stage].append(str(func.overloadpacket.__name__))
-            return out
-
-    leaves = [v.clone().requires_grad_(True) for v in case.values]
-    with Named():
-        steps.whole_step(case, leaves)
-    torch.cuda.synchronize()
-    return dict(ops)
 
 
 def main(argv=None):
@@ -77,11 +53,9 @@ def main(argv=None):
     sys.path.insert(0, root)
     import neural_renderer_v2_pytorch_tpu_torch as nr
     from neural_renderer_v2_pytorch_tpu_torch.benchmarks import prof, roofline, scaling, steps
-    from neural_renderer_v2_pytorch_tpu_torch.ops import graphs
 
     if not os.path.abspath(nr.__file__).startswith(root + os.sep):
         raise RuntimeError(f"imported {nr.__file__}, not the package under {root}")
-    prof.BACKWARD.setdefault("_AtlasTaps.backward", STAGE)
     dev = torch.device("cuda:0")
     steps.build_kernels()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -91,20 +65,17 @@ def main(argv=None):
     rows = {r.label: r for r in scaling.ROWS}
     result["rows"] = [scaling.time_row(rows[label], dev, card) for label in ROWS]
     case = scaling.case(rows[ATLAS_ROW], dev)
-    with graphs.eager():
-        ops = stage_ops(prof, steps, case)
     times = prof.stage_times(case, REPLAYS)
-    stage = times["stages"][STAGE]
+    k6_ms = times["stages"][prof.ATLAS_STAGE]
     whole = steps.CallerGraph(case)
     kernels = roofline.kernels_device_ms(
         steps.profile_device(whole, REPLAYS, launched=whole.launches))
     result["stages"] = times
-    result["k6_stage"] = dict(ms=stage["ms"], records=stage["records"], ops=ops.get(STAGE),
-                              port_kernels_ms=kernels)
-    print(f"[atlas grad] {result['root']}: stage {STAGE} {stage['ms']:.6f} ms in "
-          f"{stage['records']:.1f} records, whole step {times['total_ms']:.6f} ms in its "
-          f"stages (every marker kept: {times['every_marker_kept']}); operations "
-          f"{ops.get(STAGE)}; port kernels {json.dumps(kernels)}  ({smi})", flush=True)
+    result["k6_stage"] = dict(ms=k6_ms, port_kernels_ms=kernels)
+    print(f"[atlas grad] {result['root']}: K6's stage {k6_ms:.6f} ms, whole step "
+          f"{times['total_ms']:.6f} ms in its stages (every stage read: "
+          f"{times['every_span_read']}); port kernels {json.dumps(kernels)}  ({smi})",
+          flush=True)
     line = json.dumps(result)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
