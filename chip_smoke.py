@@ -256,6 +256,7 @@ PKG = "neural_renderer_v2_pytorch_tpu_torch"
 TPU_KERNELS = "neural_renderer_v2_pytorch_tpu/ops/resolve_pallas.py"
 # name -> (source, the TPU kernel it replaces, the configuration its times
 # in the kernels line come from)
+NMR_REPLACES = "none: XLA fuses the chain"
 KERNELS = {
     "face_setup": (f"{PKG}/csrc/face_setup.cu", f"{TPU_KERNELS}:180", "hires"),
     "resolve_xy": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:348", "bench"),
@@ -270,6 +271,9 @@ KERNELS = {
     "resolve_binned_latch": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:858", "hires-lit"),
     "resolve_binned_depth": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:858", "hires-lit"),
     "gather_rows": (f"{PKG}/csrc/gather_rows.cu", f"{TPU_KERNELS}:2277", "textured-scale"),
+    "nmr_planes": (f"{PKG}/csrc/nmr_planes.cu", NMR_REPLACES, "nmr-32x512"),
+    "nmr_planes_vjp": (f"{PKG}/csrc/nmr_planes.cu", NMR_REPLACES, "nmr-32x512"),
+    "nmr_coordinate_grad": (f"{PKG}/csrc/nmr_planes.cu", NMR_REPLACES, "nmr-32x512"),
 }
 # every resolve form computes the face constants itself, K7 each face's
 # bbox: no path launches K1 (check_k1)
@@ -283,6 +287,18 @@ HIRES_LIT_KERNELS = ("bin_faces", "resolve_binned_latch", "scatter_pixels_to_fac
                      "scatter_faces_to_vertices", "gather_faces3")
 INDEX_MAP_KERNELS = ("resolve_depth", "bin_faces", "resolve_binned_depth",
                      "resolve_binned_latch")
+# the NMR passes, which no TPU kernel did (K10, K11, K12): one launch each
+# a render
+NMR_KERNELS = ("nmr_planes", "nmr_planes_vjp", "nmr_coordinate_grad")
+# the NMR passes at the benchmark cells' shapes (silhouettes): label ->
+# (batch, render size), mesh164k's 32 x 512^2 and recon's 128 x 128^2
+NMR_SHAPES = {"nmr-32x512": (32, 512), "nmr-128x128": (128, 128)}
+# the least bytes a pixel each NMR pass moves (float32, int32): K10 reads
+# the six XY planes and the index map and writes the coordinate map and the
+# foreground (40; 52 with the weight planes), K11 reads the coordinate
+# map's gradient, the XY planes and the index map and writes nine planes
+# (72), K12 reads C image and C gradient planes and writes two (16 at C = 1)
+NMR_BYTES = {"nmr_planes": 40, "nmr_planes_vjp": 72, "nmr_coordinate_grad": 16}
 # tori whose 512^2 silhouettes sweep the route threshold: 9,920 (the perf
 # matrix's 9K row), 19,888, 26,000, 32,480, 39,680 (its 39K row), 50,400
 # and 62,000 faces
@@ -377,6 +393,59 @@ def ndc_scene(vertices, faces, dev, azimuth=0.0):
     return r.transform_vertices(v), torch.tensor(faces, device=dev)
 
 
+def on_plain(fn):
+    """``fn`` run on the plain versions."""
+    def run():
+        with rc.plain_versions():
+            return fn()
+    return run
+
+
+def nmr_inputs(bs, S, gen):
+    """Winner planes f32 [bs, 9, S, S] as the silhouette resolve leaves them
+    (zero z planes, 0 on background, about half the pixels covered) and
+    their index map i32 [bs, S, S]."""
+    dev = gen.device
+    fim = torch.randint(0, 1000, (bs, S, S), generator=gen, device=dev, dtype=torch.int32)
+    fim[torch.rand((bs, S, S), generator=gen, device=dev) < 0.5] = -1
+    fvm = torch.rand((bs, 9, S, S), generator=gen, device=dev) * 2 - 1
+    fvm[:, 2::3] = 0.0
+    fvm *= (fim >= 0)[:, None]
+    return fvm, fim
+
+
+def nmr_kernels_vs_plain(label, fvm, fim, gen):
+    """K10 (with and without the weight planes), K11 and K12 (C = 1, a
+    silhouette) bit-equal to their plain versions on winner planes ``fvm``
+    f32 [bs, 9, S, S] and their index map ``fim`` of an S^2 render.
+    Returns ({name: max_abs_err}, {name: Call}), the calls in the
+    silhouette's forms."""
+    bs, _, S, _ = fvm.shape
+    images = (fim >= 0).to(torch.float32)[:, None]
+    grad = torch.randn((bs, 1, S, S), generator=gen, device=fvm.device)
+    grad_coords = torch.randn((bs, 2, S, S), generator=gen, device=fvm.device)
+    for weights in (False, True):
+        got = rc.nmr_planes(fvm, fim, S, 0, weights)
+        want = on_plain(lambda: rc.nmr_planes(fvm, fim, S, 0, weights))()
+        for part, g, w in zip(("coords", "weights", "foreground"), got, want):
+            if w is not None:
+                check_equal(f"{label} nmr_planes weights={weights} {part}", g, w)
+    forms = {
+        "nmr_planes": lambda: rc.nmr_planes(fvm, fim, S),
+        "nmr_planes_vjp": lambda: rc.nmr_planes_vjp(grad_coords, fvm, fim, S),
+        "nmr_coordinate_grad": lambda: rc.nmr_coordinate_grad(images, grad, None, None, S),
+    }
+    errs = {"nmr_planes": 0.0}
+    for name in ("nmr_planes_vjp", "nmr_coordinate_grad"):
+        errs[name] = check_equal(f"{label} {name}", forms[name](), on_plain(forms[name])())
+    pixels = bs * S * S
+    calls = {name: Call(fn, on_plain(fn), bound(NMR_BYTES[name] * pixels, 0))
+             for name, fn in forms.items()}
+    log(f"[{label}] NMR kernels bit-equal to their plain versions: {bs} x {S}^2, "
+        f"coverage {float(images.mean()):.4f}")
+    return errs, calls
+
+
 def kernels_vs_plain(label, ndc, faces, size, gen):
     """Each silhouette kernel against its plain version at one scene's
     shapes.  Returns ({name: max_abs_err}, {name: Call})."""
@@ -423,6 +492,13 @@ def kernels_vs_plain(label, ndc, faces, size, gen):
 
     errs["scatter_pixels_to_faces"], calls["scatter_pixels_to_faces"] = scatter_check(
         label, ik, nf, 6, gen)
+
+    # the NMR passes over these winner planes, in the nine-plane layout
+    z = torch.zeros_like(xk[:, :1])
+    fvm = torch.cat([xk[:, 0:2], z, xk[:, 2:4], z, xk[:, 4:6], z], 1)
+    nmr_errs, nmr_calls = nmr_kernels_vs_plain(label, fvm, ik, gen)
+    errs.update(nmr_errs)
+    calls.update(nmr_calls)
 
     g9 = torch.randn((1, 3, 3, nf), generator=gen, device=dev)
     # on the card the plain version's index_add_ sums with atomics: compare
@@ -3205,6 +3281,10 @@ def main():
     all_errs = {}
     bench_errs, bench_calls = kernels_vs_plain("bench", ndc, faces, 512, gen)
     all_errs.update(bench_errs)
+    # the NMR passes at the benchmark cells' shapes
+    nmr_calls = {}
+    for label, (bs, S) in NMR_SHAPES.items():
+        _, nmr_calls[label] = nmr_kernels_vs_plain(label, *nmr_inputs(bs, S, gen), gen)
 
     # 3. the silhouette slice, kernels vs plain versions, through Renderer
     renderer = nr.Renderer(dev)
@@ -3254,6 +3334,12 @@ def main():
     check_k1("silhouette fit", sil_launches)
     if sil_launches["bin_faces"]:
         raise AssertionError(f"the silhouette fit took the binned route: {sil_launches}")
+    nmr_launches = {name: sil_launches[name] for name in NMR_KERNELS + (rc.NMR_PLAIN,)}
+    log(f"[nmr] the silhouette fit's NMR passes over its 5 steps (K10, K11, K12, and the "
+        f"calls that took a plain version): {json.dumps(nmr_launches)}")
+    if any(sil_launches[name] != 5 for name in NMR_KERNELS) or sil_launches[rc.NMR_PLAIN]:
+        raise AssertionError(f"the silhouette fit's NMR passes: {nmr_launches}; want one "
+                             "launch of each a step and no plain version")
 
     # 6. scale: 81,920 faces at 512^2 without anti-aliasing
     iv, ifc = icosphere(6)
@@ -3538,7 +3624,7 @@ def main():
     # call's time
     times = {}
     all_calls = [("bench", bench_calls), ("scale", scale_calls)] + list(tex_calls.items()) + [
-        ("hires", hires_calls), ("hires-lit", hl_calls)]
+        ("hires", hires_calls), ("hires-lit", hl_calls)] + list(nmr_calls.items())
     for label, calls in all_calls:
         for name, call in calls.items():
             k_ms = median_ms(call.kernel, 50)

@@ -18,10 +18,10 @@ each read by ``trace.sample``.  A stage is a span, named by the port:
 - forward: ``camera``, ``gather`` (K5), ``resolve`` (K2, or K7 + K8),
   ``planes`` (weight planes + NMR forward), ``pool``, and the step's
   ``loss`` (``steps.bench_loss``);
-- backward: ``loss.vjp``, ``pool.vjp``, ``nmr.grad`` (its two passes
-  ``nmr.grad.y`` and ``nmr.grad.x`` inside it), ``resolve.vjp`` (K3),
-  ``gather.vjp`` (K4), ``camera.vjp``; the atlas's gradient
-  ``atlas.vjp`` (K6 with its zero fill); then the ``update``.
+- backward: ``loss.vjp``, ``pool.vjp``, ``nmr.grad`` (K12; on the plain
+  versions its two passes ``nmr.grad.y`` and ``nmr.grad.x`` inside it),
+  ``resolve.vjp`` (K3), ``gather.vjp`` (K4), ``camera.vjp``; the atlas's
+  gradient ``atlas.vjp`` (K6 with its zero fill); then the ``update``.
 
 The atlas's step has no stage of its own for its sampler, which runs in
 ``planes``.  It prints each stage's device ms per step, and the kernels'

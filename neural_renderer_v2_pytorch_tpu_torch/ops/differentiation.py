@@ -12,7 +12,9 @@ positions.  With step = 2/H and the sum over channels:
                  pad_left(grad_l) + pad_right(grad_l))
 
 and the same along x.  The tie-break of :func:`maximum` and the pad
-arithmetic are the reference's exactly.
+arithmetic are the reference's exactly.  On the card the backward's
+coordinate gradient is one kernel, K12 (``resolve_cuda.
+nmr_coordinate_grad``); the operations here are its plain version.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import trace
+from .resolve_cuda import nmr_coordinate_grad
 
 
 def maximum(data_right, data_left, eps=1e-4):
@@ -50,34 +53,42 @@ def band_coordinate_grad(images, grad_output, above, below, render_size):
     them: ``above`` and ``below`` are (images, grad) rows [bs, C, 1, W], or
     None at the image's top or bottom edge, where the whole image's pair
     terms pad with zeros.  Returns [bs, 2, rows, W] (x on channel 0, y on
-    channel 1): the same bits as those rows of the whole image's."""
+    channel 1): the same bits as those rows of the whole image's.  On the
+    card one kernel K12 launch (``resolve_cuda.nmr_coordinate_grad``), else
+    :func:`band_coordinate_grad_plain`."""
     with trace.span("nmr.grad", images):
-        # a tensor divisor: on CUDA, dividing by a Python scalar multiplies
-        # by its reciprocal, which is inexact unless the image size is a
-        # power of 2.  Filled on the device (a captured step copies nothing
-        # from the host), the same double rounded to the same float32 as
-        # torch.tensor
-        step = torch.full((), 2.0 / render_size, dtype=images.dtype, device=images.device)
-        with trace.span("nmr.grad.y", images):
-            I, G = images, grad_output
-            if above is not None:
-                I, G = torch.cat([above[0], I], 2), torch.cat([above[1], G], 2)
-            if below is not None:
-                I, G = torch.cat([I, below[0]], 2), torch.cat([G, below[1]], 2)
+        return nmr_coordinate_grad(images, grad_output, above, below, render_size)
 
-            # y (rows): entry k of the padded pair terms joins band rows k - 1
-            # and k; a pair past the image edge is the zero pad
-            gyr, gyl = (F.pad(g, (0, 0, int(above is None), int(below is None)))
-                        for g in _pair_terms(I, G, 2, step))
-            grad_y = maximum(gyr[:, 1:] + gyr[:, :-1], gyl[:, :-1] + gyl[:, 1:])
 
-        # x (columns): row-local
-        with trace.span("nmr.grad.x", images):
-            gxr, gxl = _pair_terms(images, grad_output, 3, step)
-            grad_x = maximum(F.pad(gxr, (0, 1)) + F.pad(gxr, (1, 0)),
-                             F.pad(gxl, (1, 0)) + F.pad(gxl, (0, 1)))
+def band_coordinate_grad_plain(images, grad_output, above, below, render_size):
+    """:func:`band_coordinate_grad` in PyTorch's operations, its y and x
+    passes each in a span of its own (``nmr.grad.y``, ``nmr.grad.x``)."""
+    # a tensor divisor: on CUDA, dividing by a Python scalar multiplies
+    # by its reciprocal, which is inexact unless the image size is a
+    # power of 2.  Filled on the device (a captured step copies nothing
+    # from the host), the same double rounded to the same float32 as
+    # torch.tensor
+    step = torch.full((), 2.0 / render_size, dtype=images.dtype, device=images.device)
+    with trace.span("nmr.grad.y", images):
+        I, G = images, grad_output
+        if above is not None:
+            I, G = torch.cat([above[0], I], 2), torch.cat([above[1], G], 2)
+        if below is not None:
+            I, G = torch.cat([I, below[0]], 2), torch.cat([G, below[1]], 2)
 
-        return torch.stack((grad_x, grad_y), dim=1)
+        # y (rows): entry k of the padded pair terms joins band rows k - 1
+        # and k; a pair past the image edge is the zero pad
+        gyr, gyl = (F.pad(g, (0, 0, int(above is None), int(below is None)))
+                    for g in _pair_terms(I, G, 2, step))
+        grad_y = maximum(gyr[:, 1:] + gyr[:, :-1], gyl[:, :-1] + gyl[:, 1:])
+
+    # x (columns): row-local
+    with trace.span("nmr.grad.x", images):
+        gxr, gxl = _pair_terms(images, grad_output, 3, step)
+        grad_x = maximum(F.pad(gxr, (0, 1)) + F.pad(gxr, (1, 0)),
+                         F.pad(gxl, (1, 0)) + F.pad(gxl, (0, 1)))
+
+    return torch.stack((grad_x, grad_y), dim=1)
 
 
 def _coordinate_grad(images, grad_output):

@@ -8,9 +8,9 @@
                                                      backward; or K7 + K8)
      or, faces sharded across ranks, the id/depth
      resolve, the ordered fold, the winner gather    (K9; K3 backward)
-  4. stopped barycentric weights, coordinate map
+  4. stopped barycentric weights, coordinate map    (K10; K11 backward)
   5. silhouette / RGB (textures, lights) / depth    (atlas gradient: K6)
-  6. background blend, NMR differentiation hook
+  6. background blend, NMR differentiation hook    (K12 backward)
   7. flip H and W, then the 2x2 anti-aliasing pool
 
 All maps are channel-planar (NCHW).
@@ -27,7 +27,7 @@ from ..utils import trace
 from . import graphs, shading
 from .differentiation import differentiation
 from .gather_resolve import gather_face_vertices, gather_winner_planes, resolve_and_gather
-from .resolve import weight_planes_from_gathered
+from .resolve_cuda import nmr_planes, nmr_planes_vjp
 
 DEFAULT_NEAR = 0.1
 DEFAULT_FAR = 100.0
@@ -148,13 +148,43 @@ def channel_map_steps(vertices, faces, params, hp, render_size, row_start=0, num
     return images, coordinate_map, foreground
 
 
+class _CoordinatePlanes(torch.autograd.Function):
+    """The coordinate map [bs, 2, rows, S] (the screen XY through which the
+    NMR backward reaches the vertices), the weight planes [bs, 3, rows, S]
+    when ``weights`` (else None) and the foreground [bs, 1, rows, S] of the
+    resolve's winner planes ``fvm_planar`` [bs, 9, rows, S] over the image
+    rows ``row_start ..``: kernel K10 (``resolve_cuda.nmr_planes``).  The
+    weights and the foreground take no gradient (the reference computes
+    the weights in a grad-less kernel).
+
+    The backward is kernel K11 (``resolve_cuda.nmr_planes_vjp``), which
+    recomputes the weights from the winner planes and the index map: the
+    forward saves those two, which the resolve made, and no weight
+    planes."""
+
+    @staticmethod
+    def forward(ctx, fvm_planar, face_index_map, image_size, row_start, weights):
+        coordinate_map, weight_planes, foreground = nmr_planes(
+            fvm_planar, face_index_map, image_size, row_start, weights)
+        ctx.save_for_backward(fvm_planar, face_index_map)
+        ctx.window = image_size, row_start
+        ctx.mark_non_differentiable(foreground, *([] if weight_planes is None
+                                                  else [weight_planes]))
+        return coordinate_map, weight_planes, foreground
+
+    @staticmethod
+    def backward(ctx, grad, _grad_weights, _grad_foreground):
+        fvm_planar, face_index_map = ctx.saved_tensors
+        return (nmr_planes_vjp(grad, fvm_planar, face_index_map, *ctx.window),
+                None, None, None, None)
+
+
 def _maps(fvm_planar, attr_planes, face_index_map, params, hp, render_size, row_start):
     """The maps of :func:`channel_map_steps` from the resolve's winner
-    planes: (images, coordinate_map, foreground)."""
-    weight_planes = weight_planes_from_gathered(fvm_planar, face_index_map, render_size,
-                                                row_start=row_start)
-    coordinate_map = shading.coordinate_planes(fvm_planar, weight_planes)
-    foreground = (face_index_map >= 0).to(torch.float32)[:, None]
+    planes: (images, coordinate_map, foreground).  The weight planes are
+    made only for the RGB and depth channels, which read them."""
+    coordinate_map, weight_planes, foreground = _CoordinatePlanes.apply(
+        fvm_planar, face_index_map, render_size, row_start, hp.draw_rgb or hp.draw_depth)
 
     channels = []
     if hp.draw_rgb:
@@ -228,9 +258,10 @@ def finalize_images(images, coordinate_map, foreground, backgrounds, hp, hook=di
 
 
 def make_backgrounds(params, batch_size, render_size, device):
-    """The background plane [bs, 3, S, S], or None.  ``background_color``
-    renders the real colour (a deliberate departure from the reference,
-    whose ``zeros * color`` always gives black; see the JAX package)."""
+    """The background plane [bs, 3, S, S] in float32 (as the JAX package
+    reads it, x64 off), or None.  ``background_color`` renders the real
+    colour (a deliberate departure from the reference, whose ``zeros *
+    color`` always gives black; see the JAX package)."""
     if params.background_color is not None:
         if len(params.background_color) != 3:
             raise ValueError(f"background_color must be 3 values, got "
@@ -243,7 +274,7 @@ def make_backgrounds(params, batch_size, render_size, device):
                 f"backgrounds must be {(batch_size, 3, render_size, render_size)}, "
                 f"got {tuple(params.backgrounds.shape)}"
             )
-        return params.backgrounds
+        return params.backgrounds.to(torch.float32)
     return None
 
 

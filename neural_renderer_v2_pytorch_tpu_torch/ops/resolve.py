@@ -183,6 +183,17 @@ def weight_planes_from_gathered(fvm_planar, face_index_map, image_size=None, row
     return torch.where((face_index_map >= 0)[:, None], w, 0.0)
 
 
+def coordinate_planes(fvm_planar, weight_planes):
+    """Barycentric screen-XY map [bs, 2, H, W] from latched winner
+    coordinates [bs, 9, H, W] and weights [bs, 3, H, W].  The NMR backward
+    reaches the vertices only through this map (the weights are a stopped
+    constant)."""
+    w0, w1, w2 = weight_planes[:, 0], weight_planes[:, 1], weight_planes[:, 2]
+    cx = fvm_planar[:, 0] * w0 + fvm_planar[:, 3] * w1 + fvm_planar[:, 6] * w2
+    cy = fvm_planar[:, 1] * w0 + fvm_planar[:, 4] * w1 + fvm_planar[:, 7] * w2
+    return torch.stack((cx, cy), dim=1)
+
+
 def weight_map_from_gathered(face_vertex_map, face_index_map, image_size=None, row_start=0):
     """The weights [bs, H, W, 3] of :func:`weight_planes_from_gathered` from
     the winner's vertices in the JAX package's NHWC layout [bs, H, W, 3, 3]

@@ -24,6 +24,13 @@ resolve_pallas.py``).
                                     a CTA per bin
   K9 ``gather_rows``                row gather, planar or row layout (the
                                     face-sharded path's winner planes, to_map)
+  K10 ``nmr_planes``                the winner's clamped weights, the
+                                    coordinate map and the foreground (and the
+                                    weight planes where the render reads them)
+  K11 ``nmr_planes_vjp``            the coordinate map's VJP onto the winner
+                                    planes, the weights recomputed
+  K12 ``nmr_coordinate_grad``       the NMR backward's coordinate gradient, x
+                                    and y in one launch (a band's halo rows too)
 
 The resolve has two routes that give the same bits, both from the face
 vertices: "tiled" (K2, K2L, K2D: every tile streams every face's
@@ -34,15 +41,18 @@ the shapes.
 
 A wrapper runs the plain version for CPU tensors.  For CUDA tensors it
 launches the kernel on the current stream or raises; there is no fallback.
-Only :func:`plain_versions`, which ``chip_smoke.py`` and the tests use to
-hold a kernel against its plain version, routes CUDA tensors to the plain
-versions.  Every launch adds one to ``LAUNCHES[name]``, so a run can show
-which kernels its path went through; ``SLOT_TABLE_BUILDS`` counts the
-builds of K4's vertex -> slot tables, which launch no kernel of the port.
-K1, K2, K2L, K2D, K5, K7, K8 and
-K9 are bit-identical to their plain versions, and K4 to its plain version
-on the CPU (whose ``index_add_`` sums each vertex in slot order), on every
-run; K3 and K6 sum with atomics, in a different order on every run.
+:func:`plain_versions`, which ``chip_smoke.py`` and the tests use to hold
+a kernel against its plain version, routes CUDA tensors to the plain
+versions.  Every launch adds one to ``LAUNCHES[name]``,
+so a run can show which kernels its path went through, and every call of
+an NMR pass on CUDA tensors inside :func:`plain_versions` adds one to
+``LAUNCHES["nmr_plain"]``; ``SLOT_TABLE_BUILDS`` counts the builds of K4's
+vertex -> slot tables, which launch no kernel of the port.  K1, K2, K2L,
+K2D, K5, K7, K8, K9, K10, K11 and K12 are bit-identical to their plain
+versions on the card (K12's channel sum adds as ``torch.sum`` does
+there), and K4 to its plain version on the CPU (whose ``index_add_`` sums
+each vertex in slot order), on every run; K3 and K6 sum with atomics, in a
+different order on every run.
 """
 
 from __future__ import annotations
@@ -57,11 +67,14 @@ import torch
 from ..utils import cuda_build
 from .resolve import (
     DEPTH_MIN_DELTA,
+    _pixel_grid,
+    coordinate_planes,
     face_candidate,
     face_constants_planar,
     kill_invalid,
     pixel_centres,
     resolve_constants,
+    weight_planes_from_gathered,
 )
 
 KERNELS = (
@@ -78,8 +91,15 @@ KERNELS = (
     "resolve_binned_latch",
     "resolve_binned_depth",
     "gather_rows",
+    "nmr_planes",
+    "nmr_planes_vjp",
+    "nmr_coordinate_grad",
 )
-LAUNCHES = dict.fromkeys(KERNELS, 0)
+# the calls of an NMR pass (K10-K12) on CUDA tensors that took its plain
+# version (inside plain_versions()): a run whose count is not 0 bypassed the
+# fused path
+NMR_PLAIN = "nmr_plain"
+LAUNCHES = dict.fromkeys(KERNELS + (NMR_PLAIN,), 0)
 # builds of K4's vertex -> slot tables (:func:`vertex_slots`); reset with
 # LAUNCHES
 SLOT_TABLE_BUILDS = 0
@@ -127,7 +147,7 @@ BINNED_FROM = 34_000_000
 
 def reset_launches():
     global SLOT_TABLE_BUILDS
-    for name in KERNELS:
+    for name in LAUNCHES:
         LAUNCHES[name] = 0
     for name in GRAPHS:
         GRAPHS[name] = 0
@@ -951,3 +971,138 @@ def resolve_binned_depth(fvp, draw_backside, bins, image_size, near, far, row_st
             index.data_ptr(), depth.data_ptr(), bs, nf, S, r0, rows, int(draw_backside),
             float(near), float(far))
     return index, depth
+
+
+# --- K10, K11, K12: the NMR passes -----------------------------------------
+
+
+def _nmr_route(entry, floats, ints=()):
+    """True to launch NMR pass ``entry``'s kernel: CUDA tensors outside
+    :func:`plain_versions`, which must be float32 (``floats``) and int32
+    (``ints``), else ValueError.  A call on CUDA tensors inside
+    :func:`plain_versions` adds one to ``LAUNCHES["nmr_plain"]``."""
+    if not _on_cuda(*floats, *ints):
+        return False
+    if _route["plain"]:
+        LAUNCHES[NMR_PLAIN] += 1
+        return False
+    for tensors, dtype in ((floats, torch.float32), (ints, torch.int32)):
+        for t in tensors:
+            if t.dtype != dtype:
+                raise ValueError(f"{entry}: want {dtype} tensors, got {t.dtype}")
+    return True
+
+
+def _image_planes(t):
+    """``t`` [bs, n, rows, W] and its batch stride, each image's planes
+    contiguous (a copy only where they are not, so a slice of planes of a
+    larger map, as the face-sharded path's winner planes, is read in
+    place)."""
+    bs, n, rows, W = t.shape
+    if t.stride()[1:] != (rows * W, W, 1):
+        t = t.contiguous()
+    return t, t.stride(0) if bs > 1 else n * rows * W
+
+
+def nmr_planes_plain(fvm_planar, face_index_map, image_size, row_start=0, weights=False):
+    w = weight_planes_from_gathered(fvm_planar, face_index_map, image_size, row_start)
+    foreground = (face_index_map >= 0).to(torch.float32)[:, None]
+    return coordinate_planes(fvm_planar, w), (w if weights else None), foreground
+
+
+def nmr_planes(fvm_planar, face_index_map, image_size, row_start=0, weights=False):
+    """From the resolve's winner planes f32 [bs, 9, rows, W] (plane 3 *
+    vertex + coord; the z planes are not read) and its index map i32
+    [bs, rows, W] of the image rows ``row_start ..`` of an ``image_size``
+    render: (the coordinate map f32 [bs, 2, rows, W] of
+    :func:`resolve.coordinate_planes`; the weight planes f32 [bs, 3, rows,
+    W] of :func:`resolve.weight_planes_from_gathered` when ``weights``, else
+    None; the foreground f32 [bs, 1, rows, W], 1 where the index is >= 0).
+    One launch, which writes the weight planes only when asked (a
+    silhouette render never makes them)."""
+    if not _nmr_route("nmr_planes", (fvm_planar,), (face_index_map,)):
+        return nmr_planes_plain(fvm_planar, face_index_map, image_size, row_start, weights)
+    fvm, fvm_batch = _image_planes(fvm_planar)
+    index = face_index_map.contiguous()
+    bs, _, rows, W = fvm.shape
+    xp, yp = _pixel_grid(image_size, fvm.device, row_start, rows)
+    coords = fvm.new_empty((bs, 2, rows, W))
+    w = fvm.new_empty((bs, 3, rows, W)) if weights else None
+    foreground = fvm.new_empty((bs, 1, rows, W))
+    _launch("nmr_planes", fvm.get_device(), fvm.data_ptr(), index.data_ptr(), xp.data_ptr(),
+            yp.data_ptr(), coords.data_ptr(), 0 if w is None else w.data_ptr(),
+            foreground.data_ptr(), bs, rows, W, fvm_batch)
+    return coords, w, foreground
+
+
+def nmr_planes_vjp_plain(grad, fvm_planar, face_index_map, image_size, row_start=0):
+    w = weight_planes_from_gathered(fvm_planar, face_index_map, image_size, row_start)
+    bs, _, rows, W = grad.shape
+    # each XY plane's product as the multiply's backward forms it, added to
+    # zeros as autograd summed it with the other plane reads' zero-filled
+    # gradients (so a -0 product reads +0)
+    out = grad.new_zeros((bs, 9, rows, W))
+    for k in range(3):
+        for coord in range(2):
+            out[:, 3 * k + coord] += grad[:, coord] * w[:, k]
+    return out
+
+
+def nmr_planes_vjp(grad, fvm_planar, face_index_map, image_size, row_start=0):
+    """The VJP of :func:`nmr_planes`' coordinate map: its gradient f32
+    [bs, 2, rows, W] -> the winner planes' f32 [bs, 9, rows, W], the weights
+    (gradient-stopped) recomputed from ``fvm_planar`` and the index map;
+    zeros on the z planes.  One launch."""
+    if not _nmr_route("nmr_planes_vjp", (grad, fvm_planar), (face_index_map,)):
+        return nmr_planes_vjp_plain(grad, fvm_planar, face_index_map, image_size, row_start)
+    fvm, fvm_batch = _image_planes(fvm_planar)
+    index, grad = face_index_map.contiguous(), grad.contiguous()
+    bs, _, rows, W = fvm.shape
+    xp, yp = _pixel_grid(image_size, fvm.device, row_start, rows)
+    out = fvm.new_empty((bs, 9, rows, W))
+    _launch("nmr_planes_vjp", fvm.get_device(), grad.data_ptr(), fvm.data_ptr(), index.data_ptr(),
+            xp.data_ptr(), yp.data_ptr(), out.data_ptr(), bs, rows, W, fvm_batch)
+    return out
+
+
+def nmr_coordinate_grad_plain(images, grad, above, below, render_size):
+    # differentiation imports this module
+    from .differentiation import band_coordinate_grad_plain
+
+    return band_coordinate_grad_plain(images, grad, above, below, render_size)
+
+
+def _halo_rows(rows):
+    """A halo's (images, grad) rows [bs, C, 1, W], columns contiguous and
+    one layout for both (copies where not): (images, grad, batch stride,
+    channel stride), or null pointers at an image edge."""
+    if rows is None:
+        return 0, 0, 0, 0
+    images, grad = rows
+    if images.stride(3) != 1 or images.stride() != grad.stride():
+        images, grad = images.contiguous(), grad.contiguous()
+    return images.data_ptr(), grad.data_ptr(), images.stride(0), images.stride(1)
+
+
+def nmr_coordinate_grad(images, grad, above, below, render_size):
+    """The NMR backward's coordinate gradient (x on channel 0, y on channel
+    1) f32 [bs, 2, rows, W] of a band of rows of a ``render_size``-row
+    image, from its images and their gradient f32 [bs, C, rows, W] (rows >
+    0) and the rows just outside the band, ``above`` and ``below``
+    ((images, grad) rows [bs, C, 1, W]) or None at the image's top or
+    bottom edge: ``differentiation.band_coordinate_grad``'s pass.  One
+    launch for both terms."""
+    halo = [t for rows in (above, below) if rows is not None for t in rows]
+    if not _nmr_route("nmr_coordinate_grad", (images, grad, *halo)):
+        return nmr_coordinate_grad_plain(images, grad, above, below, render_size)
+    images, grad = images.contiguous(), grad.contiguous()
+    bs, C, rows, W = images.shape
+    out = images.new_empty((bs, 2, rows, W))
+    a_images, a_grad, a_batch, a_channel = _halo_rows(above)
+    b_images, b_grad, b_batch, b_channel = _halo_rows(below)
+    # 2 / render_size, the double rounded to float32 in the entry, as the
+    # plain version's tensor divisor holds it
+    _launch("nmr_coordinate_grad", images.get_device(), images.data_ptr(), grad.data_ptr(),
+            a_images, a_grad, b_images, b_grad, out.data_ptr(), bs, C, rows, W, a_batch,
+            a_channel, b_batch, b_channel, 2.0 / render_size)
+    return out

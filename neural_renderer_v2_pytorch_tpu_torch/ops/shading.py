@@ -19,18 +19,8 @@ import torch
 from ..models import lights as light_lib
 from ..utils import trace
 from .maps import cross, mask_foreground, to_map
+from .resolve import coordinate_planes
 from .resolve_cuda import atlas_taps_grad, vertex_slots
-
-
-def coordinate_planes(fvm_planar, weight_planes):
-    """Barycentric screen-XY map [bs, 2, H, W] from latched winner
-    coordinates [bs, 9, H, W] and weights [bs, 3, H, W].  The NMR backward
-    reaches the vertices only through this map (the weights are a stopped
-    constant)."""
-    w0, w1, w2 = weight_planes[:, 0], weight_planes[:, 1], weight_planes[:, 2]
-    cx = fvm_planar[:, 0] * w0 + fvm_planar[:, 3] * w1 + fvm_planar[:, 6] * w2
-    cy = fvm_planar[:, 1] * w0 + fvm_planar[:, 4] * w1 + fvm_planar[:, 7] * w2
-    return torch.stack((cx, cy), dim=1)
 
 
 def _depth(z, w):
@@ -254,24 +244,29 @@ def apply_lights_planar(rgb_planes, normal_map_planes, lights):
     ``lights`` gives black."""
     color_weight = torch.zeros_like(normal_map_planes)
     for light in lights:
+        if not isinstance(light, (light_lib.AmbientLight, light_lib.DirectionalLight,
+                                  light_lib.SpecularLight)):
+            raise TypeError(f"unknown light type: {light!r}")
+        # the fields in float32, as the JAX package reads them (x64 off): a
+        # float64 field would make float64 images, which the NMR kernels
+        # refuse
+        color = light.color.to(torch.float32)[:, :, None, None]
         if isinstance(light, light_lib.AmbientLight):
-            color_weight = color_weight + light.color[:, :, None, None]
+            color_weight = color_weight + color
         elif isinstance(light, light_lib.DirectionalLight):
-            t = -light.direction[:, :, None, None] * normal_map_planes
+            t = -light.direction.to(torch.float32)[:, :, None, None] * normal_map_planes
             intensity = t[:, 0] + t[:, 1] + t[:, 2]
             intensity = _abs(intensity) if light.backside else torch.relu(intensity)
-            color_weight = color_weight + intensity[:, None] * light.color[:, :, None, None]
-        elif isinstance(light, light_lib.SpecularLight):
+            color_weight = color_weight + intensity[:, None] * color
+        else:
             intensity = -normal_map_planes[:, 2]       # (0, 0, 1) . -normal
             intensity = _abs(intensity) if light.backside else torch.relu(intensity)
             alpha = light.alpha
             if alpha is None:
                 alpha = torch.ones(light.color.shape[0], dtype=torch.float32,
                                    device=light.color.device)
-            intensity = intensity ** alpha[:, None, None]
-            color_weight = color_weight + intensity[:, None] * light.color[:, :, None, None]
-        else:
-            raise TypeError(f"unknown light type: {light!r}")
+            intensity = intensity ** alpha.to(torch.float32)[:, None, None]
+            color_weight = color_weight + intensity[:, None] * color
     return rgb_planes * color_weight
 
 

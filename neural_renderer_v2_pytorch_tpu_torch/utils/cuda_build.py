@@ -57,6 +57,9 @@ SIGNATURES = {
     "gather_faces3": "PPPiiii",
     "gather_rows": "PPPiiiiqi",
     "atlas_taps_grad": "PPPiiii",
+    "nmr_planes": "PPPPPPPiiiq",
+    "nmr_planes_vjp": "PPPPPPiiiq",
+    "nmr_coordinate_grad": "PPPPPPPiiiiqqqqf",
 }
 # entry -> the struct that packs the card and the arguments into a block
 PACKERS = {name: struct.Struct("<q" + "".join("d" if c == "f" else "q" for c in sig))

@@ -209,9 +209,10 @@ def test_slice_on_card_matches_cpu(cuda):
                                           nr.RasterizeHyperparam(image_size=64))
             torch.sum(im * im).backward()
         out.append((im.detach().cpu(), x.grad.cpu()))
-    # the tiled route: K2 forms the face constants itself, so no K1
+    # the tiled route: K2 forms the face constants itself, so no K1; the
+    # NMR passes K10, K11 and K12 once each
     silhouette = ("resolve_xy", "scatter_pixels_to_faces", "scatter_faces_to_vertices",
-                  "gather_faces3")
+                  "gather_faces3", "nmr_planes", "nmr_planes_vjp", "nmr_coordinate_grad")
     assert all(rc.LAUNCHES[n] == (1 if n in silhouette else 0) for n in rc.KERNELS), rc.LAUNCHES
     renderer = nr.Renderer("cuda")                  # no index: the current card
     renderer.render_silhouettes(torch.tensor(v[None], device=cuda), f)
@@ -808,6 +809,152 @@ def test_user_surface_on_the_card(cuda, tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# the NMR passes: K10 (weights, coordinate map, foreground), K11 (the
+# coordinate map's VJP), K12 (the NMR coordinate gradient)
+
+
+def _same_bits(got, want):
+    """The same bits, a NaN matched by a NaN (whatever its payload)."""
+    nan = want.isnan()
+    return (torch.equal(got.isnan(), nan)
+            and torch.equal(got.masked_fill(nan, 0).view(torch.int32),
+                            want.masked_fill(nan, 0).view(torch.int32)))
+
+
+def _winner_planes_on(cuda, seed, bs, rows, S, case):
+    """Winner planes [bs, 9, rows, S], an index map and a cotangent of the
+    coordinate map as the step gives them: 0 on background (everywhere when
+    ``case`` is "background"), winners whose vertices 1 and 2 coincide (a
+    weight of exactly 0, negated where the winner is clockwise), zeros in
+    the cotangent, and NaN planted in an XY plane when ``case`` is "nan"."""
+    rng = np.random.RandomState(seed)
+    fvm = rng.uniform(-1.2, 1.2, (bs, 9, rows, S)).astype(np.float32)
+    fim = rng.randint(0, 40, (bs, rows, S)).astype(np.int32)
+    fim[rng.rand(bs, rows, S) < 0.3] = -1
+    if case == "background":
+        fim[:] = -1
+    same = rng.rand(bs, rows, S) < 0.15
+    for coord in range(2):
+        fvm[:, 6 + coord][same] = fvm[:, 3 + coord][same]
+    fvm *= (fim >= 0)[:, None]
+    if case == "nan":
+        fvm[0, 3, rows - 1, : S // 2] = np.nan
+        fvm[-1, 1, 0, 1] = np.nan
+    g = rng.randn(bs, 2, rows, S).astype(np.float32)
+    g[..., ::5] = 0.0
+    return tuple(torch.tensor(a, device=cuda) for a in (fvm, fim, g))
+
+
+# (bs, rows, S, row_start): 64^2 with anti-aliasing (its 128^2 render), a
+# 100-wide image (not a power of two) whole and as a band from row 37, and
+# 512^2
+PLANE_SHAPES = [(1, 128, 128, 0), (32, 100, 100, 0), (1, 23, 100, 37), (32, 512, 512, 0)]
+
+
+@pytest.mark.parametrize("case", ["random", "nan", "background"])
+@pytest.mark.parametrize("bs,rows,S,row_start", PLANE_SHAPES)
+def test_nmr_planes_and_their_vjp_are_bit_exact(cuda, bs, rows, S, row_start, case):
+    """K10 (with and without the weight planes) and K11 give their plain
+    versions' bits, on the winner planes as the resolve writes them and as
+    a slice of a larger map (the face-sharded path's)."""
+    fvm, fim, g = _winner_planes_on(cuda, bs * 1000 + S + row_start, bs, rows, S, case)
+    sliced = torch.cat([fvm, torch.ones_like(fvm[:, :4])], 1)[:, :9]
+    rc.reset_launches()
+    for planes in (fvm, sliced):
+        for weights in (False, True):
+            got = rc.nmr_planes(planes, fim, S, row_start, weights)
+            with rc.plain_versions():
+                want = rc.nmr_planes(planes, fim, S, row_start, weights)
+            assert (got[1] is None) == (not weights)
+            for k, (a, b) in enumerate(zip(got, want)):
+                assert (a is None and b is None) or _same_bits(a, b), (planes is sliced, k)
+        got = rc.nmr_planes_vjp(g, planes, fim, S, row_start)
+        with rc.plain_versions():
+            want = rc.nmr_planes_vjp(g, planes, fim, S, row_start)
+        assert _same_bits(got, want)
+    assert rc.LAUNCHES["nmr_planes"] == 4 and rc.LAUNCHES["nmr_planes_vjp"] == 2
+    assert rc.LAUNCHES["nmr_plain"] == 6
+    if case == "background":
+        assert not got.any()
+    elif case == "nan":
+        assert bool(got.isnan().any())
+
+
+def _nmr_images(cuda, seed, bs, C, rows, W):
+    """Images (a silhouette's 0/1 steps at C = 1) and their gradient [bs, C,
+    rows, W]: in the left third of the columns the gradient is scaled down
+    so that its pair terms lie within the tie band (1e-4) of each other,
+    and a NaN is planted in each."""
+    rng = np.random.RandomState(seed)
+    images = rng.rand(bs, C, rows, W).astype(np.float32)
+    if C == 1:
+        images = (images > 0.5).astype(np.float32)
+    grad = rng.randn(bs, C, rows, W).astype(np.float32)
+    grad[..., : W // 3] *= 2e-5 / rows
+    images[0, C - 1, rows // 2, W // 2] = np.nan
+    grad[-1, 0, rows // 3, W - 2] = np.nan
+    return torch.tensor(images, device=cuda), torch.tensor(grad, device=cuda)
+
+
+# (bs, rows, W): 64^2 with anti-aliasing (its 128^2 render), 100^2 and 512^2
+GRAD_SHAPES = [(1, 128, 128), (32, 100, 100), (32, 512, 512)]
+
+
+@pytest.mark.parametrize("C", [1, 4, 5])
+@pytest.mark.parametrize("bs,rows,W", GRAD_SHAPES)
+def test_nmr_coordinate_grad_is_bit_exact(cuda, bs, rows, W, C):
+    """K12 gives its plain version's bits (its channel sum adds as
+    ``torch.sum`` does on the card), over the whole image and over three
+    bands with their halo rows as the sharded entry gathers them (the
+    middle band has both), whose rows are the whole image's."""
+    from neural_renderer_v2_pytorch_tpu_torch import parallel
+    from neural_renderer_v2_pytorch_tpu_torch.parallel import render
+
+    images, grad = _nmr_images(cuda, bs * 10 + C + rows, bs, C, rows, W)
+    rc.reset_launches()
+    whole = rc.nmr_coordinate_grad(images, grad, None, None, rows)
+    with rc.plain_versions():
+        want = rc.nmr_coordinate_grad(images, grad, None, None, rows)
+    assert _same_bits(whole, want)
+    assert bool(whole.isnan().any()) and bool((whole == 0).any()) and bool((whole != 0).any())
+
+    band = parallel.band_rows(rows, False, 3)
+    cut = [(images[:, :, r0:r0 + band], grad[:, :, r0:r0 + band]) for r0 in range(0, rows, band)]
+    halo = torch.stack([render._band_edges(i, g) for i, g in cut])
+    for t, (i, g) in enumerate(cut):
+        got = render._band_grad(i, g, halo, t, band, rows)
+        with rc.plain_versions():
+            plain = render._band_grad(i, g, halo, t, band, rows)
+        assert _same_bits(got, plain), t
+        assert _same_bits(got, whole[:, :, t * band:t * band + i.shape[2]]), t
+    assert rc.LAUNCHES["nmr_coordinate_grad"] == 1 + len(cut)
+
+
+def test_nmr_coordinate_grad_at_the_tie_band(cuda):
+    """Pair terms |r - l| at exactly float32(1e-4), the tie band's edge
+    (``differentiation.maximum`` compares in float32, as torch compares a
+    float32 tensor with a Python scalar), just inside and just outside it,
+    and exact ties, at 64^2 with anti-aliasing (step 1/64)."""
+    eps = float(np.float32(1e-4))
+    images = torch.zeros(1, 1, 128, 128, device=cuda)
+    images[:, :, :, 1::4] = 1.0                # columns j = 1 mod 4 lit, alone
+    grad = torch.zeros_like(images)
+    # at a lit column j: r = (G[j] - G[j + 1]) * 64, l = (G[j] - G[j - 1]) * 64
+    edge = [eps, np.nextafter(np.float32(eps), np.float32(0)), np.nextafter(np.float32(eps),
+                                                                         np.float32(1)), 0.0]
+    for row, d in enumerate(edge):
+        grad[0, 0, row, 2::4] = -float(d) / 64     # r = d, l = 0
+        grad[0, 0, 64 + row, 0::4] = -float(d) / 64
+        grad[0, 0, 64 + row, 2::4] = -float(d) / 64    # r = l = d: a tie
+    got = rc.nmr_coordinate_grad(images, grad, None, None, 128)
+    with rc.plain_versions():
+        want = rc.nmr_coordinate_grad(images, grad, None, None, 128)
+    assert _same_bits(got, want)
+    x = want[0, 0, :, 1].tolist()
+    assert x[0] == -eps and x[1] == 0.0 and x[2] != 0.0 and x[64:68] == [0.0] * 4
+
+
+# ---------------------------------------------------------------------------
 # the compiled core: graphs captured per signature, replayed after
 
 
@@ -1089,8 +1236,10 @@ def test_port_spans_in_a_callers_graph(cuda, fresh_cache, route):
     same kernels as with them off (a span marks the stream with external
     events, no kernel), as many device records a replay under the
     profiler, and the same bits; after a replay ``trace.sample`` reads
-    each stage's device ms from the span's own marks, and the outermost
-    spans fit inside the replay's time."""
+    each stage's device ms from the span's own marks (one ``nmr.grad``, the
+    K12 launch), and the outermost spans fit inside the replay's time.
+    The step on the plain versions, eagerly, has the NMR gradient's y and
+    x passes in spans inside ``nmr.grad``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1117,25 +1266,39 @@ def test_port_spans_in_a_callers_graph(cuda, fresh_cache, route):
                 graph.replay()
                 end.record()
                 torch.cuda.synchronize()
-                read = len(trace.sample())
+                readings = trace.sample()
                 stages = trace.device_ms()
                 outer = trace.device_ms(outermost=True)
             finally:
                 trace.disable()
             forms[on] = dict(held=held, records=len(records), images=images.clone(),
-                             grad=grads["vertices"].clone(), read=read, stages=stages,
-                             outer=outer, ms=start.elapsed_time(end))
+                             grad=grads["vertices"].clone(), read=len(readings),
+                             names=collections.Counter(r["name"] for r in readings),
+                             stages=stages, outer=outer, ms=start.elapsed_time(end))
     off, on = forms[False], forms[True]
     assert on["held"] == off["held"] and on["records"] == off["records"]
     assert torch.equal(on["images"], off["images"])
     assert off["read"] == 0 and not off["stages"]
     assert on["read"] > 0
     for name in ("camera", "gather", "resolve", "planes", "pool", "pool.vjp", "nmr.grad",
-                 "nmr.grad.y", "nmr.grad.x", "planes.vjp", "resolve.vjp", "gather.vjp",
-                 "camera.vjp"):
+                 "planes.vjp", "resolve.vjp", "gather.vjp", "camera.vjp"):
         assert on["stages"][name] > 0, (name, on["stages"])
-    assert on["stages"]["nmr.grad.y"] + on["stages"]["nmr.grad.x"] <= on["stages"]["nmr.grad"]
-    assert "nmr.grad.y" not in on["outer"] and sum(on["outer"].values()) <= on["ms"]
+    # on the kernels the NMR gradient is one launch (K12) in ``nmr.grad``;
+    # its plain version's y and x passes have spans of their own inside it
+    assert on["names"]["nmr.grad"] == 1
+    assert "nmr.grad.y" not in on["stages"] and "nmr.grad.x" not in on["stages"]
+    assert sum(on["outer"].values()) <= on["ms"]
+    trace.enable()
+    try:
+        with rc.forced_route(route), rc.plain_versions(), nr.eager():
+            step(v)
+        plain, outer = trace.device_ms(), trace.device_ms(outermost=True)
+    finally:
+        trace.disable()
+        trace.clear()
+    assert plain["nmr.grad.y"] > 0 and plain["nmr.grad.x"] > 0
+    assert plain["nmr.grad.y"] + plain["nmr.grad.x"] <= plain["nmr.grad"]
+    assert "nmr.grad.y" not in outer
 
 
 def test_sample_reads_each_replayed_graph_once(cuda, fresh_cache):
@@ -1208,6 +1371,130 @@ def test_callers_graph_overflow_is_counted(cuda, fresh_cache):
             assert {k: now[k] - counts[k] for k in now} == dict(
                 binnings=1, pairs=total, slots=total // 4, overflow_bins=overflow)
             counts = now
+
+
+def test_a_captured_silhouette_step_launches_each_nmr_kernel_once(cuda, fresh_cache):
+    """One silhouette step, eager or captured by its caller, launches K10,
+    K11 and K12 once each and takes no plain version of an NMR pass."""
+    r, v, faces, step = _graph_scene("bench", cuda)
+    nmr = ("nmr_planes", "nmr_planes_vjp", "nmr_coordinate_grad")
+    rc.reset_launches()
+    with nr.eager():
+        step(v)
+    assert [rc.LAUNCHES[k] for k in nmr] == [1, 1, 1] and rc.LAUNCHES["nmr_plain"] == 0
+    held = _whole_step_graph(step, v)[3]
+    assert [held.get(k) for k in nmr] == [1, 1, 1] and "nmr_plain" not in held, held
+
+
+def _depth_and_lit_steps(kind, cuda):
+    """(vertices, step) of ``_graph_scene``'s kind: depth of its bench scene,
+    or its lit scene with the lights made once (a caller's capture copies
+    nothing from the host)."""
+    if kind == "depth":
+        r, v, faces, _ = _graph_scene("bench", cuda)
+
+        def render(x):
+            return r.render_depth(x, faces)
+    else:
+        r, v, faces, _ = _graph_scene("lit", cuda)
+        _, _, vt, ft, tex = texel_scene(16, 12, 2)
+        vt, ft, tex = (torch.tensor(a, device=cuda) for a in (vt, ft, tex))
+        cls = {"ambient": nr.AmbientLight, "directional": nr.DirectionalLight,
+               "specular": nr.SpecularLight}
+        lights = tuple(cls[k](**{n: torch.tensor(a, device=cuda) for n, a in arrays.items()})
+                       for k, arrays in lit_light_arrays())
+
+        def render(x):
+            return r.render(x, faces, vt, ft, tex, lights=lights)
+
+    def step(x):
+        x = x.clone().requires_grad_(True)
+        images = render(x)
+        torch.sum(images * images).backward()
+        return images, {"vertices": x.grad}
+    return v, step
+
+
+@pytest.mark.parametrize("kind", ["bench", "depth", "atlas", "lit"])
+def test_renders_through_the_nmr_kernels_give_the_plain_paths_bits(cuda, fresh_cache, kind):
+    """Silhouettes, depth, RGBA from an atlas and textured-lit RGBA, each
+    step captured whole by its caller on the kernels, against the eager
+    step on the plain versions: each replay's images and the cotangent
+    that reaches the resolve (K3's input: K11's XY planes and the shading's
+    z planes summed by autograd) have the same bits; the gradients lie
+    within 1e-4 of their largest (K3's and K6's atomics)."""
+    from neural_renderer_v2_pytorch_tpu_torch.ops import gather_resolve
+
+    if kind in ("depth", "lit"):
+        v, step = _depth_and_lit_steps(kind, cuda)
+    else:
+        _, v, _, step = _graph_scene(kind, cuda)
+    seen, scatter = [], gather_resolve.scatter_pixels_to_faces
+
+    def keep(grad, *args):
+        seen.append(grad.clone())
+        return scatter(grad, *args)
+
+    with _patch.object(gather_resolve, "scatter_pixels_to_faces", keep):
+        with rc.plain_versions(), nr.eager():
+            want_images, want = step(v)
+        want_cotangent = seen[-1]
+        graph, images, grads, held = _whole_step_graph(step, v)
+    assert [held.get(k) for k in ("nmr_planes", "nmr_planes_vjp", "nmr_coordinate_grad")] == \
+        [1, 1, 1] and "nmr_plain" not in held, held
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(images, want_images)
+        assert _same_bits(seen[-1], want_cotangent)
+        for name, g in grads.items():
+            torch.testing.assert_close(g, want[name], rtol=0,
+                                       atol=1e-4 * float(want[name].abs().max()))
+
+
+def test_float64_lights_and_backgrounds_render_through_the_nmr_kernels(cuda):
+    """Float64 light fields and backgrounds are read in float32, as the JAX
+    package reads them (x64 off): a lit render over them runs the NMR
+    kernels and no plain version, with the images of their float32 copies
+    (the gradients within 1e-4 of their largest: K3's and K6's atomics).
+    An NMR pass given CUDA tensors of another dtype raises."""
+    r, v, faces, _ = _graph_scene("lit", cuda)
+    _, _, vt, ft, tex = texel_scene(16, 12, 2)
+    vt, ft, tex = (torch.tensor(a, device=cuda) for a in (vt, ft, tex))
+    cls = {"ambient": nr.AmbientLight, "directional": nr.DirectionalLight,
+           "specular": nr.SpecularLight}
+    S = 2 * r.image_size
+    rng = np.random.RandomState(7)
+    backgrounds = torch.tensor(rng.rand(1, 3, S, S), device=cuda)
+    fields = [(k, {n: torch.tensor(a.astype(np.float64) * (1 + 1e-9 * rng.rand(*a.shape)),
+                                   device=cuda) for n, a in arrays.items()})
+              for k, arrays in lit_light_arrays()]
+
+    def step(dtype):
+        x = v.clone().requires_grad_(True)
+        lights = tuple(cls[k](**{n: a.to(dtype) for n, a in f.items()}) for k, f in fields)
+        images = r.render(x, faces, vt, ft, tex, backgrounds=backgrounds.to(dtype),
+                          lights=lights)
+        torch.sum(images * images).backward()
+        return images, x.grad
+
+    with nr.eager():
+        rc.reset_launches()
+        images, grad = step(torch.float64)
+        launches = dict(rc.LAUNCHES)
+        want_images, want_grad = step(torch.float32)
+    assert images.dtype == torch.float32 and torch.equal(images, want_images)
+    torch.testing.assert_close(grad, want_grad, rtol=0, atol=1e-4 * float(want_grad.abs().max()))
+    assert [launches[k] for k in ("nmr_planes", "nmr_planes_vjp", "nmr_coordinate_grad")] == \
+        [1, 1, 1] and launches["nmr_plain"] == 0, launches
+    fvm = torch.rand((1, 9, 8, 8), device=cuda)
+    fim = torch.zeros((1, 8, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="nmr_planes: want torch.float32"):
+        rc.nmr_planes(fvm.double(), fim, 8)
+    with pytest.raises(ValueError, match="nmr_planes_vjp: want torch.int32"):
+        rc.nmr_planes_vjp(fvm[:, :2], fvm, fim.long(), 8)
+    with pytest.raises(ValueError, match="nmr_coordinate_grad: want torch.float32"):
+        rc.nmr_coordinate_grad(fvm.double(), fvm.double(), None, None, 8)
 
 
 def test_no_grad_render_is_a_forward_graph(cuda, fresh_cache):
@@ -1611,7 +1898,8 @@ def test_bench_chained_step_equals_eager(cuda, fresh_cache):
     whole = steps.CallerGraph(case)
     steps.check_against("bench chained step", whole(), want)
     assert whole.launches == {"gather_faces3": 1, "resolve_xy": 1,
-                              "scatter_pixels_to_faces": 1, "scatter_faces_to_vertices": 1}
+                              "scatter_pixels_to_faces": 1, "scatter_faces_to_vertices": 1,
+                              "nmr_planes": 1, "nmr_planes_vjp": 1, "nmr_coordinate_grad": 1}
     whole.reset()
     for _ in range(3):
         whole.graph.replay()

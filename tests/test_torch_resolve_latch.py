@@ -140,6 +140,7 @@ def _kernel_args():
     faces = torch.tensor(faces)
     fim = torch.randint(-1, 9, (1, 8, 8), dtype=torch.int32)
     bins = rc.bin_faces_plain(fvp, True, 40)
+    fvm = torch.rand((1, 9, 8, 8), generator=torch.Generator().manual_seed(0))
     return {
         "face_setup": ((fvp, True), {}),
         "resolve_xy": ((fvp, True, 16, 0.1, 100.0), {}),
@@ -154,6 +155,9 @@ def _kernel_args():
         "resolve_binned_latch": ((fvp, torch.ones(1, 9, 4), False, bins, 40, 0.1, 100.0), {}),
         "resolve_binned_depth": ((fvp, True, bins, 40, 0.1, 100.0), {}),
         "gather_rows": ((torch.ones(1, 9, 5), fim.reshape(1, 64)), {"planar": True}),
+        "nmr_planes": ((fvm, fim, 8), {"weights": True}),
+        "nmr_planes_vjp": ((torch.ones(1, 2, 8, 8), fvm, fim, 8), {}),
+        "nmr_coordinate_grad": ((torch.ones(1, 2, 8, 8), fvm[:, :2], None, None, 16), {}),
     }
 
 

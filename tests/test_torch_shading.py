@@ -195,6 +195,28 @@ def test_lights(kind, backside):
     )
 
 
+def test_float64_light_fields_shade_in_float32():
+    """Float64 light fields are read in float32, as the JAX package reads
+    them (x64 off): the bits of their float32 copies, float32 planes, and
+    the gradients back in float64."""
+    rgb, normals, *_ = _light_inputs(19)
+    rng = np.random.RandomState(20)
+    fields = [rng.rand(BS, 3) for _ in range(3)] + [rng.uniform(-1, 1, (BS, 3)),
+                                                    np.array([1.5, 3.0])]
+    outs, grads = [], []
+    for dtype in (torch.float64, torch.float32):
+        c0, c1, c2, d, a = (torch.tensor(f).to(dtype).requires_grad_(True) for f in fields)
+        lights = (tl.DirectionalLight(color=c1, direction=d), tl.AmbientLight(color=c0),
+                  tl.SpecularLight(color=c2, alpha=a))
+        out = ts.apply_lights_planar(torch.tensor(rgb), torch.tensor(normals), lights)
+        out.sum().backward()
+        outs.append(out)
+        grads.append([t.grad for t in (c0, c1, c2, d, a)])
+    assert outs[0].dtype == torch.float32 and torch.equal(outs[0], outs[1])
+    for g64, g32 in zip(*grads):
+        assert g64.dtype == torch.float64 and torch.equal(g64, g32.double())
+
+
 def test_empty_lights_render_black():
     rgb, normals, *_ = _light_inputs(18)
     out = ts.apply_lights_planar(torch.tensor(rgb), torch.tensor(normals), ())
