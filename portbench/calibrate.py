@@ -3,6 +3,11 @@
     python3 portbench/calibrate.py --workload <name> --seeds <n> --first-seed <s> \\
         [--controls <n>] [--out <file>]
 
+Everything of the configuration's own comes from its task and reference
+(``tasks/<reference>.py``, ``reference/<reference>.py``, found by
+``spec``), so a configuration added as files alone is calibrated by this
+script as it stands:
+
 - the program: ``--seeds`` seeds, each through the step the window runs
   (one capture, the inputs of each seed copied into it), its first three
   steps against the reference's;
@@ -10,8 +15,8 @@
   configuration's (bfloat16 for float32) put in the program's place, on ``--controls`` seeds, against the float32 reference;
 - the faults, planted in the reference put in the program's place, on the
   same seeds: half of the images left out (the loss the mean over the
-  rest), the first image's silhouette inverted where it is produced.  A
-  state left unchanged reads 1 by the comparison's measure and is not run.
+  rest), the first image inverted where it is produced.  A state left
+  unchanged reads 1 by the comparison's measure and is not run.
 
 A sharded cell's program readings come from its ranks (one per card);
 its control and faults are its configuration's, read on card 0.  Prints
@@ -52,9 +57,9 @@ def program_seeds(name, seeds, device):
     fit = None
     out = []
     for seed in seeds:
-        inputs = make_inputs(cfg, seed, device)
+        inputs = make_inputs(cfg, seed, device, cell["task"])
         if fit is None:
-            fit = Fit(inputs, cfg, cell["traffic"]["form"])
+            fit = Fit(inputs, cfg, cell["traffic"]["form"], task=cell["task"])
         else:
             fit.reset(inputs)
         out.append((seed, runner.program_readings(fit.first_steps(runner.FIRST_STEPS))))
@@ -66,9 +71,8 @@ def program_seeds(name, seeds, device):
 def rank_seeds(name, seeds):
     """One rank's program readings of each seed, through its sharded step."""
     import torch
-    import torch.distributed as dist
 
-    from portbench.harness import runner
+    from portbench.harness import runner, sharded
     from portbench.harness.fit import Fit, port
     from portbench.harness.scene import make_inputs
 
@@ -78,10 +82,10 @@ def rank_seeds(name, seeds):
     device = torch.device("cuda", torch.cuda.current_device())
     fit, out = None, []
     for seed in seeds:
-        inputs = make_inputs(cfg, seed, device)
-        dist.broadcast(inputs["params"], 0)
+        inputs = make_inputs(cfg, seed, device, cell["task"])
+        sharded.broadcast_leaves(inputs)
         if fit is None:
-            fit = Fit(inputs, cfg, "sharded", mesh=cell["traffic"]["mesh"])
+            fit = Fit(inputs, cfg, "sharded", mesh=cell["traffic"]["mesh"], task=cell["task"])
             for _ in range(3):
                 fit.backward()
         else:
@@ -102,7 +106,7 @@ def main():
 
     import torch
 
-    from portbench.harness import check, runner
+    from portbench.harness import check, runner, sharded
     from portbench.harness.scene import CONTROLS, make_inputs
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -129,27 +133,26 @@ def main():
     print(f"[calibrate] program steps of {len(seeds)} seeds in {time.time() - t0:.1f} s",
           file=sys.stderr, flush=True)
     for i, (seed, progs) in enumerate(programs):
-        inputs = make_inputs(cfg, seed, device)
+        inputs = make_inputs(cfg, seed, device, cell["task"])
         params0 = progs[0]["params0"]
         t1 = time.time()
-        ref = runner.reference_run(cfg, inputs, params0)
+        ref = runner.reference_run(cell, inputs, params0)
         ref_s = time.time() - t1
-        numbers = {}
-        for prog in progs:
-            for k, v in check.readings(prog, ref, beta1).items():
-                numbers[k] = max(numbers.get(k, 0.0), v)
         if len(progs) > 1:
-            numbers["rank_gap"] = check.rank_gap([p["params"] for p in progs], params0)
+            numbers = sharded.ranks_readings(progs, ref, beta1)
+        else:
+            numbers = check.readings(progs[0], ref, beta1)
         emit(rows, dict(kind="program", seed=seed, reference_s=ref_s, losses=ref["losses"],
                         **numbers))
         if i < args.controls:
             runs = [("control", dict(dtype=CONTROLS[cfg["dtype"]]))]
             runs += [(f, dict(fault=f)) for f in FAULTS]
             for kind, how in runs:
-                other = runner.reference_run(cfg, inputs, params0, **how)
+                other = runner.reference_run(cell, inputs, params0, **how)
                 as_program = dict(params0=params0, losses=torch.tensor(other["losses"]),
-                                  m1=other["grad1"].cpu() * (1.0 - beta1),
-                                  params=other["params"].cpu())
+                                  m1={n: g.cpu() * (1.0 - beta1)
+                                      for n, g in other["grad1"].items()},
+                                  params={n: t.cpu() for n, t in other["params"].items()})
                 emit(rows, dict(kind=kind, seed=seed,
                                 **check.readings(as_program, ref, beta1)))
     if args.out:

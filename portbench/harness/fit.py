@@ -1,17 +1,18 @@
-"""The program's side of a single-device cell: the fit step through the
-port's facade (``Renderer.render_silhouettes``: camera, render, NMR
-backward), the benchmark's 1 - IoU loss and the port's ``utils.optim.Adam``,
-in the form the traffic names:
+"""The program's side of a single-device cell: the fit step of the
+configuration's task (``tasks/<reference>.py``: its images through the
+port's facade and its loss) and the port's ``utils.optim.Adam`` over the
+task's leaves, in the form the traffic names:
 
 - ``whole``: the caller captures camera, render, loss and backward in one
   CUDA graph and replays it each step; the update runs after the replay.
   The port's Adam keeps its step count on the host, fills its bias
   corrections from host numbers and rebinds its moments each step, so a
   graph cannot hold it: it runs as a user runs it, op by op;
-- ``sharded``: one rank of several (``harness.sharded``): the facade's
-  camera, then the port's sharded entry over the traffic's (data, tile,
+- ``sharded``: one rank of several (``harness.sharded``): the task's
+  images through the port's sharded entry over the traffic's (data, tile,
   face) mesh, which replays the rank's own forward and backward graphs
-  with its collectives inside; loss, camera VJP and update op by op.
+  with its collectives inside; loss, camera VJP and update op by op.  A
+  task whose ``FORMS`` lack it raises.
 
 On the CPU (the tests) every form runs op by op with the port's plain
 kernels.
@@ -19,7 +20,7 @@ kernels.
 ``fault`` breaks the timed path underneath, for the tests that see the
 comparison catch it (never set by a run): "frozen" (the update returns
 the state unchanged), "half_batch" (half of the images left out, the loss
-the mean over the rest), "altered" (the first image's silhouette inverted
+the mean over the rest), "altered" (the first image inverted, 1 - x,
 where it is produced), "no_exchange" (the sharded step's gradient
 all-reduce left out; ranks on the CPU).
 """
@@ -31,14 +32,7 @@ import time
 
 import torch
 
-IOU_EPS = 1e-6
-
-
-def iou_loss(images, targets):
-    """mean over images of 1 - sum(s t) / (sum(s + t - s t) + eps)."""
-    inter = torch.sum(images * targets, dim=(1, 2))
-    union = torch.sum(images + targets - images * targets, dim=(1, 2))
-    return torch.mean(1.0 - inter / (union + IOU_EPS))
+from . import spec
 
 
 def count_nonfinite(counter, loss):
@@ -56,21 +50,27 @@ def port():
 
 
 class Fit:
-    """One fit on one device: ``params`` [O, nv, 3] (one leaf; each object
-    its rows), the renderer, the optimiser and the step in ``form``.
-    ``stages``: a dispatch mode (``harness.stages.Stages``) held over the
-    capture, for the traced run."""
+    """One fit on one device: the task's leaves (each a float32 tensor [O,
+    ...], each object its rows), the renderer, the optimiser and the step
+    in ``form``.  ``stages``: a dispatch mode
+    (``harness.stages.Stages``) held over the capture, for the traced
+    run.  ``task``: the cell's task module (``spec.cell``), by default the
+    one ``cfg`` names (``spec.task``)."""
 
-    def __init__(self, inputs, cfg, form, stages=None, mesh=None, fault=None):
+    def __init__(self, inputs, cfg, form, stages=None, mesh=None, fault=None, task=None):
         # (phase, perf_counter at its end) of the fit's set-up
         self.setup_seconds = [("start", time.perf_counter())]
         nr = port()
+        self.task = task if task is not None else spec.task(cfg)
+        if form not in self.task.FORMS:
+            raise ValueError(f"the task {cfg['reference']!r} runs the forms "
+                             f"{self.task.FORMS}, not {form!r}")
         self.nr, self.inputs, self.form, self.fault = nr, inputs, form, fault
         if fault == "no_exchange":
             # the eager sharded step's one all-reduce (ranks on the CPU)
             nr.parallel.render.all_reduce_sum = lambda t, group, kind: t
-        self.device = inputs["params"].device
-        self.leaf = inputs["params"].clone().requires_grad_(True)
+        self.leaves = {n: t.clone().requires_grad_(True) for n, t in inputs["leaves"].items()}
+        self.device = next(iter(self.leaves.values())).device
         r = nr.Renderer(self.device)
         r.image_size = inputs["image_size"]
         r.anti_aliasing = inputs["anti_aliasing"]
@@ -79,9 +79,8 @@ class Fit:
         self.renderer = r
         self.faces = inputs["faces"]
         self.targets = inputs["targets"]
-        opt = cfg["optimizer"]
-        self.adam = nr.Adam([self.leaf], lr=opt["lr"], beta1=opt["beta1"], beta2=opt["beta2"],
-                            eps=opt["eps"])
+        self.optimizer = cfg["optimizer"]
+        self.adam = self._adam()
         self.setup_seconds.append(("renderer and optimiser", time.perf_counter()))
         self.nonfinite = torch.zeros((), dtype=torch.int32, device=self.device)
         self.graph, self.loss, self.mesh = None, None, None
@@ -95,20 +94,15 @@ class Fit:
         elif form != "whole":
             raise ValueError(f"unknown form {form!r}")
 
-    def _views(self, params):
-        o, nv = params.shape[:2]
-        per = self.inputs["views"]
-        return params[:, None].expand(o, per, nv, 3).reshape(o * per, nv, 3)
+    def _adam(self):
+        """The port's Adam over the leaves, as the configuration sets it."""
+        opt = self.optimizer
+        return self.nr.Adam(list(self.leaves.values()), lr=opt["lr"], beta1=opt["beta1"],
+                            beta2=opt["beta2"], eps=opt["eps"])
 
-    def images(self, params):
-        """The silhouettes [B, S, S] of ``params`` through the facade (the
-        sharded entry behind the facade's camera on a mesh)."""
-        if self.mesh is None:
-            images = self.renderer.render_silhouettes(self._views(params), self.faces)
-        else:
-            ndc = self.renderer.transform_vertices(self._views(params))
-            images = self.nr.parallel.rasterize_silhouettes_sharded(ndc, self.faces, None,
-                                                                    self.hp, mesh=self.mesh)
+    def images(self, leaves):
+        """The task's images of ``leaves`` through the facade."""
+        images = self.task.images(self, leaves)
         if self.fault == "altered":
             images = torch.cat([1.0 - images[:1], images[1:]])
         return images
@@ -120,13 +114,17 @@ class Fit:
                 for g in self.nr.ops.graphs.kept_graphs(self.faces) if hasattr(g, "inline")]
 
     def forward_loss(self):
-        images, targets = self.images(self.leaf), self.targets
+        images, targets = self.images(self.leaves), self.targets
         if self.fault == "half_batch":
             half = images.shape[0] // 2
             images, targets = images[:half], targets[:half]
-        loss = iou_loss(images, targets)
+        loss = self.task.loss(images, targets)
         count_nonfinite(self.nonfinite, loss)
         return loss
+
+    def zero_grad(self):
+        for leaf in self.leaves.values():
+            leaf.grad = None
 
     def _capture(self):
         graphs = self.nr.ops.graphs
@@ -136,12 +134,12 @@ class Fit:
         # per faces tensor (K4's slot table, the binned route's bin totals)
         with torch.cuda.stream(side), graphs.eager():
             for k in range(2):
-                self.leaf.grad = None
+                self.zero_grad()
                 self.forward_loss().backward()
                 torch.cuda.synchronize()
                 self.setup_seconds.append((f"eager step {k + 1}", time.perf_counter()))
         torch.cuda.current_stream().wait_stream(side)
-        self.leaf.grad = None
+        self.zero_grad()
         self.nonfinite.zero_()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
@@ -150,11 +148,12 @@ class Fit:
         self.setup_seconds.append(("capture", time.perf_counter()))
 
     def backward(self):
-        """Camera, render, loss and backward: ``leaf.grad`` and ``loss``."""
+        """Camera, render, loss and backward: each leaf's ``grad`` and
+        ``loss``."""
         if self.graph is not None:
             self.graph.replay()
             return
-        self.leaf.grad = None
+        self.zero_grad()
         self.loss = self.forward_loss()
         self.loss.backward()
 
@@ -171,38 +170,42 @@ class Fit:
         device."""
         return [self.backward, self.update]
 
+    def _moment(self, leaf):
+        # an optimiser that took no step holds no moment: zero
+        state = self.adam.state.get(leaf, {})
+        return state["m"].detach().clone() if "m" in state else torch.zeros_like(leaf)
+
     def first_steps(self, n=3):
         """``n`` steps from the seed's state through the step the window
         runs: dict(params0, losses [n] (device), m1 (Adam's first moment
-        after step 1), params (after step n))."""
-        params0 = self.leaf.detach().clone()
+        after step 1), params (after step n)), each but the losses a dict
+        of one tensor a leaf."""
+        params0 = {name: leaf.detach().clone() for name, leaf in self.leaves.items()}
         losses, m1 = [], None
         for k in range(n):
             self.step()
             losses.append(self.loss.detach().clone())
             if k == 0:
-                # an optimiser that took no step holds no moment: zero
-                state = self.adam.state.get(self.leaf, {})
-                m1 = state["m"].detach().clone() if "m" in state else torch.zeros_like(self.leaf)
+                m1 = {name: self._moment(leaf) for name, leaf in self.leaves.items()}
         return dict(params0=params0, losses=torch.stack(losses), m1=m1,
-                    params=self.leaf.detach().clone())
+                    params={name: leaf.detach().clone() for name, leaf in self.leaves.items()})
 
     def reset(self, inputs):
         """Start again from ``inputs`` (another seed's, the same sizes)
-        through the same step: the parameters, cameras and targets copied
-        into the tensors the step holds, a fresh optimiser."""
+        through the same step: the leaves and every tensor of the inputs
+        copied into the tensors the step holds, a fresh optimiser."""
         with torch.no_grad():
-            self.leaf.copy_(inputs["params"])
-            self.renderer.viewpoints.copy_(inputs["eyes"])
-            self.targets.copy_(inputs["targets"])
+            for name, leaf in self.leaves.items():
+                leaf.copy_(inputs["leaves"][name])
+            for key, held in self.inputs.items():
+                if isinstance(held, torch.Tensor):
+                    held.copy_(inputs[key])
         if self.graph is None:
-            self.leaf.grad = None
-        opt = self.adam.defaults
-        self.adam = self.nr.Adam([self.leaf], lr=opt["lr"], beta1=opt["beta1"],
-                                 beta2=opt["beta2"], eps=opt["eps"])
+            self.zero_grad()
+        self.adam = self._adam()
         self.nonfinite.zero_()
 
     def drop(self):
-        """Free the program's state (graph, leaf, optimiser)."""
+        """Free the program's state (graph, leaves, optimiser)."""
         self.graph = self.loss = None
-        self.adam = self.leaf = self.renderer = None
+        self.adam = self.leaves = self.renderer = None

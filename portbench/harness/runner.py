@@ -1,5 +1,11 @@
 """One run of a cell: set-up, the measured (or traced) window, the
-comparison with the reference, and the result line.
+comparison with the reference, and the result line.  What the
+configuration's fit makes and does comes from its task and reference
+(``spec.task``, ``spec.reference``).  A traced run hands its per-layer
+readers (``metrics/``) a context: the profile's readings, the port's
+counters copied right after the window (``counters``) and, from a second
+fit captured with the port's tracing on once the window's fit is dropped,
+each span's device ms a step (``spans``).
 
 Single-device cells run here; a cell whose traffic shards the step over
 cards runs one rank per card (``harness.sharded``) and comes back here for
@@ -9,15 +15,13 @@ its metrics and its comparison.
 from __future__ import annotations
 
 import gc
-import importlib
 import math
 import sys
 import time
-from pathlib import Path
 
 import torch
 
-from ..yardstick import roofline, timeline
+from ..yardstick import timeline
 from . import check, clocks, spec, trace
 from .fit import Fit, port
 from .scene import make_inputs
@@ -28,9 +32,10 @@ FIRST_STEPS = 3
 TRACE_SECONDS, TRACE_MIN, TRACE_MAX = 1.0, 20, 200
 # steps timed on an idle device for host_enqueue_ms
 HOST_STEPS = 20
+# replays of the span fit, each read by the port's trace.sample()
+SPAN_STEPS = 50
 FORBIDDEN = ("jax", "jaxlib", "flax", "neural_renderer_v2_pytorch_tpu")
 MIB = 2 ** 20
-REFERENCES = Path(__file__).resolve().parents[1] / "reference"
 
 
 class ForbiddenLoaded(RuntimeError):
@@ -50,16 +55,6 @@ def forbidden_modules(names=FORBIDDEN):
     """Loaded modules whose top-level name, compared whole, is one of
     ``names`` (JAX's and the JAX package's)."""
     return sorted(m for m in list(sys.modules) if m.split(".")[0] in names)
-
-
-def reference_of(cfg):
-    """The plain reference the configuration names: the module
-    ``reference/<cfg['reference']>.py``."""
-    name = cfg["reference"]
-    if not (REFERENCES / f"{name}.py").is_file():
-        known = sorted(p.stem for p in REFERENCES.glob("*.py") if p.stem != "__init__")
-        raise ValueError(f"no reference named {name!r} (portbench/reference has {known})")
-    return importlib.import_module(f"portbench.reference.{name}")
 
 
 def build_kernels():
@@ -132,7 +127,7 @@ def traced_window(fit, step_s, marked):
             torch.cuda._sleep(0)
         fit.update()
 
-    prof = trace.traced(step, steps)
+    prof = trace.traced(step, steps, fit.device)
     t = trace.read(prof)
     busy_us, window_us = trace.busy(t)
     return dict(steps=steps, trace=t, busy_us=busy_us, window_us=window_us,
@@ -141,23 +136,43 @@ def traced_window(fit, step_s, marked):
 
 def program_readings(first):
     """The program's first steps on the host, for the comparison."""
-    return {k: v.detach().cpu() for k, v in first.items()}
+    return {k: ({n: t.detach().cpu() for n, t in v.items()} if isinstance(v, dict)
+                else v.detach().cpu()) for k, v in first.items()}
 
 
-def reference_run(cfg, inputs, params0, steps=FIRST_STEPS, dtype=torch.float32, fault=None):
-    """The reference's first steps from the same inputs (the seed's
-    parameters ``params0``)."""
-    ref_inputs = dict(inputs, params=params0.to(inputs["params"].device),
-                      faces=inputs["faces"].long())
-    return reference_of(cfg).run(ref_inputs, steps, dtype=dtype, fault=fault)
+def reference_run(cell, inputs, params0, steps=FIRST_STEPS, dtype=torch.float32, fault=None):
+    """The first steps of the cell's reference from the same inputs, its
+    leaves the seed's ``params0`` (one tensor a leaf) and its optimiser
+    the configuration's (``inputs["optimizer"]``: lr, beta1, beta2,
+    eps)."""
+    device = inputs["faces"].device
+    ref_inputs = dict(inputs, leaves={n: t.to(device) for n, t in params0.items()},
+                      optimizer=cell["config"]["optimizer"])
+    return cell["reference"].run(ref_inputs, steps, dtype=dtype, fault=fault)
 
 
-def step_work(cfg, inputs, params0):
-    """The frozen counts of the step's functions at the seed's parameters."""
-    with torch.no_grad():
-        ndc = reference_of(cfg).views_ndc(params0.to(inputs["params"].device), inputs)
-    size = inputs["image_size"] * (2 if inputs["anti_aliasing"] else 1)
-    return roofline.step_work(ndc, inputs["faces"], size)
+def span_ms(inputs, cell):
+    """{span: device ms a step} of the port's spans (``utils/trace.py``)
+    over SPAN_STEPS steps of a second fit, captured with tracing on and
+    each replay read by ``trace.sample()``; tracing is off again and the
+    fit dropped on return.  The spans of its set-up (eager warm-up, first
+    steps) are not read."""
+    trace_port = port().utils.trace
+    trace_port.enable()
+    fit = None
+    try:
+        fit = Fit(inputs, cell["config"], cell["traffic"]["form"], task=cell["task"])
+        for _ in range(FIRST_STEPS):            # as the window's fit, before it
+            fit.step()
+        trace_port.clear()
+        for _ in range(SPAN_STEPS):
+            fit.step()
+            trace_port.sample()
+        return trace_port.device_ms()
+    finally:
+        trace_port.disable()
+        if fit is not None:
+            fit.drop()
 
 
 def metric_values(entries, ctx):
@@ -177,18 +192,20 @@ def log_phases(phases):
                                for (_, a), (name, b) in zip(phases, phases[1:])))
 
 
-def cell_with(name, overrides=None, workload=None):
+def cell_with(name, overrides=None, workload=None, home=None):
     """The cell (``spec.cell``), its configuration updated with
     ``overrides`` (the tests' smaller sizes)."""
-    cell = spec.cell(name, workload)
+    cell = spec.cell(name, workload, home)
     cell["config"].update(overrides or {})
     return cell
 
 
-def single(name, seed, seconds, trace_on, started, device="cuda", overrides=None, fault=None):
+def single(name, seed, seconds, trace_on, started, device="cuda", overrides=None, fault=None,
+           workload=None, home=None):
     """One run of a single-device cell; returns the result line (a dict).
-    ``device``, ``overrides`` and ``fault``: the tests' CPU runs."""
-    cell = cell_with(name, overrides)
+    ``device``, ``overrides``, ``fault``, ``workload`` and ``home``
+    (``spec.cell``): the tests' CPU runs."""
+    cell = cell_with(name, overrides, workload, home)
     cfg, traffic = cell["config"], cell["traffic"]
     device = torch.device(device)
     cuda = device.type == "cuda"
@@ -198,10 +215,10 @@ def single(name, seed, seconds, trace_on, started, device="cuda", overrides=None
         device = torch.device("cuda", 0)
         torch.cuda.init()
     phases.append(("kernels", time.time()))
-    inputs = make_inputs(cfg, seed, device)
+    inputs = make_inputs(cfg, seed, device, cell["task"])
     phases.append(("inputs", time.time()))
-    stages = Stages() if trace_on and traffic["form"] == "whole" else None
-    fit = Fit(inputs, cfg, traffic["form"], stages, fault=fault)
+    stages = Stages() if trace_on and traffic["form"] == "whole" and cuda else None
+    fit = Fit(inputs, cfg, traffic["form"], stages, fault=fault, task=cell["task"])
     phases.append(("capture", time.time()))
     marks = fit.setup_seconds
     log("[capture] " + ", ".join(f"{n} {b - a:.3f} s" for (_, a), (n, b) in zip(marks, marks[1:])))
@@ -214,27 +231,30 @@ def single(name, seed, seconds, trace_on, started, device="cuda", overrides=None
         w = window(fit.step, device, lambda n, elapsed: elapsed < seconds)
     else:
         w = traced_window(fit, time_steps(fit.step, 5, device), stages is not None)
+        counters = port().utils.trace.counters()
     if cuda:
         clocks.log("after window")
     attempted, failed = w["steps"], int(fit.nonfinite)
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
-    host_ms = trace.host_ms(fit.parts(), HOST_STEPS) if trace_on else None
+    host_ms = trace.host_ms(fit.parts(), HOST_STEPS, device) if trace_on else None
     labels = stages.captured + [UPDATE] if stages is not None else None
     program = program_readings(first)
     fit.drop()
     del fit
-    gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
+    free(device)
 
     traced = None
     if not trace_on:
         metrics = end_to_end(cell, inputs, [w], started, peak)
     else:
-        ctx = dict(kind=torch.cuda.get_device_name(0), busy_us=[w["busy_us"]],
+        spans = span_ms(inputs, cell)
+        free(device)
+        log(f"[spans] device ms a step of the port's spans: {spans}")
+        work = cell["task"].step_work(cfg, inputs, program["params0"])
+        ctx = dict(kind=device_kind(device), busy_us=[w["busy_us"]],
                    window_us=[w["window_us"]], host_ms=[host_ms], nccl_ms=[w["nccl_ms"]],
-                   step_ms=w["step_ms"], work=step_work(cfg, inputs, program["params0"]),
-                   stages=None)
+                   step_ms=w["step_ms"], work=work, stages=None, counters=counters,
+                   spans=spans)
         if labels is not None:
             ctx["stages"] = stage_ms(w["trace"]["records"], labels, w["steps"])
             log(f"[stages] ms per step: {ctx['stages']}")
@@ -242,9 +262,20 @@ def single(name, seed, seconds, trace_on, started, device="cuda", overrides=None
         metrics = metric_values(cell["per_layer"], ctx)
         traced = dict(busy_us=w["busy_us"], window_us=w["window_us"],
                       breakdown=trace.breakdown(w["trace"]))
-    ref = reference_run(cfg, inputs, program["params0"])
+    ref = reference_run(cell, inputs, program["params0"])
     numbers = check.readings(program, ref, cfg["optimizer"]["beta1"])
     return finish(cell, numbers, attempted, failed, metrics, 1, peak, traced, device)
+
+
+def free(device):
+    """Collect what was dropped and hand the cached blocks back."""
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def device_kind(device):
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
 
 def end_to_end(cell, inputs, windows, started, peak):
@@ -272,9 +303,9 @@ def finish(cell, numbers, attempted, failed, metrics, count, peak, traced, devic
     correct = correct and failed == 0
     for k, c in checks.items():
         log(f"[check] {k} {c['value']!r} limit {c['limit']!r}")
-    kind = torch.cuda.get_device_name(0) if device.type == "cuda" else "cpu"
     platform = "gpu" if device.type == "cuda" else "cpu"
-    info = dict(platform=platform, kind=kind, count=count, memory_peak_bytes=int(peak))
+    info = dict(platform=platform, kind=device_kind(device), count=count,
+                memory_peak_bytes=int(peak))
     result = dict(correct=correct, attempted=attempted, failed=failed, metrics=metrics,
                   device=info)
     if traced is not None:

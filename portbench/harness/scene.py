@@ -1,12 +1,12 @@
-"""The inputs of one run, made by the benchmark from a configuration and
-``--seed`` and handed alike to the program and to the reference: the
-mesh, the starting vertices (a seeded perturbation of the template, made
-on the device by a ``torch.Generator``), the cameras, and the target
-silhouettes (drawn in NumPy).
+"""What every task's inputs share, made by the benchmark from a
+configuration and ``--seed`` and handed alike to the program and to the
+reference: the template meshes (with the checks of the vertex and face
+counts a configuration states), the cameras, the types and controls a
+configuration may name, and :func:`make_inputs`, which checks those and
+hands the rest to the configuration's task (``tasks/<reference>.py``).
 
 Every seed gives the same sizes: the same mesh, batch, image size and
-number of views; only the perturbation, the choice of azimuths and the
-targets change.
+number of views; only what each task draws from the seed changes.
 """
 
 from __future__ import annotations
@@ -16,13 +16,14 @@ import math
 import numpy as np
 import torch
 
+from . import spec
+
 SEED_MODULUS = 2 ** 63
 # what a configuration may name, and what the benchmark makes of it
 DTYPES = {"float32": torch.float32}
 # the control's type: the nearest precision below the configuration's
 # (no matrix product in the step, so not TF32)
 CONTROLS = {"float32": torch.bfloat16}
-LOSSES = ("iou",)
 OPTIMIZERS = ("adam",)
 
 
@@ -77,6 +78,17 @@ def mesh(spec):
     return MESHES[spec["kind"]](**args)
 
 
+def template(cfg):
+    """The configuration's template mesh (vertices f32 [nv, 3], faces i32
+    [nf, 3]).  Raises ValueError where it has other counts than the
+    configuration states."""
+    v, f = mesh(cfg["mesh"])
+    if "vertices" in cfg and (len(v), len(f)) != (cfg["vertices"], cfg["faces"]):
+        raise ValueError(f"the mesh has {len(v)} vertices and {len(f)} faces, "
+                         f"the configuration states {cfg['vertices']} and {cfg['faces']}")
+    return v, f
+
+
 def eyes_from_angles(distance, elevation, azimuths):
     """Camera positions [len(azimuths), 3] float32 for angles in degrees
     (y up; azimuth 0 looks along +z from -z)."""
@@ -98,57 +110,26 @@ def view_azimuths(cfg, rng):
     return (picks.reshape(-1) * (360.0 / n)).astype(np.float64)
 
 
-def targets(cfg, rng, batch):
-    """Target silhouettes [batch, S, S] float32 in {0, 1}: an ellipse per
-    image, its radii ``target_radius`` times U(0.7, 1.3), turned by a
-    uniform angle, its centre U(-0.1, 0.1) from the middle (NDC units)."""
-    size = cfg["image_size"]
-    r0 = cfg["target_radius"]
-    radii = r0 * rng.uniform(0.7, 1.3, (batch, 2))
-    theta = rng.uniform(0.0, np.pi, batch)
-    centre = rng.uniform(-0.1, 0.1, (batch, 2))
-    g = ((2.0 * np.arange(size) + 1.0 - size) / size).astype(np.float32)
-    x, y = g[None, None, :], g[None, :, None]
-    dx, dy = x - centre[:, 0, None, None], y - centre[:, 1, None, None]
-    c, s = np.cos(theta)[:, None, None], np.sin(theta)[:, None, None]
-    u, v = c * dx + s * dy, -s * dx + c * dy
-    inside = (u / radii[:, 0, None, None]) ** 2 + (v / radii[:, 1, None, None]) ** 2 <= 1.0
-    return inside.astype(np.float32)
+def cameras(cfg, rng):
+    """Each image's camera position [B, 3] float32: ``views_per_object``
+    of the evenly spaced azimuths for each object (:func:`view_azimuths`)
+    at the configuration's elevation and distance."""
+    return eyes_from_angles(cfg["distance"], cfg["elevation"], view_azimuths(cfg, rng))
 
 
-def _setting(cfg, key, allowed):
+def setting(cfg, key, allowed):
+    """Raise ValueError where ``cfg[key]`` is not one of ``allowed``."""
     if cfg[key] not in allowed:
         raise ValueError(f"{key} {cfg[key]!r}: the benchmark makes only {sorted(allowed)}")
 
 
-def make_inputs(cfg, seed, device):
-    """The run's inputs on ``device``: dict(params [O, nv, 3] float32,
-    faces [nf, 3] int32, eyes [B, 3], targets [B, S, S], views,
-    viewing_angle, image_size, anti_aliasing, lr, beta1, beta2, eps,
-    batch).  Raises ValueError where the configuration names a type, a
-    loss or an optimiser the benchmark does not make, or where its mesh
-    has other counts than it states."""
-    _setting(cfg, "dtype", DTYPES)
-    _setting(cfg, "loss", LOSSES)
-    _setting(cfg["optimizer"], "name", OPTIMIZERS)
-    seed = int(seed) % SEED_MODULUS
-    rng = np.random.default_rng(seed)
-    v, f = mesh(cfg["mesh"])
-    if "vertices" in cfg and (len(v), len(f)) != (cfg["vertices"], cfg["faces"]):
-        raise ValueError(f"the mesh has {len(v)} vertices and {len(f)} faces, "
-                         f"the configuration states {cfg['vertices']} and {cfg['faces']}")
-    objects, per = cfg["objects"], cfg["views_per_object"]
-    batch = objects * per
-    azimuths = view_azimuths(cfg, rng)
-    eyes = eyes_from_angles(cfg["distance"], cfg["elevation"], azimuths)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    base = torch.tensor(v, dtype=DTYPES[cfg["dtype"]], device=device)
-    jitter = torch.rand((objects, v.shape[0], 1), generator=gen, device=device)
-    params = base[None] * (1.0 + cfg["perturbation"] * (2.0 * jitter - 1.0))
-    return dict(params=params, faces=torch.tensor(f, device=device),
-                eyes=torch.tensor(eyes, device=device),
-                targets=torch.tensor(targets(cfg, rng, batch), device=device),
-                views=per, viewing_angle=cfg["viewing_angle"], image_size=cfg["image_size"],
-                anti_aliasing=cfg["anti_aliasing"], batch=batch,
-                **{k: cfg["optimizer"][k] for k in ("lr", "beta1", "beta2", "eps")})
+def make_inputs(cfg, seed, device, task=None):
+    """The run's inputs on ``device``: the ``make_inputs`` of ``task`` (the
+    cell's task module, ``spec.cell``; by default the one ``cfg`` names,
+    see ``tasks/``) from ``seed`` reduced modulo 2**63.  Raises ValueError
+    where the configuration names a type or an optimiser the benchmark
+    does not make, or a task it does not have (``spec.task``)."""
+    setting(cfg, "dtype", DTYPES)
+    setting(cfg["optimizer"], "name", OPTIMIZERS)
+    task = task if task is not None else spec.task(cfg)
+    return task.make_inputs(cfg, int(seed) % SEED_MODULUS, device)

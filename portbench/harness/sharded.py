@@ -64,6 +64,14 @@ def planned(first, seconds, device):
     return go
 
 
+def broadcast_leaves(inputs):
+    """Every rank starts from rank 0's leaves, bit for bit."""
+    import torch.distributed as dist
+
+    for leaf in inputs["leaves"].values():
+        dist.broadcast(leaf, 0)
+
+
 def rank_main(name, seed, seconds, trace_on, overrides=None, fault=None, started=None,
               guard=runner.FORBIDDEN, workload=None):
     """One rank's run; returns its readings (host objects), with the loaded
@@ -81,16 +89,15 @@ def rank_main(name, seed, seconds, trace_on, overrides=None, fault=None, started
         device = torch.device("cuda", torch.cuda.current_device())
     else:
         device = torch.device("cpu")
-    inputs = make_inputs(cfg, seed, device)
-    # every rank starts from rank 0's parameters, bit for bit
-    dist.broadcast(inputs["params"], 0)
-    fit = Fit(inputs, cfg, "sharded", mesh=traffic["mesh"], fault=fault)
+    inputs = make_inputs(cfg, seed, device, cell["task"])
+    broadcast_leaves(inputs)
+    fit = Fit(inputs, cfg, "sharded", mesh=traffic["mesh"], fault=fault, task=cell["task"])
     # the signature's first call runs eagerly, its second captures the
     # rank's chain, its third replays it
     phases.append(("inputs", time.time()))
     for _ in range(3):
         fit.backward()
-    fit.leaf.grad = None
+    fit.zero_grad()
     fit.nonfinite.zero_()
     phases.append(("eager call, capture, replay", time.time()))
     first = fit.first_steps(runner.FIRST_STEPS)
@@ -110,12 +117,12 @@ def rank_main(name, seed, seconds, trace_on, overrides=None, fault=None, started
         out["attempted"] = out["window"]["steps"]
     else:
         dist.barrier()
-        prof = trace.traced(fit.step, TRACED_STEPS)
+        prof = trace.traced(fit.step, TRACED_STEPS, device)
         t = trace.read(prof)
         busy_us, window_us = trace.busy(t)
         out.update(busy_us=busy_us, window_us=window_us, attempted=TRACED_STEPS,
                    nccl_ms=trace.nccl_ms(t, TRACED_STEPS),
-                   host_ms=trace.host_ms(fit.parts(), runner.HOST_STEPS),
+                   host_ms=trace.host_ms(fit.parts(), runner.HOST_STEPS, device),
                    breakdown=trace.breakdown(t) if rank == 0 else None)
     if rank == 0 and cuda:
         clocks.log("after window")
@@ -154,7 +161,7 @@ def run(name, seed, seconds, trace_on, started, device="cuda", overrides=None, f
     runner.log(f"[collectives] kinds of each rank's step: {ranks[0]['kinds']}")
     if device.type == "cuda":
         device = torch.device("cuda", 0)
-    inputs = make_inputs(cfg, seed, device)
+    inputs = make_inputs(cfg, seed, device, cell["task"])
     peak = max(r["peak"] for r in ranks)
     failed = max(r["failed"] for r in ranks)
     attempted = ranks[0]["attempted"]
@@ -162,24 +169,29 @@ def run(name, seed, seconds, trace_on, started, device="cuda", overrides=None, f
         metrics = runner.end_to_end(cell, inputs, [r["window"] for r in ranks], started, peak)
         traced = None
     else:
-        ctx = dict(kind=torch.cuda.get_device_name(0),
+        ctx = dict(kind=runner.device_kind(device),
                    busy_us=[r["busy_us"] for r in ranks],
                    window_us=[r["window_us"] for r in ranks],
                    host_ms=[r["host_ms"] for r in ranks],
                    nccl_ms=[r["nccl_ms"] for r in ranks], step_ms=None, work=None,
-                   stages=None)
+                   stages=None, counters=None, spans=None)
         runner.log(f"[collectives] NCCL device ms per step by rank: {ctx['nccl_ms']}")
         metrics = runner.metric_values(cell["per_layer"], ctx)
         n = len(ranks)
         traced = dict(busy_us=sum(ctx["busy_us"]) / n, window_us=sum(ctx["window_us"]) / n,
                       breakdown=ranks[0]["breakdown"])
     firsts = [r["first"] for r in ranks]
-    ref = runner.reference_run(cfg, inputs, firsts[0]["params0"])
-    numbers = {}
-    for prog in firsts:
-        for k, v in check.readings(prog, ref, cfg["optimizer"]["beta1"]).items():
-            numbers[k] = max(numbers.get(k, 0.0), v)
-    numbers["rank_gap"] = check.rank_gap([p["params"] for p in firsts],
-                                                firsts[0]["params0"])
+    ref = runner.reference_run(cell, inputs, firsts[0]["params0"])
+    numbers = ranks_readings(firsts, ref, cfg["optimizer"]["beta1"])
     return runner.finish(cell, numbers, attempted, failed, metrics, world, peak, traced,
                          device)
+
+
+def ranks_readings(firsts, ref, beta1):
+    """The numbers compared over ranks: each the worst rank's (NaN where
+    any rank's is), and ``rank_gap`` (``firsts``: each rank's first steps,
+    rank 0's first)."""
+    per_rank = [check.readings(prog, ref, beta1) for prog in firsts]
+    numbers = {k: check.worst(r[k] for r in per_rank) for k in per_rank[0]}
+    numbers["rank_gap"] = check.rank_gap([p["params"] for p in firsts], firsts[0]["params0"])
+    return numbers

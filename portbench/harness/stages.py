@@ -36,8 +36,9 @@ BACKWARD = {
     "_ResolveAndGather.backward": "pixel -> face scatter (K3)",
     "_GatherFaceVertices.backward": "vertex gradient sum (K4)",
 }
-# the benchmark's own functions around the program's
-HARNESS = {"Fit._views": "camera", "iou_loss": "loss", "count_nonfinite": "loss"}
+# the benchmark's own functions around the program's, by the names that
+# every task gives them (``tasks/__init__.py``)
+HARNESS = {"views": "camera", "loss": "loss", "count_nonfinite": "loss"}
 # a backward operation of PyTorch's own (no known function on the stack)
 # belongs to its node's stage where the node is named here, else to the
 # stage before it: the loss's VJP first, the camera's after K4

@@ -17,21 +17,28 @@ STEP = "portbench.step"
 TOP = 10
 
 
-def traced(fit_step, steps):
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def traced(fit_step, steps, device):
     """Profile ``steps`` calls of ``fit_step`` (each under a host range
     named STEP) inside one range named WINDOW that ends in a synchronize.
-    The device's activity only (its operations and the CUDA runtime calls
-    that launched or waited for them): recording every host operation
-    would slow the host-paced part of a step.  Returns the profiler."""
+    On a card, its activity only (its operations and the CUDA runtime
+    calls that launched or waited for them): recording every host
+    operation would slow the host-paced part of a step.  On the CPU (the
+    tests) the host's.  Returns the profiler."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    cuda = torch.device(device).type == "cuda"
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]) as prof:
         with record_function(WINDOW):
             for _ in range(steps):
                 with record_function(STEP):
                     fit_step()
-            torch.cuda.synchronize()
+            _sync(device)
     return prof
 
 
@@ -94,16 +101,35 @@ def nccl_ms(trace, steps):
     return total / 1e3 / steps
 
 
-def host_ms(parts, steps):
+def host_ms(parts, steps, device):
     """Host ms per step of each call of ``parts`` (a step's calls in
     order), each made on an idle device: the host's own cost of the step,
     without the waits that a call which synchronises would add."""
     total = 0.0
     for _ in range(steps):
         for part in parts:
-            torch.cuda.synchronize()
+            _sync(device)
             t0 = time.perf_counter()
             part()
             total += time.perf_counter() - t0
-    torch.cuda.synchronize()
+    _sync(device)
     return total * 1e3 / steps
+
+
+def bin_counts(ctx):
+    """K7's capped binnings (dict(binnings, pairs, slots, overflow_bins),
+    kept on the card by K7 itself at every replay of a graph that holds
+    one, a caller's capture too): ``ctx["counters"]["bins"]``, the port's
+    counters copied right after the traced window, so that no later
+    binning (the span fit's) reaches them; in a context without
+    ``counters``, the port's counts since the process started
+    (``ops.graphs.bin_counters``).  None where the port keeps no such
+    counts or made no capped binning (the tiled route)."""
+    if "counters" in ctx:
+        counts = (ctx["counters"] or {}).get("bins")
+    else:
+        from .fit import port
+
+        read = getattr(port().ops.graphs, "bin_counters", None)
+        counts = read() if read is not None else None
+    return counts if counts and counts.get("binnings") else None

@@ -307,19 +307,22 @@ def forward_images(params, inputs):
 
 
 def run(inputs, steps=3, dtype=torch.float32, fault=None):
-    """``steps`` steps of the fit from ``inputs``: dict(params [O, nv, 3]
-    float32, faces [nf, 3] int64, eyes [B, 3], targets [B, S, S], views,
-    viewing_angle, image_size, anti_aliasing, lr, beta1, beta2, eps).
-    Returns dict(losses [steps], grad1 (the first step's gradient), params
-    (after the last step)), float32.
+    """``steps`` steps of the fit from ``inputs``: dict(leaves
+    {"vertices": [O, nv, 3] float32}, faces [nf, 3], eyes [B, 3], targets
+    [B, S, S], views, viewing_angle, image_size, anti_aliasing, optimizer
+    (lr, beta1, beta2, eps)).  Returns dict(losses
+    [steps], grad1 {"vertices": the first step's gradient}, params
+    {"vertices": after the last step}), float32.
 
     ``fault`` plants one of the faults the correctness check must catch:
     "half_batch" (the loss over the first half of the images only),
     "altered" (the first image's silhouette inverted, 1 - s, where it is
     produced), "frozen" (the parameters never change)."""
-    p = inputs["params"].to(dtype)
+    p = inputs["leaves"]["vertices"].to(dtype)
+    inputs = dict(inputs, faces=inputs["faces"].long())
     eyes, targets = inputs["eyes"].to(dtype), inputs["targets"].to(dtype)
-    adam = Adam(inputs["lr"], inputs["beta1"], inputs["beta2"], inputs["eps"])
+    opt = inputs["optimizer"]
+    adam = Adam(opt["lr"], opt["beta1"], opt["beta2"], opt["eps"])
     losses, grad1 = [], None
     for _ in range(steps):
         leaf = p.detach().requires_grad_(True)
@@ -337,4 +340,4 @@ def run(inputs, steps=3, dtype=torch.float32, fault=None):
             grad1 = g.detach().float()
         if fault != "frozen":
             p = adam.step(leaf.detach(), g.detach())
-    return dict(losses=losses, grad1=grad1, params=p.detach().float())
+    return dict(losses=losses, grad1={"vertices": grad1}, params={"vertices": p.detach().float()})

@@ -6,8 +6,9 @@ Runs one cell of ``BENCHMARK.json`` from the root of a checkout: set-up
 (kernels built or loaded, inputs made from the seed, the step captured and
 warmed, its first three steps taken), then a window of ``--seconds`` of
 steps in a closed loop (``--trace 0``: the end-to-end metrics) or a short
-profiled window (``--trace 1``: the per-layer metrics), then the first
-steps compared with the plain reference.  The last line of standard output
+profiled window (``--trace 1``: the per-layer metrics, with the port's
+spans read over a second fit once the window's is dropped), then the
+first steps compared with the plain reference.  The last line of standard output
 is one JSON object; the numbers compared, beside their limits, are the last
 lines of standard error and the result's last key.
 

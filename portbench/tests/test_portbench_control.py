@@ -14,7 +14,8 @@ from .common import SEED, SMALL, UNLISTED
 
 def as_program(run, params0, beta1):
     return dict(params0=params0, losses=torch.tensor(run["losses"]),
-                m1=run["grad1"] * (1.0 - beta1), params=run["params"])
+                m1={n: g * (1.0 - beta1) for n, g in run["grad1"].items()},
+                params=run["params"])
 
 
 @pytest.mark.parametrize("name", sorted(SMALL))
@@ -24,9 +25,10 @@ def test_bfloat16_control_is_not_correct(name, seed):
     cfg = cell["config"]
     beta1 = cfg["optimizer"]["beta1"]
     inputs = make_inputs(cfg, seed, "cpu")
-    ref = runner.reference_run(cfg, inputs, inputs["params"])
+    leaves = inputs["leaves"]
+    ref = runner.reference_run(cell, inputs, leaves)
     assert CONTROLS[cfg["dtype"]] is torch.bfloat16
-    control = runner.reference_run(cfg, inputs, inputs["params"], dtype=CONTROLS[cfg["dtype"]])
-    numbers = check.readings(as_program(control, inputs["params"], beta1), ref, beta1)
+    control = runner.reference_run(cell, inputs, leaves, dtype=CONTROLS[cfg["dtype"]])
+    numbers = check.readings(as_program(control, leaves, beta1), ref, beta1)
     ok, checks = check.judge(numbers, cell["limits"]["limits"])
     assert not ok, checks

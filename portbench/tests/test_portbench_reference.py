@@ -9,9 +9,10 @@ import numpy as np
 import pytest
 import torch
 
-from portbench.harness import check, runner
+from portbench.harness import check, runner, spec
 from portbench.harness.scene import icosphere, make_inputs, torus
 from portbench.reference import silhouette_fit as ref
+from portbench.tasks import silhouette_fit as task
 
 from .common import SEED, SMALL, UNLISTED
 
@@ -65,11 +66,12 @@ def test_fit_matches_the_port(name):
 
     fit = Fit(inputs, cfg, "whole")
     with torch.no_grad():
-        got = fit.images(fit.leaf)
-        want = ref.forward_images(inputs["params"], dict(inputs, faces=inputs["faces"].long()))
+        got = fit.images(fit.leaves)
+        want = ref.forward_images(inputs["leaves"]["vertices"],
+                                  dict(inputs, faces=inputs["faces"].long()))
     assert torch.equal(got, want)
     program = runner.program_readings(fit.first_steps(runner.FIRST_STEPS))
-    reference = runner.reference_run(cfg, inputs, program["params0"])
+    reference = runner.reference_run(cell, inputs, program["params0"])
     numbers = check.readings(program, reference, cfg["optimizer"]["beta1"])
     ok, checks = check.judge(numbers, cell["limits"]["limits"])
     assert ok, checks
@@ -80,14 +82,15 @@ def test_reference_is_short_beside_the_window():
     cell = runner.cell_with("recon642-b128-whole", SMALL["recon642-b128-whole"])
     inputs = make_inputs(cell["config"], SEED, "cpu")
     t0 = time.perf_counter()
-    runner.reference_run(cell["config"], inputs, inputs["params"])
+    runner.reference_run(cell, inputs, inputs["leaves"])
     assert time.perf_counter() - t0 < 10.0
 
 
 def test_each_configuration_names_its_reference():
     for name in sorted(SMALL):
-        cfg = runner.cell_with(name, workload=UNLISTED.get(name))["config"]
-        assert runner.reference_of(cfg) is ref
+        cell = runner.cell_with(name, workload=UNLISTED.get(name))
+        assert spec.reference(cell["config"]) is cell["reference"] is ref
+        assert spec.task(cell["config"]) is cell["task"] is task
 
 
 @pytest.mark.parametrize("key, value", [("reference", "rgb_fit"), ("dtype", "bfloat16"),
@@ -97,6 +100,6 @@ def test_a_setting_the_benchmark_does_not_make_raises(key, value):
     cfg = dict(cell["config"], **{key: value})
     with pytest.raises(ValueError, match=key):
         if key == "reference":
-            runner.reference_of(cfg)
+            spec.reference(cfg)
         else:
             make_inputs(cfg, SEED, "cpu")
