@@ -84,7 +84,9 @@ def face_attributes(vertices, faces, face_vertices, params):
     faces_textures = params.vertices_textures[:, params.faces_textures.long()]
     attrs = [faces_textures.reshape(bs, nf, 6)]
     if params.lights is not None:
-        normals = shading.face_vertex_normals(vertices, faces, face_vertices)
+        with trace.span("lights", face_vertices):
+            normals = shading.face_vertex_normals(vertices, faces, face_vertices)
+        trace.vjp("lights.vjp", normals, face_vertices)
         attrs.append(normals.reshape(bs, nf, 9))
     if params.texture_size is not None:
         attrs.append(shading.face_texel_attrs(params.textures, nf, params.texture_size))
@@ -205,8 +207,17 @@ def _maps(fvm_planar, attr_planes, face_index_map, params, hp, render_size, row_
             )
         # an empty lights tuple still multiplies by the (zero) colour weight
         if normal_vertex_planes is not None:
-            normal_map = shading.normal_planes(normal_vertex_planes, weight_planes)
-            rgb = shading.apply_lights_planar(rgb, normal_map, params.lights)
+            with trace.span("lights", rgb):
+                # a view made inside the span, so that its backward span
+                # closes once the normals' gradient is made; the slice
+                # itself comes before the sampler, whose backward then runs
+                # while that gradient waits (a whole attribute plane's
+                # gradient would wait there if the slice came later)
+                normals = normal_vertex_planes.view_as(normal_vertex_planes)
+                normal_map = shading.normal_planes(normals, weight_planes)
+                shaded = shading.apply_lights_planar(rgb, normal_map, params.lights)
+            trace.vjp("lights.vjp", shaded, [rgb, normals])
+            rgb = shaded
         channels.append(rgb)
     if hp.draw_silhouettes:
         channels.append(foreground)

@@ -120,25 +120,38 @@ def sample_textures_atlas_planes(fvm_planar, uv_planes, textures, face_index_map
                          weight_planes, eps)
 
 
+def _uv_triangle(uv_planes):
+    """The winner's texel coordinates from ``uv_planes`` [bs, 6, H, W]
+    (u0,v0,u1,v1,u2,v2): (u, v), each three [bs, H, W] planes."""
+    return ((uv_planes[:, 0], uv_planes[:, 2], uv_planes[:, 4]),
+            (uv_planes[:, 1], uv_planes[:, 3], uv_planes[:, 5]))
+
+
 def _sample_atlas(z_planes, uv_planes, textures, face_index_map, weight_planes, eps):
     """:func:`sample_textures_atlas_planes` from the winner's vertex depths
-    ``z_planes`` [bs, 3, H, W]."""
+    ``z_planes`` [bs, 3, H, W].  Span ``sample``; its backward, K6's
+    ``atlas.vjp`` inside, span ``sample.vjp``."""
     bs, _, H, W = z_planes.shape
     th, tw = textures.shape[2:]
-    fg = face_index_map >= 0
-    x, y = _uv_coords(
-        (z_planes[:, 0], z_planes[:, 1], z_planes[:, 2]),
-        (uv_planes[:, 0], uv_planes[:, 2], uv_planes[:, 4]),
-        (uv_planes[:, 1], uv_planes[:, 3], uv_planes[:, 5]),
-        (weight_planes[:, 0], weight_planes[:, 1], weight_planes[:, 2]),
-        fg, eps,
-    )
-    x0, y0, tap_w = _bilinear_taps(x, y)
-    flat = textures.reshape(bs, 3, th * tw)
-    idx00 = torch.where(fg, y0 * tw + x0, -1).reshape(bs, H * W)
-    taps4 = _AtlasTaps.apply(flat, idx00, tw).reshape(bs, 4, 3, H, W)
-    images = sum(w[:, None] * taps4[:, i] for i, w in enumerate(tap_w))
-    return torch.where(fg[:, None], images, 0.0)
+    with trace.span("sample", textures):
+        fg = face_index_map >= 0
+        # the planes read, made inside the span: its backward span closes
+        # once their gradients are made
+        z = (z_planes[:, 0], z_planes[:, 1], z_planes[:, 2])
+        u, v = _uv_triangle(uv_planes)
+        x, y = _uv_coords(
+            z, u, v,
+            (weight_planes[:, 0], weight_planes[:, 1], weight_planes[:, 2]),
+            fg, eps,
+        )
+        x0, y0, tap_w = _bilinear_taps(x, y)
+        flat = textures.reshape(bs, 3, th * tw)
+        idx00 = torch.where(fg, y0 * tw + x0, -1).reshape(bs, H * W)
+        taps4 = _AtlasTaps.apply(flat, idx00, tw).reshape(bs, 4, 3, H, W)
+        images = sum(w[:, None] * taps4[:, i] for i, w in enumerate(tap_w))
+        rgb = torch.where(fg[:, None], images, 0.0)
+    trace.vjp("sample.vjp", rgb, [*z, *u, *v, flat])
+    return rgb
 
 
 def face_texel_attrs(textures, num_faces, texture_size):
@@ -158,43 +171,48 @@ def sample_textures_texel_planes(fvm_planar, uv_planes, texel_planes, face_index
     """Bilinear sampling from the winner's latched texel patch
     ``texel_planes`` [bs, ts*ts*3, H, W] (``create_textures`` atlases):
     RGB [bs, 3, H, W].  Other arguments as
-    :func:`sample_textures_atlas_planes`."""
+    :func:`sample_textures_atlas_planes`.  Spans ``sample`` and
+    ``sample.vjp``, as the atlas sampler's."""
     ts = texture_size
-    fg = face_index_map >= 0
-    x_f, y_f = _uv_coords(
-        (fvm_planar[:, 2], fvm_planar[:, 5], fvm_planar[:, 8]),
-        (uv_planes[:, 0], uv_planes[:, 2], uv_planes[:, 4]),
-        (uv_planes[:, 1], uv_planes[:, 3], uv_planes[:, 5]),
-        (weight_planes[:, 0], weight_planes[:, 1], weight_planes[:, 2]),
-        fg, eps,
-    )
-    # patch-local texel coordinates of the winning face
-    fid = torch.clamp(face_index_map, min=0)
-    x_f = x_f - ((fid % tile_width) * ts).to(torch.float32)
-    y_f = y_f - ((fid // tile_width) * ts).to(torch.float32)
-    x0, y0, tap_w = _bilinear_taps(x_f, y_f)
+    with trace.span("sample", texel_planes):
+        fg = face_index_map >= 0
+        # as the atlas sampler's
+        z = (fvm_planar[:, 2], fvm_planar[:, 5], fvm_planar[:, 8])
+        u, v = _uv_triangle(uv_planes)
+        x_f, y_f = _uv_coords(
+            z, u, v,
+            (weight_planes[:, 0], weight_planes[:, 1], weight_planes[:, 2]),
+            fg, eps,
+        )
+        # patch-local texel coordinates of the winning face
+        fid = torch.clamp(face_index_map, min=0)
+        x_f = x_f - ((fid % tile_width) * ts).to(torch.float32)
+        y_f = y_f - ((fid // tile_width) * ts).to(torch.float32)
+        x0, y0, tap_w = _bilinear_taps(x_f, y_f)
 
-    bs = texel_planes.shape[0]
-    texels = texel_planes.reshape(bs, ts * ts, 3, *texel_planes.shape[2:])
-    if ts == 2:
-        # the clamp pins local coordinates to [0, 1 - eps]: floor 0, ceil
-        # 1, so the taps are the four patch texels
-        taps = tuple(texels[:, t] for t in range(4))
-    else:
-        # ceil may weigh 0 at the bbox edge; the clip keeps it in the patch
-        xi_f = torch.clamp(x0, 0, ts - 1)
-        yi_f = torch.clamp(y0, 0, ts - 1)
-        xi_c = torch.clamp(xi_f + 1, 0, ts - 1)
-        yi_c = torch.clamp(yi_f + 1, 0, ts - 1)
-        texel_ids = torch.arange(ts * ts, device=texels.device)[None, :, None, None]
+        bs = texel_planes.shape[0]
+        texels = texel_planes.reshape(bs, ts * ts, 3, *texel_planes.shape[2:])
+        if ts == 2:
+            # the clamp pins local coordinates to [0, 1 - eps]: floor 0, ceil
+            # 1, so the taps are the four patch texels
+            taps = tuple(texels[:, t] for t in range(4))
+        else:
+            # ceil may weigh 0 at the bbox edge; the clip keeps it in the patch
+            xi_f = torch.clamp(x0, 0, ts - 1)
+            yi_f = torch.clamp(y0, 0, ts - 1)
+            xi_c = torch.clamp(xi_f + 1, 0, ts - 1)
+            yi_c = torch.clamp(yi_f + 1, 0, ts - 1)
+            texel_ids = torch.arange(ts * ts, device=texels.device)[None, :, None, None]
 
-        def tap(xi, yi):
-            sel = (yi * ts + xi)[:, None] == texel_ids             # [bs, ts*ts, H, W]
-            return torch.sum(sel[:, :, None] * texels, dim=1)
+            def tap(xi, yi):
+                sel = (yi * ts + xi)[:, None] == texel_ids             # [bs, ts*ts, H, W]
+                return torch.sum(sel[:, :, None] * texels, dim=1)
 
-        taps = (tap(xi_f, yi_f), tap(xi_c, yi_f), tap(xi_f, yi_c), tap(xi_c, yi_c))
-    images = sum(w[:, None] * t for w, t in zip(tap_w, taps))
-    return torch.where(fg[:, None], images, 0.0)
+            taps = (tap(xi_f, yi_f), tap(xi_c, yi_f), tap(xi_f, yi_c), tap(xi_c, yi_c))
+        images = sum(w[:, None] * t for w, t in zip(tap_w, taps))
+        rgb = torch.where(fg[:, None], images, 0.0)
+    trace.vjp("sample.vjp", rgb, [*z, *u, *v, texels])
+    return rgb
 
 
 def face_vertex_normals(vertices, faces, face_vertices):

@@ -37,19 +37,36 @@ The spans (layer in brackets):
 - ``planes`` (the weight planes, the maps and the NMR forward) and
   ``planes.vjp`` (the maps' backward down to the resolve's outputs),
   ``nmr.grad`` (the NMR backward's coordinate gradients) with its two
-  passes ``nmr.grad.y`` and ``nmr.grad.x``, ``pool`` and ``pool.vjp``,
-  ``atlas.vjp`` (K6 and its zero fill) (pipeline and NMR);
+  passes ``nmr.grad.y`` and ``nmr.grad.x``, ``pool`` and ``pool.vjp``
+  (pipeline and NMR);
+- ``sample`` (the texture sampler: the loaded atlas's or the
+  ``create_textures`` texel patch's) and ``sample.vjp`` (its backward from
+  the RGB down to the texel coordinates, depths and atlas), which holds
+  ``atlas.vjp`` (K6 and its zero fill) (texture sampler), inside
+  ``planes`` and ``planes.vjp``;
+- ``lights`` and ``lights.vjp``, each two intervals: the smoothed vertex
+  normals (``face_vertex_normals``: cross products and the segment sum,
+  before the resolve) and, inside ``planes``, the per-pixel normals and
+  ``apply_lights_planar`` (lights);
 - on the host only: ``update`` (``utils/optim.py``'s ``Adam.step``).
 
 A backward span that no autograd Function of the port holds (``camera.vjp``,
-``planes.vjp``, ``pool.vjp``) is opened and closed by autograd hooks
-(:func:`vjp`): opened when the backward of the node that made the
-forward's output begins, closed when the gradients of its inputs are
-ready.  The hooks go with the forward's graph: once no node of it is
-left, the hooks on its inputs are removed (a leaf, such as a fitted
-parameter, keeps none from one step to the next).  A hook dispatches no
-operation in the forward, so a dispatch mode sees the same operations
-whether tracing is on or off.
+``planes.vjp``, ``pool.vjp``, ``sample.vjp``, ``lights.vjp``) is opened
+and closed by autograd hooks (:func:`vjp`): opened when the backward of
+the node that made the forward's output begins, closed when the
+gradients of its inputs are ready.  An input's gradient is marked ready
+when autograd runs the node that made the input, which it reaches in
+the reverse of the order the forward made its nodes; so a span's inputs
+are the tensors it makes first from its arguments (views), and the
+span closes as its own backward ends.  Spans that begin at one node
+open outermost first: the one registered last, as an enclosing forward
+registers its span after those of the forwards inside it (``planes.vjp``
+before ``lights.vjp`` where the lit RGB is the whole image).  The hooks
+go with the forward's graph: once no node of it is left, the hooks on its
+inputs are removed (a leaf, such as a fitted parameter, keeps none from
+one step to the next).  A hook dispatches no operation in the forward,
+so a dispatch mode sees the same operations whether tracing is on or
+off.
 
 The step of a span: the count of ``update`` spans finished when it began
 (Adam's step count); of a captured span's reading, the number of the
@@ -64,6 +81,7 @@ sharded entry is loaded, ``parallel.collectives.COLLECTIVES``.
 from __future__ import annotations
 
 import contextlib
+import functools
 import sys
 import time
 import weakref
@@ -75,6 +93,11 @@ UPDATE = "update"
 CAMERA = ("camera", "camera.vjp")
 NMR = ("planes", "planes.vjp", "nmr.grad", "pool", "pool.vjp")
 RESOLVE = ("resolve",)
+SAMPLE = ("sample", "sample.vjp")
+LIGHTS = ("lights", "lights.vjp")
+# the key of a node's ``metadata`` that holds the begin hooks of the
+# backward spans that open at it, in the order they were registered
+_BEGIN = "trace.vjp"
 
 # a module dict and not a ContextVar, as resolve_cuda's routes: autograd
 # runs the backward of CUDA tensors (and so the backward spans) on threads
@@ -210,11 +233,21 @@ def _first(grads):
 
 def _on_node(tensors, hook):
     """``hook(grads)`` before the backward of each node that made one of
-    ``tensors``: a node pre-hook, which runs after every tensor hook on
-    that node's gradients (so a span that ends at a tensor closes before
-    one that begins there opens).  Dispatches nothing."""
+    ``tensors``: one node pre-hook a node, which runs after every tensor
+    hook on that node's gradients (so a span that ends at a tensor closes
+    before one that begins there opens) and calls the node's hooks last
+    registered first.  Dispatches nothing."""
     for node in {id(t.grad_fn): t.grad_fn for t in tensors if t.grad_fn is not None}.values():
-        node.register_prehook(hook)
+        hooks = node.metadata.get(_BEGIN)
+        if hooks is None:
+            hooks = node.metadata[_BEGIN] = []
+            node.register_prehook(functools.partial(_begin_all, hooks))
+        hooks.append(hook)
+
+
+def _begin_all(hooks, grads):
+    for hook in reversed(hooks):
+        hook(grads)
 
 
 def vjp(name, outputs, inputs):

@@ -1,9 +1,10 @@
 """The port's spans and counters (``utils/trace.py``) on the CPU: off by
 default, recording nothing and dispatching nothing; on, a silhouette fit's
 spans in order with their parents and steps, the backward spans opened
-and closed by autograd hooks; K7's counts of capped binnings under
-``graphs.forced_capacity`` on the plain versions; and the benchmark's
-readers of those counts.  The device marks (external CUDA events) and the
+and closed by autograd hooks; a lit RGB render's sampler and lights
+spans nested in the maps' spans, and its operations as before they had
+spans; K7's counts of capped binnings under ``graphs.forced_capacity``
+on the plain versions; and the benchmark's readers of those counts.  The device marks (external CUDA events) and the
 counts that K7 adds on the card are held in ``tests/test_torch_cuda.py``
 and ``chip_smoke.py``."""
 
@@ -166,6 +167,109 @@ def test_vjp_hooks_go_with_the_forwards_graph(scene, traced, backward):
     del images
     assert not x._backward_hooks and not trace._open
     assert len(trace.spans("camera.vjp")) == (8 if backward else 0)
+
+
+def _lit_step(kind, lit=True):
+    """One lit RGB render of a small torus (the loaded-atlas sampler, or
+    with ``kind`` "texel" the texel-patch one), its loss and backward, the
+    vertices and the atlas taking gradients; every tensor made fresh, so
+    K4's slot table is built in the step."""
+    from neural_renderer_v2_pytorch_tpu_torch.utils.scenes import (atlas_scene,
+                                                                   lit_light_arrays,
+                                                                   texel_scene)
+
+    if kind == "atlas":
+        v, f, vt, ft, tex = atlas_scene(8, 6, 24, 40)
+    else:
+        v, f, vt, ft, tex = texel_scene(8, 6, 2)
+    r = nr.Renderer("cpu")
+    r.image_size = 16
+    r.viewpoints = nr.get_points_from_angles(2.732, 30, 0)
+    r.texture_size = 2 if kind == "texel" else None
+    kinds = {"directional": nr.DirectionalLight, "ambient": nr.AmbientLight,
+             "specular": nr.SpecularLight}
+    lights = [kinds[k](**{n: torch.tensor(a) for n, a in fields.items()})
+              for k, fields in lit_light_arrays()] if lit else None
+    x = torch.tensor(v[None]).requires_grad_(True)
+    t = torch.tensor(tex).requires_grad_(True)
+    images = r.render_rgb(x, torch.tensor(f), torch.tensor(vt), torch.tensor(ft), t,
+                          lights=lights)
+    (images * images).sum().backward()
+    return images, x.grad, t.grad
+
+
+@pytest.mark.parametrize("kind", ["atlas", "texel"])
+def test_a_lit_render_nests_the_sampler_and_lights_spans(traced, kind):
+    """A lit RGB render and its backward: ``sample`` and the per-pixel
+    ``lights`` inside ``planes``; ``lights`` of the vertex normals before
+    the resolve; their VJPs inside ``planes.vjp``, one after the other,
+    K6's ``atlas.vjp`` inside ``sample.vjp`` (the loaded atlas); the
+    normals' ``lights.vjp`` after K3's span, before K4's."""
+    _lit_step(kind)
+    spans = sorted(trace.spans(), key=lambda s: s["start_ns"])
+    got = [(s["name"], s["parent"]) for s in spans
+           if s["name"] in ("sample", "sample.vjp", "lights", "lights.vjp", "atlas.vjp",
+                            "resolve", "resolve.vjp", "gather.vjp")]
+    sample_vjp = [("sample.vjp", "planes.vjp")]
+    if kind == "atlas":
+        sample_vjp.append(("atlas.vjp", "sample.vjp"))
+    assert got == [("lights", None), ("resolve", None), ("sample", "planes"),
+                   ("lights", "planes"), ("lights.vjp", "planes.vjp"), *sample_vjp,
+                   ("resolve.vjp", None), ("lights.vjp", None), ("gather.vjp", None)]
+    by_name = {s["name"]: s for s in spans if s["name"] in ("planes", "planes.vjp")}
+    inner = [s for s in spans if s["parent"] in ("planes", "planes.vjp")]
+    for s in inner:
+        parent = by_name[s["parent"]]
+        assert parent["start_ns"] <= s["start_ns"] <= s["end_ns"] <= parent["end_ns"], s
+    lights_vjp, sample_vjp = (next(s for s in inner if s["name"] == n)
+                              for n in ("lights.vjp", "sample.vjp"))
+    assert lights_vjp["end_ns"] <= sample_vjp["start_ns"]
+    assert not trace._open
+
+
+# the operations other than views (which launch no kernel) that a lit RGB
+# step of :func:`_lit_step` dispatched, once a first step had run (what
+# the port keeps across steps made), before the sampler and the lights
+# had spans
+LIT_STEP_KERNEL_OPS = {"atlas": 1611, "texel": 1589}
+
+
+class _Kernels(TorchDispatchMode):
+    """The operations dispatched while on, views left out."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not func.is_view:
+            self.names.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("kind", ["atlas", "texel"])
+def test_a_lit_step_dispatches_what_it_did_before_its_spans(kind):
+    """Tracing off, a lit RGB step dispatches the operations other than
+    views that it dispatched before the sampler and the lights had spans
+    (so a graph captured from it holds the same kernels); on, the same
+    operations in the same order, views too, and the same bits."""
+    _lit_step(kind)
+    runs = {}
+    for on in (False, True):
+        if on:
+            trace.enable()
+        ops, kernels = _Ops(), _Kernels()
+        try:
+            with ops, kernels:
+                out = _lit_step(kind)
+        finally:
+            trace.disable()
+        runs[on] = ops.names, kernels.names, out
+    trace.clear()
+    assert len(runs[False][1]) == LIT_STEP_KERNEL_OPS[kind]
+    assert runs[True][:2] == runs[False][:2]
+    for a, b in zip(runs[True][2], runs[False][2]):
+        assert torch.equal(a, b)
 
 
 class _Card:

@@ -107,7 +107,8 @@ def table_window(fit, stages):
 
 def layer_sums(stages, spans, trace):
     """The benchmark's three stage metrics from its table beside the same
-    sums of the port's spans."""
+    sums of the port's spans, and the texture sampler's and the lights'
+    spans (RGB cells)."""
     out = {}
     if stages:
         out["camera_dev_ms"] = sum(stages[s] for s in table.CAMERA)
@@ -116,6 +117,8 @@ def layer_sums(stages, spans, trace):
     out["camera_span_ms"] = sum(spans.get(s, 0.0) for s in trace.CAMERA)
     out["nmr_span_ms"] = sum(spans.get(s, 0.0) for s in trace.NMR)
     out["resolve_span_ms"] = sum(spans.get(s, 0.0) for s in trace.RESOLVE)
+    out["sample_span_ms"] = sum(spans.get(s, 0.0) for s in trace.SAMPLE)
+    out["lights_span_ms"] = sum(spans.get(s, 0.0) for s in trace.LIGHTS)
     return out
 
 
