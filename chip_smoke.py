@@ -14,6 +14,10 @@ Builds the hand-written kernels from ``neural_renderer_v2_pytorch_tpu_torch
   plain versions and against a golden made by the JAX package, takes five
   Adam steps of a vertex fit (launch counts read around it: no path
   launches K1), and repeats the checks on an 81,920-face mesh;
+- the loaded-atlas sampler: K13 and K14 against their plain versions (K13
+  and K14's depth and texel-coordinate gradients bit-equal) at the cell
+  ``atlas-fit-256``'s shapes, 32 views of 512^2 over one 1190 x 1920
+  atlas (``sampler_phase``), each timed beside its bound;
 - textured: checks K5, K2L, K3 and K6 (at ``atlas``, over the anchors its
   step scatters to) against their plain versions at the
   ``atlas``, ``lit`` and ``textured-scale`` configurations, the ``atlas``
@@ -147,7 +151,7 @@ fit builds one vertex -> slot table for K4
 bounds): ``bench`` at 20 chained iterations and 2 cycles (its chained step
 held to the eager step: images equal, gradients within 1e-4),
 ``measure_time`` over 4 azimuths, ``scaling --quick``, ``kernel_census``
-and ``roofline`` at ``bench`` and ``hires`` (K9, and K6 in the atlas's
+and ``roofline`` at ``bench`` and ``hires`` (K9, and K14 in the atlas's
 gradient step), each module's JSON line
 printed and checked.  Last, the JAX package's pipeline edge cases
 (``utils.scenes.edge_scenes``, its tests/test_pipeline_edge.py at 32^2: a
@@ -257,6 +261,12 @@ TPU_KERNELS = "neural_renderer_v2_pytorch_tpu/ops/resolve_pallas.py"
 # name -> (source, the TPU kernel it replaces, the configuration its times
 # in the kernels line come from)
 NMR_REPLACES = "none: XLA fuses the chain"
+SAMPLER_REPLACES = "none: XLA fused the sampler"
+# the loaded-atlas sampler (K13, K14) at the benchmark cell atlas-fit-256's
+# shapes: the atlas scene's torus (40, 32) over one 1190 x 1920 atlas seen
+# from 32 azimuths (elevation 30, distance 2.732) at 256^2 AA (512^2 renders)
+SAMPLER_LABEL = "atlas-fit-32x512"
+SAMPLER_VIEWS = 32
 KERNELS = {
     "face_setup": (f"{PKG}/csrc/face_setup.cu", f"{TPU_KERNELS}:180", "hires"),
     "resolve_xy": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:348", "bench"),
@@ -274,13 +284,15 @@ KERNELS = {
     "nmr_planes": (f"{PKG}/csrc/nmr_planes.cu", NMR_REPLACES, "nmr-32x512"),
     "nmr_planes_vjp": (f"{PKG}/csrc/nmr_planes.cu", NMR_REPLACES, "nmr-32x512"),
     "nmr_coordinate_grad": (f"{PKG}/csrc/nmr_planes.cu", NMR_REPLACES, "nmr-32x512"),
+    "atlas_sample": (f"{PKG}/csrc/atlas_sample.cu", SAMPLER_REPLACES, SAMPLER_LABEL),
+    "atlas_sample_vjp": (f"{PKG}/csrc/atlas_sample.cu", SAMPLER_REPLACES, SAMPLER_LABEL),
 }
 # every resolve form computes the face constants itself, K7 each face's
 # bbox: no path launches K1 (check_k1)
 SILHOUETTE_KERNELS = ("resolve_xy", "scatter_pixels_to_faces", "scatter_faces_to_vertices",
                       "gather_faces3")
 TEXTURED_KERNELS = ("resolve_latch", "scatter_pixels_to_faces", "scatter_faces_to_vertices",
-                    "gather_faces3", "atlas_taps_grad")
+                    "gather_faces3", "atlas_sample", "atlas_sample_vjp")
 HIRES_KERNELS = ("bin_faces", "resolve_binned_xy", "scatter_pixels_to_faces",
                  "scatter_faces_to_vertices", "gather_faces3")
 HIRES_LIT_KERNELS = ("bin_faces", "resolve_binned_latch", "scatter_pixels_to_faces",
@@ -444,6 +456,83 @@ def nmr_kernels_vs_plain(label, fvm, fim, gen):
     log(f"[{label}] NMR kernels bit-equal to their plain versions: {bs} x {S}^2, "
         f"coverage {float(images.mean()):.4f}")
     return errs, calls
+
+
+def sampler_inputs(dev):
+    """The loaded-atlas sampler's inputs at :data:`SAMPLER_LABEL`'s render,
+    as the render passed them (``roofline.atlas_sample_inputs``): (z
+    planes, texel-coordinate planes, the atlas expanded over the views, the
+    index map, the weight planes)."""
+    v, f, vt, ft, tex = atlas_scene(40, 32)
+    r = nr.Renderer(dev)
+    r.image_size = 256
+    azimuths = torch.arange(SAMPLER_VIEWS, dtype=torch.float32) * (360.0 / SAMPLER_VIEWS)
+    r.viewpoints = nr.get_points_from_angles(torch.full_like(azimuths, 2.732),
+                                             torch.full_like(azimuths, 30.0), azimuths).to(dev)
+    x = torch.tensor(v[None], device=dev).expand(SAMPLER_VIEWS, -1, -1)
+    atlas = torch.tensor(tex, device=dev).requires_grad_(True)
+    vt = torch.tensor(vt, device=dev).expand(SAMPLER_VIEWS, -1, -1)
+    with torch.enable_grad():
+        images = r.render(x, torch.tensor(f, device=dev), vt, torch.tensor(ft, device=dev),
+                          atlas.expand(SAMPLER_VIEWS, -1, -1, -1))
+    return tuple(t.detach() for t in roofline.atlas_sample_inputs(images)[:5])
+
+
+def sampler_kernels_vs_plain(label, inputs, gen):
+    """K13 bit-equal to its plain version, K14's depth and texel-coordinate
+    gradients bit-equal to its plain VJP's and its atlas gradient within
+    1e-4 of its largest (atomics), at the sampler's ``inputs``.  Each call's
+    bound: K13 reads the index map and writes RGB (16 bytes a pixel), a
+    covered pixel's nine depth and texel-coordinate planes and three weights
+    (48 bytes) and the atlas once; K14 reads the index map and RGB's
+    gradient and writes the nine depth and texel-coordinate gradient planes
+    (52 bytes a pixel), reads a covered pixel's 48 bytes and the atlas
+    once, and writes the [bs, 3, T] atlas gradient once (its zero fill).
+    Returns ({name: max_abs_err}, {name: Call})."""
+    z, uv, atlas, fim, w = inputs
+    bs, _, H, W = z.shape
+    T = atlas.shape[2] * atlas.shape[3]
+    grad = torch.randn((bs, 3, H, W), generator=gen, device=z.device)
+    needs = (True, True, True, False)
+    forms = {
+        "atlas_sample": lambda: rc.atlas_sample(z, uv, atlas, fim, w, 1e-5),
+        "atlas_sample_vjp": lambda: rc.atlas_sample_vjp(grad, z, uv, atlas, fim, w, 1e-5, needs),
+    }
+    errs = {"atlas_sample": check_equal(f"{label} atlas_sample", forms["atlas_sample"](),
+                                        on_plain(forms["atlas_sample"])())}
+    got, want = forms["atlas_sample_vjp"](), on_plain(forms["atlas_sample_vjp"])()
+    for k, part in ((0, "z"), (1, "uv")):
+        check_equal(f"{label} atlas_sample_vjp {part}", got[k], want[k])
+    errs["atlas_sample_vjp"] = check_close(f"{label} atlas_sample_vjp atlas", got[2], want[2])
+    pixels, covered = bs * H * W, int((fim >= 0).sum())
+    atlas_once = 12 * T
+    nbytes = {"atlas_sample": 16 * pixels + 48 * covered + atlas_once,
+              "atlas_sample_vjp": 52 * pixels + 48 * covered + atlas_once + 12 * bs * T}
+    calls = {name: Call(fn, on_plain(fn), bound(nbytes[name], 0)) for name, fn in forms.items()}
+    log(f"[{label}] sampler kernels vs plain: {bs} x {H}x{W}, atlas {tuple(atlas.shape[2:])} "
+        f"(batch stride {atlas.stride(0)}), coverage {covered / pixels:.4f}, "
+        f"max_abs_err {json.dumps(errs)}")
+    return errs, calls
+
+
+def sampler_phase(dev, gen):
+    """K13 and K14 against their plain versions at :data:`SAMPLER_LABEL`'s
+    shapes, and each call's device ms (CUDA events, and the profiler's
+    records: K14's with its zero fill), bound and plain ms.  Returns
+    ({name: max_abs_err}, {name: Call}, {name: times})."""
+    errs, calls = sampler_kernels_vs_plain(SAMPLER_LABEL, sampler_inputs(dev), gen)
+    times = {}
+    for name, call in calls.items():
+        k_ms = median_ms(call.kernel, 50)
+        prof = profile_kept(call.kernel)
+        k_dev = call_device_ms(prof)
+        p_ms = median_ms(call.plain, 10, warmup=1)
+        times[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=call.bound[0],
+                           bound_by=call.bound[1], library_ms=None, device_ms=k_dev)
+        log(f"[time] {SAMPLER_LABEL} {name}: kernel {k_ms:.4f} ms (device, every record of "
+            f"the call: {'not measured' if k_dev is None else f'{k_dev:.4f} ms'}), plain "
+            f"{p_ms:.4f} ms, bound {call.bound[0]:.4f} ms by {call.bound[1]}")
+    return errs, calls, times
 
 
 def kernels_vs_plain(label, ndc, faces, size, gen):
@@ -2856,7 +2945,9 @@ def benchmarks_phase(dev, smi):
 # on both routes; each graphed step is called this many times: the first
 # runs eagerly, the second captures, every call from the second replays
 EDGE_GRAPH_CALLS = 3
-EDGE_KERNELS = tuple(name for name in rc.KERNELS if name != "face_setup")
+# K1 and K6 run on no render path (K14 adds the atlas taps as K6 does)
+EDGE_KERNELS = tuple(name for name in rc.KERNELS if name not in ("face_setup",
+                                                                  "atlas_taps_grad"))
 
 
 def _silhouettes_forward(faces, hp):
@@ -3285,6 +3376,9 @@ def main():
     nmr_calls = {}
     for label, (bs, S) in NMR_SHAPES.items():
         _, nmr_calls[label] = nmr_kernels_vs_plain(label, *nmr_inputs(bs, S, gen), gen)
+    # the loaded-atlas sampler at the atlas cell's shapes, timed here
+    sampler_errs, _, sampler_times = sampler_phase(dev, gen)
+    all_errs.update(sampler_errs)
 
     # 3. the silhouette slice, kernels vs plain versions, through Renderer
     renderer = nr.Renderer(dev)
@@ -3622,7 +3716,7 @@ def main():
     # included), the kernel's own device time (its mean profiler record
     # times its launches per call), the plain version's and the library
     # call's time
-    times = {}
+    times = {(SAMPLER_LABEL, name): t for name, t in sampler_times.items()}
     all_calls = [("bench", bench_calls), ("scale", scale_calls)] + list(tex_calls.items()) + [
         ("hires", hires_calls), ("hires-lit", hl_calls)] + list(nmr_calls.items())
     for label, calls in all_calls:

@@ -20,11 +20,12 @@ each read by ``trace.sample``.  A stage is a span, named by the port:
   ``loss`` (``steps.bench_loss``);
 - backward: ``loss.vjp``, ``pool.vjp``, ``nmr.grad`` (K12; on the plain
   versions its two passes ``nmr.grad.y`` and ``nmr.grad.x`` inside it),
-  ``resolve.vjp`` (K3), ``gather.vjp`` (K4), ``camera.vjp``; the atlas's
-  gradient ``atlas.vjp`` (K6 with its zero fill); then the ``update``.
+  ``resolve.vjp`` (K3), ``gather.vjp`` (K4), ``camera.vjp``; the atlas
+  sampler's backward ``atlas.vjp`` (K14, which adds the taps' gradients
+  as K6 does, with the atlas gradient's zero fill); then the ``update``.
 
-The atlas's step has no stage of its own for its sampler, which runs in
-``planes``.  It prints each stage's device ms per step, and the kernels'
+The atlas's step has no stage of its own for its sampler's forward (K13),
+which runs in ``planes``.  It prints each stage's device ms per step, and the kernels'
 device ms per step from the profile.  The last line is one JSON object.
 """
 

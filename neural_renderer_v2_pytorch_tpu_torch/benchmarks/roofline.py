@@ -27,14 +27,15 @@ kernels' device time (K7's three passes and K8 on the binned route).  K9,
 which the face-sharded path runs and these steps do not, gets a row of its
 own at that path's shapes (``textured-scale``: 158,720 faces at 512^2, 27
 planes) against ``torch.gather``, each in a replayed graph over copies of
-its inputs that do not fit in L2 together.  K6, which the atlas's
-gradient step runs (``scaling``'s row "atlas 3x1190x1920 256^2 AA, atlas
-gradients"), gets a row at that step: its function's bound from the
-anchors the step scatters to (:func:`atlas_taps_work`), the device time of
-``prof``'s stage ``atlas.vjp`` in the replayed whole step (the port's
-span around the zero fill and the kernel) and the kernel's own, and the
-library call's (:func:`atlas_taps_library`) in a replayed graph of its
-own.  A share above 100% is flagged
+its inputs that do not fit in L2 together.  K14, the sampler's backward
+that the atlas's gradient step runs (``scaling``'s row "atlas
+3x1190x1920 256^2 AA, atlas gradients"), gets a row at that step: its
+function's bound from the pixels and the anchors the step adds at
+(:func:`atlas_sample_vjp_work`), the device time of ``prof``'s stage
+``atlas.vjp`` in the replayed whole step (the port's span around the
+zero fill and the kernel) and the kernel's own, and the library call's
+for the part of its work that one PyTorch call does, K6's adds
+(:func:`atlas_taps_library`), in a replayed graph of its own.  A share above 100% is flagged
 (``above_bound``) as no valid reading.  The last line is one JSON
 object."""
 
@@ -168,20 +169,46 @@ def atlas_taps_work(anchors, num_texels):
             12 * covered)
 
 
-def atlas_taps_inputs(images):
-    """(anchors i32 [bs, P], tw, T) that the atlas sampler's backward
-    scatters to, read from the ``shading._AtlasTaps`` node in the autograd
-    graph of ``images``."""
+def atlas_sample_vjp_work(anchors, num_texels):
+    """K14 over ``anchors`` [bs, P] (-1 on background) into [bs, 3, T]:
+    per pixel the index map and RGB's gradient read and the nine depth and
+    texel-coordinate gradient planes written (52 bytes); per covered pixel
+    its three depths, six texel coordinates and three weights read (48
+    bytes); the atlas read once and its gradient written once (12 bytes a
+    texel each; the gradient per image).  Operations: K6's adds, one per
+    covered pixel and tap channel."""
+    covered = int((anchors >= 0).sum())
+    bs, P = anchors.shape
+    return 52 * bs * P + 48 * covered + 12 * num_texels + 12 * bs * num_texels, 12 * covered
+
+
+def atlas_sample_inputs(images):
+    """(z planes, texel-coordinate planes, atlas, index map, weight planes,
+    eps) that the ``shading._AtlasSample`` node in the autograd graph of
+    ``images`` saved: the atlas sampler's inputs as the render passed
+    them."""
     todo, seen = [images.grad_fn], set()
     while todo:
         node = todo.pop()
         if node is None or node in seen:
             continue
         seen.add(node)
-        if type(node).__name__ == "_AtlasTapsBackward":
-            return node.saved_tensors[0], node.tw, node.num_texels
+        if type(node).__name__ == "_AtlasSampleBackward":
+            return (*node.saved_tensors, node.eps)
         todo.extend(next_node for next_node, _ in node.next_functions)
     raise ValueError("no atlas sampler in the graph of these images")
+
+
+def atlas_taps_inputs(images):
+    """(anchors i32 [bs, P], tw, T) that the atlas sampler's backward adds
+    its taps at (-1 on background), recomputed from its inputs in the
+    graph of ``images`` (:func:`atlas_sample_inputs`)."""
+    z, uv, textures, index, weights, eps = atlas_sample_inputs(images)
+    with torch.no_grad():
+        fg, *_, anchors, _ = rc._atlas_parts(z, uv, textures, index, weights, eps)
+    bs, _, th, tw = textures.shape
+    marked = torch.where(fg.reshape(bs, -1), anchors[:, 0], -1)
+    return marked.to(torch.int32), tw, th * tw
 
 
 def atlas_taps_library(grad, anchors, tw, num_texels):
@@ -374,15 +401,15 @@ def k9_row(device, n, gen):
                 library_device_ms=library)
 
 
-def k6_row(device, n, gen):
-    """K6 in the atlas's gradient step (``prof.ATLAS_ROW``): the bound of its
-    function over the anchors the step scatters to; the device ms of
-    ``prof``'s stage ``atlas.vjp`` (the port's span around K6 and its zero
+def k14_row(device, n, gen):
+    """K14 in the atlas's gradient step (``prof.ATLAS_ROW``): the bound of
+    its function over the step's pixels and anchors; the device ms of
+    ``prof``'s stage ``atlas.vjp`` (the port's span around K14 and its zero
     fill) in ``n`` replays of the whole step captured by its caller (not
     measured unless every replay's spans were read), and the kernel's own
     records in that profile; the library call's device time in a replayed
-    graph of its own, on random gradients over the same anchors (K6 held to
-    its plain version on them)."""
+    graph of its own for K6's adds, on random gradients over the same
+    anchors (K6 held to its plain version on them)."""
     case = scaling.case(next(r for r in scaling.ROWS if r.label == prof.ATLAS_ROW), device)
     with graphs.eager():
         images = case.forward(*(v.clone().requires_grad_(True) for v in case.values))
@@ -391,23 +418,23 @@ def k6_row(device, n, gen):
     grad = torch.randn((anchors.shape[0], 12, anchors.shape[1]), generator=gen, device=device)
     steps.check_close("K6 at atlas", rc.atlas_taps_grad(grad, anchors, tw, T),
                       rc.atlas_taps_grad_plain(grad, anchors, tw, T))
-    nbytes, ops = atlas_taps_work(anchors, T)
+    nbytes, ops = atlas_sample_vjp_work(anchors, T)
     ms, by = bound(nbytes, ops)
     times = prof.stage_times(case, n)
     pattern = steps.port_kernel_pattern()
     kernels = {m.group(2): t for k, t in times["kernels"].items()
-               if (m := pattern.match(k)) and m.group(2) == "atlas_taps_grad_kernel"}
+               if (m := pattern.match(k)) and m.group(2) == "atlas_sample_vjp_kernel"}
     dev = times["stages"].get(prof.ATLAS_STAGE) if times["every_span_read"] else None
     library = graph_device_ms([atlas_taps_library(grad, anchors, tw, T)], n)
     return dict(config="atlas", function=prof.ATLAS_STAGE, bytes=nbytes, operations=ops,
                 bound_ms=ms, bound_by=by, device_ms=dev, share=ms / dev if dev else None,
-                kernels_ms=kernels if dev else None, library="zeros + index_add_",
+                kernels_ms=kernels if dev else None, library="zeros + index_add_ (K6's adds)",
                 library_device_ms=library, launches=times["launches"],
                 every_span_read=times["every_span_read"])
 
 
 def run(device, n=REPLAYS):
-    """Every row: bench and hires, then K9 and K6; each printed as it
+    """Every row: bench and hires, then K9 and K14; each printed as it
     comes."""
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
@@ -416,7 +443,7 @@ def run(device, n=REPLAYS):
     for label, scene in configs(device).items():
         out += rows(label, scene, n, gen)
     out.append(k9_row(device, n, gen))
-    out.append(k6_row(device, n, gen))
+    out.append(k14_row(device, n, gen))
 
     def ms(v):
         return "not measured" if v is None else f"{v:.6f} ms"

@@ -94,6 +94,8 @@ KERNELS = (
     "nmr_planes",
     "nmr_planes_vjp",
     "nmr_coordinate_grad",
+    "atlas_sample",
+    "atlas_sample_vjp",
 )
 # the calls of an NMR pass (K10-K12) on CUDA tensors that took its plain
 # version (inside plain_versions()): a run whose count is not 0 bypassed the
@@ -1106,3 +1108,210 @@ def nmr_coordinate_grad(images, grad, above, below, render_size):
             a_images, a_grad, b_images, b_grad, out.data_ptr(), bs, C, rows, W, a_batch,
             a_channel, b_batch, b_channel, 2.0 / render_size)
     return out
+
+
+# --- K13, K14: the loaded-atlas sampler ------------------------------------
+
+
+def _atlas_parts(z_planes, uv_planes, textures, face_index_map, weight_planes, eps):
+    """What the sampler computes before its taps' sum, in
+    ``shading._uv_coords``'s and ``_bilinear_taps``' expressions: (the
+    foreground [bs, H, W], the texel coordinates x and y, the tap weights,
+    the anchors i64 [bs, 1, P] clamped to [0, T - tw - 2] (background's too),
+    the four taps [bs, 3, H, W] each)."""
+    # shading imports this module
+    from .shading import _bilinear_taps, _uv_coords
+
+    bs, _, th, tw = textures.shape
+    H, W = face_index_map.shape[1:]
+    fg = face_index_map >= 0
+    x, y = _uv_coords(z_planes.unbind(1), uv_planes[:, 0::2].unbind(1),
+                      uv_planes[:, 1::2].unbind(1), weight_planes.unbind(1), fg, eps)
+    x0, y0, tap_w = _bilinear_taps(x, y)
+    idx00 = torch.where(fg, y0 * tw + x0, -1).reshape(bs, 1, H * W)
+    anchors = torch.clamp(idx00, 0, th * tw - tw - 2).long()
+    flat = textures.reshape(bs, 3, th * tw)
+    a = anchors.expand(-1, 3, -1)
+    taps = tuple(torch.gather(flat, 2, a + off).reshape(bs, 3, H, W)
+                 for off in (0, 1, tw, tw + 1))
+    return fg, x, y, tap_w, anchors, taps
+
+
+def atlas_sample_plain(z_planes, uv_planes, textures, face_index_map, weight_planes, eps):
+    fg, _, _, tap_w, _, taps = _atlas_parts(z_planes, uv_planes, textures, face_index_map,
+                                            weight_planes, eps)
+    images = sum(w[:, None] * t for w, t in zip(tap_w, taps))
+    return torch.where(fg[:, None], images, 0.0)
+
+
+def _sampler_planes(t, name, n, bs, H, W):
+    """(t, batch stride, plane stride) of f32 planes [bs, n, H, W], each
+    plane's pixels contiguous (a copy only where they are not, so a slice of
+    a larger map's planes is read in place)."""
+    if t.dtype != torch.float32 or tuple(t.shape) != (bs, n, H, W):
+        raise ValueError(f"{name}: want float32 {(bs, n, H, W)}, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    if t.stride()[2:] != (W, 1):
+        t = t.contiguous()
+    return t, t.stride(0), t.stride(1)
+
+
+def _sampler_inputs(z_planes, uv_planes, textures, face_index_map, weight_planes):
+    """The kernels' view of the sampler's inputs: ((z, uv, w planes), index,
+    atlas, bs, P, tw, T, the planes' and the atlas's strides); raises on a
+    dtype or a shape the kernels do not take."""
+    bs, H, W = face_index_map.shape
+    if face_index_map.dtype != torch.int32:
+        raise ValueError(f"face_index_map: want int32, got {face_index_map.dtype}")
+    index = face_index_map.contiguous()
+    z, z_batch, z_plane = _sampler_planes(z_planes, "z_planes", 3, bs, H, W)
+    uv, uv_batch, uv_plane = _sampler_planes(uv_planes, "uv_planes", 6, bs, H, W)
+    w, w_batch, w_plane = _sampler_planes(weight_planes, "weight_planes", 3, bs, H, W)
+    if textures.dtype != torch.float32 or textures.dim() != 4 or textures.shape[:2] != (bs, 3):
+        raise ValueError(f"textures: want float32 ({bs}, 3, th, tw), got {textures.dtype} "
+                         f"{tuple(textures.shape)}")
+    th, tw = textures.shape[2:]
+    T = th * tw
+    if T < tw + 2:
+        raise ValueError(f"textures: an atlas of {th} x {tw} texels has no room for the "
+                         "four taps")
+    if textures.stride()[1:] != (T, tw, 1):
+        textures = textures.contiguous()
+    atlas_batch = textures.stride(0) if bs > 1 else 3 * T
+    strides = (z_batch, z_plane, uv_batch, uv_plane, w_batch, w_plane, atlas_batch)
+    return (z, uv, w), index, textures, bs, H * W, tw, T, strides
+
+
+def atlas_sample(z_planes, uv_planes, textures, face_index_map, weight_planes, eps):
+    """Bilinear sampling from a loaded atlas: the winner's vertex depths f32
+    [bs, 3, H, W], texel-coordinate triangle f32 [bs, 6, H, W] (u0, v0, u1,
+    v1, u2, v2), the atlas f32 [bs, 3, th, tw] (a batch stride of 0 is read
+    in place), the index map i32 [bs, H, W] and the weights f32 [bs, 3, H,
+    W] -> RGB f32 [bs, 3, H, W], 0 on background (the forward of
+    ``shading._AtlasSample``).  One launch; nothing kept for the
+    backward."""
+    if not _use_kernel(z_planes, uv_planes, textures, face_index_map, weight_planes):
+        return atlas_sample_plain(z_planes, uv_planes, textures, face_index_map,
+                                  weight_planes, eps)
+    planes, index, atlas, bs, P, tw, T, strides = _sampler_inputs(
+        z_planes, uv_planes, textures, face_index_map, weight_planes)
+    H, W = face_index_map.shape[1:]
+    out = atlas.new_empty((bs, 3, H, W))
+    _launch("atlas_sample", index.get_device(), *(t.data_ptr() for t in planes),
+            index.data_ptr(), atlas.data_ptr(), out.data_ptr(), bs, P, tw, T, *strides,
+            float(eps))
+    return out
+
+
+def _min_grad(a, b, g):
+    """The gradients of ``torch.minimum(a, b)`` from ``g``: split evenly at
+    a tie, all to the operand taken (to both where a NaN is)."""
+    half = torch.where(a == b, g / 2, g)
+    return half.masked_fill(a > b, 0), half.masked_fill(a < b, 0)
+
+
+def _max_grad(a, b, g):
+    """The gradients of ``torch.maximum(a, b)`` from ``g``."""
+    half = torch.where(a == b, g / 2, g)
+    return half.masked_fill(a < b, 0), half.masked_fill(a > b, 0)
+
+
+def _coord_vjp(c, w, zz, depth, eps, g):
+    """The VJP of ``shading._uv_coords``'s ``interp`` before its mask: the
+    clamped coordinate's gradient ``g`` onto the triangle's coordinates
+    ``c``, the weights ``w`` and ``zz`` (each three planes) and the depth.
+    Returns (gc, gw, gzz, gdepth), lists of three planes but gdepth."""
+    wc = [w[k] * c[k] for k in range(3)]
+    s = wc[0] / zz[0] + wc[1] / zz[1] + wc[2] / zz[2]
+    val = s * depth
+    mn01 = torch.minimum(c[0], c[1])
+    lo = torch.minimum(mn01, c[2])
+    mx01 = torch.maximum(c[0], c[1])
+    hi = torch.maximum(mx01, c[2]) - eps
+    m = torch.maximum(lo, val)
+    ghi, gm = _min_grad(hi, m, g)
+    glo, gval = _max_grad(lo, val, gm)
+    gmx01, g2_hi = _max_grad(mx01, c[2], ghi)
+    g0_hi, g1_hi = _max_grad(c[0], c[1], gmx01)
+    gmn01, g2_lo = _min_grad(mn01, c[2], glo)
+    g0_lo, g1_lo = _min_grad(c[0], c[1], gmn01)
+    gs = gval * depth
+    gwc = [gs / zz[k] for k in range(3)]
+    gc = [g0_hi + g0_lo, g1_hi + g1_lo, g2_hi + g2_lo]
+    gc = [gc[k] + gwc[k] * w[k] for k in range(3)]
+    gw = [gwc[k] * c[k] for k in range(3)]
+    gzz = [((-gs) * wc[k]) / (zz[k] * zz[k]) for k in range(3)]
+    return gc, gw, gzz, gval * s
+
+
+def atlas_sample_vjp_plain(grad, z_planes, uv_planes, textures, face_index_map, weight_planes,
+                           eps, needs=(True, True, True, True)):
+    fg, x, y, tap_w, anchors, taps = _atlas_parts(z_planes, uv_planes, textures,
+                                                  face_index_map, weight_planes, eps)
+    bs, _, th, tw = textures.shape
+    P = anchors.shape[-1]
+    # the foreground mask
+    g = torch.where(fg[:, None], grad, 0.0)
+    g_atlas = None
+    if needs[2]:
+        # each tap's three channels at its texel: K6's function
+        g12 = torch.cat([g * t[:, None] for t in tap_w], 1).reshape(bs, 12, P)
+        marked = torch.where(fg.reshape(bs, P), anchors[:, 0].int(), -1)
+        g_atlas = atlas_taps_grad_plain(g12, marked, tw, th * tw).reshape(bs, 3, th, tw)
+    # the tap weights' gradients onto x and y (floor's gradient is 0)
+    gt = [(g[:, 0] * t[:, 0] + g[:, 1] * t[:, 1]) + g[:, 2] * t[:, 2] for t in taps]
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    wx0, wx1 = x0f + 1 - x, x - x0f
+    wy0, wy1 = y0f + 1 - y, y - y0f
+    gx = (gt[1] * wy0 + gt[3] * wy1) - (gt[0] * wy0 + gt[2] * wy1)
+    gy = (gt[2] * wx0 + gt[3] * wx1) - (gt[0] * wx0 + gt[1] * wx1)
+    # the perspective-correct coordinates
+    z, w = z_planes.unbind(1), weight_planes.unbind(1)
+    zz = [z[k] + 1e-10 for k in range(3)]
+    total = w[0] / zz[0] + 1e-10 + w[1] / zz[1] + 1e-10 + w[2] / zz[2] + 1e-10
+    depth = 1.0 / total
+    gu, gw_u, gzz_u, gdepth_u = _coord_vjp(uv_planes[:, 0::2].unbind(1), w, zz, depth, eps, gx)
+    gv, gw_v, gzz_v, gdepth_v = _coord_vjp(uv_planes[:, 1::2].unbind(1), w, zz, depth, eps, gy)
+    gS = (-(gdepth_u + gdepth_v)) * (depth * depth)
+    gw = [gw_u[k] + gw_v[k] + gS / zz[k] for k in range(3)]
+    gz = [gzz_u[k] + gzz_v[k] + ((-gS) * w[k]) / (zz[k] * zz[k]) for k in range(3)]
+
+    def planes(ps):
+        return torch.where(fg[:, None], torch.stack(ps, 1), 0.0)
+
+    guv = [p for k in range(3) for p in (gu[k], gv[k])]
+    return (planes(gz) if needs[0] else None, planes(guv) if needs[1] else None, g_atlas,
+            planes(gw) if needs[3] else None)
+
+
+def atlas_sample_vjp(grad, z_planes, uv_planes, textures, face_index_map, weight_planes, eps,
+                     needs=(True, True, True, True)):
+    """The VJP of :func:`atlas_sample`: RGB's gradient f32 [bs, 3, H, W] ->
+    (the depths' f32 [bs, 3, H, W], the texel coordinates' f32 [bs, 6, H,
+    W], the atlas's f32 [bs, 3, th, tw], the weights' f32 [bs, 3, H, W]),
+    each contiguous, or None where ``needs`` (four flags in that order) says
+    it is not wanted.  One launch, after the atlas gradient's zero fill:
+    everything the forward computed recomputed, each tap's three channels
+    added at its texel as K6 adds them.  Gradients split evenly at the
+    uv-bbox clamp's ties, as ``torch.minimum`` and ``torch.maximum``'s;
+    background pixels' are 0."""
+    if not _use_kernel(grad, z_planes, uv_planes, textures, face_index_map, weight_planes):
+        return atlas_sample_vjp_plain(grad, z_planes, uv_planes, textures, face_index_map,
+                                      weight_planes, eps, needs)
+    planes, index, atlas, bs, P, tw, T, strides = _sampler_inputs(
+        z_planes, uv_planes, textures, face_index_map, weight_planes)
+    H, W = face_index_map.shape[1:]
+    if grad.dtype != torch.float32 or tuple(grad.shape) != (bs, 3, H, W):
+        raise ValueError(f"grad: want float32 {(bs, 3, H, W)}, got {grad.dtype} "
+                         f"{tuple(grad.shape)}")
+    grad = grad.contiguous()
+    outs = [atlas.new_empty((bs, n, H, W)) if need else None
+            for n, need in zip((3, 6), needs[:2])]
+    g_atlas = (torch.zeros((bs, 3, *textures.shape[2:]), dtype=torch.float32,
+                           device=atlas.device) if needs[2] else None)
+    g_w = atlas.new_empty((bs, 3, H, W)) if needs[3] else None
+    _launch("atlas_sample_vjp", index.get_device(), grad.data_ptr(),
+            *(t.data_ptr() for t in planes), index.data_ptr(), atlas.data_ptr(),
+            *(0 if t is None else t.data_ptr() for t in (*outs, g_w, g_atlas)), bs, P, tw, T,
+            *strides, float(eps))
+    return outs[0], outs[1], g_atlas, g_w

@@ -6,10 +6,15 @@ package's NHWC functions (``compute_depth_map``, ``sample_textures``,
 planar ones.
 
 Plain PyTorch, as the JAX package leaves this layer to XLA, except the
-texture-atlas gradient, which is kernel K6 (:func:`resolve_cuda.
-atlas_taps_grad`).  Every expression is the JAX package's, in the same order
-and association, so on the CPU the two agree to the last bit where each op
-is correctly rounded (division by tensors only, sums of three written out).
+loaded-atlas sampler, which is kernel K13 (:func:`resolve_cuda.atlas_sample`)
+with kernel K14 (:func:`resolve_cuda.atlas_sample_vjp`) as its backward:
+K14 recomputes the texel coordinates and taps, writes the gradients of the
+depths and texel coordinates, and adds each tap's gradient at its texel of
+the atlas's as K6 (:func:`resolve_cuda.atlas_taps_grad`) does, inside the
+span ``atlas.vjp`` with the atlas gradient's zero fill.  Every expression is
+the JAX package's, in the same order and association, so on the CPU the two
+agree to the last bit where each op is correctly rounded (division by
+tensors only, sums of three written out).
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from ..models import lights as light_lib
 from ..utils import trace
 from .maps import cross, mask_foreground, to_map
 from .resolve import coordinate_planes
-from .resolve_cuda import atlas_taps_grad, vertex_slots
+from .resolve_cuda import atlas_sample, atlas_sample_vjp, atlas_taps_grad, vertex_slots
 
 
 def _depth(z, w):
@@ -72,7 +77,10 @@ def _bilinear_taps(x, y):
 
 class _AtlasTaps(torch.autograd.Function):
     """The four bilinear taps [bs, 4, 3, P] of a flattened atlas [bs, 3, T]
-    at anchor texels ``idx00`` [bs, P] (the others are +1, +tw, +tw+1).
+    at anchor texels ``idx00`` [bs, P] (the others are +1, +tw, +tw+1): the
+    counterpart of the JAX package's ``_atlas_taps``, with K6 as its
+    backward.  No render runs it: the sampler's backward (K14, in
+    :class:`_AtlasSample`) adds the taps' gradients as K6 does.
     The anchor is clamped to [0, T - tw - 2] as a unit, so all four taps
     stay in the atlas (texel coordinates must lie in [0, tw-1] x [0, th-1]).
 
@@ -108,6 +116,37 @@ class _AtlasTaps(torch.autograd.Function):
         return out, None, None
 
 
+class _AtlasSample(torch.autograd.Function):
+    """Bilinear sampling from a loaded atlas (``resolve_cuda.atlas_sample``,
+    kernel K13): RGB [bs, 3, H, W] from the winner's vertex depths
+    ``z_planes`` [bs, 3, H, W], texel-coordinate triangle ``uv_planes``
+    [bs, 6, H, W], the atlas ``textures`` [bs, 3, th, tw], the index map and
+    the weights [bs, 3, H, W].  The forward saves its inputs and no plane
+    of its own.
+
+    The backward is kernel K14 (``resolve_cuda.atlas_sample_vjp``), which
+    recomputes the forward and writes the gradients of the depths, the
+    texel coordinates and the weights, each asked for, as one tensor each,
+    and adds each tap's gradient at its texel of the atlas's, as K6 does
+    (span ``atlas.vjp``: the kernel and the atlas gradient's zero fill)."""
+
+    @staticmethod
+    def forward(ctx, z_planes, uv_planes, textures, face_index_map, weight_planes, eps):
+        ctx.save_for_backward(z_planes, uv_planes, textures, face_index_map, weight_planes)
+        ctx.eps = eps
+        return atlas_sample(z_planes, uv_planes, textures, face_index_map, weight_planes, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        z_planes, uv_planes, textures, face_index_map, weight_planes = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        with trace.span("atlas.vjp", grad):
+            gz, guv, gtex, gw = atlas_sample_vjp(
+                grad, z_planes, uv_planes, textures, face_index_map, weight_planes, ctx.eps,
+                (needs[0], needs[1], needs[2], needs[4]))
+        return gz, guv, gtex, None, gw, None
+
+
 def sample_textures_atlas_planes(fvm_planar, uv_planes, textures, face_index_map,
                                  weight_planes, eps):
     """Bilinear sampling from a general (loaded) atlas: RGB [bs, 3, H, W].
@@ -129,28 +168,15 @@ def _uv_triangle(uv_planes):
 
 def _sample_atlas(z_planes, uv_planes, textures, face_index_map, weight_planes, eps):
     """:func:`sample_textures_atlas_planes` from the winner's vertex depths
-    ``z_planes`` [bs, 3, H, W].  Span ``sample``; its backward, K6's
-    ``atlas.vjp`` inside, span ``sample.vjp``."""
-    bs, _, H, W = z_planes.shape
-    th, tw = textures.shape[2:]
+    ``z_planes`` [bs, 3, H, W] (:class:`_AtlasSample`: K13, and K14 as its
+    backward).  Span ``sample``; its backward, K14's ``atlas.vjp`` inside,
+    span ``sample.vjp``."""
     with trace.span("sample", textures):
-        fg = face_index_map >= 0
-        # the planes read, made inside the span: its backward span closes
-        # once their gradients are made
-        z = (z_planes[:, 0], z_planes[:, 1], z_planes[:, 2])
-        u, v = _uv_triangle(uv_planes)
-        x, y = _uv_coords(
-            z, u, v,
-            (weight_planes[:, 0], weight_planes[:, 1], weight_planes[:, 2]),
-            fg, eps,
-        )
-        x0, y0, tap_w = _bilinear_taps(x, y)
-        flat = textures.reshape(bs, 3, th * tw)
-        idx00 = torch.where(fg, y0 * tw + x0, -1).reshape(bs, H * W)
-        taps4 = _AtlasTaps.apply(flat, idx00, tw).reshape(bs, 4, 3, H, W)
-        images = sum(w[:, None] * taps4[:, i] for i, w in enumerate(tap_w))
-        rgb = torch.where(fg[:, None], images, 0.0)
-    trace.vjp("sample.vjp", rgb, [*z, *u, *v, flat])
+        # the inputs as views made inside the span: its backward span closes
+        # once the sampler's gradients of them are made
+        z, uv, tex = (t.view_as(t) for t in (z_planes, uv_planes, textures))
+        rgb = _AtlasSample.apply(z, uv, tex, face_index_map, weight_planes, eps)
+    trace.vjp("sample.vjp", rgb, [z, uv, tex])
     return rgb
 
 

@@ -60,6 +60,8 @@ SIGNATURES = {
     "nmr_planes": "PPPPPPPiiiq",
     "nmr_planes_vjp": "PPPPPPiiiq",
     "nmr_coordinate_grad": "PPPPPPPiiiiqqqqf",
+    "atlas_sample": "PPPPPPiiiiqqqqqqqf",
+    "atlas_sample_vjp": "PPPPPPPPPPiiiiqqqqqqqf",
 }
 # entry -> the struct that packs the card and the arguments into a block
 PACKERS = {name: struct.Struct("<q" + "".join("d" if c == "f" else "q" for c in sig))

@@ -15,10 +15,10 @@ time nothing:
 - ``scaling``'s thirteen rows, their face counts and routes, and a step of
   each kind of row at a small size;
 - ``roofline``'s counts: exact on a one-triangle scene, and the same
-  whichever route or kernel flag is forced; K6's over the atlas's step,
-  and its library call against the plain version;
+  whichever route or kernel flag is forced; K6's and K14's over the
+  atlas's step, and K6's library call against the plain version;
 - ``kernel_census``'s operations of one eager step, the same over two runs,
-  and ``prof``'s stages of one step, in order, and K6's in the atlas's
+  and ``prof``'s stages of one step, in order, and K14's in the atlas's
   gradient step;
 - a profile that kept no device record reads "not measured" (None), not 0;
 - each module's ``main()`` without a card: status 2 and one line.
@@ -249,9 +249,9 @@ def test_prof_names_every_stage_in_order(mesh):
 
 
 def test_prof_names_the_atlas_gradient_stage():
-    """The atlas's gradient step (its row cut to 16^2): K6's span
-    (``_AtlasTaps.backward``) is the last before the update; prof runs that
-    step beside bench's."""
+    """The atlas's gradient step (its row cut to 16^2): K14's span
+    (``_AtlasSample.backward``) is the last before the update; prof runs
+    that step beside bench's."""
     assert list(prof.cases("cpu")) == ["bench", prof.ATLAS_ROW]
     row = next(r for r in scaling.ROWS if r.label == prof.ATLAS_ROW)
     ops = prof.stage_ops(scaling.case(row._replace(image_size=16), "cpu"))
@@ -261,11 +261,15 @@ def test_prof_names_the_atlas_gradient_stage():
 
 def test_roofline_counts_the_atlas_gradient():
     """K6's bytes and adds over anchors -1, 0, 5, T - 1 and T (T = 10):
-    three covered pixels; and, on the atlas's gradient step at 32^2, the
+    three covered pixels (K14's over the first four); and, on the atlas's gradient step at 32^2, the
     anchors read from its graph (one per covered pixel, -1 elsewhere) and
     the library call, which equals the plain version there."""
     anchors = torch.tensor([[-1, 0, 5, 9, 10]], dtype=torch.int32)
     assert roofline.atlas_taps_work(anchors, 10) == (4 * 5 + 48 * 3 + 12 * 10, 12 * 3)
+    # K14: every pixel's 52 bytes, a covered one's 48, the atlas and its
+    # gradient once
+    assert roofline.atlas_sample_vjp_work(anchors[:, :4], 10) == (
+        52 * 4 + 48 * 3 + 12 * 10 + 12 * 10, 12 * 3)
     row = next(r for r in scaling.ROWS if r.label == prof.ATLAS_ROW)
     case = scaling.case(row._replace(image_size=32), "cpu")
     images = case.forward(*(v.clone().requires_grad_(True) for v in case.values))

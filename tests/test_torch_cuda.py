@@ -307,7 +307,11 @@ def test_textured_slice_on_card_matches_cpu(cuda, scene):
                 "gather_faces3")
     assert all(rc.LAUNCHES[n] == 1 for n in textured), rc.LAUNCHES
     assert rc.LAUNCHES["face_setup"] == 0 and rc.LAUNCHES["bin_faces"] == 0, rc.LAUNCHES
-    assert rc.LAUNCHES["atlas_taps_grad"] == (1 if scene == "atlas" else 0)
+    # the loaded atlas's sampler is K13 and K14, which adds the taps as K6
+    # does; K6 itself runs on no render path
+    atlas = 1 if scene == "atlas" else 0
+    assert [rc.LAUNCHES[n] for n in ("atlas_sample", "atlas_sample_vjp")] == [atlas, atlas]
+    assert rc.LAUNCHES["atlas_taps_grad"] == 0
     torch.testing.assert_close(out[1][0], out[0][0], rtol=0, atol=1e-5)
     for i in (1, 2):
         torch.testing.assert_close(out[1][i], out[0][i], rtol=0,
@@ -1389,15 +1393,17 @@ def test_a_captured_silhouette_step_launches_each_nmr_kernel_once(cuda, fresh_ca
 def _depth_and_lit_steps(kind, cuda):
     """(vertices, step) of ``_graph_scene``'s kind: depth of its bench scene,
     or its lit scene with the lights made once (a caller's capture copies
-    nothing from the host)."""
+    nothing from the host); ``atlas-lit``: its atlas scene under the lit
+    scene's lights."""
     if kind == "depth":
         r, v, faces, _ = _graph_scene("bench", cuda)
 
         def render(x):
             return r.render_depth(x, faces)
     else:
-        r, v, faces, _ = _graph_scene("lit", cuda)
-        _, _, vt, ft, tex = texel_scene(16, 12, 2)
+        r, v, faces, _ = _graph_scene("atlas" if kind == "atlas-lit" else "lit", cuda)
+        _, _, vt, ft, tex = (atlas_scene(16, 12, 40, 64) if kind == "atlas-lit"
+                             else texel_scene(16, 12, 2))
         vt, ft, tex = (torch.tensor(a, device=cuda) for a in (vt, ft, tex))
         cls = {"ambient": nr.AmbientLight, "directional": nr.DirectionalLight,
                "specular": nr.SpecularLight}
@@ -1405,7 +1411,9 @@ def _depth_and_lit_steps(kind, cuda):
                        for k, arrays in lit_light_arrays())
 
         def render(x):
-            return r.render(x, faces, vt, ft, tex, lights=lights)
+            # the atlas-lit scene's atlas takes gradients, a fresh leaf each step
+            t = tex.clone().requires_grad_(True) if kind == "atlas-lit" else tex
+            return r.render(x, faces, vt, ft, t, lights=lights)
 
     def step(x):
         x = x.clone().requires_grad_(True)
@@ -1422,7 +1430,7 @@ def test_renders_through_the_nmr_kernels_give_the_plain_paths_bits(cuda, fresh_c
     step on the plain versions: each replay's images and the cotangent
     that reaches the resolve (K3's input: K11's XY planes and the shading's
     z planes summed by autograd) have the same bits; the gradients lie
-    within 1e-4 of their largest (K3's and K6's atomics)."""
+    within 1e-4 of their largest (K3's and K14's atomics)."""
     from neural_renderer_v2_pytorch_tpu_torch.ops import gather_resolve
 
     if kind in ("depth", "lit"):
@@ -1495,6 +1503,145 @@ def test_float64_lights_and_backgrounds_render_through_the_nmr_kernels(cuda):
         rc.nmr_planes_vjp(fvm[:, :2], fvm, fim.long(), 8)
     with pytest.raises(ValueError, match="nmr_coordinate_grad: want torch.float32"):
         rc.nmr_coordinate_grad(fvm.double(), fvm.double(), None, None, 8)
+
+
+# the loaded-atlas sampler (K13, K14): (bs, H, W, th, tw) small, with an odd
+# atlas width and texel count (float2 pairs unaligned in every other
+# plane), and the benchmark cell atlas-fit-256's (32 views of 512^2, a 1190
+# x 1920 atlas)
+SAMPLER_SHAPES = [(2, 12, 16, 40, 64), (3, 33, 47, 23, 37), (32, 512, 512, 1190, 1920)]
+
+
+def _sampler_on(cuda, seed, bs, H, W, th, tw, shared):
+    """The sampler's inputs as a render passes them: the z planes of winner
+    planes [bs, 9, H, W] and the texel-coordinate planes of attribute planes
+    [bs, 15, H, W] (strided views), the atlas (``shared``: one [1, 3, th,
+    tw] expanded over the batch, batch stride 0), an index map with about a
+    third background and weights summing to 1.  A quarter of the pixels
+    have weights (1, 0, 0) at depth 1, so that x lies exactly at the
+    uv-bbox's lo and y at hi - eps (ties), and an eighth lie past the
+    atlas's last column and row (the anchor's clamp)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=cuda)
+
+    fvm = rand(bs, 9, H, W) * 2 - 1
+    fvm[:, 2::3] = 0.5 + 2.5 * rand(bs, 3, H, W)
+    attrs = rand(bs, 15, H, W)
+    attrs[:, 0:6:2] *= tw - 1
+    attrs[:, 1:6:2] *= th - 1
+    w = rand(bs, 3, H, W)
+    w = w / w.sum(1, keepdim=True)
+    fim = torch.randint(0, 1000, (bs, H, W), generator=gen, device=cuda, dtype=torch.int32)
+    fim[rand(bs, H, W) < 0.3] = -1
+    group = torch.randint(0, 8, (bs, H, W), generator=gen, device=cuda)
+    tie, edge = group < 2, group == 2
+    w[:, 0][tie], w[:, 1][tie], w[:, 2][tie] = 1.0, 0.0, 0.0
+    fvm[:, 2][tie] = 1.0
+    u, v = attrs[:, 0:6:2], attrs[:, 1:6:2]
+    u[:, 1][tie] = u[:, 0][tie] + 0.75 * (tw - 1 - u[:, 0][tie])
+    u[:, 2][tie] = u[:, 0][tie] + 0.25 * (tw - 1 - u[:, 0][tie])
+    v[:, 1][tie] = float(th - 2)
+    v[:, 2][tie] = 0.5
+    v[:, 0][tie] = v[:, 1][tie] - 1e-5
+    for k in range(3):
+        u[:, k][edge], v[:, k][edge] = tw - 0.5, th - 0.5
+    atlas = rand(1 if shared else bs, 3, th, tw)
+    if shared:
+        atlas = atlas.expand(bs, -1, -1, -1)
+    return fvm[:, 2::3], attrs[:, :6], atlas, fim, w
+
+
+def _atlas_sum_bound(grad, z, uv, atlas, fim, w):
+    """Per texel of the atlas gradient, twice the float32 rounding that a
+    sum of its n terms may carry in any order: 2 n 2^-24 sum |term|.  K14
+    adds a texel's terms with atomics and the plain version with an
+    index_add_ and K6's fold, each in its own order; each lies within n
+    2^-24 sum |term| of the exact sum (the terms themselves, g_c t_i, are
+    the same products in both)."""
+    fg, _, _, tap_w, anchors, _ = rc._atlas_parts(z, uv, atlas, fim, w, 1e-5)
+    bs, _, th, tw = atlas.shape
+    P = anchors.shape[-1]
+    g = torch.where(fg[:, None], grad, 0.0)
+    terms = torch.cat([g * t[:, None] for t in tap_w], 1).reshape(bs, 12, P)
+    marked = torch.where(fg.reshape(bs, P), anchors[:, 0].int(), -1)
+    size = rc.atlas_taps_grad_plain(terms.abs(), marked, tw, th * tw)
+    count = rc.atlas_taps_grad_plain((terms != 0).float(), marked, tw, th * tw)
+    return (2 * count * 2.0 ** -24 * size).reshape(atlas.shape)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("bs,H,W,th,tw", SAMPLER_SHAPES)
+def test_atlas_sampler_kernels_match_their_plain_versions(cuda, bs, H, W, th, tw, shared):
+    """K13 gives its plain version's bits; K14 gives the plain VJP's bits for
+    the depths', texel coordinates' and weights' gradients and writes only
+    those asked for; its atlas gradient lies within the rounding of its
+    texels' sums (:func:`_atlas_sum_bound`: atomics against an index_add_
+    and K6's fold)."""
+    z, uv, atlas, fim, w = _sampler_on(cuda, bs + H + th, bs, H, W, th, tw, shared)
+    rc.reset_launches()
+    got = rc.atlas_sample(z, uv, atlas, fim, w, 1e-5)
+    with rc.plain_versions():
+        want = rc.atlas_sample(z, uv, atlas, fim, w, 1e-5)
+    assert got.shape == (bs, 3, H, W) and _same_bits(got, want)
+    assert not got[(fim < 0)[:, None].expand_as(got)].any()
+    grad = torch.randn((bs, 3, H, W), generator=torch.Generator(device=cuda).manual_seed(bs),
+                       device=cuda)
+    got = rc.atlas_sample_vjp(grad, z, uv, atlas, fim, w, 1e-5)
+    with rc.plain_versions():
+        want = rc.atlas_sample_vjp(grad, z, uv, atlas, fim, w, 1e-5)
+    for k in (0, 1, 3):
+        assert got[k].is_contiguous() and _same_bits(got[k], want[k]), k
+    assert got[2].shape == atlas.shape and got[2].is_contiguous()
+    assert bool(((got[2] - want[2]).abs() <= _atlas_sum_bound(grad, z, uv, atlas, fim, w)).all())
+    part = rc.atlas_sample_vjp(grad, z, uv, atlas, fim, w, 1e-5, (False, True, False, False))
+    assert part[0] is None and part[2] is None and part[3] is None
+    assert _same_bits(part[1], got[1])
+    assert rc.LAUNCHES["atlas_sample"] == 1 and rc.LAUNCHES["atlas_sample_vjp"] == 2
+
+
+def test_a_captured_lit_rgb_step_launches_each_sampler_kernel_once(cuda, fresh_cache):
+    """One lit RGB step from a loaded atlas, eager or captured by its
+    caller, launches K13 and K14 once each and K6 not at all; its replays
+    give the eager step's images."""
+    v, step = _depth_and_lit_steps("atlas-lit", cuda)
+    sampler = ("atlas_sample", "atlas_sample_vjp", "atlas_taps_grad")
+    rc.reset_launches()
+    with nr.eager():
+        want_images, _ = step(v)
+    assert [rc.LAUNCHES[k] for k in sampler] == [1, 1, 0]
+    graph, images, _, held = _whole_step_graph(step, v)
+    assert [held.get(k) for k in sampler] == [1, 1, None], held
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(images, want_images)
+
+
+def test_atlas_sampler_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """On the card the sampler's wrappers take float32 planes and atlas and
+    an int32 index map of matching shapes, else raise ValueError (no
+    fallback to the plain version)."""
+    z, uv, atlas, fim, w = _sampler_on(cuda, 1, 2, 12, 16, 40, 64, False)
+    grad = torch.ones((2, 3, 12, 16), device=cuda)
+    cases = {
+        "z_planes": (z.double(), uv, atlas, fim, w),
+        "uv_planes": (z, uv.half(), atlas, fim, w),
+        "weight_planes": (z, uv, atlas, fim, w[:, :2]),
+        "textures": (z, uv, atlas.double(), fim, w),
+        "face_index_map": (z, uv, atlas, fim.long(), w),
+    }
+    for name, args in cases.items():
+        with pytest.raises(ValueError, match=name):
+            rc.atlas_sample(*args, 1e-5)
+        with pytest.raises(ValueError, match=name):
+            rc.atlas_sample_vjp(grad, *args, 1e-5)
+    with pytest.raises(ValueError, match="textures"):
+        rc.atlas_sample(z, uv, atlas[:, :2], fim, w, 1e-5)
+    with pytest.raises(ValueError, match="grad"):
+        rc.atlas_sample_vjp(grad.double(), z, uv, atlas, fim, w, 1e-5)
+    with pytest.raises(ValueError, match="grad"):
+        rc.atlas_sample_vjp(grad[:, :2], z, uv, atlas, fim, w, 1e-5)
 
 
 def test_no_grad_render_is_a_forward_graph(cuda, fresh_cache):

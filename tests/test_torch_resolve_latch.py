@@ -141,6 +141,9 @@ def _kernel_args():
     fim = torch.randint(-1, 9, (1, 8, 8), dtype=torch.int32)
     bins = rc.bin_faces_plain(fvp, True, 40)
     fvm = torch.rand((1, 9, 8, 8), generator=torch.Generator().manual_seed(0))
+    # the loaded-atlas sampler: depths, texel coordinates in a 5 x 7 atlas,
+    # the atlas, the index map, weights, eps
+    sampler = (fvm[:, 2::3] + 1, fvm[:, :6] * 4, torch.ones(1, 3, 5, 7), fim, fvm[:, 6:], 1e-5)
     return {
         "face_setup": ((fvp, True), {}),
         "resolve_xy": ((fvp, True, 16, 0.1, 100.0), {}),
@@ -158,6 +161,8 @@ def _kernel_args():
         "nmr_planes": ((fvm, fim, 8), {"weights": True}),
         "nmr_planes_vjp": ((torch.ones(1, 2, 8, 8), fvm, fim, 8), {}),
         "nmr_coordinate_grad": ((torch.ones(1, 2, 8, 8), fvm[:, :2], None, None, 16), {}),
+        "atlas_sample": (sampler, {}),
+        "atlas_sample_vjp": ((torch.ones(1, 3, 8, 8), *sampler), {}),
     }
 
 

@@ -95,16 +95,130 @@ def test_uv_coords():
     assert (out[:, :, fim[0] < 0][0] == 0).all()
 
 
-def test_atlas_sampler_values_and_gradients():
-    """Gradients with respect to the atlas (K6 plain + shifted adds), the
-    texel coordinates and z; the atlas is small, so taps cross its rows."""
+ATLAS = (40, 64)
+# the loaded-atlas sampler's cases: random triangles; coordinates exactly at
+# the uv-bbox's lo and at hi - eps (ties, whose gradient torch.minimum and
+# torch.maximum split evenly); anchors on the atlas's last column and last
+# row (the anchor's clamp); images all background; one atlas expanded over
+# four views (batch stride 0)
+ATLAS_CASES = ["random", "ties", "atlas_edges", "background", "shared_atlas"]
+
+
+def _atlas_case(case):
+    """(fvm, uv, w, fim, atlas, views) of one of :data:`ATLAS_CASES`: the
+    inputs of ``sample_textures_atlas_planes`` (:func:`_planes` in a 40 x 64
+    atlas), with ``views`` the batch the one atlas [1, 3, th, tw] is
+    expanded to, or None."""
+    th, tw = ATLAS
     fvm, uv, w, fim = _planes(2)
-    atlas = np.random.RandomState(3).rand(BS, 3, 40, 64).astype(np.float32)
-    _both(
-        lambda fvm, uv, tex, fim, w: js.sample_textures_atlas_planes(fvm, uv, tex, fim, w, 1e-5),
-        lambda fvm, uv, tex, fim, w: ts.sample_textures_atlas_planes(fvm, uv, tex, fim, w, 1e-5),
-        [fvm, uv, atlas, fim, w], 4,
-    )
+    atlas = np.random.RandomState(3).rand(BS, 3, th, tw).astype(np.float32)
+    views = None
+    group = np.random.RandomState(4).randint(0, 4, (BS, H, W))
+    if case == "ties":
+        # weights (1, 0, 0) at depth 1: the coordinates are exactly u0, v0
+        tie = group > 0
+        w[:, 0][tie], w[:, 1][tie], w[:, 2][tie] = 1.0, 0.0, 0.0
+        fvm[:, 2][tie] = 1.0
+        fim[tie] = np.abs(fim[tie])
+        u, v = uv[:, 0::2], uv[:, 1::2]
+        # x at lo (u0 the least), and in group 2 also u0 == u1
+        lo = group >= 1
+        u[:, 1][lo] = u[:, 0][lo] + 7.5
+        u[:, 2][lo] = u[:, 0][lo] + 3.25
+        u[:, 1][group == 2] = u[:, 0][group == 2]
+        # y at hi - eps (v1 the greatest, v0 = v1 - eps in float32)
+        v[:, 1][tie] = np.float32(30.0)
+        v[:, 2][tie] = np.float32(5.0)
+        v[:, 0][tie] = np.float32(30.0) - np.float32(1e-5)
+        uv[:, 0::2], uv[:, 1::2] = u, v
+    elif case == "atlas_edges":
+        # group 1: the last column (x in [tw - 1, tw)); group 2: the last
+        # row (the anchor clamped to T - tw - 2); group 3: both
+        u, v = uv[:, 0::2], uv[:, 1::2]
+        u[np.broadcast_to((group & 1)[:, None] > 0, u.shape)] = tw - 0.5
+        v[np.broadcast_to((group & 2)[:, None] > 0, v.shape)] = th - 0.5
+        uv[:, 0::2], uv[:, 1::2] = u, v
+    elif case == "background":
+        fim[:] = -1
+    elif case == "shared_atlas":
+        more = _planes(12)
+        fvm, uv, w, fim = (np.concatenate([a, b]) for a, b in zip((fvm, uv, w, fim), more))
+        atlas, views = atlas[:1], 2 * BS
+    return fvm, uv, w, fim, atlas, views
+
+
+def _check_atlas_case(case, fvm, uv, w, fim):
+    """The case reaches what it names: ties at lo and hi - eps, anchors
+    on the last column and row."""
+    if case not in ("ties", "atlas_edges"):
+        return
+    z, u, v, wt = (torch.tensor(a) for a in (fvm[:, 2::3], uv[:, 0::2], uv[:, 1::2], w))
+    x, y = ts._uv_coords(z.unbind(1), u.unbind(1), v.unbind(1), wt.unbind(1),
+                         torch.tensor(fim) >= 0, 1e-5)
+    fg = torch.tensor(fim) >= 0
+    if case == "ties":
+        assert (fg & (x == u.min(1).values)).sum() > 10
+        assert (fg & (y == v.max(1).values - 1e-5) & (y > v.min(1).values)).sum() > 10
+    else:
+        th, tw = ATLAS
+        assert (fg & (torch.floor(x) == tw - 1)).sum() > 10
+        assert (fg & (torch.floor(y) == th - 1)).sum() > 10
+
+
+@pytest.mark.parametrize("case", ATLAS_CASES)
+def test_atlas_sampler_values_and_gradients(case):
+    """Gradients with respect to the atlas (K14's adds, K6's plain version
+    on the CPU), the texel coordinates, z and the weights; the atlas is
+    small, so taps cross its rows."""
+    fvm, uv, w, fim, atlas, views = _atlas_case(case)
+    _check_atlas_case(case, fvm, uv, w, fim)
+
+    def run(lib, fvm, uv, tex, fim, w):
+        if views is not None:
+            tex = (jnp.broadcast_to(tex, (views, *tex.shape[1:])) if lib is js
+                   else tex.expand(views, -1, -1, -1))
+        return lib.sample_textures_atlas_planes(fvm, uv, tex, fim, w, 1e-5)
+
+    out = _both(lambda *a: run(js, *a), lambda *a: run(ts, *a), [fvm, uv, atlas, fim, w], 4)
+    if case == "background":
+        assert (out == 0).all()
+
+
+@pytest.mark.parametrize("case", ATLAS_CASES)
+def test_atlas_sampler_vjp_matches_autograd_of_its_expression(case):
+    """The sampler's hand-written VJP (``resolve_cuda.atlas_sample_vjp_plain``,
+    K14's plain version) against autograd through the expression it
+    replaced: ``_uv_coords``, ``_bilinear_taps``, the taps gathered by
+    ``_AtlasTaps`` at the clamped anchors and summed from 0.  The same
+    values, bit for bit; every gradient to rtol 1e-5."""
+    fvm, uv, w, fim, atlas, views = _atlas_case(case)
+    th, tw = ATLAS
+    bs = fim.shape[0]
+    z = torch.tensor(fvm[:, 2::3].copy(), requires_grad=True)
+    uvt, wt = (torch.tensor(a, requires_grad=True) for a in (uv, w))
+    tex = torch.tensor(atlas, requires_grad=True)
+    index = torch.tensor(fim)
+
+    def expression(z, uv, tex, w):
+        fg = index >= 0
+        x, y = ts._uv_coords(z.unbind(1), uv[:, 0::2].unbind(1), uv[:, 1::2].unbind(1),
+                             w.unbind(1), fg, 1e-5)
+        x0, y0, tap_w = ts._bilinear_taps(x, y)
+        idx00 = torch.where(fg, y0 * tw + x0, -1).reshape(bs, H * W)
+        taps = ts._AtlasTaps.apply(tex.reshape(bs, 3, th * tw), idx00, tw)
+        taps = taps.reshape(bs, 4, 3, H, W)
+        images = sum(t[:, None] * taps[:, i] for i, t in enumerate(tap_w))
+        return torch.where(fg[:, None], images, 0.0)
+
+    views_of = (lambda t: t) if views is None else (lambda t: t.expand(views, -1, -1, -1))
+    ct = torch.tensor(np.random.RandomState(8).randn(bs, 3, H, W).astype(np.float32))
+    want = expression(z, uvt, views_of(tex), wt)
+    want_grads = torch.autograd.grad(want, (z, uvt, tex, wt), ct)
+    got = ts._sample_atlas(z, uvt, views_of(tex), index, wt, 1e-5)
+    got_grads = torch.autograd.grad(got, (z, uvt, tex, wt), ct)
+    assert torch.equal(got, want)
+    for g, w_ in zip(got_grads, want_grads):
+        _close(g.numpy(), w_.numpy())
 
 
 @pytest.mark.parametrize("texture_size", [2, 4])

@@ -230,8 +230,10 @@ def test_a_lit_render_nests_the_sampler_and_lights_spans(traced, kind):
 # the operations other than views (which launch no kernel) that a lit RGB
 # step of :func:`_lit_step` dispatched, once a first step had run (what
 # the port keeps across steps made), before the sampler and the lights
-# had spans
-LIT_STEP_KERNEL_OPS = {"atlas": 1611, "texel": 1589}
+# had spans; "atlas" since the loaded-atlas sampler became one Function,
+# whose plain VJP on the CPU recomputes the forward (on the card: one
+# kernel each way)
+LIT_STEP_KERNEL_OPS = {"atlas": 1705, "texel": 1589}
 
 
 class _Kernels(TorchDispatchMode):

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the texture-atlas gradient (K6 and what runs around it) and the
-steps beside it, of a checkout of the port on one CUDA card.
+"""Time the texture-atlas gradient (K14, or K6 in a checkout that predates
+it, and what runs around it) and the steps beside it, of a checkout of
+the port on one CUDA card.
 
     python3 tools/atlas_grad_times.py [--root DIR] [--out FILE]
 
@@ -16,11 +17,10 @@ that holds this script), so that a change and its parent, unpacked under
   (``scaling.time_row``: ms, busy share, device operations);
 - ``prof``'s stages of the atlas's gradient step, captured whole by its
   caller and replayed under the profiler, named by the port's spans
-  (``utils/trace.py``): K6's is the span ``atlas.vjp`` (K6 and its zero
-  fill), its device ms;
+  (``utils/trace.py``): the atlas's is the span ``atlas.vjp`` (the
+  sampler's backward kernel and its zero fill), its device ms;
 - the device ms per step of each of the port's kernels in that step
-  replayed under the profiler (``roofline.kernels_device_ms``): K6's own
-  time.
+  replayed under the profiler (``roofline.kernels_device_ms``).
 
 The last line of the output is one JSON object, also written to FILE when
 given.  Without CUDA the script fails.
