@@ -86,36 +86,7 @@ Builds the hand-written kernels from ``neural_renderer_v2_pytorch_tpu_torch
   copies (batch 2 too) and to itself on a second call, each in one device
   operation; each timed in turns with its library yardstick, beside its
   device time and bound; and the host-time split of one K4, one K5 and one
-  K9 wrapper call into the parts of the packed launch path (K9's beside
-  the alternatives its parts were chosen from, and K9 launched through a
-  typed entry, ``tools/launch_abi.cu``, in turns with the packed one);
-- the redesigned kernels: K7 at the four binned configurations and on a
-  crowded tile (one bin whose ids span two of the order pass's bitmap
-  windows) in turns with its parent design (``tools/bin_faces_designs.cu``),
-  both bit-equal to the plain bins, K7 in at most four device operations
-  and a readback;
-  K9 in turns with ``torch.gather`` at ``scale`` (D = 9) and
-  ``textured-scale`` (D = 27); K3 in turns with its parent design
-  (``tools/resolve_scatter_parents.cu``), its 32 x 8-pixel block and
-  ``index_add_`` at ``bench`` (D = 6), ``atlas`` (15), ``lit`` (36) and
-  K9's transpose at ``textured-scale`` (27), each within 1e-4 of the plain
-  version and K3 in at most two device operations; K6 at ``atlas`` in turns
-  with its designs (``tools/atlas_taps_designs.cu``: float atomics only,
-  warp aggregation of equal anchors with and without float2 pairs), the
-  parent's K6 with its three folds and copy, and ``index_add_`` over the
-  four taps after a zero fill, each within 1e-4 of the plain version and
-  K6 in at most two device operations; the tiled forms (every
-  CTA loading every face, the next batch into registers) in turns with the
-  parent's forms (the same feed) and with the designs of ``TILED_DESIGNS``
-  (``tools/resolve_designs.cu``: the face stream multicast by bulk copies
-  across clusters of 1, 2, 4 and 8 CTAs, or 2 of its 9 runs) at ``bench``
-  (K2, K2D), ``atlas`` and ``lit`` (K2L) and ``scale`` (K2 over 81,920
-  faces), all bit-equal;
-  each K8 form (a CTA per bin, from the face vertices) in turns with the
-  parent's K8 alone (a CTA per bin over K1's constants), with the parent's
-  chain K1 + K7 + K8 beside K7 + K8, and with the warp-per-bin design
-  (static stride or atomic counter), at ``hires`` (XY), ``hires-lit``
-  (copy, id/depth) and on the crowded tile, all bit-equal;
+  K9 wrapper call into the parts of the packed launch path;
 
 then times each kernel, its plain version, the one PyTorch call that
 computes the same function where there is one, and each step, with CUDA
@@ -182,7 +153,6 @@ There is no CPU path: without CUDA the script fails.
 
 import collections
 import contextlib
-import ctypes
 import hashlib
 import json
 import logging
@@ -205,7 +175,6 @@ from neural_renderer_v2_pytorch_tpu_torch.benchmarks import (
     scaling,
 )
 from neural_renderer_v2_pytorch_tpu_torch.benchmarks.roofline import (
-    HBM_BYTES_PER_S,
     atlas_taps_inputs,
     atlas_taps_library,
     atlas_taps_work,
@@ -1564,585 +1533,14 @@ def host_split(wrapper, tensors, alloc, entry, args, extra=None):
     return {name: per_call_us(part) for name, part in parts.items()}
 
 
-def gather_rows_host_split(dev, gen):
-    """K9's wrapper at scale's shapes (D = 9 over a 512^2 index map) and
-    the parts of its launch path (:func:`host_split`), with the
-    alternatives each part was chosen from: the checks as the parent's
-    (``_check`` and the id checks) and as the wrapper's one comparison per
-    input; the allocation as ``torch.empty`` with the tensor's device, with
-    a kept ``torch.device``, and as ``new_empty`` (the wrapper's); the
-    ctypes call with ``argtypes`` (the wrapper's), without them (the block
-    and a ``c_void_p`` stream as objects), through a ``CFUNCTYPE``
-    prototype and through ``ctypes.PyDLL`` (the GIL kept), each launching
-    K9 at a tiny shape, where the card keeps up with the host; beside them
-    a ctypes call of libc's ``labs`` (the floor of a foreign call) and the
-    yardstick ``torch.gather``'s host time at both shapes.  Last, the A/B
-    of the launch ABI at the tiny shape, in turns (typed, packed, packed,
-    typed, three times): K9 through a typed entry (``tools/launch_abi.cu``:
-    one ctypes argument per kernel argument through ``argtypes``, the
-    device checked in Python, as the port's entries were before they were
-    packed) and through the packed entry, the block packed per call
-    (``abi_typed_turns``, ``abi_packed_turns``)."""
-    n, D, P = 81920, 9, 512 * 512
-    table = torch.randn((1, n, D), generator=gen, device=dev)
-    ids = torch.randint(-1, n, (1, P), generator=gen, device=dev, dtype=torch.int32)
-    out = torch.empty((1, D, P), device=dev)
-    args = (table.data_ptr(), ids.data_ptr(), out.data_ptr(), 1, n, D, P, P, 1)
-    pack = cuda_build.PACKERS["gather_rows"].pack
-    lib = cuda_build.load()
-    bare = lib["nr_gather_rows"]           # a new handle: no argtypes, restype int
-    proto = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_char_p, ctypes.c_void_p)(
-        ("nr_gather_rows", lib))
-    pydll = ctypes.PyDLL(lib._name)["nr_gather_rows"]
-    pydll.argtypes, pydll.restype = (ctypes.c_char_p, ctypes.c_void_p), ctypes.c_int
-    labs = ctypes.CDLL(None).labs
-    labs.argtypes, labs.restype = (ctypes.c_long,), ctypes.c_long
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    gather_index = ids.clamp(min=0).long()[..., None].expand(1, P, D)
-
-    def parent_checks():
-        rc._use_kernel(table, ids)
-        rc._check(table, "table", torch.float32, (1, n, D))
-        batch_stride = P                   # bs = 1
-        if (ids.dtype != torch.int32 or tuple(ids.shape) != (1, P) or ids.stride(1) != 1
-                or batch_stride not in (0, P)):
-            raise AssertionError("ids")
-
-    def folded_checks():
-        rc._use_kernel(table, ids)
-        if (table.dtype, table.stride()) != (torch.float32, (n * D, D, 1)) or \
-                (ids.dtype, ids.shape, ids.stride()) != (torch.int32, (1, P), (P, 1)):
-            raise AssertionError("layout")
-
-    # at a tiny shape the card keeps up with the host, so these time the
-    # host's launch and not the card's throughput
-    t_table = torch.randn((1, 8, D), generator=gen, device=dev)
-    t_ids = torch.randint(-1, 8, (1, 64), generator=gen, device=dev, dtype=torch.int32)
-    t_out = torch.empty((1, D, 64), device=dev)
-    t_block = pack(dev.index, t_table.data_ptr(), t_ids.data_ptr(), t_out.data_ptr(), 1, 8, D,
-                   64, 64, 1)
-    t_index = t_ids.long()[..., None].clamp(min=0).expand(1, 64, D)
-    fn = cuda_build.ENTRIES["gather_rows"]
-    extra = dict(
-        tiny_ctypes_call=lambda: fn(t_block, stream),
-        tiny_ctypes_no_argtypes=lambda: bare(t_block, ctypes.c_void_p(stream)),
-        tiny_ctypes_cfunctype=lambda: proto(t_block, stream),
-        tiny_ctypes_pydll=lambda: pydll(t_block, stream),
-        tiny_wrapper=lambda: rc.gather_rows(t_table, t_ids, True),
-        tiny_library=lambda: torch.gather(t_table, 1, t_index),
-        parent_checks=parent_checks, folded_checks=folded_checks,
-        alloc_empty_tensor_device=lambda: torch.empty((1, D, P), dtype=torch.float32,
-                                                      device=table.device),
-        alloc_empty_kept_device=lambda: torch.empty((1, D, P), dtype=torch.float32, device=dev),
-        ffi_floor=lambda: labs(-5), library=lambda: torch.gather(table, 1, gather_index))
-    split = host_split(lambda: rc.gather_rows(table, ids, True), (table, ids),
-                       lambda: table.new_empty((1, D, P)), "gather_rows", args, extra)
-    P_, I_ = ctypes.c_void_p, ctypes.c_int
-    typed = tool_library("launch_abi").nr_typed_gather_rows
-    typed.argtypes = (P_, P_, P_, I_, I_, I_, I_, ctypes.c_longlong, I_, P_)
-    typed.restype = ctypes.c_int
-    t_args = (t_table.data_ptr(), t_ids.data_ptr(), t_out.data_ptr(), 1, 8, D, 64, 64, 1)
-    index = dev.index
-
-    def typed_launch():
-        if torch._C._cuda_getDevice() != index or typed(*t_args, stream):
-            raise AssertionError("typed launch")
-
-    def packed_launch():
-        if fn(pack(index, *t_args), stream):
-            raise AssertionError("packed launch")
-
-    typed_launch(), packed_launch()
-    torch.cuda.synchronize()
-    want = rc.gather_rows_plain(t_table, t_ids, True)
-    if not torch.equal(t_out, want):
-        raise AssertionError("K9 through the typed and packed entries differs from plain")
-    turns = {"typed": [], "packed": []}
-    for _ in range(3):
-        for name in ("typed", "packed", "packed", "typed"):
-            turns[name].append(per_call_us(typed_launch if name == "typed" else packed_launch))
-    split["abi_typed_turns"], split["abi_packed_turns"] = turns["typed"], turns["packed"]
-    return split
-
-
-def tool_library(name):
-    """``tools/<name>.cu`` built into ``build/tools/`` (as the port's kernels
-    are: their flags, a file name keyed by a hash of the source, the port's
-    sources it may include and the flags, so an unchanged source is loaded
-    as it is) and loaded through ctypes."""
-    src = os.path.join(ROOT, "tools", name + ".cu")
-    h = hashlib.sha256(" ".join(cuda_build.NVCC_FLAGS).encode())
-    for path in (src, *sorted(str(p) for p in cuda_build.CSRC_DIR.glob("*.cu*"))):
-        with open(path, "rb") as fh:
-            h.update(fh.read())
-    lib = os.path.join(ROOT, "build", "tools", f"lib{name}_{h.hexdigest()[:16]}.so")
-    if not os.path.exists(lib):
-        os.makedirs(os.path.dirname(lib), exist_ok=True)
-        part = f"{lib}.{os.getpid()}"
-        cuda_build._run_all([[cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
-                              str(cuda_build.CSRC_DIR), "-shared", "-o", part, src]])
-        os.replace(part, lib)
-    return ctypes.CDLL(lib)
-
-
-def typed_entry(lib, name, argtypes):
-    """``lib.nr_<name>`` with ``argtypes`` and the stream, as a function of
-    the arguments that launches on the current stream and raises on its
-    error code."""
-    fn = getattr(lib, "nr_" + name)
-    fn.argtypes, fn.restype = (*argtypes, ctypes.c_void_p), ctypes.c_int
-
-    def call(*args):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"{name}: CUDA error {err}")
-    return call
-
-
-def parent_bin_design():
-    """K7 as the port's parent had it (``tools/bin_faces_designs.cu``): a
-    function (consts, S, row_start, rows) -> (cnt, offsets, ids) of K7's
-    contract at :data:`resolve_cuda.BIN_TILE`, with its [bs, tiles, chunks]
-    count array, scanned by torch, and its host sync."""
-    lib = tool_library("bin_faces_designs")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    count = typed_entry(lib, "parent_bin_count", (P, P, P, I, I, I, I, I, I, I, I))
-    fill = typed_entry(lib, "parent_bin_fill", (P, P, P, I, I, I, I, I))
-
-    def parent(consts, S, r0, rows):
-        bs, _, nf = consts.shape
-        th, tw = rc.BIN_TILE
-        tiles_x = -(-S // tw)
-        n_tiles = tiles_x * -(-rows // th)
-        dev = consts.device
-        rects = torch.empty((bs, nf, 4), dtype=torch.int32, device=dev)
-        counts = torch.zeros((bs, n_tiles, max(1, -(-nf // 256))), dtype=torch.int32, device=dev)
-        count(consts.data_ptr(), rects.data_ptr(), counts.data_ptr(), bs, nf, S, r0, rows, th, tw,
-              256)
-        ends = torch.cumsum(counts.reshape(-1), 0, dtype=torch.int32)
-        cursors = (ends - counts.reshape(-1)).reshape(counts.shape)
-        cnt, offsets = counts.sum(-1, dtype=torch.int32), cursors[..., 0].clone()
-        ids = torch.empty(int(ends[-1]), dtype=torch.int32, device=dev)      # the host sync
-        fill(rects.data_ptr(), cursors.data_ptr(), ids.data_ptr(), bs, nf, tiles_x, n_tiles, 256)
-        return cnt, offsets, ids
-
-    return parent
-
-
-def crowded_fvp(dev):
-    """The face vertices of ``textured-scale``'s mesh (torus(320, 248),
-    158,720 faces) seen from above in a 3-pixel disc inside one 8x8 tile of a 512^2
-    canvas: one bin holds every face K1 keeps (~74K; it kills those whose
-    projected area is below its threshold at this size), with ids spanning
-    more than K7's bitmap window of 131,072, so its order pass takes the
-    block's bitmap in two windows."""
-    v, f = torus(320, 248)
-    v = v / np.abs(v).max()
-    c, r = (2.0 * 59.5 + 1.0 - 512) / 512, 2.0 * 3.0 / 512
-    ndc = np.stack([c + r * v[:, 0], c + r * v[:, 2], 2.0 + v[:, 1]], -1).astype(np.float32)
-    return torch.tensor(np.ascontiguousarray(ndc[f][None].transpose(0, 3, 2, 1)), device=dev)
-
-
-def turns_row(kernel, yardstick, nbytes):
-    """A kernel and its yardstick (a library call or a parent design) in
-    turns: the event medians (kernel, yardstick, yardstick, kernel), the
-    device busy time and operations per call of each under the profiler
-    (:func:`profile_kept`), the port kernels' own device time, and the
-    bound of moving ``nbytes``."""
-    ms_turns, yard_turns = in_turns(kernel, yardstick)
-    prof, yard = profile_kept(kernel), profile_kept(yardstick)
-    return dict(ms=float(np.mean(ms_turns)), ms_turns=ms_turns,
-                yardstick_ms=float(np.mean(yard_turns)), yardstick_turns=yard_turns,
-                device_ms=prof.busy, device_ops=prof.ops, yardstick_device_ms=yard.busy,
-                yardstick_ops=yard.ops, kernel_device_ms=sum(prof.per_launch.values()),
-                per_kernel={k.split("::")[-1][:40]: v for k, v in prof.per_launch.items()},
-                bound_ms=bound(nbytes, 0)[0])
-
-
-def redesigned_kernels(binned, gathers, smi):
-    """K7 at the four binned configurations and on a crowded tile
-    (``binned``: label -> (fvp, S)), in turns with its parent design
-    (:func:`parent_bin_design`, over K1's constants made beforehand), both
-    held to the plain version's bins and
-    K7 to at most four device operations and one readback per call; and K9
-    in turns with ``torch.gather`` (``gathers``: label -> its Call).
-    Returns {"bin_faces": {label: row}, "gather_rows": {label: row}}."""
-    parent = parent_bin_design()
-    rows = {"bin_faces": {}, "gather_rows": {}}
-    for label, (fvp, S) in binned.items():
-        want = rc.bin_faces_plain(fvp, True, S)
-        consts = rc.face_setup(fvp, True)
-
-        def shipped(fvp=fvp, S=S):
-            return rc.bin_faces(fvp, True, S)
-
-        def design(consts=consts, S=S):
-            return parent(consts, S, 0, S)
-
-        check_parts(f"{label} bin_faces", shipped(), want, ("cnt", "offsets", "ids"))
-        check_parts(f"{label} bin_faces parent design", design(), want, ("cnt", "offsets", "ids"))
-        check_parts(f"{label} bin_faces second call", shipped(), want, ("cnt", "offsets", "ids"))
-        nf, pairs = consts.shape[-1], len(want[2])
-        row = turns_row(shipped, design, 24 * nf + 8 * want[0].numel() + 4 * pairs)
-        # memset, three kernels and the readback; the profiler may drop a
-        # record, never add one
-        if row["device_ops"] > 5:
-            raise AssertionError(f"{label} bin_faces: {row['device_ops']} device operations")
-        largest = int(want[0].argmax())
-        top = want[2][int(want[1].reshape(-1)[largest]):][:int(want[0].reshape(-1)[largest])]
-        row.update(nf=nf, pairs=pairs, largest_bin=len(top),
-                   largest_bin_id_span=int(top.max() - top.min()) + 1 if len(top) else 0)
-        rows["bin_faces"][label] = row
-        log(f"[redesign] {label} K7 bin_faces nf={nf} pairs={pairs} largest bin "
-            f"{row['largest_bin']} (ids spanning {row['largest_bin_id_span']}): "
-            f"{row['ms']:.4f} ms (turns {row['ms_turns'][0]:.4f}, {row['ms_turns'][1]:.4f}), "
-            f"device {row['device_ms']:.5f} ms in {row['device_ops']:.2f} operations (its "
-            f"kernels {row['kernel_device_ms']:.5f}); parent design {row['yardstick_ms']:.4f} "
-            f"ms (turns {row['yardstick_turns'][0]:.4f}, {row['yardstick_turns'][1]:.4f}), "
-            f"device {row['yardstick_device_ms']:.5f} ms in {row['yardstick_ops']:.2f}; bound "
-            f"{row['bound_ms']:.6f} ms; both bit-equal to plain  ({smi})")
-    # the crowded bin's ids span more than one bitmap window (32 * 4096 ids)
-    if rows["bin_faces"]["crowded"]["largest_bin_id_span"] <= 32 * 4096:
-        raise AssertionError(f"the crowded bin takes one bitmap window: {rows['bin_faces']}")
-    for label, call in gathers.items():
-        row = turns_row(call.kernel, call.library, call.bound[0] * HBM_BYTES_PER_S / 1e3)
-        rows["gather_rows"][label] = row
-        log(f"[redesign] {label} K9 gather_rows: {row['ms']:.4f} ms (turns "
-            f"{row['ms_turns'][0]:.4f}, {row['ms_turns'][1]:.4f}), torch.gather "
-            f"{row['yardstick_ms']:.4f} ms (turns {row['yardstick_turns'][0]:.4f}, "
-            f"{row['yardstick_turns'][1]:.4f}); device {row['device_ms']:.5f} ms in "
-            f"{row['device_ops']:.2f} operations (torch.gather {row['yardstick_device_ms']:.5f}), "
-            f"bound {row['bound_ms']:.6f} ms  ({smi})")
-    return rows
-
-
-def resolve_outputs(form, bs, rows, S, A, dev):
-    """The outputs of a resolve form ("xy", "latch" or "depth") of ``bs``
-    images of ``rows`` x ``S`` pixels and ``A`` attribute planes."""
-    out = [torch.empty((bs, rows, S), dtype=torch.int32, device=dev),
-           torch.empty((bs, rows, S), device=dev)]
-    if form == "xy":
-        out.append(torch.empty((bs, 6, rows, S), device=dev))
-    elif form == "latch":
-        out += [torch.empty((bs, 9, rows, S), device=dev), torch.empty((bs, A, rows, S), device=dev)]
-    return out
-
-
-P_, I_, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the tiled forms' designs timed against the shipped ones (each thread
-# loading its own face a batch ahead): the face stream multicast across a
-# cluster of CTAs, name -> (cluster, ring stages, runs of the nine through
-# the ring) of tools/resolve_designs.cu
-TILED_DESIGNS = {
-    "cluster of 1": (1, 5, 9),
-    "cluster of 2": (2, 5, 9),
-    "cluster of 4": (4, 5, 9),
-    "cluster of 8": (8, 5, 9),
-    "cluster of 2, 2 runs multicast, 16 stages": (2, 16, 2),
-}
-# form -> the argument types of a tiled form's entry after its leading ones:
-# the inputs and outputs' pointers, the sizes and window and draw_backside
-TILED_ARGTYPES = {"xy": (P_,) * 4 + (I_,) * 6 + (F_, F_),
-                  "latch": (P_,) * 6 + (I_,) * 7 + (F_, F_),
-                  "depth": (P_,) * 3 + (I_,) * 6 + (F_, F_)}
-
-
-def _tiled_call(entry, lead, form, fvp, attrs, S, row_start, rows, draw_backside):
-    bs, nf, A = fvp.shape[0], fvp.shape[-1], attrs.shape[-1]
-    rows = S if rows is None else rows
-    out = resolve_outputs(form, bs, rows, S, A, fvp.device)
-    inputs = (fvp, attrs) if form == "latch" else (fvp,)
-    sizes = (bs, nf, A, S) if form == "latch" else (bs, nf, S)
-    entry(*lead, *(t.data_ptr() for t in (*inputs, *out)), *sizes, row_start, rows,
-          int(draw_backside), 0.1, 100.0)
-    return tuple(out)
-
-
-def parent_designs():
-    """K3 and the resolve forms as the port's parent had them
-    (``tools/resolve_scatter_parents.cu``): ``scatter(g, fim, nf)``, with
-    the parent wrapper's ``torch.zeros`` of the output; ``tiled(form, fvp,
-    attrs, S, row_start=0, rows=None, draw_backside=True)``, the parent's
-    K2, K2L or K2D (form "resolve_xy", "resolve_latch" or
-    "resolve_depth"), each CTA loading every face itself; and
-    ``binned(form, consts, fvp, attrs, bins, S)``, the parent's K8 (form
-    "xy", "latch" or "depth": a 64-thread CTA per bin) over K1's constants
-    ``consts`` on the whole canvas."""
-    lib = tool_library("resolve_scatter_parents")
-    k3 = typed_entry(lib, "parent_scatter_pixels_to_faces", (P_, P_, P_, I_, I_, I_, I_))
-    tiled_entries = {form: typed_entry(lib, f"parent_resolve_{form}", types)
-                     for form, types in TILED_ARGTYPES.items()}
-    binned_entries = {
-        "xy": typed_entry(lib, "parent_resolve_binned_xy", (P_,) * 8 + (I_,) * 5 + (F_, F_)),
-        "latch": typed_entry(lib, "parent_resolve_binned_latch",
-                             (P_,) * 10 + (I_,) * 6 + (F_, F_)),
-        "depth": typed_entry(lib, "parent_resolve_binned_depth",
-                             (P_,) * 6 + (I_,) * 5 + (F_, F_))}
-
-    def scatter(g, fim, nf):
-        bs, D = g.shape[:2]
-        out = torch.zeros((bs, D, nf), dtype=torch.float32, device=g.device)
-        k3(g.data_ptr(), fim.data_ptr(), out.data_ptr(), bs, D, fim[0].numel(), nf)
-        return out
-
-    def tiled(form, fvp, attrs, S, row_start=0, rows=None, draw_backside=True):
-        form = form.split("_")[-1]
-        return _tiled_call(tiled_entries[form], (), form, fvp, attrs, S, row_start, rows,
-                           draw_backside)
-
-    def binned(form, consts, fvp, attrs, bins, S):
-        bs, nf, A = fvp.shape[0], fvp.shape[-1], attrs.shape[-1]
-        out = resolve_outputs(form, bs, S, S, A, fvp.device)
-        inputs = {"xy": (consts, fvp), "latch": (consts, fvp, attrs), "depth": (consts,)}[form]
-        sizes = (bs, nf, A, S) if form == "latch" else (bs, nf, S)
-        binned_entries[form](*(t.data_ptr() for t in (*inputs, *bins, *out)), *sizes, 0, S,
-                             0.1, 100.0)
-        return tuple(out)
-
-    return scatter, tiled, binned
-
-
-def resolve_designs(dev):
-    """Other designs of the resolve forms (``tools/resolve_designs.cu``):
-    ``tiled(design, form, fvp, attrs, S)``, a tiled form whose face stream
-    a cluster shares, :data:`TILED_DESIGNS`; ``binned(kind,
-    form, fvp, attrs, bins, S)``, K8 as a warp per bin whose persistent
-    warps take bins by a static stride (kind "static") or from an atomic
-    counter ("atomic")."""
-    lib = tool_library("resolve_designs")
-    tiled_entries = {form: typed_entry(lib, f"design_resolve_{form}", (I_,) * 3 + types)
-                     for form, types in TILED_ARGTYPES.items()}
-    binned_entries = {
-        "xy": typed_entry(lib, "design_binned_xy", (P_,) * 8 + (I_,) * 6 + (F_, F_)),
-        "latch": typed_entry(lib, "design_binned_latch", (P_,) * 10 + (I_,) * 7 + (F_, F_)),
-        "depth": typed_entry(lib, "design_binned_depth", (P_,) * 7 + (I_,) * 6 + (F_, F_))}
-    work = torch.zeros((1,), dtype=torch.int32, device=dev)
-
-    def tiled(design, form, fvp, attrs, S):
-        form = form.split("_")[-1]
-        return _tiled_call(tiled_entries[form], design, form, fvp, attrs, S, 0, S, True)
-
-    def binned(kind, form, fvp, attrs, bins, S):
-        bs, nf, A = fvp.shape[0], fvp.shape[-1], attrs.shape[-1]
-        out = resolve_outputs(form, bs, S, S, A, fvp.device)
-        inputs = (fvp, attrs) if form == "latch" else (fvp,)
-        sizes = (bs, nf, A, S) if form == "latch" else (bs, nf, S)
-        binned_entries[form](work.data_ptr() if kind == "atomic" else None,
-                             *(t.data_ptr() for t in (*inputs, *bins, *out)),
-                             *sizes, 0, S, 1, 0.1, 100.0)
-        return tuple(out)
-
-    return tiled, binned
-
-
-def design_row(calls, bound_):
-    """The designs of one function in turns: ``calls`` maps a design's name
-    to a call, the shipped one first; event medians in the order given and
-    back (a, b, c, c, b, a); under the profiler (:func:`profile_kept`),
-    each design's device operations per call and its device ms per call,
-    each record name's mean record times its records per call rounded (at
-    least 1), so that a dropped record does not count as time saved; and
-    the bound ``bound_`` = (ms, what bounds it)."""
-    names = list(calls)
-    turns = {name: [] for name in names}
-    for name in names + names[::-1]:
-        turns[name].append(median_ms(calls[name], 50))
-    profs = {name: profile_kept(calls[name]) for name in names}
-    return dict(ms={n: float(np.mean(t)) for n, t in turns.items()}, ms_turns=turns,
-                device_ms={n: call_device_ms(p) for n, p in profs.items()},
-                device_ops={n: p.ops for n, p in profs.items()},
-                bound_ms=bound_[0], bound_by=bound_[1])
-
-
-def log_design_row(label, name, row, checked, smi):
-    def device(ms):
-        return "not measured" if ms is None else f"{ms:.5f} ms"
-
-    log(f"[redesign] {label} {name}: " + "; ".join(
-        f"{n} {row['ms'][n]:.4f} ms (turns {', '.join(f'{t:.4f}' for t in row['ms_turns'][n])}), "
-        f"device {device(row['device_ms'][n])} in {row['device_ops'][n]:.2f} operations"
-        for n in row["ms"]) + f"; bound {row['bound_ms']:.6f} ms by {row['bound_by']}; "
-        f"{checked}  ({smi})")
-
-
-def tile_order(t, tile_w=32, tile_h=8):
-    """``t`` [..., H, W] as [..., 1, H * W] with its pixels re-laid so that
-    each run of 256 is a ``tile_w`` x ``tile_h`` tile, row by row: K3 over
-    it groups pixels as a 32 x 8 block would (warp w on the tile's row w),
-    each warp reading the same 128 bytes, from one 1 KiB run, not 8 rows."""
-    *lead, H, W = t.shape
-    if H % tile_h or W % tile_w:
-        raise ValueError(f"{H} x {W} is not a whole number of {tile_w} x {tile_h} tiles")
-    t = t.reshape(*lead, H // tile_h, tile_h, W // tile_w, tile_w).transpose(-3, -2)
-    return t.contiguous().reshape(*lead, 1, H * W)
-
-
-def scatter_designs(cases, parent, gen, smi):
-    """K3 in turns with a 32 x 8-pixel block (maps with rows: K3 over
-    :func:`tile_order`'s re-laid map and planes, made before the timing),
-    its parent design and ``index_add_`` (over the covered pixels), on
-    random gradients over ``cases``: label -> (index map i32
-    [1, H, W], nf, D).  Each design within GRAD_RTOL of the plain
-    version; the shipped one at most two device operations a call (the
-    zero fill and the kernel; the profiler may drop a record, never add
-    one).  Returns {label: row}."""
-    rows = {}
-    for label, (index, nf, D) in cases.items():
-        g = torch.randn((1, D, *index.shape[1:]), generator=gen, device=index.device)
-        calls = {"shipped": lambda g=g, index=index, nf=nf: rc.scatter_pixels_to_faces(
-            g, index, nf)}
-        if index.shape[1] > 1:
-            calls["32 x 8 tile"] = lambda g=tile_order(g), index=tile_order(index), nf=nf: \
-                rc.scatter_pixels_to_faces(g, index, nf)
-        calls["parent"] = lambda g=g, index=index, nf=nf: parent(g, index, nf)
-        want = rc.scatter_pixels_to_faces_plain(g, index, nf)
-        errs = {name: check_close(f"{label} K3 {name} D={D}", call(), want)
-                for name, call in calls.items()}
-        calls["index_add_"] = covered_index_add(
-            torch.zeros((D, nf), device=index.device), 1, index.reshape(-1), g.reshape(D, -1))
-        P, covered = index.numel(), int((index >= 0).sum())
-        row = design_row(calls, bound(*scatter_pixels_work(index, D, nf)))
-        if row["device_ops"]["shipped"] > 2:
-            raise AssertionError(f"{label} K3: {row['device_ops']['shipped']} device operations")
-        row.update(D=D, nf=nf, P=P, covered=covered, max_abs_err=errs)
-        rows[label] = row
-        log_design_row(label, f"K3 D={D} (P={P}, covered {covered}, nf={nf})", row,
-                       f"max abs err vs plain {json.dumps(errs)}", smi)
-    return rows
-
-
-def atlas_grad_designs(g12, anchors, tw, T, smi):
-    """K6 in turns with its designs (``tools/atlas_taps_designs.cu``: float
-    atomics only; warp aggregation of equal anchors before the atomics,
-    with and without float2 pairs), the parent's K6 with what followed it
-    (the [1, T, 12] table, the three folds and autograd's copy into the
-    atlas's layout) and the library call (``roofline.atlas_taps_library``),
-    on ``g12`` [1, 12, P] over ``anchors`` [1, P]; each within GRAD_RTOL of
-    the plain version, the shipped one at most two device operations a call
-    (the zero fill and the kernel).  Returns the row."""
-    lib = tool_library("atlas_taps_designs")
-    design = typed_entry(lib, "design_atlas_taps_grad", (I_, I_, P_, P_, P_, I_, I_, I_, I_))
-    parent_k6 = typed_entry(lib, "parent_scatter_rows", (P_, P_, P_, I_, I_, I_, I_))
-    P = anchors.shape[1]
-
-    def designed(pair, match):
-        out = torch.zeros((1, 3, T), device=g12.device)
-        design(pair, match, g12.data_ptr(), anchors.data_ptr(), out.data_ptr(), 1, P, tw, T)
-        return out
-
-    def parent():
-        quad = torch.zeros((1, T, 12), device=g12.device)
-        parent_k6(g12.data_ptr(), anchors.data_ptr(), quad.data_ptr(), 1, 12, P, T)
-        return rc.fold_taps(quad, tw)
-
-    calls = {"shipped": lambda: rc.atlas_taps_grad(g12, anchors, tw, T),
-             "scalar": lambda: designed(0, 0),
-             "match": lambda: designed(0, 1),
-             "match + pair": lambda: designed(1, 1),
-             "parent + folds": parent}
-    want = rc.atlas_taps_grad_plain(g12, anchors, tw, T)
-    errs = {name: check_close(f"atlas K6 {name}", call(), want) for name, call in calls.items()}
-    calls["zeros + index_add_"] = atlas_taps_library(g12, anchors, tw, T)
-    row = design_row(calls, bound(*atlas_taps_work(anchors, T)))
-    if row["device_ops"]["shipped"] > 2:
-        raise AssertionError(f"atlas K6: {row['device_ops']['shipped']} device operations")
-    covered = int((anchors >= 0).sum())
-    even = int(((anchors >= 0) & (anchors % 2 == 0)).sum())
-    row.update(P=P, T=T, tw=tw, covered=covered, even_anchors=even, max_abs_err=errs)
-    log_design_row("atlas", f"K6 (P={P}, covered {covered}, {even} at even texels, T={T})",
-                   row, f"max abs err vs plain {json.dumps(errs)}", smi)
-    return row
-
-
-def tiled_designs(cases, parent, designs, smi):
-    """The tiled forms (every CTA loading every face itself, the next batch
-    into registers) in turns with the parent's forms (the same feed, in the
-    parent's template) and with :data:`TILED_DESIGNS` (the face stream
-    multicast across a cluster, :func:`resolve_designs`), on ``cases``:
-    label -> (form, fvp, face attributes, S); all bit-equal.  Returns
-    {label: row}."""
-    rows = {}
-    for label, (form, fvp, attrs, S) in cases.items():
-        consts = rc.face_setup(fvp, True)
-        shipped = {"resolve_xy": lambda: rc.resolve_xy(fvp, True, S, 0.1, 100.0),
-                   "resolve_latch": lambda: rc.resolve_latch(fvp, attrs, True, S, 0.1, 100.0),
-                   "resolve_depth": lambda: rc.resolve_depth(fvp, True, S, 0.1, 100.0)}[form]
-        calls = {"shipped": shipped,
-                 "parent form": lambda form=form, fvp=fvp, attrs=attrs, S=S: parent(
-                     form, fvp, attrs, S)}
-        for name, d in TILED_DESIGNS.items():
-            calls[name] = lambda d=d, form=form, fvp=fvp, attrs=attrs, S=S: designs(
-                d, form, fvp, attrs, S)
-        want = shipped()
-        for name, call in calls.items():
-            check_parts(f"{label} {form} vs {name}", call(), want)
-        A = attrs.shape[-1]
-        planes, face_bytes = {"resolve_xy": (8, 36), "resolve_latch": (11 + A, 36 + 4 * A),
-                              "resolve_depth": (2, 36)}[form]
-        row = design_row(calls, resolve_bound(consts, S, planes, face_bytes))
-        tiles = (-(-S // 16)) ** 2
-        # the face stream from L2: 36 bytes a face for every CTA, or for
-        # every cluster of the multicast designs
-        stream_mb = {"shipped": 36e-6 * tiles * fvp.shape[-1]}
-        stream_mb.update({name: stream_mb["shipped"] / d[0] for name, d in TILED_DESIGNS.items()})
-        row.update(form=form, nf=fvp.shape[-1], A=A, S=S, stream_mb=stream_mb)
-        rows[label] = row
-        log_design_row(label, f"{form} nf={fvp.shape[-1]} A={A} {S}^2", row,
-                       "all bit-equal", smi)
-    return rows
-
-
-def binned_designs(cases, parent, designs, smi):
-    """Each K8 form (a 64-thread CTA per bin, from the face vertices) in
-    turns with the parent's K8 alone (a 64-thread CTA per bin over K1's
-    constants, made beforehand), with the warp-per-bin design, its bins by
-    a static stride or an atomic counter (:func:`resolve_designs`), and the
-    chains: K7 + K8 beside the parent's
-    K1 + K7 + K8 (its K7 the shipped one: the parent's read K1's bbox, the
-    shipped one forms it), on ``cases``: label -> (form, fvp, face
-    attributes, S); all bit-equal.  Returns {label: row}."""
-    rows = {}
-    for label, (form, fvp, attrs, S) in cases.items():
-        consts = rc.face_setup(fvp, True)
-        bins = rc.bin_faces(fvp, True, S)
-        shipped = {"xy": lambda b: rc.resolve_binned_xy(fvp, True, b, S, 0.1, 100.0),
-                   "latch": lambda b: rc.resolve_binned_latch(fvp, attrs, True, b, S, 0.1, 100.0),
-                   "depth": lambda b: rc.resolve_binned_depth(fvp, True, b, S, 0.1, 100.0)}[form]
-        calls = {
-            "shipped K8": lambda shipped=shipped, bins=bins: shipped(bins),
-            "parent K8": lambda form=form, consts=consts, fvp=fvp, attrs=attrs, bins=bins, S=S:
-                parent(form, consts, fvp, attrs, bins, S),
-            "warp per bin": lambda form=form, fvp=fvp, attrs=attrs, bins=bins, S=S:
-                designs("static", form, fvp, attrs, bins, S),
-            "warp per bin, atomic counter": lambda form=form, fvp=fvp, attrs=attrs, bins=bins,
-                S=S: designs("atomic", form, fvp, attrs, bins, S),
-            "K7 + K8": lambda shipped=shipped, fvp=fvp, S=S: shipped(rc.bin_faces(fvp, True, S)),
-            "parent K1 + K7 + K8": lambda form=form, fvp=fvp, attrs=attrs, S=S: parent(
-                form, rc.face_setup(fvp, True), fvp, attrs, rc.bin_faces(fvp, True, S), S),
-        }
-        want = calls["shipped K8"]()
-        for name, call in calls.items():
-            check_parts(f"{label} K8 {form} vs {name}", call(), want)
-        A = attrs.shape[-1]
-        planes, face_bytes = {"xy": (8, 36), "latch": (11 + A, 36 + 4 * A), "depth": (2, 36)}[form]
-        pairs = int(bins[0].sum())
-        row = design_row(calls, resolve_bound(consts, S, planes, face_bytes,
-                                              8 * bins[0].numel() + 4 * pairs))
-        row.update(form=form, nf=fvp.shape[-1], A=A, S=S, pairs=pairs,
-                   largest_bin=int(bins[0].max()))
-        rows[label] = row
-        log_design_row(label, f"K8 {form} nf={fvp.shape[-1]} A={A} {S}^2 pairs={pairs} largest "
-                       f"bin {row['largest_bin']}", row, "all bit-equal", smi)
-    return rows
-
-
 def face_vertex_kernels(dev, gen, smi):
     """K5 and K4 at :func:`face_vertex_meshes`, batch 1 and 8
     (:func:`face_vertex_rows`): K5 bit-equal to its plain version, K4 to
     the plain version on CPU copies (at batch 2 too), each the same bits on
     a second call and its own kernel the wrapper's one device operation;
     each printed beside its yardstick, device time and bound.  Then the
-    host-time split of one K4 and one K5 call at ``bench``, batch 1
+    host-time split of one K4 and one K5 call at ``bench``, batch 1, and of
+    one K9 call at ``scale``'s shapes, D = 9 over a 512^2 index map
     (:func:`host_split`)."""
     profiled = collections.Counter()
     for label, (f, nv) in face_vertex_meshes().items():
@@ -2179,8 +1577,15 @@ def face_vertex_kernels(dev, gen, smi):
     table = torch.randn((1, nv, 3), generator=gen, device=dev)
     offsets, slots = rc.vertex_slots(faces, nv)
     vertex_grad, fvp = torch.empty((1, nv, 3), device=dev), torch.empty((1, 3, 3, nf), device=dev)
+    n, D, P = 81920, 9, 512 * 512
+    rows = torch.randn((1, n, D), generator=gen, device=dev)
+    ids = torch.randint(-1, n, (1, P), generator=gen, device=dev, dtype=torch.int32)
+    gathered = torch.empty((1, D, P), device=dev)
     split = {
-        "gather_rows": gather_rows_host_split(dev, gen),
+        "gather_rows": host_split(
+            lambda: rc.gather_rows(rows, ids, True), (rows, ids),
+            lambda: rows.new_empty((1, D, P)), "gather_rows",
+            (rows.data_ptr(), ids.data_ptr(), gathered.data_ptr(), 1, n, D, P, P, 1)),
         "scatter_faces_to_vertices": host_split(
             lambda: rc.scatter_faces_to_vertices(g9, faces, nv), (g9, faces),
             lambda: torch.empty((1, nv, 3), device=dev), "scatter_faces_to_vertices",
@@ -3360,7 +2765,7 @@ def main():
         if "registers" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
 
-    # phases 2-19 run eagerly, op by op, as before the compiled core: each
+    # phases 2-18 run eagerly, op by op, as before the compiled core: each
     # launch check counts its steps' launches as they run, and each time
     # compares with earlier runs of this script; phase 20 runs the graphs
     eagerly = nr.eager()
@@ -3780,61 +3185,6 @@ def main():
                    f"against {prof.port_launches:.1f} launches")
                 + "; top (per kernel name, kept records summed over the step) "
                 + ", ".join(f"{k} {t:.4f} ms" for k, t in prof.top))
-    # 19. the kernels the port's slices redesigned: K7 in turns with its
-    # parent design at the four binned configurations and a crowded tile
-    # (the order pass's bitmap in two windows), K9 in turns with
-    # torch.gather at the face-sharded path's two shapes
-    with torch.no_grad():
-        binned = {}
-        for label, (r, v, f) in (("scale", (scale_renderer, sphere_v, faces6)),
-                                 ("hires", (hires, sphere_v, faces6))):
-            fvp = gather_face_vertices(r.transform_vertices(v), f)
-            binned[label] = (fvp, r.image_size * (2 if r.anti_aliasing else 1))
-        for label in ("textured-scale", "hires-lit"):
-            binned[label] = (cfgs[label].latch_inputs()[1], cfgs[label].size)
-        binned["crowded"] = (crowded_fvp(dev), 512)
-        redesigned = redesigned_kernels(
-            binned, {"scale": scale_calls["gather_rows"],
-                     "textured-scale": tex_calls["textured-scale"]["gather_rows"]}, smi)
-        # K3 and the resolve forms, in turns with the parent designs
-        parent_scatter, parent_tiled, parent_binned = parent_designs()
-        design_tiled, design_binned = resolve_designs(dev)
-        ts = cfgs["textured-scale"]
-        redesigned["scatter_pixels_to_faces"] = scatter_designs({
-            "bench": (index_map(renderer, torus_v, faces, False), faces.shape[0], 6),
-            "atlas": (cfgs["atlas"].fim(), cfgs["atlas"].faces.shape[0], 15),
-            "lit": (cfgs["lit"].fim(), cfgs["lit"].faces.shape[0], 36),
-            # K9's transpose on the face-sharded path: one row of P pixels
-            "textured-scale K9 transpose": (ts.fim().reshape(1, 1, -1).contiguous(),
-                                            ts.faces.shape[0], 27),
-        }, parent_scatter, gen, smi)
-        # K6 in turns with its designs, its parent and the library call
-        redesigned["atlas_taps_grad"] = atlas_grad_designs(
-            *atlas_grad_inputs(cfgs["atlas"], gen), smi)
-        bench_fvp = rc.gather_faces3(ndc.detach().contiguous(), faces)
-        no_attrs = bench_fvp.new_empty((1, faces.shape[0], 0))
-        redesigned["tiled_resolve"] = tiled_designs({
-            "bench": ("resolve_xy", bench_fvp, no_attrs, 512),
-            "atlas": ("resolve_latch", *cfgs["atlas"].latch_inputs()[1::2], cfgs["atlas"].size),
-            "lit": ("resolve_latch", *cfgs["lit"].latch_inputs()[1::2], cfgs["lit"].size),
-            "bench id/depth": ("resolve_depth", bench_fvp, no_attrs, 512),
-            # 81,920 faces: the face stream through every tile dominates
-            "scale": ("resolve_xy", rc.gather_faces3(ndc6.detach().contiguous(), faces6),
-                      ndc6.new_empty((1, faces6.shape[0], 0)), 512),
-        }, parent_tiled, design_tiled, smi)
-        # K8, a CTA per bin from the face vertices, in turns with the
-        # parent's K8 and chain and the warp-per-bin design
-        hl_fvp, hl_attrs = cfgs["hires-lit"].latch_inputs()[1::2]
-        hl_size = cfgs["hires-lit"].size
-        redesigned["binned_resolve"] = binned_designs({
-            "hires": ("xy", binned["hires"][0], no_attrs.new_empty((1, faces6.shape[0], 0)),
-                      2048),
-            "hires-lit": ("latch", hl_fvp, hl_attrs, hl_size),
-            "hires-lit id/depth": ("depth", hl_fvp, hl_attrs[..., :0].contiguous(), hl_size),
-            "crowded": ("xy", binned["crowded"][0],
-                        no_attrs.new_empty((1, binned["crowded"][0].shape[-1], 0)), 512),
-        }, parent_binned, design_binned, smi)
-    log("[redesign] " + json.dumps(redesigned))
 
     eagerly.__exit__(None, None, None)
 

@@ -11,12 +11,9 @@ emulation runs that pipeline as the kernel does and holds what each bin
 stages to ``face_setup_plain``'s constants of ``bin_faces_plain``'s ids,
 bit for bit and in order, and the fold over a bin's staged faces to the
 plain resolve on its pixels.  The faces include degenerate, NaN,
-backfacing and off-canvas ones, under both ``draw_backside`` values.
-
-The warp-per-bin design timed against it (``tools/resolve_designs.cu``:
-one warp per bin, persistent warps walking the bins 32 entries at a time,
-by a static stride or an atomic counter) is emulated as well: every bin
-resolved and written once, with its own entries.
+backfacing and off-canvas ones, under both ``draw_backside`` values; bins
+of 1 to 193 entries try the batch of 64 and the three-batch pipeline at
+their edges.
 """
 
 import numpy as np
@@ -29,37 +26,6 @@ from test_torch_tiled_staging import _constants_xy, _faces, _kill_invalid
 
 f32 = np.float32
 CTA = 64      # K8's threads, one per pixel of an 8x8 bin, and entries a batch
-LANES = 32    # the warp-per-bin design's entries a unit
-
-
-class _Walk:
-    """BinWalk: the next bin a warp starts, and its count and offset."""
-
-    def __init__(self, first, cnt, off, stride, take):
-        self.next, self.cnt, self.off, self.stride, self.take = first, cnt, off, stride, take
-        self.load()
-
-    def load(self):
-        ok = self.next < len(self.cnt)
-        self.n = int(self.cnt[self.next]) if ok else 0
-        self.o = int(self.off[self.next]) if ok else 0
-
-    def after(self, u):
-        g, base, n, off = u
-        if g >= len(self.cnt):
-            return u
-        if base + LANES < n:
-            return (g, base + LANES, n, off)
-        v = (self.next, 0, self.n, self.o)
-        self.next = self.take(self.next, self.stride)
-        self.load()
-        return v
-
-
-def _entry_ids(u, ids, n_bins):
-    g, base, n, off = u
-    return [int(ids[off + base + lane]) if g < n_bins and base + lane < n else -1
-            for lane in range(LANES)]
 
 
 def _stage_entry(vb, f, draw_backside):
@@ -99,88 +65,53 @@ def _emulate_ctas(fvp, draw_backside, bins):
     return staged
 
 
-def _warp(w, fvp, draw_backside, bins, warps, take, staged, written):
-    """One warp's walk over the bins, as a generator that yields after each
-    unit it resolves: the staged ids and constants of each bin into
-    ``staged``, the bins in the order it writes them into ``written``."""
-    cnt, off, ids = (t.reshape(-1).numpy() for t in bins)
-    n_bins, tiles = len(cnt), bins[0].shape[1]
-    walk = _Walk(w, cnt, off, warps, take)
-    u0 = walk.after((-1, 0, 0, 0))
-    u1 = walk.after(u0)
-    id0, id1 = _entry_ids(u0, ids, n_bins), _entry_ids(u1, ids, n_bins)
-    while u0[0] < n_bins:
-        u2 = walk.after(u1)
-        id2 = _entry_ids(u2, ids, n_bins)
-        g, base, n, _ = u0
-        vb = fvp[g // tiles]
-        count = min(LANES, n - base)
-        assert [f for f in id0 if f >= 0] == id0[:max(count, 0)]
-        got_ids, got_c = staged.setdefault(g, ([], []))
-        for lane in range(max(count, 0)):
-            got_ids.append(id0[lane])
-            got_c.append(_stage_entry(vb, id0[lane], draw_backside))
-        if base + LANES >= n:
-            written.append(g)
-        u0, id0, u1, id1 = u1, id1, u2, id2
-        yield
+def _covering(seed, entries, draw_backside):
+    """[2, 3, 3, nf] planar faces of which every bin of the canvas holds
+    exactly ``entries``: large faces over the whole canvas at seeded
+    depths, the first of them backwards (held only with ``draw_backside``)
+    and the second with a NaN z (live, its 1/z NaN); before, between and
+    after them a zero-area, a NaN x and an off-canvas face, which no bin
+    holds."""
+    rng = np.random.RandomState(seed)
+    bs, large = 2, entries + 1 - draw_backside
+    front = np.array([[-3, -3], [7, -3], [-3, 7]], f32)
+    fv = np.empty((bs, large, 3, 3), f32)
+    fv[..., :2] = front + rng.uniform(-0.5, 0.5, (bs, large, 3, 2)).astype(f32)
+    fv[..., 2] = rng.uniform(0.5, 3.0, (bs, large, 3)).astype(f32)
+    fv[:, 0] = fv[:, 0, ::-1]                  # backwards
+    if large > 1:
+        fv[:, 1, 0, 2] = np.nan
+    zero_area, nan_x, off = (rng.uniform(-0.5, 0.5, (bs, 1, 3, 3)).astype(f32)
+                             for _ in range(3))
+    zero_area[:, :, 1] = zero_area[:, :, 0]
+    nan_x[:, :, 2, 0] = np.nan
+    off[..., :2] += f32(3.0)
+    half = large // 2
+    fv = np.concatenate([zero_area, fv[:, :half], nan_x, fv[:, half:], off], 1)
+    return np.ascontiguousarray(fv.transpose(0, 3, 2, 1))
 
 
-def _emulate_warps(fvp, draw_backside, bins, warps, take, rng=None):
-    """Every warp's walk over the bins, one unit at a time, the warps in
-    turn (or in a seeded random order): {bin: (ids, staged constants)} and
-    the order the bins were written."""
-    staged, written = {}, []
-    running = [_warp(w, fvp, draw_backside, bins, warps, take, staged, written)
-               for w in range(warps)]
-    while running:
-        k = int(rng.randint(len(running))) if rng is not None else 0
-        try:
-            next(running[k])
-            if rng is None:
-                running.append(running.pop(k))
-        except StopIteration:
-            running.pop(k)
-    return staged, written
-
-
-def _static(g, stride):
-    return g + stride
-
-
-def _counter():
-    """The atomic counter: each take returns the next bin after the first
-    ``stride`` (one per warp), in the order the warps reach it."""
-    state = {"k": 0}
-
-    def take(g, stride):
-        state["k"] += 1
-        return stride + state["k"] - 1
-    return take
-
-
+@pytest.mark.parametrize("entries", [1, 63, 64, 65, 192, 193])
 @pytest.mark.parametrize("draw_backside", [True, False])
 @pytest.mark.parametrize("size,window", [(40, (0, None)), (40, (7, 21)), (24, (0, None))])
-def test_cta_staging_gives_k1s_constants_of_k7s_ids(size, window, draw_backside):
-    fvp = _faces(size + window[0])
+def test_cta_staging_gives_k1s_constants_of_k7s_ids(size, window, draw_backside, entries):
+    """Bins of one entry, one under, at and past a batch of 64, and at and
+    past three batches (the pipeline's depth)."""
+    fvp = _covering(size + window[0], entries, draw_backside)
     t = torch.tensor(fvp)
     bins = rc.bin_faces_plain(t, draw_backside, size, *window)
     consts = rc.face_setup_plain(t, draw_backside).numpy()
     staged = _emulate_ctas(fvp, draw_backside, bins)
     cnt, off, ids = (x.reshape(-1).numpy() for x in bins)
     tiles = bins[0].shape[1]
-    crowded = 0
+    assert (cnt == entries).all()
     for g in range(len(cnt)):
         got_ids, got_c = staged[g]
         want = ids[off[g]:off[g] + cnt[g]]
         np.testing.assert_array_equal(np.array(got_ids, dtype=np.int32), want)
-        if len(want):
-            got_c = np.stack(got_c, 1)
-            # K1's constants to the bit (NaN payloads included)
-            np.testing.assert_array_equal(got_c.view(np.uint32),
-                                          consts[g // tiles][:, want].view(np.uint32))
-        crowded += cnt[g] > CTA      # a bin of more than one batch
-    assert crowded > 0 and int(cnt.sum()) > 0
+        # K1's constants to the bit (NaN payloads included)
+        np.testing.assert_array_equal(np.stack(got_c, 1).view(np.uint32),
+                                      consts[g // tiles][:, want].view(np.uint32))
 
 
 @pytest.mark.parametrize("draw_backside", [True, False])
@@ -211,23 +142,3 @@ def test_folding_a_bins_staged_faces_gives_the_plain_resolve(draw_backside):
         np.testing.assert_array_equal(mapped, want_index)
         np.testing.assert_array_equal(depth[0, :, c0:c0 + w].numpy(),
                                       full[1][b, r0:r0 + h, c0:c0 + w].numpy())
-
-
-@pytest.mark.parametrize("take", ["static", "counter"])
-def test_warp_walk_design_takes_every_bin_once(take):
-    """The warp-per-bin design: by a static stride (warps in turn) or an
-    atomic counter (whatever order the warps reach it in: a seeded random
-    order of their units), every bin is resolved and written once, with
-    its own entries in order."""
-    fvp = _faces(1)
-    bins = rc.bin_faces_plain(torch.tensor(fvp), True, 40)
-    if take == "static":
-        staged, written = _emulate_warps(fvp, True, bins, 3, _static)
-    else:
-        staged, written = _emulate_warps(fvp, True, bins, 3, _counter(),
-                                         np.random.RandomState(0))
-    cnt, off, ids = (x.reshape(-1).numpy() for x in bins)
-    assert sorted(written) == list(range(len(cnt)))
-    for g in written:
-        np.testing.assert_array_equal(np.array(staged[g][0], dtype=np.int32),
-                                      ids[off[g]:off[g] + cnt[g]])

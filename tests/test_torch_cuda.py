@@ -620,7 +620,7 @@ def test_bin_faces_on_a_crowded_tile(cuda, mesh, window):
     from test_torch_bin_faces import _crowded
 
     if mesh == "torus(320, 248)":
-        # seen from above (its axis is y), as chip_smoke.crowded_fvp
+        # seen from above (its axis is y)
         v, f = torus(320, 248)
         v = v / np.abs(v).max()
         size, c, r = 512, (2.0 * 59.5 + 1.0 - 512) / 512, 2.0 * 3.0 / 512

@@ -14,19 +14,8 @@ faces whose killed bbox touches the tile, in ascending order, with K1's
 17 constants to the bit; and the sequential fold over those faces alone
 gives the plain resolve's index and depth on the tile's pixels.  The faces
 include degenerate, NaN, backfacing and off-canvas ones, under both
-``draw_backside`` values, on a ragged canvas and a row window.
-
-The face stream's cluster design (``tools/resolve_designs.cu``, timed
-against the shipped forms and not shipped: it measured slower) loads the
-stream once for a cluster of C CTAs (a row of tiles): each batch's nine
-runs of the planar ``fvp`` come by multicast bulk copies (run j from rank
-j % C) into a ring of five stages, each run at its address's offset within
-a 128-byte line in a slot of 288 floats, its unaligned head and tail read
-from global memory by the threads whose faces they hold; a stage is
-refilled once every CTA has released it.  The ring's indexing is emulated:
-every CTA receives every face exactly once, in id order, from aligned
-copies whose bytes the stage's barrier expects, for nf not a multiple of
-4, under one batch and zero.
+``draw_backside`` values, on a ragged canvas and a row window, in one
+batch, at its edge (255, 256, 257 faces) and over several.
 """
 
 import numpy as np
@@ -87,57 +76,66 @@ def _stage(fv, draw_backside, lo_hi):
         # the ballot per warp and the prefix over warps: slot of each face
         t = np.zeros(BATCH, bool)
         t[:len(e)] = touches
-        counts = t.reshape(-1, 32).sum(1)
+        warps = t.reshape(-1, 32)
+        counts = warps.sum(1)
         offset = np.concatenate([[0], np.cumsum(counts)[:-1]])
-        lane = np.arange(BATCH) % 32
-        warp = np.arange(BATCH) // 32
-        before = np.array([t[w * 32:w * 32 + l].sum() for w, l in zip(warp, lane)])
-        slot = offset[warp] + before
+        # the lanes before each lane in its warp that pass (the ballot's
+        # popcount below the lane)
+        before = (np.cumsum(warps, 1) - warps).reshape(-1)
+        slot = offset[np.arange(BATCH) // 32] + before
         total = int(counts.sum())
         staged_ids = np.full(total, -1)
         staged = np.zeros((17, total), f32)
-        for k in np.flatnonzero(t):
-            staged_ids[slot[k]] = e[k]
-            for j in c:
-                staged[j, slot[k]] = c[j][k]
-            staged[9, slot[k]] = f32(1.0) / z0[k]
-            staged[10, slot[k]] = f32(1.0) / z1[k]
-            staged[11, slot[k]] = f32(1.0) / z2[k]
+        k = np.flatnonzero(t)
+        staged_ids[slot[k]] = e[k]
+        for j in c:
+            staged[j, slot[k]] = c[j][k]
+        staged[9, slot[k]] = f32(1.0) / z0[k]
+        staged[10, slot[k]] = f32(1.0) / z1[k]
+        staged[11, slot[k]] = f32(1.0) / z2[k]
         ids.append(staged_ids)
         consts.append(staged)
     return np.concatenate(ids), np.concatenate(consts, axis=1)
 
 
-def _faces(seed):
-    """[bs, 3, 3, nf] planar faces: a soup over two staging batches with a
-    duplicate, zero-area, NaN (x, y and z) and off-canvas faces; about half
-    the soup faces backwards."""
+def _faces(seed, nf=300):
+    """[bs, 3, 3, nf] planar faces: a soup with a duplicate, zero-area, NaN
+    (x, y and z) and off-canvas faces (those of them that ``nf`` holds) and,
+    past one staging batch, a duplicate in the second; about half the soup
+    faces backwards."""
     rng = np.random.RandomState(seed)
-    bs, nf = 2, 300
+    bs = 2
     fv = rng.uniform(-1, 1, (bs, nf, 3, 3)).astype(f32)
     fv[..., :2] *= rng.uniform(0.05, 1.0, (bs, nf, 1, 1)).astype(f32)   # small and large
     fv[..., :2] += rng.uniform(-0.6, 0.6, (bs, nf, 1, 2)).astype(f32)
     fv[..., 2] = np.abs(fv[..., 2]) + f32(0.1)
-    fv[:, 1] = fv[:, 0]                       # duplicate
-    fv[:, 2, 1] = fv[:, 2, 0]                 # two vertices in one
-    fv[:, 3, :, 0] = np.nan                   # NaN x
-    fv[:, 4, 2, 1] = np.nan                   # NaN y
-    fv[:, 5, 0, 2] = np.nan                   # NaN z: live, its depth NaN
-    fv[:, 6, :, :2] += f32(3.0)               # off the canvas
-    fv[:, 280] = fv[:, 7]                     # a duplicate in the second batch
+    if nf > 1:
+        fv[:, 1] = fv[:, 0]                   # duplicate
+    if nf > 2:
+        fv[:, 2, 1] = fv[:, 2, 0]             # two vertices in one
+    if nf > 6:
+        fv[:, 3, :, 0] = np.nan               # NaN x
+        fv[:, 4, 2, 1] = np.nan               # NaN y
+        fv[:, 5, 0, 2] = np.nan               # NaN z: live, its depth NaN
+        fv[:, 6, :, :2] += f32(3.0)           # off the canvas
+    if nf > BATCH:
+        fv[:, min(280, nf - 1)] = fv[:, 7]    # a duplicate in the second batch
     return np.ascontiguousarray(fv.transpose(0, 3, 2, 1))
 
 
+@pytest.mark.parametrize("nf", [1, 3, 255, 256, 257, 300, 1031])
 @pytest.mark.parametrize("draw_backside", [True, False])
 @pytest.mark.parametrize("size,window", [(40, (0, None)), (40, (7, 21)), (48, (0, None))])
-def test_staging_selects_k1s_touching_faces_with_k1s_bits(size, window, draw_backside):
-    fvp = _faces(size + 3 * window[0])
+def test_staging_selects_k1s_touching_faces_with_k1s_bits(size, window, draw_backside, nf):
+    fvp = _faces(size + 3 * window[0], nf)
     consts = rc.face_setup_plain(torch.tensor(fvp), draw_backside).numpy()
     row_start, num_rows = window
     rows = size if num_rows is None else num_rows
     seen_killed = seen_nan = 0
     for b in range(fvp.shape[0]):
         c = consts[b]
+        full_index, full_depth = (t[0].numpy() for t in resolve_constants(
+            torch.tensor(c[None]), size, 0.1, 100.0, row_start=row_start, num_rows=rows))
         for r0 in range(0, rows, TILE):
             for c0 in range(0, size, TILE):
                 lo_hi = (_centre(c0, size), _centre(min(c0 + TILE, size) - 1, size),
@@ -156,20 +154,22 @@ def test_staging_selects_k1s_touching_faces_with_k1s_bits(size, window, draw_bac
                 sub = torch.tensor(staged[None])
                 index, depth = resolve_constants(sub, size, 0.1, 100.0,
                                                  row_start=row_start + r0, num_rows=th)
-                full_index, full_depth = resolve_constants(torch.tensor(c[None]), size, 0.1,
-                                                           100.0, row_start=row_start + r0,
-                                                           num_rows=th)
                 index = index[0, :, c0:c0 + tw].numpy()
-                mapped = np.where(index >= 0, ids[np.maximum(index, 0)], -1)
-                np.testing.assert_array_equal(mapped, full_index[0, :, c0:c0 + tw].numpy())
+                # a tile that stages no face folds to the background
+                mapped = np.where(index >= 0, ids[np.maximum(index, 0)], -1) if len(ids) \
+                    else index
+                np.testing.assert_array_equal(mapped, full_index[r0:r0 + th, c0:c0 + tw])
                 np.testing.assert_array_equal(depth[0, :, c0:c0 + tw].numpy(),
-                                              full_depth[0, :, c0:c0 + tw].numpy())
+                                              full_depth[r0:r0 + th, c0:c0 + tw])
         killed = (c[13] == 4.0) & (c[14] == -4.0)
-        seen_killed += int(killed[[1, 2, 3, 4]].sum())
-        seen_nan += int(np.isnan(c[9:12, 5]).any())
-    # the duplicate (face 1) dies only without backsides, or wins nothing
-    assert seen_killed >= 3 * fvp.shape[0] and seen_nan == fvp.shape[0]
-    if not draw_backside:
+        seen_killed += int(killed[2:5].sum())
+        seen_nan += int(nf > 6 and np.isnan(c[9:12, 5]).any())
+    # faces 2-4 die (face 2 where nf holds it); the duplicate (face 1) dies
+    # only without backsides, or wins nothing
+    bs = fvp.shape[0]
+    assert seen_killed == bs * (3 if nf > 6 else nf > 2)
+    assert seen_nan == bs * (nf > 6)
+    if not draw_backside and nf > 6:
         assert (consts[:, 13] == 4.0).mean() > 0.3           # backfacing faces killed
 
 
@@ -194,131 +194,3 @@ def test_tiled_forms_take_face_vertices_and_match_the_binned_route():
                 assert torch.equal(t, b)
         assert (pairs[0][0][0] >= 0).any()
 
-
-# the cluster ring of tools/resolve_designs.cu: five stages, nine runs a
-# batch, a run's slot of 288 floats (a batch and a 128-byte line)
-STAGES, RUN_SLOT = 5, BATCH + 32
-
-
-def _run_plan(addr, length):
-    """run_plan: (q, a0, body) of a run starting at float address ``addr``
-    (4-byte units) with ``length`` entries."""
-    q = addr & 3
-    a0 = (4 - q) & 3
-    body = (length - a0) & ~3 if length > a0 else 0
-    return q, a0, body
-
-
-def _emulate_cluster(bs, nf, cluster, offset):
-    """Every CTA of a cluster walking the batches of image b's face stream,
-    the face vertices at float address ``offset`` + their index (the tensor
-    at ``offset`` floats past a 16-byte boundary): the copies each rank
-    issues, what lands in each CTA's ring, what each thread reads.
-    Returns, for each image and CTA, the faces each thread took, in order,
-    with their nine coordinates as read."""
-    fvp = np.arange(bs * 9 * nf, dtype=np.int64)       # each float: its own index
-    taken = {}
-    for b in range(bs):
-        vb = b * 9 * nf
-        rings = np.full((cluster, STAGES, 9, RUN_SLOT), -1, dtype=np.int64)
-        writes = np.zeros((cluster, STAGES, 9, RUN_SLOT), dtype=np.int64)
-        got = {(rank, t): [] for rank in range(cluster) for t in range(BATCH)}
-        batches = -(-nf // BATCH)
-        pending = {}                                   # stage -> expected bytes
-        landed = np.zeros((cluster, STAGES), dtype=np.int64)
-        released = np.full((cluster, STAGES), cluster)  # empty barriers: arrivals
-
-        def issue(i):
-            stage, base = i % STAGES, i * BATCH
-            length = min(BATCH, nf - base)
-            plans = [_run_plan(offset + vb + j * nf + base, length) for j in range(9)]
-            # every CTA's thread 0 expects the whole batch's bodies
-            pending[stage] = sum(4 * body for _, _, body in plans)
-            # a stage is refilled only once every CTA has released it
-            assert (released[:, stage] == cluster).all()
-            released[:, stage] = 0
-            writes[:, stage] = 0
-            landed[:, stage] = 0
-            for rank in range(cluster):
-                for j in range(rank, 9, cluster):
-                    q, a0, body = plans[j]
-                    if body == 0:
-                        continue
-                    src = offset + vb + j * nf + base + a0
-                    line = (offset + vb + j * nf) % 32      # the run's offset in its line
-                    dst = line + a0
-                    # a bulk copy: 16-byte source, destination and size, the
-                    # destination at the source's offset within a line
-                    assert src % 4 == 0 and dst % 4 == 0 and (4 * body) % 16 == 0
-                    assert dst % 32 == src % 32 and dst + body <= RUN_SLOT
-                    for dest in range(cluster):            # multicast to every CTA
-                        rings[dest, stage, j, dst:dst + body] = fvp[src - offset:
-                                                                    src - offset + body]
-                        writes[dest, stage, j, dst:dst + body] += 1
-                        landed[dest, stage] += 4 * body
-
-        for i in range(min(STAGES, batches)):
-            issue(i)
-        for i in range(batches):
-            stage, base = i % STAGES, i * BATCH
-            length = min(BATCH, nf - base)
-            # the stage's barrier completes with exactly its expected bytes
-            assert (landed[:, stage] == pending[stage]).all()
-            assert writes[:, stage].max() <= 1
-            for rank in range(cluster):
-                for t in range(BATCH):
-                    v = []
-                    for j in range(9):
-                        run = vb + j * nf + base
-                        q, a0, body = _run_plan(offset + run, length)
-                        if a0 <= t < a0 + body:
-                            v.append(rings[rank, stage, j, (offset + run) % 32 + t])
-                        else:
-                            v.append(fvp[run + t] if t < length else -1)
-                    if t < length:
-                        got[rank, t].append((base + t, v))
-                # this CTA has read the stage: it releases it to every CTA
-                released[:, stage] += 1
-            if i + STAGES < batches:
-                issue(i + STAGES)
-        taken[b] = got
-    return taken
-
-
-@pytest.mark.parametrize("offset", [0, 1, 3])
-@pytest.mark.parametrize("cluster", [2, 4, 8])
-@pytest.mark.parametrize("nf", [1, 3, 255, 257, 2561])
-def test_cluster_ring_delivers_every_face_to_every_cta_once_in_order(nf, cluster, offset):
-    bs = 2
-    taken = _emulate_cluster(bs, nf, cluster, offset)
-    for b in range(bs):
-        for rank in range(cluster):
-            faces = []
-            for t in range(BATCH):
-                for f, v in taken[b][rank, t]:
-                    assert f % BATCH == t
-                    # fvp[b, coord, vertex, f] at (b * 9 + 3 * coord + vertex) * nf + f
-                    assert v == [(b * 9 + j) * nf + f for j in range(9)]
-                    faces.append(f)
-            # every face once, and each thread's faces in ascending order
-            assert sorted(faces) == list(range(nf))
-            for t in range(BATCH):
-                ids = [f for f, _ in taken[b][rank, t]]
-                assert ids == sorted(ids)
-
-
-def test_cluster_ring_with_no_faces_issues_nothing():
-    taken = _emulate_cluster(2, 0, 4, 0)
-    assert all(not v for got in taken.values() for v in got.values())
-
-
-def test_cluster_ring_copies_most_of_each_run():
-    """What the threads read from global memory: at most three floats at
-    each end of a run, none when the run is aligned."""
-    for nf in (257, 2561):
-        for j in range(9):
-            q, a0, body = _run_plan(j * nf, BATCH)
-            assert a0 <= 3 and BATCH - a0 - body <= 3
-            assert (q, a0, body) == ((j * nf) % 4, (4 - (j * nf) % 4) % 4, body)
-    assert _run_plan(0, BATCH) == (0, 0, BATCH)
-    assert _run_plan(1, 3) == (1, 3, 0)            # a run under 4 floats: no copy
