@@ -18,6 +18,11 @@ Builds the hand-written kernels from ``neural_renderer_v2_pytorch_tpu_torch
   and K14's depth and texel-coordinate gradients bit-equal) at the cell
   ``atlas-fit-256``'s shapes, 32 views of 512^2 over one 1190 x 1920
   atlas (``sampler_phase``), each timed beside its bound;
+- the lights' per-pixel pass: K15 and K16 against their plain versions
+  (K15 and K16's RGB and normal gradients bit-equal, the light table's
+  gradient within its sums' rounding) at the same cell's shapes and
+  lights (``lights_phase``), each timed beside its bound (72 and 120 bytes
+  a pixel);
 - textured: checks K5, K2L, K3 and K6 (at ``atlas``, over the anchors its
   step scatters to) against their plain versions at the
   ``atlas``, ``lit`` and ``textured-scale`` configurations, the ``atlas``
@@ -236,6 +241,14 @@ SAMPLER_REPLACES = "none: XLA fused the sampler"
 # from 32 azimuths (elevation 30, distance 2.732) at 256^2 AA (512^2 renders)
 SAMPLER_LABEL = "atlas-fit-32x512"
 SAMPLER_VIEWS = 32
+# the lights' per-pixel pass (K15, K16) at the same render under the cell's
+# lights (directional, ambient, specular at exponent 1: lit_light_arrays)
+LIGHTS_REPLACES = "none: XLA fused the lights"
+LIGHTS_LABEL = "lights-32x512"
+# the least bytes a pixel each moves (float32): K15 reads RGB, nine normal
+# planes and three weights and writes RGB (72); K16 reads the RGB gradient
+# and what K15 read and writes the RGB and normal gradients (120)
+LIGHTS_BYTES = {"lights_shade": 72, "lights_shade_vjp": 120}
 KERNELS = {
     "face_setup": (f"{PKG}/csrc/face_setup.cu", f"{TPU_KERNELS}:180", "hires"),
     "resolve_xy": (f"{PKG}/csrc/resolve.cu", f"{TPU_KERNELS}:348", "bench"),
@@ -255,6 +268,8 @@ KERNELS = {
     "nmr_coordinate_grad": (f"{PKG}/csrc/nmr_planes.cu", NMR_REPLACES, "nmr-32x512"),
     "atlas_sample": (f"{PKG}/csrc/atlas_sample.cu", SAMPLER_REPLACES, SAMPLER_LABEL),
     "atlas_sample_vjp": (f"{PKG}/csrc/atlas_sample.cu", SAMPLER_REPLACES, SAMPLER_LABEL),
+    "lights_shade": (f"{PKG}/csrc/lights_shade.cu", LIGHTS_REPLACES, LIGHTS_LABEL),
+    "lights_shade_vjp": (f"{PKG}/csrc/lights_shade.cu", LIGHTS_REPLACES, LIGHTS_LABEL),
 }
 # every resolve form computes the face constants itself, K7 each face's
 # bbox: no path launches K1 (check_k1)
@@ -265,7 +280,8 @@ TEXTURED_KERNELS = ("resolve_latch", "scatter_pixels_to_faces", "scatter_faces_t
 HIRES_KERNELS = ("bin_faces", "resolve_binned_xy", "scatter_pixels_to_faces",
                  "scatter_faces_to_vertices", "gather_faces3")
 HIRES_LIT_KERNELS = ("bin_faces", "resolve_binned_latch", "scatter_pixels_to_faces",
-                     "scatter_faces_to_vertices", "gather_faces3")
+                     "scatter_faces_to_vertices", "gather_faces3", "lights_shade",
+                     "lights_shade_vjp")
 INDEX_MAP_KERNELS = ("resolve_depth", "bin_faces", "resolve_binned_depth",
                      "resolve_binned_latch")
 # the NMR passes, which no TPU kernel did (K10, K11, K12): one launch each
@@ -427,11 +443,10 @@ def nmr_kernels_vs_plain(label, fvm, fim, gen):
     return errs, calls
 
 
-def sampler_inputs(dev):
-    """The loaded-atlas sampler's inputs at :data:`SAMPLER_LABEL`'s render,
-    as the render passed them (``roofline.atlas_sample_inputs``): (z
-    planes, texel-coordinate planes, the atlas expanded over the views, the
-    index map, the weight planes)."""
+def atlas_views(dev, lights=None):
+    """The RGB images of :data:`SAMPLER_LABEL`'s render (the atlas scene
+    from :data:`SAMPLER_VIEWS` azimuths at 256^2 AA, its atlas taking
+    gradients) under ``lights``."""
     v, f, vt, ft, tex = atlas_scene(40, 32)
     r = nr.Renderer(dev)
     r.image_size = 256
@@ -442,9 +457,16 @@ def sampler_inputs(dev):
     atlas = torch.tensor(tex, device=dev).requires_grad_(True)
     vt = torch.tensor(vt, device=dev).expand(SAMPLER_VIEWS, -1, -1)
     with torch.enable_grad():
-        images = r.render(x, torch.tensor(f, device=dev), vt, torch.tensor(ft, device=dev),
-                          atlas.expand(SAMPLER_VIEWS, -1, -1, -1))
-    return tuple(t.detach() for t in roofline.atlas_sample_inputs(images)[:5])
+        return r.render(x, torch.tensor(f, device=dev), vt, torch.tensor(ft, device=dev),
+                        atlas.expand(SAMPLER_VIEWS, -1, -1, -1), lights=lights)
+
+
+def sampler_inputs(dev):
+    """The loaded-atlas sampler's inputs at :data:`SAMPLER_LABEL`'s render,
+    as the render passed them (``roofline.atlas_sample_inputs``): (z
+    planes, texel-coordinate planes, the atlas expanded over the views, the
+    index map, the weight planes)."""
+    return tuple(t.detach() for t in roofline.atlas_sample_inputs(atlas_views(dev))[:5])
 
 
 def sampler_kernels_vs_plain(label, inputs, gen):
@@ -484,12 +506,9 @@ def sampler_kernels_vs_plain(label, inputs, gen):
     return errs, calls
 
 
-def sampler_phase(dev, gen):
-    """K13 and K14 against their plain versions at :data:`SAMPLER_LABEL`'s
-    shapes, and each call's device ms (CUDA events, and the profiler's
-    records: K14's with its zero fill), bound and plain ms.  Returns
-    ({name: max_abs_err}, {name: Call}, {name: times})."""
-    errs, calls = sampler_kernels_vs_plain(SAMPLER_LABEL, sampler_inputs(dev), gen)
+def time_calls(label, calls):
+    """Each of ``calls``' device ms (CUDA events, and the profiler's records:
+    every record of the call), bound and plain ms: {name: times}."""
     times = {}
     for name, call in calls.items():
         k_ms = median_ms(call.kernel, 50)
@@ -498,10 +517,69 @@ def sampler_phase(dev, gen):
         p_ms = median_ms(call.plain, 10, warmup=1)
         times[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=call.bound[0],
                            bound_by=call.bound[1], library_ms=None, device_ms=k_dev)
-        log(f"[time] {SAMPLER_LABEL} {name}: kernel {k_ms:.4f} ms (device, every record of "
+        log(f"[time] {label} {name}: kernel {k_ms:.4f} ms (device, every record of "
             f"the call: {'not measured' if k_dev is None else f'{k_dev:.4f} ms'}), plain "
             f"{p_ms:.4f} ms, bound {call.bound[0]:.4f} ms by {call.bound[1]}")
-    return errs, calls, times
+    return times
+
+
+def sampler_phase(dev, gen):
+    """K13 and K14 against their plain versions at :data:`SAMPLER_LABEL`'s
+    shapes, and each call's device ms (CUDA events, and the profiler's
+    records: K14's with its zero fill), bound and plain ms.  Returns
+    ({name: max_abs_err}, {name: Call}, {name: times})."""
+    errs, calls = sampler_kernels_vs_plain(SAMPLER_LABEL, sampler_inputs(dev), gen)
+    return errs, calls, time_calls(SAMPLER_LABEL, calls)
+
+
+def lights_inputs(dev):
+    """The lights' inputs at :data:`SAMPLER_LABEL`'s render under the cell's
+    lights, as the render passed them (``roofline.lights_shade_inputs``):
+    (RGB, the normal planes (a slice of the attribute planes), the weight
+    planes, the light table, the lights' kinds)."""
+    cls = {"ambient": nr.AmbientLight, "directional": nr.DirectionalLight,
+           "specular": nr.SpecularLight}
+    lights = [cls[kind](**{k: torch.tensor(a, device=dev) for k, a in arrays.items()})
+              for kind, arrays in lit_light_arrays()]
+    *tensors, kinds = roofline.lights_shade_inputs(atlas_views(dev, lights))
+    return (*(t.detach() for t in tensors), kinds)
+
+
+def lights_phase(dev, gen):
+    """K15 and K16 against their plain versions at :data:`LIGHTS_LABEL`'s
+    shapes (K15's images and K16's RGB and normal gradients bit-equal; the
+    light table's gradient, asked of K16 once, within 1e-4 of its
+    largest), and each call's device ms, bound (:data:`LIGHTS_BYTES` a
+    pixel) and plain ms (:func:`time_calls`); K16 timed as the cell runs
+    it, without the table's gradient, and once with it.  Returns ({name:
+    max_abs_err}, {name: times})."""
+    rgb, normals, w, table, kinds = lights_inputs(dev)
+    bs, _, H, W = rgb.shape
+    grad = torch.randn((bs, 3, H, W), generator=gen, device=dev)
+    forms = {
+        "lights_shade": lambda: rc.lights_shade(rgb, normals, w, table, kinds),
+        "lights_shade_vjp": lambda: rc.lights_shade_vjp(grad, rgb, normals, w, table, kinds,
+                                                        (True, True, False)),
+    }
+
+    def fields():
+        return rc.lights_shade_vjp(grad, rgb, normals, w, table, kinds)
+
+    errs = {"lights_shade": check_equal(f"{LIGHTS_LABEL} lights_shade", forms["lights_shade"](),
+                                        on_plain(forms["lights_shade"])())}
+    got, want = forms["lights_shade_vjp"](), on_plain(forms["lights_shade_vjp"])()
+    for k, part in ((0, "rgb"), (1, "normals")):
+        check_equal(f"{LIGHTS_LABEL} lights_shade_vjp {part}", got[k], want[k])
+    errs["lights_shade_vjp"] = check_close(f"{LIGHTS_LABEL} lights_shade_vjp table",
+                                           fields()[2], on_plain(fields)()[2])
+    log(f"[{LIGHTS_LABEL}] lights kernels vs plain: {bs} x {H}x{W}, lights {list(kinds)}, "
+        f"normals' strides {normals.stride()}, max_abs_err {json.dumps(errs)}")
+    calls = {name: Call(fn, on_plain(fn), bound(LIGHTS_BYTES[name] * bs * H * W, 0))
+             for name, fn in forms.items()}
+    times = time_calls(LIGHTS_LABEL, calls)
+    log(f"[time] {LIGHTS_LABEL} lights_shade_vjp with the table's gradient: "
+        f"{median_ms(fields, 50):.4f} ms")
+    return errs, times
 
 
 def kernels_vs_plain(label, ndc, faces, size, gen):
@@ -2350,9 +2428,10 @@ def benchmarks_phase(dev, smi):
 # on both routes; each graphed step is called this many times: the first
 # runs eagerly, the second captures, every call from the second replays
 EDGE_GRAPH_CALLS = 3
-# K1 and K6 run on no render path (K14 adds the atlas taps as K6 does)
-EDGE_KERNELS = tuple(name for name in rc.KERNELS if name not in ("face_setup",
-                                                                  "atlas_taps_grad"))
+# K1 and K6 run on no render path (K14 adds the atlas taps as K6 does), and
+# the edge scenes are unlit (K15, K16)
+EDGE_KERNELS = tuple(name for name in rc.KERNELS if name not in (
+    "face_setup", "atlas_taps_grad", "lights_shade", "lights_shade_vjp"))
 
 
 def _silhouettes_forward(faces, hp):
@@ -2784,6 +2863,9 @@ def main():
     # the loaded-atlas sampler at the atlas cell's shapes, timed here
     sampler_errs, _, sampler_times = sampler_phase(dev, gen)
     all_errs.update(sampler_errs)
+    # the lights' per-pixel pass at the same cell's shapes, timed here
+    lights_errs, lights_times = lights_phase(dev, gen)
+    all_errs.update(lights_errs)
 
     # 3. the silhouette slice, kernels vs plain versions, through Renderer
     renderer = nr.Renderer(dev)
@@ -3122,6 +3204,7 @@ def main():
     # times its launches per call), the plain version's and the library
     # call's time
     times = {(SAMPLER_LABEL, name): t for name, t in sampler_times.items()}
+    times.update({(LIGHTS_LABEL, name): t for name, t in lights_times.items()})
     all_calls = [("bench", bench_calls), ("scale", scale_calls)] + list(tex_calls.items()) + [
         ("hires", hires_calls), ("hires-lit", hl_calls)] + list(nmr_calls.items())
     for label, calls in all_calls:

@@ -182,21 +182,37 @@ def atlas_sample_vjp_work(anchors, num_texels):
     return 52 * bs * P + 48 * covered + 12 * num_texels + 12 * bs * num_texels, 12 * covered
 
 
-def atlas_sample_inputs(images):
-    """(z planes, texel-coordinate planes, atlas, index map, weight planes,
-    eps) that the ``shading._AtlasSample`` node in the autograd graph of
-    ``images`` saved: the atlas sampler's inputs as the render passed
-    them."""
+def _node(images, name, what):
+    """The node of type ``name`` in the autograd graph of ``images``; raises
+    ValueError naming ``what`` where there is none."""
     todo, seen = [images.grad_fn], set()
     while todo:
         node = todo.pop()
         if node is None or node in seen:
             continue
         seen.add(node)
-        if type(node).__name__ == "_AtlasSampleBackward":
-            return (*node.saved_tensors, node.eps)
+        if type(node).__name__ == name:
+            return node
         todo.extend(next_node for next_node, _ in node.next_functions)
-    raise ValueError("no atlas sampler in the graph of these images")
+    raise ValueError(f"no {what} in the graph of these images")
+
+
+def atlas_sample_inputs(images):
+    """(z planes, texel-coordinate planes, atlas, index map, weight planes,
+    eps) that the ``shading._AtlasSample`` node in the autograd graph of
+    ``images`` saved: the atlas sampler's inputs as the render passed
+    them."""
+    node = _node(images, "_AtlasSampleBackward", "atlas sampler")
+    return (*node.saved_tensors, node.eps)
+
+
+def lights_shade_inputs(images):
+    """(RGB, the normal planes, the weight planes, the light table, the
+    lights' kinds) that the ``shading._LightsShade`` node in the autograd
+    graph of ``images`` saved: the lights' inputs as the render passed
+    them."""
+    node = _node(images, "_LightsShadeBackward", "lights")
+    return (*node.saved_tensors, node.kinds)
 
 
 def atlas_taps_inputs(images):

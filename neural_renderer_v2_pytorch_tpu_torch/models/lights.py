@@ -1,7 +1,9 @@
 """Light sources (counterpart of ``neural_renderer_v2_pytorch_tpu/models/
 lights.py``).  Colours, directions and specular exponents are tensors, so
 they can take gradients; ``backside`` is a plain bool.  The shading math is
-``ops/shading.py:apply_lights_planar``."""
+``ops/shading.py:apply_lights_planar`` (``color_weight_planes`` over the
+fields' ``light_table``); a render shades through kernel K15 with K16 as
+its backward (``ops/shading.py:shade_planes``, ``csrc/lights_shade.cu``)."""
 
 from __future__ import annotations
 

@@ -9,7 +9,10 @@
      or, faces sharded across ranks, the id/depth
      resolve, the ordered fold, the winner gather    (K9; K3 backward)
   4. stopped barycentric weights, coordinate map    (K10; K11 backward)
-  5. silhouette / RGB (textures, lights) / depth    (atlas gradient: K6)
+  5. silhouette / RGB (textures, lights) / depth    (the atlas sampler: K13;
+                                                     K14 backward; the
+                                                     lights: K15; K16
+                                                     backward)
   6. background blend, NMR differentiation hook    (K12 backward)
   7. flip H and W, then the 2x2 anti-aliasing pool
 
@@ -214,8 +217,8 @@ def _maps(fvm_planar, attr_planes, face_index_map, params, hp, render_size, row_
                 # while that gradient waits (a whole attribute plane's
                 # gradient would wait there if the slice came later)
                 normals = normal_vertex_planes.view_as(normal_vertex_planes)
-                normal_map = shading.normal_planes(normals, weight_planes)
-                shaded = shading.apply_lights_planar(rgb, normal_map, params.lights)
+                # K15, K16 as its backward
+                shaded = shading.shade_planes(rgb, normals, weight_planes, params.lights)
             trace.vjp("lights.vjp", shaded, [rgb, normals])
             rgb = shaded
         channels.append(rgb)

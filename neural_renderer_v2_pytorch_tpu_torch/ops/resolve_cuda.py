@@ -31,6 +31,12 @@ resolve_pallas.py``).
                                     planes, the weights recomputed
   K12 ``nmr_coordinate_grad``       the NMR backward's coordinate gradient, x
                                     and y in one launch (a band's halo rows too)
+  K13 ``atlas_sample``              the loaded atlas's bilinear sampler
+  K14 ``atlas_sample_vjp``          its VJP, the atlas taps added as K6 adds them
+  K15 ``lights_shade``              the per-pixel normals, the lights' colour
+                                    weight and the shaded RGB
+  K16 ``lights_shade_vjp``          their VJP onto the RGB, the normal planes
+                                    and (where asked) the light table
 
 The resolve has two routes that give the same bits, both from the face
 vertices: "tiled" (K2, K2L, K2D: every tile streams every face's
@@ -48,11 +54,13 @@ so a run can show which kernels its path went through, and every call of
 an NMR pass on CUDA tensors inside :func:`plain_versions` adds one to
 ``LAUNCHES["nmr_plain"]``; ``SLOT_TABLE_BUILDS`` counts the builds of K4's
 vertex -> slot tables, which launch no kernel of the port.  K1, K2, K2L,
-K2D, K5, K7, K8, K9, K10, K11 and K12 are bit-identical to their plain
-versions on the card (K12's channel sum adds as ``torch.sum`` does
-there), and K4 to its plain version on the CPU (whose ``index_add_`` sums
-each vertex in slot order), on every run; K3 and K6 sum with atomics, in a
-different order on every run.
+K2D, K5, K7, K8, K9, K10, K11, K12, K13 and K15 are bit-identical to
+their plain versions on the card (K12's channel sum adds as ``torch.sum``
+does there), and K4 to its plain version on the CPU (whose ``index_add_``
+sums each vertex in slot order), on every run, as are K14's and K16's
+per-pixel gradients; K3, K6 and K14's atlas gradient sum with atomics, in
+a different order on every run; K16's light-table gradient sums its
+terms in its own fixed order.
 """
 
 from __future__ import annotations
@@ -96,6 +104,8 @@ KERNELS = (
     "nmr_coordinate_grad",
     "atlas_sample",
     "atlas_sample_vjp",
+    "lights_shade",
+    "lights_shade_vjp",
 )
 # the calls of an NMR pass (K10-K12) on CUDA tensors that took its plain
 # version (inside plain_versions()): a run whose count is not 0 bypassed the
@@ -1144,7 +1154,7 @@ def atlas_sample_plain(z_planes, uv_planes, textures, face_index_map, weight_pla
     return torch.where(fg[:, None], images, 0.0)
 
 
-def _sampler_planes(t, name, n, bs, H, W):
+def _pixel_planes(t, name, n, bs, H, W):
     """(t, batch stride, plane stride) of f32 planes [bs, n, H, W], each
     plane's pixels contiguous (a copy only where they are not, so a slice of
     a larger map's planes is read in place)."""
@@ -1164,9 +1174,9 @@ def _sampler_inputs(z_planes, uv_planes, textures, face_index_map, weight_planes
     if face_index_map.dtype != torch.int32:
         raise ValueError(f"face_index_map: want int32, got {face_index_map.dtype}")
     index = face_index_map.contiguous()
-    z, z_batch, z_plane = _sampler_planes(z_planes, "z_planes", 3, bs, H, W)
-    uv, uv_batch, uv_plane = _sampler_planes(uv_planes, "uv_planes", 6, bs, H, W)
-    w, w_batch, w_plane = _sampler_planes(weight_planes, "weight_planes", 3, bs, H, W)
+    z, z_batch, z_plane = _pixel_planes(z_planes, "z_planes", 3, bs, H, W)
+    uv, uv_batch, uv_plane = _pixel_planes(uv_planes, "uv_planes", 6, bs, H, W)
+    w, w_batch, w_plane = _pixel_planes(weight_planes, "weight_planes", 3, bs, H, W)
     if textures.dtype != torch.float32 or textures.dim() != 4 or textures.shape[:2] != (bs, 3):
         raise ValueError(f"textures: want float32 ({bs}, 3, th, tw), got {textures.dtype} "
                          f"{tuple(textures.shape)}")
@@ -1315,3 +1325,156 @@ def atlas_sample_vjp(grad, z_planes, uv_planes, textures, face_index_map, weight
             *(0 if t is None else t.data_ptr() for t in (*outs, g_w, g_atlas)), bs, P, tw, T,
             *strides, float(eps))
     return outs[0], outs[1], g_atlas, g_w
+
+
+# --- K15, K16: the lights ---------------------------------------------------
+
+# a light's row of the table the lights' kernels read: colour (3),
+# direction (3), exponent (1)
+LIGHT_FIELDS = 7
+# at most this many lights a launch: a bit each in the kernels' kind masks
+# (kMaxLights in csrc/lights_shade.cu)
+MAX_LIGHTS = 64
+# the lights' kernels' block of pixels (kThreads): K16 sums the table's
+# gradient over each block of this many pixels of an image
+LIGHTS_BLOCK = 256
+
+
+def lights_shade_plain(rgb, normals, weights, table, kinds):
+    # shading imports this module
+    from .shading import color_weight_planes, normal_planes
+
+    return rgb * color_weight_planes(normal_planes(normals, weights), table, kinds)
+
+
+def _lights_vjp_parts(grad, rgb, normals, weights, table, kinds, terms):
+    """What K16 computes per pixel, in its order and association: (the
+    colour weight, the per-pixel normals' gradient, each [bs, H, W] planes
+    of three, and with ``terms`` the table gradient's terms [bs, L, 7, H,
+    W], else None)."""
+    from .shading import light_intensity, normal_planes
+
+    n = normal_planes(normals, weights)
+    N, g = n.unbind(1), grad.unbind(1)
+    g_cw = [g[c] * rgb[:, c] for c in range(3)]
+    zero = torch.zeros_like(N[0])
+    cw, gN, rows = [zero] * 3, [zero] * 3, []
+    for l, (kind, backside) in enumerate(kinds):
+        row = table[:, l, :, None, None]
+        col = [row[:, c] for c in range(3)]
+        term = [zero] * LIGHT_FIELDS
+        if kind == "ambient":
+            cw = [cw[c] + col[c] for c in range(3)]
+            term[:3] = g_cw
+        else:
+            pre, base, value = light_intensity(n, table[:, l], kind, backside)
+            cw = [cw[c] + value * col[c] for c in range(3)]
+            term[:3] = [g_cw[c] * value for c in range(3)]
+            gi = (g_cw[0] * col[0] + g_cw[1] * col[1]) + g_cw[2] * col[2]
+            gbase = gi
+            if kind == "specular":
+                # pow's backward: self's 0 where alpha is 0, the exponent's 0
+                # where the base is 0 and alpha >= 0
+                a = row[:, 6]
+                gbase = torch.where(a == 0, 0.0, gi * (a * base ** (a - 1)))
+                term[6] = gi * torch.where((base == 0) & (a >= 0), 0.0, value * torch.log(base))
+            # _abs's gradient +-1 (+1 at 0); relu's passes where its output
+            # is above 0
+            gpre = (torch.where(pre >= 0, gbase, -gbase) if backside
+                    else torch.where(base <= 0, 0.0, gbase))
+            if kind == "directional":
+                gN = [gN[c] + gpre * (-row[:, 3 + c]) for c in range(3)]
+                term[3:6] = [-(gpre * N[c]) for c in range(3)]
+            else:
+                gN[2] = gN[2] + (-gpre)
+        if terms:
+            rows.append(torch.stack(term, 1))
+    if not terms:
+        return cw, gN, None
+    return cw, gN, (torch.stack(rows, 1) if rows
+                    else table.new_zeros((*table.shape, *rgb.shape[2:])))
+
+
+def lights_shade_vjp_plain(grad, rgb, normals, weights, table, kinds, needs=(True, True, True)):
+    cw, gN, terms = _lights_vjp_parts(grad, rgb, normals, weights, table, kinds, needs[2])
+    g_rgb = torch.stack([grad[:, c] * cw[c] for c in range(3)], 1) if needs[0] else None
+    g_normals = (torch.stack([gN[c] * weights[:, k] for k in range(3) for c in range(3)], 1)
+                 if needs[1] else None)
+    return g_rgb, g_normals, None if terms is None else terms.sum((3, 4))
+
+
+def _light_masks(kinds):
+    """The kernels' kind masks (directional, specular, backside) of
+    ``kinds``: bit l of each for light l, as int64 values."""
+    masks = [0, 0, 0]
+    for l, (kind, backside) in enumerate(kinds):
+        masks[0] |= (kind == "directional") << l
+        masks[1] |= (kind == "specular") << l
+        masks[2] |= bool(backside) << l
+    return [m - (1 << 64) if m >> 63 else m for m in masks]
+
+
+def _lights_inputs(rgb, normals, weights, table, kinds):
+    """The kernels' view of the lights' inputs: ((rgb, normals, weights
+    planes), their strides, the table, bs, H, W); raises on a dtype, a shape
+    or a number of lights the kernels do not take."""
+    if rgb.dim() != 4:
+        raise ValueError(f"rgb: want float32 (bs, 3, H, W), got {tuple(rgb.shape)}")
+    bs, _, H, W = rgb.shape
+    rgb, rgb_batch, rgb_plane = _pixel_planes(rgb, "rgb", 3, bs, H, W)
+    normals, n_batch, n_plane = _pixel_planes(normals, "normals", 9, bs, H, W)
+    weights, w_batch, w_plane = _pixel_planes(weights, "weights", 3, bs, H, W)
+    L = len(kinds)
+    if L > MAX_LIGHTS:
+        raise ValueError(f"lights: the kernels take at most {MAX_LIGHTS} lights, got {L}")
+    if table.dtype != torch.float32 or tuple(table.shape) != (bs, L, LIGHT_FIELDS):
+        raise ValueError(f"table: want float32 {(bs, L, LIGHT_FIELDS)}, got {table.dtype} "
+                         f"{tuple(table.shape)}")
+    strides = (rgb_batch, rgb_plane, n_batch, n_plane, w_batch, w_plane)
+    return (rgb, normals, weights), strides, table.contiguous(), bs, H, W
+
+
+def lights_shade(rgb, normals, weights, table, kinds):
+    """The lights' shading of RGB f32 [bs, 3, H, W] at the per-pixel normals
+    of the winner's vertex normals f32 [bs, 9, H, W] (plane 3 * vertex +
+    xyz; a slice of a larger map's planes is read in place) and the weights
+    f32 [bs, 3, H, W]: ``shading.normal_planes``, then the colour weight of
+    ``kinds`` (one (kind, backside) pair a light, kind "ambient",
+    "directional" or "specular") over their fields ``table`` f32 [bs, L, 7]
+    (``shading.light_table``), times the RGB -> f32 [bs, 3, H, W].  One
+    launch; nothing kept for the backward."""
+    if not _use_kernel(rgb, normals, weights, table):
+        return lights_shade_plain(rgb, normals, weights, table, kinds)
+    planes, strides, table, bs, H, W = _lights_inputs(rgb, normals, weights, table, kinds)
+    out = planes[0].new_empty((bs, 3, H, W))
+    _launch("lights_shade", table.get_device(), *(t.data_ptr() for t in planes),
+            table.data_ptr(), out.data_ptr(), bs, H * W, len(kinds), *_light_masks(kinds),
+            *strides)
+    return out
+
+
+def lights_shade_vjp(grad, rgb, normals, weights, table, kinds, needs=(True, True, True)):
+    """The VJP of :func:`lights_shade`: the shaded RGB's gradient f32 [bs,
+    3, H, W] -> (the RGB's f32 [bs, 3, H, W], the normal planes' f32 [bs, 9,
+    H, W], the table's f32 [bs, L, 7]), each contiguous, or None where
+    ``needs`` (three flags in that order) says it is not wanted; the weights
+    take none.  One launch, everything the forward computed recomputed; the
+    table's gradient as partial sums over blocks of pixels, which one
+    ``torch.sum`` adds (no extra work where it is not asked for)."""
+    if not _use_kernel(grad, rgb, normals, weights, table):
+        return lights_shade_vjp_plain(grad, rgb, normals, weights, table, kinds, needs)
+    planes, strides, table, bs, H, W = _lights_inputs(rgb, normals, weights, table, kinds)
+    if grad.dtype != torch.float32 or tuple(grad.shape) != (bs, 3, H, W):
+        raise ValueError(f"grad: want float32 {(bs, 3, H, W)}, got {grad.dtype} "
+                         f"{tuple(grad.shape)}")
+    grad = grad.contiguous()
+    P, L = H * W, len(kinds)
+    g_rgb = grad.new_empty((bs, 3, H, W)) if needs[0] else None
+    g_normals = grad.new_empty((bs, 9, H, W)) if needs[1] else None
+    partials = (grad.new_empty((bs, -(-P // LIGHTS_BLOCK), L, LIGHT_FIELDS)) if needs[2]
+                else None)
+    _launch("lights_shade_vjp", table.get_device(), grad.data_ptr(),
+            *(t.data_ptr() for t in planes), table.data_ptr(),
+            *(0 if t is None else t.data_ptr() for t in (g_rgb, g_normals, partials)), bs, P, L,
+            *_light_masks(kinds), *strides)
+    return g_rgb, g_normals, None if partials is None else partials.sum(1)

@@ -5,13 +5,20 @@ package's NHWC functions (``compute_depth_map``, ``sample_textures``,
 ``apply_lights``, ...), the reference-shaped API, as layouts over the
 planar ones.
 
-Plain PyTorch, as the JAX package leaves this layer to XLA, except the
-loaded-atlas sampler, which is kernel K13 (:func:`resolve_cuda.atlas_sample`)
-with kernel K14 (:func:`resolve_cuda.atlas_sample_vjp`) as its backward:
-K14 recomputes the texel coordinates and taps, writes the gradients of the
-depths and texel coordinates, and adds each tap's gradient at its texel of
-the atlas's as K6 (:func:`resolve_cuda.atlas_taps_grad`) does, inside the
-span ``atlas.vjp`` with the atlas gradient's zero fill.  Every expression is
+Plain PyTorch, as the JAX package leaves this layer to XLA, except two
+passes of a render.  The loaded-atlas sampler is kernel K13
+(:func:`resolve_cuda.atlas_sample`) with kernel K14
+(:func:`resolve_cuda.atlas_sample_vjp`) as its backward: K14 recomputes the
+texel coordinates and taps, writes the gradients of the depths and texel
+coordinates, and adds each tap's gradient at its texel of the atlas's as K6
+(:func:`resolve_cuda.atlas_taps_grad`) does, inside the span ``atlas.vjp``
+with the atlas gradient's zero fill.  The lights' per-pixel pass
+(:func:`shade_planes`: the per-pixel normals, the colour weight and the
+product with the RGB) is kernel K15 (:func:`resolve_cuda.lights_shade`)
+with kernel K16 (:func:`resolve_cuda.lights_shade_vjp`) as its backward,
+which recomputes it and writes the gradients of the RGB, the normal planes
+and, where a light's field takes one, the light table
+(:func:`light_table`).  Every expression is
 the JAX package's, in the same order and association, so on the CPU the two
 agree to the last bit where each op is correctly rounded (division by
 tensors only, sums of three written out).
@@ -25,7 +32,15 @@ from ..models import lights as light_lib
 from ..utils import trace
 from .maps import cross, mask_foreground, to_map
 from .resolve import coordinate_planes
-from .resolve_cuda import atlas_sample, atlas_sample_vjp, atlas_taps_grad, vertex_slots
+from .resolve_cuda import (
+    LIGHT_FIELDS,
+    atlas_sample,
+    atlas_sample_vjp,
+    atlas_taps_grad,
+    lights_shade,
+    lights_shade_vjp,
+    vertex_slots,
+)
 
 
 def _depth(z, w):
@@ -282,36 +297,117 @@ def _abs(x):
     return torch.where(x >= 0, x, -x)
 
 
-def apply_lights_planar(rgb_planes, normal_map_planes, lights):
-    """RGB [bs, 3, H, W] times the colour weight that ``lights`` give the
-    normals [bs, 3, H, W] (reference rasterize.py:252-283).  An empty
-    ``lights`` gives black."""
-    color_weight = torch.zeros_like(normal_map_planes)
+def light_table(lights, like):
+    """The fields of ``lights`` as the lights' kernels read them: (a float32
+    table [bs, L, 7] on ``like``'s device, a light's row its colour,
+    direction and exponent, each broadcast over the batch of ``like`` [bs,
+    ...] (0 where the kind has none, an exponent 1 where a specular light's
+    ``alpha`` is None); the lights' (kind, backside) pairs, kind "ambient",
+    "directional" or "specular").  The fields in float32, as the JAX
+    package reads them (x64 off): a float64 field would make float64
+    images, which the NMR kernels refuse.  Made on the card, from the
+    fields alone, so a captured step copies nothing from the host; the
+    table's gradient reaches each field, in the field's dtype."""
+    bs = like.shape[0]
+    zero = like.new_zeros((), dtype=torch.float32).expand(bs, 4)
+    pieces, kinds = [], []
     for light in lights:
         if not isinstance(light, (light_lib.AmbientLight, light_lib.DirectionalLight,
                                   light_lib.SpecularLight)):
             raise TypeError(f"unknown light type: {light!r}")
-        # the fields in float32, as the JAX package reads them (x64 off): a
-        # float64 field would make float64 images, which the NMR kernels
-        # refuse
-        color = light.color.to(torch.float32)[:, :, None, None]
+        pieces.append(light.color.to(torch.float32).expand(bs, 3))
         if isinstance(light, light_lib.AmbientLight):
-            color_weight = color_weight + color
+            pieces.append(zero)
+            kinds.append(("ambient", False))
         elif isinstance(light, light_lib.DirectionalLight):
-            t = -light.direction.to(torch.float32)[:, :, None, None] * normal_map_planes
-            intensity = t[:, 0] + t[:, 1] + t[:, 2]
-            intensity = _abs(intensity) if light.backside else torch.relu(intensity)
-            color_weight = color_weight + intensity[:, None] * color
+            pieces += [light.direction.to(torch.float32).expand(bs, 3), zero[:, :1]]
+            kinds.append(("directional", bool(light.backside)))
         else:
-            intensity = -normal_map_planes[:, 2]       # (0, 0, 1) . -normal
-            intensity = _abs(intensity) if light.backside else torch.relu(intensity)
-            alpha = light.alpha
-            if alpha is None:
-                alpha = torch.ones(light.color.shape[0], dtype=torch.float32,
-                                   device=light.color.device)
-            intensity = intensity ** alpha.to(torch.float32)[:, None, None]
+            alpha = (like.new_ones((), dtype=torch.float32) if light.alpha is None
+                     else light.alpha.to(torch.float32))
+            pieces += [zero[:, :3], alpha.expand(bs)[:, None]]
+            kinds.append(("specular", bool(light.backside)))
+    if not pieces:
+        return like.new_zeros((bs, 0, LIGHT_FIELDS), dtype=torch.float32), ()
+    return torch.cat(pieces, 1).view(bs, len(kinds), LIGHT_FIELDS), tuple(kinds)
+
+
+def light_intensity(normal_map_planes, row, kind, backside):
+    """A directional or specular light's intensity at the normals [bs, 3,
+    H, W], from its row [bs, 7] of :func:`light_table`: (pre, the
+    directional's ``-direction . normal`` or the specular's ``(0, 0, 1) .
+    -normal``; base, ``relu(pre)`` or with ``backside`` ``_abs(pre)``;
+    value, the directional's base or the specular's ``base ** alpha``),
+    each [bs, H, W]."""
+    if kind == "directional":
+        t = -row[:, 3:6, None, None] * normal_map_planes
+        pre = t[:, 0] + t[:, 1] + t[:, 2]
+    else:
+        pre = -normal_map_planes[:, 2]
+    base = _abs(pre) if backside else torch.relu(pre)
+    value = base if kind == "directional" else base ** row[:, 6, None, None]
+    return pre, base, value
+
+
+def color_weight_planes(normal_map_planes, table, kinds):
+    """The colour weight [bs, 3, H, W] that the lights of :func:`light_table`
+    (``table`` [bs, L, 7] and ``kinds``) give the normals [bs, 3, H, W]
+    (reference rasterize.py:252-283), summed from 0 in their order."""
+    color_weight = torch.zeros_like(normal_map_planes)
+    for l, (kind, backside) in enumerate(kinds):
+        color = table[:, l, 0:3, None, None]
+        if kind == "ambient":
+            color_weight = color_weight + color
+        else:
+            intensity = light_intensity(normal_map_planes, table[:, l], kind, backside)[2]
             color_weight = color_weight + intensity[:, None] * color
-    return rgb_planes * color_weight
+    return color_weight
+
+
+def apply_lights_planar(rgb_planes, normal_map_planes, lights):
+    """RGB [bs, 3, H, W] times the colour weight that ``lights`` give the
+    normals [bs, 3, H, W] (reference rasterize.py:252-283).  An empty
+    ``lights`` gives black."""
+    return rgb_planes * color_weight_planes(normal_map_planes,
+                                            *light_table(lights, normal_map_planes))
+
+
+class _LightsShade(torch.autograd.Function):
+    """:func:`apply_lights_planar` at the :func:`normal_planes` of the
+    winner's vertex normals [bs, 9, H, W] and the weights [bs, 3, H, W],
+    over the lights' ``table`` and ``kinds`` (:func:`light_table`): kernel
+    K15 (``resolve_cuda.lights_shade``).  The forward saves its inputs and
+    no plane of its own.  The weights take no gradient (they come from
+    ``rasterize._CoordinatePlanes``, which marks them so).
+
+    The backward is kernel K16 (``resolve_cuda.lights_shade_vjp``), which
+    recomputes the forward and writes the gradients of the RGB, the normal
+    planes and the table, each asked for."""
+
+    @staticmethod
+    def forward(ctx, rgb, normals, weights, table, kinds):
+        ctx.save_for_backward(rgb, normals, weights, table)
+        ctx.kinds = kinds
+        return lights_shade(rgb, normals, weights, table, kinds)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rgb, normals, weights, table = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        g_rgb, g_normals, g_table = lights_shade_vjp(grad, rgb, normals, weights, table,
+                                                     ctx.kinds, (needs[0], needs[1], needs[3]))
+        return g_rgb, g_normals, None, g_table, None
+
+
+def shade_planes(rgb_planes, normal_vertex_planes, weight_planes, lights):
+    """``apply_lights_planar(rgb_planes, normal_planes(normal_vertex_planes,
+    weight_planes), lights)``: RGB [bs, 3, H, W] shaded at the normals of
+    the winner's vertex normals [bs, 9, H, W] (a slice of the attribute
+    planes, read in place on the card) and the weights [bs, 3, H, W], which
+    take no gradient.  :class:`_LightsShade`: K15, and K16 as its
+    backward; the light table is made here."""
+    table, kinds = light_table(lights, rgb_planes)
+    return _LightsShade.apply(rgb_planes, normal_vertex_planes, weight_planes, table, kinds)
 
 
 def blend_background_planes(foreground, rgb_planes, backgrounds):

@@ -62,6 +62,8 @@ SIGNATURES = {
     "nmr_coordinate_grad": "PPPPPPPiiiiqqqqf",
     "atlas_sample": "PPPPPPiiiiqqqqqqqf",
     "atlas_sample_vjp": "PPPPPPPPPPiiiiqqqqqqqf",
+    "lights_shade": "PPPPPiiiqqqqqqqqq",
+    "lights_shade_vjp": "PPPPPPPPiiiqqqqqqqqq",
 }
 # entry -> the struct that packs the card and the arguments into a block
 PACKERS = {name: struct.Struct("<q" + "".join("d" if c == "f" else "q" for c in sig))

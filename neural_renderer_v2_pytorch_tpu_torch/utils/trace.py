@@ -46,8 +46,9 @@ The spans (layer in brackets):
   ``planes`` and ``planes.vjp``;
 - ``lights`` and ``lights.vjp``, each two intervals: the smoothed vertex
   normals (``face_vertex_normals``: cross products and the segment sum,
-  before the resolve) and, inside ``planes``, the per-pixel normals and
-  ``apply_lights_planar`` (lights);
+  before the resolve) and, inside ``planes``, the light table and the
+  per-pixel normals, colour weight and shading (``shade_planes``: K15, and
+  K16 in ``lights.vjp``) (lights);
 - on the host only: ``update`` (``utils/optim.py``'s ``Adam.step``).
 
 A backward span that no autograd Function of the port holds (``camera.vjp``,

@@ -1644,6 +1644,164 @@ def test_atlas_sampler_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         rc.atlas_sample_vjp(grad[:, :2], z, uv, atlas, fim, w, 1e-5)
 
 
+# the lights' per-pixel pass (K15, K16): (bs, rows, W) small, odd, and the
+# cell atlas-fit-256's 32 views of 512^2; each on whole images and on a band
+# of rows whose planes are slices of larger maps (the normals a slice of
+# the attribute planes, as a render passes them)
+LIGHTS_SHAPES = [(2, 12, 16), (3, 33, 47), (32, 512, 512)]
+# the cell's lights (directional, ambient, specular at exponent 1), and
+# every kind on either side with exponents 2.5 and 0
+LIGHT_SETS = {
+    "cell": (("directional", False), ("ambient", False), ("specular", False)),
+    "every": (("directional", True), ("specular", True), ("ambient", False),
+              ("specular", False), ("directional", False), ("specular", True)),
+}
+
+
+def _lights_on(cuda, seed, bs, rows, W, kinds, band):
+    """The lights' inputs as a render passes them: RGB [bs, 3, rows, W], the
+    nine normal planes (planes 6-14 of [bs, 15, rows, W] attribute planes)
+    and weights summing to 1 (0 on a tenth of background pixels, whose
+    normals are 0 too), and the light table [bs, L, 7] of ``kinds``
+    (exponents 1 in the cell's set, 2.5, 1 and 0 in the other).  An eighth
+    of the pixels have every normal 0 (each kind's dot product exactly 0)
+    and another eighth the normals' z 0 (the specular's base exactly 0).
+    ``band``: the planes are rows 5 .. of maps 7 rows taller."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=cuda)
+
+    full = rows + 7 if band else rows
+    rgb = rand(bs, 4, full, W)
+    attrs = rand(bs, 15, full, W) * 2 - 1
+    w = rand(bs, 3, full, W)
+    w = w / w.sum(1, keepdim=True)
+    group = torch.randint(0, 10, (bs, full, W), generator=gen, device=cuda)
+    normals = attrs[:, 6:15]
+    normals[(group == 0)[:, None].expand_as(normals)] = 0.0
+    normals[:, 2::3][(group == 1)[:, None].expand(-1, 3, -1, -1)] = 0.0
+    background = (group == 2)[:, None]
+    normals[background.expand_as(normals)] = 0.0
+    w[background.expand_as(w)] = 0.0
+    table = rand(bs, len(kinds), 7)
+    table[:, :, 3:6] = table[:, :, 3:6] * 2 - 1
+    table[:, :, 6] = 1.0
+    if len(kinds) > 3:
+        table[:, 1, 6], table[:, 5, 6] = 2.5, 0.0
+    if band:
+        return rgb[:, :3, 5:5 + rows], attrs[:, 6:15, 5:5 + rows], w[:, :, 5:5 + rows], table
+    return rgb[:, :3], normals, w, table
+
+
+def _table_sum_bound(grad, rgb, normals, weights, table, kinds):
+    """Per entry of the light table's gradient, twice the float32 rounding
+    that a sum of its n terms may carry in any order: 2 n 2^-24 sum |term|.
+    K16 sums an (image, light, field)'s terms over the warps, the blocks
+    and the wrapper's torch.sum, its plain version by one torch.sum; the
+    terms are the same products in both."""
+    terms = rc._lights_vjp_parts(grad, rgb, normals, weights, table, kinds, True)[2]
+    n = terms.shape[3] * terms.shape[4]
+    return 2 * n * 2.0 ** -24 * terms.abs().sum((3, 4))
+
+
+@pytest.mark.parametrize("lights", sorted(LIGHT_SETS))
+@pytest.mark.parametrize("band", [False, True])
+@pytest.mark.parametrize("bs,rows,W", LIGHTS_SHAPES)
+def test_lights_kernels_match_their_plain_versions(cuda, bs, rows, W, band, lights):
+    """K15 gives its plain version's bits; K16 gives the plain VJP's bits for
+    the RGB and normal gradients (zero dot products, zero bases and
+    background included) and writes only those asked for; its light-table
+    gradient lies within the rounding of its sums (:func:`_table_sum_bound`)
+    and repeats its bits."""
+    kinds = LIGHT_SETS[lights]
+    rgb, normals, w, table = _lights_on(cuda, bs + rows + band, bs, rows, W, kinds, band)
+    assert not normals.is_contiguous()          # a slice, read in place
+    rc.reset_launches()
+    got = rc.lights_shade(rgb, normals, w, table, kinds)
+    with rc.plain_versions():
+        want = rc.lights_shade(rgb, normals, w, table, kinds)
+    assert got.shape == (bs, 3, rows, W) and _same_bits(got, want)
+    grad = torch.randn((bs, 3, rows, W), generator=torch.Generator(device=cuda).manual_seed(bs),
+                       device=cuda)
+    got = rc.lights_shade_vjp(grad, rgb, normals, w, table, kinds)
+    with rc.plain_versions():
+        want = rc.lights_shade_vjp(grad, rgb, normals, w, table, kinds)
+    for k in (0, 1):
+        assert got[k].is_contiguous() and _same_bits(got[k], want[k]), k
+    assert got[2].shape == table.shape
+    bound = _table_sum_bound(grad, rgb, normals, w, table, kinds)
+    assert bool(((got[2] - want[2]).abs() <= bound).all())
+    again = rc.lights_shade_vjp(grad, rgb, normals, w, table, kinds, (False, False, True))
+    assert again[0] is None and again[1] is None and torch.equal(again[2], got[2])
+    part = rc.lights_shade_vjp(grad, rgb, normals, w, table, kinds, (False, True, False))
+    assert part[0] is None and part[2] is None and _same_bits(part[1], got[1])
+    assert rc.LAUNCHES["lights_shade"] == 1 and rc.LAUNCHES["lights_shade_vjp"] == 3
+
+
+def test_a_lit_render_launches_each_lights_kernel_once(cuda, fresh_cache):
+    """One lit RGB step launches K15 and K16 once each: eagerly with its
+    lights' colours taking gradients, and captured whole by its caller
+    (the lights made once, as a capture copies nothing from the host),
+    whose replays give the eager step's images; a silhouette step launches
+    neither."""
+    kernels = ("lights_shade", "lights_shade_vjp")
+    _, v, _, step = _graph_scene("lit", cuda)
+    rc.reset_launches()
+    with nr.eager():
+        _, grads = step(v)
+    assert [rc.LAUNCHES[k] for k in kernels] == [1, 1]
+    assert all(grads[f"light{i}"].abs().max() > 0 for i in range(3)), grads
+    v, step = _depth_and_lit_steps("lit", cuda)
+    rc.reset_launches()
+    with nr.eager():
+        want_images, _ = step(v)
+    assert [rc.LAUNCHES[k] for k in kernels] == [1, 1]
+    graph, images, _, held = _whole_step_graph(step, v)
+    assert [held.get(k) for k in kernels] == [1, 1], held
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(images, want_images)
+    _, v, _, step = _graph_scene("bench", cuda)
+    rc.reset_launches()
+    with nr.eager():
+        step(v)
+    assert [rc.LAUNCHES[k] for k in kernels] == [0, 0]
+    assert not any(k in _whole_step_graph(step, v)[3] for k in kernels)
+
+
+def test_lights_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """On the card the lights' wrappers take float32 planes of matching
+    shapes, a float32 [bs, L, 7] table and at most 64 lights, else raise
+    ValueError (no fallback to the plain version)."""
+    kinds = LIGHT_SETS["cell"]
+    rgb, normals, w, table = _lights_on(cuda, 1, 2, 12, 16, kinds, False)
+    grad = torch.ones((2, 3, 12, 16), device=cuda)
+    cases = {
+        "rgb": (rgb.double(), normals, w, table),
+        "normals": (rgb, normals[:, :6], w, table),
+        "weights": (rgb, normals, w.half(), table),
+        "table": (rgb, normals, w, table.double()),
+    }
+    for name, args in cases.items():
+        with pytest.raises(ValueError, match=name):
+            rc.lights_shade(*args, kinds)
+        with pytest.raises(ValueError, match=name):
+            rc.lights_shade_vjp(grad, *args, kinds)
+    with pytest.raises(ValueError, match="table"):
+        rc.lights_shade(rgb, normals, w, table[:, :2], kinds)
+    with pytest.raises(ValueError, match="rgb"):
+        rc.lights_shade(rgb[0], normals, w, table, kinds)
+    with pytest.raises(ValueError, match="grad"):
+        rc.lights_shade_vjp(grad.double(), rgb, normals, w, table, kinds)
+    with pytest.raises(ValueError, match="grad"):
+        rc.lights_shade_vjp(grad[:, :2], rgb, normals, w, table, kinds)
+    many = (("ambient", False),) * (rc.MAX_LIGHTS + 1)
+    with pytest.raises(ValueError, match="lights"):
+        rc.lights_shade(rgb, normals, w, torch.zeros((2, len(many), 7), device=cuda), many)
+
+
 def test_no_grad_render_is_a_forward_graph(cuda, fresh_cache):
     r, v, faces, _ = _graph_scene("bench", cuda)
     rc.reset_launches()

@@ -144,6 +144,11 @@ def _kernel_args():
     # the loaded-atlas sampler: depths, texel coordinates in a 5 x 7 atlas,
     # the atlas, the index map, weights, eps
     sampler = (fvm[:, 2::3] + 1, fvm[:, :6] * 4, torch.ones(1, 3, 5, 7), fim, fvm[:, 6:], 1e-5)
+    # the lights: RGB, the nine normal planes, weights, a table of the three
+    # kinds (one on its backside) and their (kind, backside) pairs
+    table = torch.rand((1, 3, 7), generator=torch.Generator().manual_seed(1)) + 1
+    lights = (fvm[:, :3], fvm * 2 - 1, fvm[:, 6:], table,
+              (("directional", False), ("ambient", False), ("specular", True)))
     return {
         "face_setup": ((fvp, True), {}),
         "resolve_xy": ((fvp, True, 16, 0.1, 100.0), {}),
@@ -163,6 +168,8 @@ def _kernel_args():
         "nmr_coordinate_grad": ((torch.ones(1, 2, 8, 8), fvm[:, :2], None, None, 16), {}),
         "atlas_sample": (sampler, {}),
         "atlas_sample_vjp": ((torch.ones(1, 3, 8, 8), *sampler), {}),
+        "lights_shade": (lights, {}),
+        "lights_shade_vjp": ((torch.ones(1, 3, 8, 8), *lights), {}),
     }
 
 

@@ -337,6 +337,123 @@ def test_empty_lights_render_black():
     assert torch.equal(out, torch.zeros_like(out))
 
 
+# --- the lights' per-pixel pass: K15 and K16's plain versions --------------
+
+# each light kind on either side, the three together, no light, and the
+# three with float64 fields; every field takes gradients
+SHADE_CASES = ["ambient", "directional", "directional-backside", "specular",
+               "specular-backside", "specular_alpha", "specular_alpha-backside", "all",
+               "all-backside", "empty", "float64"]
+
+
+def _shade_inputs(seed):
+    """RGB [bs, 3, H, W], the winner's vertex normals [bs, 9, H, W] and
+    weights summing to 1, and the light fields (colours [3, bs, 3], a
+    direction [bs, 3], exponents [bs]).  The normals' z is 0 on rows 0-1
+    (the specular's base exactly 0), every normal is 0 on rows 2-3 (each
+    kind's dot product exactly 0), and the last row is background (weights
+    and normals 0, as the resolve latches them)."""
+    rng = np.random.RandomState(seed)
+    rgb = rng.rand(BS, 3, H, W).astype(np.float32)
+    normals = rng.uniform(-1, 1, (BS, 9, H, W)).astype(np.float32)
+    normals[:, 2::3, :2] = 0.0
+    normals[:, :, 2:4] = 0.0
+    normals[:, :, -1] = 0.0
+    w = rng.uniform(0, 1, (BS, 3, H, W)).astype(np.float32)
+    w = (w / w.sum(1, keepdims=True)).astype(np.float32)
+    w[:, :, -1] = 0.0
+    fields = [*rng.rand(3, BS, 3).astype(np.float32), rng.uniform(-1, 1, (BS, 3)).astype(np.float32),
+              np.array([1.0, 2.5], np.float32)]
+    return rgb, normals, w, fields
+
+
+def _shade_lights(lib, case, c0, c1, c2, direction, alpha):
+    """The lights of ``case`` from ``lib`` (the JAX package's lights module
+    or the port's) over the fields."""
+    kind, _, side = case.partition("-")
+    backside = side == "backside"
+    amb = lib.AmbientLight(color=c0)
+    dire = lib.DirectionalLight(color=c1, direction=direction, backside=backside)
+    spec = lib.SpecularLight(color=c2, backside=backside)
+    spec_a = lib.SpecularLight(color=c2, alpha=alpha, backside=backside)
+    three = (dire, amb, spec_a)
+    return {"ambient": (amb,), "directional": (dire,), "specular": (spec,),
+            "specular_alpha": (spec_a,), "all": three, "float64": three, "empty": ()}[kind]
+
+
+def _shade_leaves(rgb, normals, fields, case):
+    """The port's leaves: RGB, normals and fields (float64 in that case),
+    each taking gradients."""
+    dtype = torch.float64 if case == "float64" else torch.float32
+    return ([torch.tensor(x).requires_grad_(True) for x in (rgb, normals)]
+            + [torch.tensor(f).to(dtype).requires_grad_(True) for f in fields])
+
+
+@pytest.mark.parametrize("case", SHADE_CASES)
+def test_shade_planes_values_and_gradients(case):
+    """The lights' per-pixel pass (``shade_planes``: K15's plain version,
+    K16's as its backward) against the JAX package's ``normal_planes`` and
+    ``apply_lights_planar``, run eagerly: the images and the gradients of
+    the RGB, the normal planes and every light field (the weights take
+    none), the fields' in their own dtype."""
+    rgb, normals, w, fields = _shade_inputs(30)
+
+    def jax_fn(rgb, normals, *fields):
+        lights = _shade_lights(jl, case, *fields)
+        return js.apply_lights_planar(rgb, js.normal_planes(normals, jnp.asarray(w)), lights)
+
+    with jax.disable_jit():
+        out, vjp = jax.vjp(jax_fn, *(jnp.asarray(x) for x in (rgb, normals, *fields)))
+        ct = np.random.RandomState(31).randn(*out.shape).astype(np.float32)
+        want_grads = vjp(jnp.asarray(ct))
+    leaves = _shade_leaves(rgb, normals, fields, case)
+    got = ts.shade_planes(leaves[0], leaves[1], torch.tensor(w),
+                          _shade_lights(tl, case, *leaves[2:]))
+    got.backward(torch.tensor(ct))
+    assert got.dtype == torch.float32
+    _close(got.detach().numpy(), out)
+    for leaf, want in zip(leaves, want_grads):
+        if leaf.grad is None:                 # a field no light of the case reads
+            _close(np.zeros_like(want), want)
+        else:
+            assert leaf.grad.dtype == leaf.dtype
+            _close(leaf.grad.numpy(), want)
+
+
+@pytest.mark.parametrize("case", SHADE_CASES)
+def test_shade_planes_vjp_matches_autograd_of_its_expression(case):
+    """K16's plain version (``resolve_cuda.lights_shade_vjp_plain``, the VJP
+    written by hand) against autograd through the expression that K15
+    replaced (``normal_planes``, then ``apply_lights_planar``): the same
+    images and RGB gradient (``g * cw``), bit for bit; the normal planes'
+    and the fields' gradients to rtol 1e-5 of each one's largest magnitude,
+    since autograd adds the normal map's gradient over the lights, a
+    directional light's three channels and each field's terms over the
+    pixels in orders of its own."""
+    rgb, normals, w, fields = _shade_inputs(32)
+    ct = torch.tensor(np.random.RandomState(33).randn(BS, 3, H, W).astype(np.float32))
+    weights = torch.tensor(w)
+    runs = []
+    for fused in (False, True):
+        leaves = _shade_leaves(rgb, normals, fields, case)
+        lights = _shade_lights(tl, case, *leaves[2:])
+        if fused:
+            out = ts.shade_planes(leaves[0], leaves[1], weights, lights)
+        else:
+            out = ts.apply_lights_planar(leaves[0], ts.normal_planes(leaves[1], weights), lights)
+        out.backward(ct)
+        runs.append((out, [leaf.grad for leaf in leaves]))
+    (want, want_grads), (got, got_grads) = runs
+    assert torch.equal(got, want)
+    assert torch.equal(got_grads[0], want_grads[0])
+    for leaf, g, wg in zip(leaves[1:], got_grads[1:], want_grads[1:]):
+        # None: nothing read the leaf (autograd's normals without a light
+        # that reads them; K16 writes their zero gradient)
+        g, wg = (torch.zeros_like(leaf) if t is None else t for t in (g, wg))
+        assert g.dtype == wg.dtype == leaf.dtype
+        _close(g.numpy(), wg.numpy())
+
+
 # --- the NHWC functions (layouts over the planar ones) ----------------------
 
 NF = 30
